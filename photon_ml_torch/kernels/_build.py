@@ -1,0 +1,128 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``photon_ml_torch/csrc/<name>.cu`` exports a plain ``extern "C"``
+launcher.  It is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library under ``build/kernels/`` at the repository root, named by a hash
+of its source and flags, and loaded with ``ctypes``.  No PyTorch header
+is included, so a build takes seconds, not minutes.  A library whose
+hash already exists is loaded as it is; any edit to the source builds a
+new one.
+
+Building needs ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``), which only the
+machine with the GPU has.  Nothing here runs at import time: a kernel is
+built the first time its wrapper launches it, or all at once by
+``build_all()`` (``chip_smoke.py`` does that, and times it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# name → (argtypes, restype) of its launcher, set on load.
+_SIGNATURES = {
+    "gather_rowsum": ("gather_rowsum_launch", [
+        ctypes.c_void_p,   # table  f32 [L]
+        ctypes.c_void_p,   # vals   f32 [n, k]
+        ctypes.c_void_p,   # ids    i32 [n, k]
+        ctypes.c_void_p,   # out    f32 [n]
+        ctypes.c_int64,    # n
+        ctypes.c_int32,    # k
+        ctypes.c_void_p,   # cudaStream_t
+    ]),
+}
+
+_LOCK = threading.Lock()
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                       "PATH); the CUDA kernels build only where the CUDA "
+                       "toolkit is installed")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{h[:16]}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for one source; returns (popen, tmp, final) or None if
+    the library is already built."""
+    final = library_path(name)
+    if final.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = final.with_name(f"{final.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, final
+
+
+def _finish_build(name: str, started) -> None:
+    proc, tmp, final = started
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(rc {proc.returncode}):\n{out}")
+    os.replace(tmp, final)
+
+
+def build_all(names=None) -> list[Path]:
+    """Build every kernel (or ``names``), one ``nvcc`` per source, all
+    started together; returns the library paths."""
+    names = list(names) if names is not None else sorted(_SIGNATURES)
+    started = {n: _start_build(n) for n in names}
+    errors = []
+    for n, s in started.items():
+        if s is None:
+            continue
+        try:
+            _finish_build(n, s)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [library_path(n) for n in names]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built on first use), with
+    its launcher's argument types set."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is not None:
+            return lib
+        build_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        fn_name, argtypes = _SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LOADED[name] = lib
+        return lib
