@@ -5,17 +5,21 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It needs one CUDA card (an H100: the kernels are built for ``sm_90a``)
-and ``nvcc`` (``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda/bin``).
-Without a card, or outside a checkout of the repository, it exits
-nonzero and prints no result.  Each phase raises on failure:
+It needs one CUDA card (an H100: the kernels are built for ``sm_90a``),
+``nvcc`` (``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda/bin``) and
+``g++`` (the host plan builder).  Without a card, or outside a checkout
+of the repository, it exits nonzero and prints no result.  Each phase
+raises on failure:
 
 1. card: the card's name and power limit, as nvidia-smi prints them;
 2. build: every hand-written kernel from ``photon_ml_torch/csrc``, one
    nvcc per source, all started together;
 3. kernel check: each kernel against its plain PyTorch version on the
-   card, at the serving path's shapes, with CUDA-event times (median of
-   20 samples after 3 warm-ups) beside the bound and a library call;
+   card, with CUDA-event times (median of 20 samples after 3 warm-ups)
+   beside the bound and a library call: ``gather_rowsum`` at the serving
+   path's shapes; ``grr_contract_dense`` and ``grr_contract`` at every
+   level of the full-width GRR plan that phase 6 trains on (each
+   direction, column range and overflow level);
 4. serving: the config-5 GAME model (KDD Cup 2012 track 2 widths: a
    sparse fixed effect over 100,000 features plus an intercept, 30
    non-zeros a row; a per-user random effect of 100,000 entities x 2
@@ -28,13 +32,27 @@ nonzero and prints no result.  Each phase raises on failure:
    ``ScoringEngine.score_batch``, as served and with every entity-store
    chunk held in the host window;
 5. CLI: ``python -m photon_ml_torch.serving`` in a subprocess answers
-   one request and exits 0 on SIGTERM with a JSON last line.
+   one request and exits 0 on SIGTERM with a JSON last line;
+6. training: config 1 (logistic, L2, L-BFGS) at the config-5
+   fixed-effect widths: 10^6 rows made from seed 3 with power-law column
+   popularity, 30 non-zeros plus an intercept a row (ELL capacity 32),
+   labels from a planted sparse model, 10% held out.  The GRR plan is
+   built on the host by the C++ builder (asserted) and moved to the
+   card; the launch counts are set to 0, a 20-iteration fit runs through
+   the plan, and the counts are read.  The loss must fall, the held-out
+   AUC reach 0.70, the objective's value, gradient, Hessian-vector
+   product and Hessian diagonal agree with a float64 scipy reference,
+   and the same fit on the plain-ELL layout end at the same loss.  Then
+   one ``value_and_gradient`` is timed on both layouts beside one
+   cuSPARSE product per direction.
 
 The line before the card's and the result's is one JSON object with a
-``kernels`` list: per kernel its launches in phase 4, the largest
-kernel-vs-plain difference over all checked shapes, and its times and
-bound at the serving bucket's shape (64 rows x 32 slots); ``shapes``
-holds every checked shape.  The last line is
+``kernels`` list: per kernel its launches on its path (``gather_rowsum``:
+phase 4; the GRR kernels: phase 6's GRR fit), the largest kernel-vs-plain
+difference over all checked shapes, and its times and bound (``gather_
+rowsum``: at the serving bucket, 64 rows x 32 slots; the GRR kernels:
+summed over the plan levels they run, i.e. one X·w plus one Xᵀr);
+``shapes`` holds every checked shape.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -50,10 +68,18 @@ import threading
 import time
 import urllib.request
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from photon_ml_torch import native
 from photon_ml_torch.config import ServingConfig, config_to_json
+from photon_ml_torch.data import grr as grr_mod
+from photon_ml_torch.data.batch import make_sparse_batch
+from photon_ml_torch.data.normalization import NormalizationContext
+from photon_ml_torch.data.sparse_rows import SparseRows
+from photon_ml_torch.evaluation.evaluators import auc
 from photon_ml_torch.game.dataset import EntityGrouping
 from photon_ml_torch.io.model_io import load_game_model, save_game_model
 from photon_ml_torch.kernels import _build
@@ -64,7 +90,19 @@ from photon_ml_torch.models import (
     RandomEffectModel,
     TaskType,
 )
+from photon_ml_torch.ops import losses
+from photon_ml_torch.ops.grr_kernel import (
+    grr_contract,
+    grr_contract_dense,
+    grr_contract_dense_reference,
+    grr_contract_reference,
+    tile_partials,
+)
 from photon_ml_torch.ops.kernels import gather_rowsum, gather_rowsum_reference
+from photon_ml_torch.ops.objective import GLMObjective
+from photon_ml_torch.ops.regularization import RegularizationContext
+from photon_ml_torch.optim.base import OptimizerConfig
+from photon_ml_torch.optim.problem import OptimizationProblem
 from photon_ml_torch.serving.engine import ScoringEngine
 from photon_ml_torch.serving.server import ModelServer
 
@@ -93,6 +131,32 @@ FP32_OPS_PER_S = 67e12
 # gather_rowsum's checked shapes (n, k): the serving bucket, an odd tail
 # with padding slots and ids at both ends of the table, a scoring chunk.
 KERNEL_SHAPES = ((BATCH_ROWS, ELL_CAP), (67, 5), (1 << 20, ELL_CAP))
+
+# Phase 6: config 1 at the config-5 fixed-effect widths (bench.py:83).
+TRAIN_ROWS = 1_000_000      # 10% of them held out
+TRAIN_HOLDOUT = 0.1
+TRAIN_ITERS = 20
+TRAIN_L2 = 1.0
+TRAIN_AUC_MIN = 0.70
+# Objective surfaces vs the float64 reference: value relative error;
+# vectors max|Δ| / max|reference|.
+F64_VALUE_RTOL, F64_VECTOR_RTOL = 1e-5, 1e-4
+# The GRR and the plain-ELL fits: their losses at each of the first
+# TRAJECTORY_ITERS iterations, and at the end.  The end is looser: at
+# this conditioning (a head column in nearly every row beside columns
+# seen a few times; no normalization) L-BFGS amplifies float32 rounding
+# differences of the objective over the later iterations.  The phase
+# measures that amplification on one layout (the same fit from a start
+# perturbed at rounding level) and reports it beside the layouts' gap.
+TRAJECTORY_ITERS, TRAJECTORY_RTOL = 10, 1e-4
+LAYOUT_LOSS_RTOL = 1e-3
+PERTURBATION = 1e-7
+# GRR kernels vs their plain versions: rtol, and atol as a multiple of
+# the largest |partial| a supertile adds to an output window.  Both
+# versions sum each tile's cap terms, then the tiles; float32 rounding
+# in those sums scales with these terms (an output window sums up to
+# n_gw of them, and near-zero outputs come from their cancellation).
+GRR_RTOL, GRR_ATOL_SCALE = 1e-5, 1e-5
 
 
 # -- the model and its float64 reference -------------------------------------
@@ -496,6 +560,407 @@ def phase_cli(cfg: ServingConfig, rows: list, ref_m, ref_p) -> dict:
             "rows": last["serving"]["batcher"]["rows"]}
 
 
+# -- phase 6 (built before phase 3): data, the GRR plan, its levels ----------
+
+
+def make_training_data(seed: int, n: int, d: int = D, k: int = NNZ):
+    """Config-5 fixed-effect rows (the generator of examples/kdd_scale.py):
+    power-law column popularity, ``k`` distinct columns a row, values 1.0,
+    labels from a planted sparse ``w_true``; then an intercept column
+    ``d``.  Returns (SparseRows [n, d + 1], labels)."""
+    rng = np.random.default_rng(seed)
+    cols = np.sort(((d - k) * rng.random((n, k)) ** 2.2).astype(np.int64),
+                   axis=1)
+    for j in range(1, k):
+        bump = cols[:, j] <= cols[:, j - 1]
+        cols[bump, j] = cols[bump, j - 1] + 1
+    rows = SparseRows.from_flat(np.arange(n + 1, dtype=np.int64) * k,
+                                cols.reshape(-1), np.ones(n * k, np.float32))
+    w_true = np.zeros(d)
+    n_active = max(d // 20, 200)
+    active = rng.choice(d, size=n_active, replace=False)
+    w_true[active] = rng.normal(0, 1.2, n_active)
+    margins = rows.dot_dense(w_true).astype(np.float64) - 1.0
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-margins))).astype(np.float32)
+    return rows.with_constant_col(d), y
+
+
+def phase_train_build(seed: int, n: int, device: str) -> dict:
+    """Training data; the GRR plan built on the host (the C++ builder
+    must be loaded) and placed on ``device``; the plain-ELL view of the
+    same batch; the held-out batch."""
+    if not native.native_available():
+        raise RuntimeError("the native GRR plan builder did not load "
+                           "(g++ missing?); the numpy fallback would take "
+                           "hours at these widths")
+    t = time.perf_counter()
+    rows, y = make_training_data(seed, n)
+    data_s = time.perf_counter() - t
+    n_train = n - int(n * TRAIN_HOLDOUT)
+    dim = D + 1
+    t = time.perf_counter()
+    batch = make_sparse_batch(rows[:n_train], dim, y[:n_train],
+                              row_capacity=ELL_CAP, grr=True, device=device)
+    build_s = time.perf_counter() - t
+    phases = dict(grr_mod.last_build_phases)
+    test = make_sparse_batch(rows[n_train:], dim, y[n_train:],
+                             row_capacity=ELL_CAP, device=device)
+    return {
+        "grr": batch, "ell": dataclasses.replace(batch, grr=None),
+        "test": test, "rows": rows[:n_train], "labels": y[:n_train],
+        "info": {
+            "rows": n, "train_rows": n_train, "dim": dim,
+            "slots_a_row": int(rows.max_nnz), "ell_capacity": ELL_CAP,
+            "positives": float(y.mean()), "data_s": data_s,
+            "builder": f"native C++ ({os.path.relpath(native.library_path(), REPO)})",
+            "make_batch_s": build_s, "plan_build_phases": phases,
+        },
+    }
+
+
+def plan_levels(pair) -> list:
+    """(name, GrrDirection) for every level the pair runs: each
+    direction, column range and overflow level."""
+    out = []
+
+    def walk(name, node):
+        if isinstance(node, grr_mod.GrrRangeSplit):
+            for i, p in enumerate(node.parts):
+                walk(f"{name}.part{i}", p)
+            return
+        level = 0
+        while node is not None:
+            out.append((f"{name}.level{level}", node))
+            node, level = node.overflow, level + 1
+
+    walk("row", pair.row_dir)
+    walk("col", pair.col_dir)
+    if pair.col_mid is not None:
+        walk("mid", pair.col_mid)
+    return out
+
+
+def _windows(d, table: torch.Tensor) -> torch.Tensor:
+    pad = d.n_gw * grr_mod.WIN - d.table_len
+    return torch.nn.functional.pad(table, (0, pad)).view(d.n_gw, 128, 128)
+
+
+def level_csr(d) -> torch.Tensor:
+    """The level's entries as a CSR matrix [n_segments, table_len], read
+    off the plan: routing a table of float indices gives each slot's
+    index, its final position gives its segment."""
+    dev = d.vals.device
+    n_st, group = d.n_supertiles, 128 // d.cap
+    if d.dense_grid:
+        t = torch.arange(n_st, device=dev)
+        gw, ow = t // d.n_ow_padded, t % d.n_ow_padded
+    else:
+        gw, ow = d.gw_of_st.long(), d.ow_of_st.long()
+    index_t = torch.arange(d.n_gw * grr_mod.WIN, dtype=torch.float32,
+                           device=dev).view(d.n_gw, 128, 128)
+    x1 = torch.gather(index_t[gw], 2, d.g1.long())
+    x2t = torch.gather(x1.transpose(1, 2), 2, d.g2.long())
+    idx = torch.gather(x2t.transpose(1, 2), 2, d.g3.long()).long()
+    r = torch.arange(128, device=dev)
+    seg = (ow[:, None, None] * (grr_mod.WIN // d.cap)
+           + (r % group)[None, :, None] * 128 + r[None, None, :])
+    real = d.vals != 0
+    coo = torch.sparse_coo_tensor(
+        torch.stack([seg.expand_as(idx)[real], idx[real]]), d.vals[real],
+        (d.n_segments, d.table_len))
+    return coo.coalesce().to_sparse_csr()
+
+
+def grr_level_bound_ms(d) -> tuple[float, str]:
+    """Least time on one H100 for one level: the planes (vals f32 +
+    g1/g2/g3 i8 a slot) and tile maps read once, each table window read
+    once, the output written once; 2 float32 operations a real entry."""
+    slots = d.n_supertiles * grr_mod.SLOTS
+    n_out = (d.n_ow_padded if d.dense_grid else d.n_ow) * grr_mod.SLOTS // d.cap
+    maps = d.gw_of_st.numel() + d.ow_of_st.numel()
+    nbytes = slots * 7 + maps * 4 + d.n_gw * grr_mod.WIN * 4 + n_out * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * int(torch.count_nonzero(d.vals)) / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_grr_level(name: str, d, rng, time_it: bool = True) -> dict:
+    """One plan level: its kernel against its plain version and a
+    cuSPARSE product of the same entries; times and bound."""
+    table = torch.from_numpy(
+        rng.uniform(-1, 1, d.table_len).astype(np.float32)).to(d.vals.device)
+    tt = _windows(d, table)
+    if d.dense_grid:
+        kernel = "grr_contract_dense"
+
+        def run():
+            return grr_contract_dense(tt, d.g1, d.g2, d.g3, d.vals,
+                                      d.gw_of_st, d.n_ow_padded, d.cap)
+
+        def plain():
+            return grr_contract_dense_reference(tt, d.g1, d.g2, d.g3, d.vals,
+                                                d.n_ow_padded, d.cap)
+    else:
+        kernel = "grr_contract"
+
+        def run():
+            return grr_contract(tt, d.g1, d.g2, d.g3, d.vals, d.gw_of_st,
+                                d.ow_of_st, d.first_of_ow, d.n_ow, d.cap)
+
+        def plain():
+            return grr_contract_reference(tt, d.g1, d.g2, d.g3, d.vals,
+                                          d.gw_of_st, d.ow_of_st, d.n_ow,
+                                          d.cap)
+    got = run()
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    want = plain()
+    got_h, want_h = got.cpu().numpy(), want.cpu().numpy()
+    if not np.isfinite(got_h).all():
+        raise AssertionError(f"{kernel} returned non-finite values at {name}")
+    gw_of_tile = (torch.arange(d.n_gw, device=tt.device)
+                  .repeat_interleave(d.n_ow_padded) if d.dense_grid
+                  else d.gw_of_st)
+    max_partial = float(tile_partials(tt, gw_of_tile, d.g1, d.g2, d.g3,
+                                      d.vals, d.cap).abs().max())
+    max_term = float(table.abs().max()) * float(d.vals.abs().max())
+    atol = GRR_ATOL_SCALE * max_partial
+    np.testing.assert_allclose(got_h, want_h, rtol=GRR_RTOL, atol=atol,
+                               err_msg=f"{kernel} at {name}")
+    csr = level_csr(d)
+    library = torch.sparse.mm(csr, table[:, None])[:, 0]
+    flat = got.reshape(-1)[: d.n_segments]
+    bound, bound_by = grr_level_bound_ms(d)
+    out = {
+        "level": name, "kernel": kernel, "cap": d.cap,
+        "supertiles": d.n_supertiles, "entries": int(csr.values().numel()),
+        "n_segments": d.n_segments, "table_len": d.table_len,
+        "max_abs_err": float(np.abs(got_h - want_h).max()),
+        "atol": atol, "max_tile_partial": max_partial,
+        "max_abs_err_over_max_term": float(
+            np.abs(got_h - want_h).max()) / max_term,
+        "library_max_abs_err": float((library - flat).abs().max()),
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+    if time_it:
+        out["ms"] = time_ms(run, 10)
+        out["plain_ms"] = time_ms(plain, 2)
+        out["library_ms"] = time_ms(
+            lambda: torch.sparse.mm(csr, table[:, None]), 10)
+    del csr
+    return out
+
+
+def phase_kernels_grr(pair, seed: int, time_it: bool = True) -> list:
+    """B2 and B3 at every level of the training plan → their kernel
+    entries, times and bounds summed over the levels each runs."""
+    rng = np.random.default_rng(seed)
+    levels = []
+    for name, d in plan_levels(pair):
+        levels.append(check_grr_level(name, d, rng, time_it))
+        print(f"  {levels[-1]['kernel']} {name}: " + json.dumps(levels[-1]))
+    entries = []
+    for kernel, replaces in (
+            ("grr_contract_dense", "photon_ml_tpu/ops/grr_kernel.py:121"),
+            ("grr_contract", "photon_ml_tpu/ops/grr_kernel.py:52")):
+        mine = [lv for lv in levels if lv["kernel"] == kernel]
+        if not mine:
+            raise AssertionError(f"no level of the training plan runs "
+                                 f"{kernel}")
+        entry = {
+            "name": kernel, "route": "cuda",
+            "source": "photon_ml_torch/csrc/grr_contract.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": max(lv["max_abs_err"] for lv in mine),
+            "bound_by": ("bytes" if all(lv["bound_by"] == "bytes"
+                                        for lv in mine) else "operations"),
+            "library_call": "torch.sparse.mm(CSR of the level, table)",
+            "levels": len(mine), "shapes": mine,
+        }
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            entry[key] = (sum(lv[key] for lv in mine)
+                          if key in mine[0] else None)
+        entries.append(entry)
+    return entries
+
+
+# -- phase 6: training -----------------------------------------------------------
+
+
+def f64_surfaces(X, y, w, v, l2: float) -> dict:
+    """Logistic + L2 value, gradient, HVP and Hessian diagonal in float64
+    with scipy.sparse (X is CSR)."""
+    m = X @ w
+    s = 1.0 / (1.0 + np.exp(-m))
+    d2 = s * (1.0 - s)
+    X2 = X.copy()
+    X2.data = X2.data ** 2
+    return {
+        "value": float(np.sum(np.logaddexp(0.0, m) - y * m)
+                       + 0.5 * l2 * w @ w),
+        "gradient": X.T @ (s - y) + l2 * w,
+        "hessian_vector": X.T @ (d2 * (X @ v)) + l2 * v,
+        "hessian_diagonal": X2.T @ d2 + l2,
+    }
+
+
+def _fit(problem, batch, w0) -> tuple:
+    t = time.perf_counter()
+    res = problem.run(batch, w0)
+    if w0.is_cuda:
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t
+
+
+def phase_training(data: dict, time_it: bool = True) -> dict:
+    """The GRR fit (its launch counts) and the plain-ELL fit; the loss,
+    AUC, float64 and layout gates; the per-evaluation times.  Every
+    result is printed before a failed gate raises."""
+    import scipy.sparse as sp
+
+    batch, ell, test = data["grr"], data["ell"], data["test"]
+    dev, dim = batch.labels.device, batch.dim
+    obj = GLMObjective(losses.LOGISTIC, RegularizationContext.l2(TRAIN_L2),
+                       NormalizationContext.identity())
+    problem = OptimizationProblem(obj,
+                                  config=OptimizerConfig(max_iters=TRAIN_ITERS))
+    w0 = torch.zeros(dim, device=dev)
+    for b in (batch, ell):     # first-call costs (cuBLAS handles) not timed
+        obj.value_and_gradient(w0, b)
+
+    grr_contract_dense.launches = grr_contract.launches = 0
+    gather_rowsum.launches = 0
+    res, fit_s = _fit(problem, batch, w0)
+    launches = {"grr_contract_dense": grr_contract_dense.launches,
+                "grr_contract": grr_contract.launches,
+                "gather_rowsum": gather_rowsum.launches}
+    gather_rowsum.launches = 0
+    res_ell, fit_ell_s = _fit(problem, ell, w0)
+    ell_launches = gather_rowsum.launches
+    w0_perturbed = PERTURBATION * torch.from_numpy(
+        np.random.default_rng(6).normal(size=dim).astype(np.float32)).to(dev)
+    res_perturbed, _ = _fit(problem, batch, w0_perturbed)
+
+    def trajectory(r):
+        t = r.tracker
+        return {"loss": t.values[: t.count].tolist(),
+                "ls_trials": t.ls_trials[1: t.count].tolist()}
+
+    traj = {"grr": trajectory(res), "ell": trajectory(res_ell)}
+    test_auc = float(auc(test.margins(res.w), test.labels, mask=test.mask))
+
+    def gap(a, b):
+        return abs(float(a) - float(b)) / abs(float(b))
+
+    loss_gap = gap(res_ell.value, res.value)
+    self_gap = gap(res_perturbed.value, res.value)
+    early_gap = max(gap(a, b) for a, b in zip(
+        traj["ell"]["loss"][: TRAJECTORY_ITERS + 1],
+        traj["grr"]["loss"][: TRAJECTORY_ITERS + 1]))
+
+    rows, y = data["rows"], data["labels"].astype(np.float64)
+    X = sp.csr_matrix((rows.vals.astype(np.float64), rows.cols, rows.indptr),
+                      shape=(len(rows), dim))
+    rng = np.random.default_rng(4)
+    w = rng.normal(0, 0.05, dim)
+    v = rng.normal(0, 1.0, dim)
+    ref = f64_surfaces(X, y, w, v, TRAIN_L2)
+    w_t = torch.from_numpy(w.astype(np.float32)).to(dev)
+    v_t = torch.from_numpy(v.astype(np.float32)).to(dev)
+    errors = {}
+    for layout, b in (("grr", batch), ("ell", ell)):
+        val, grad = obj.value_and_gradient(w_t, b)
+        got = {"gradient": grad,
+               "hessian_vector": obj.hessian_vector(w_t, v_t, b),
+               "hessian_diagonal": obj.hessian_diagonal(w_t, b)}
+        errors[layout] = {"value": abs(float(val) - ref["value"])
+                          / abs(ref["value"])}
+        for key, g in got.items():
+            g = g.double().cpu().numpy()
+            errors[layout][key] = float(np.abs(g - ref[key]).max()
+                                        / np.abs(ref[key]).max())
+    out = {
+        "iterations": res.iterations, "converged": res.converged,
+        "loss_first": traj["grr"]["loss"][0], "loss_final": float(res.value),
+        "loss_final_ell": float(res_ell.value), "loss_gap_rel": loss_gap,
+        "early_loss_gap_rel": early_gap,
+        "loss_final_perturbed_start": float(res_perturbed.value),
+        "perturbed_start_gap_rel": self_gap,
+        "test_auc": test_auc, "f64_errors": errors,
+        "launches": launches, "ell_gather_rowsum_launches": ell_launches,
+        "value_evaluations": int(sum(traj["grr"]["ls_trials"])),
+        "gradient_evaluations": res.iterations + 1,
+        "fit_s": fit_s, "fit_ell_s": fit_ell_s, "trajectories": traj,
+    }
+    if time_it:
+        out.update(time_evaluations(obj, batch, ell, X, w_t))
+
+    failures = []
+    if not traj["grr"]["loss"][-1] < traj["grr"]["loss"][0]:
+        failures.append("the GRR fit's loss did not fall")
+    if test_auc < TRAIN_AUC_MIN:
+        failures.append(f"held-out AUC {test_auc:.4f} < {TRAIN_AUC_MIN}")
+    for layout, errs in errors.items():
+        for key, err in errs.items():
+            limit = F64_VALUE_RTOL if key == "value" else F64_VECTOR_RTOL
+            if not err <= limit:
+                failures.append(f"{layout} {key} differs from the float64 "
+                                f"reference by {err:g} > {limit:g}")
+    if not early_gap <= TRAJECTORY_RTOL:
+        failures.append(f"GRR and ELL losses over the first "
+                        f"{TRAJECTORY_ITERS} iterations differ by "
+                        f"{early_gap:g} (relative) > {TRAJECTORY_RTOL:g}")
+    if not loss_gap <= LAYOUT_LOSS_RTOL:
+        failures.append(f"GRR and ELL fits end {loss_gap:g} apart "
+                        f"(relative) > {LAYOUT_LOSS_RTOL:g}")
+    out["failures"] = failures
+    return out
+
+
+def time_evaluations(obj, batch, ell, X, w_t) -> dict:
+    """CUDA-event ms of one ``value_and_gradient`` on each layout, of one
+    cuSPARSE CSR product per direction, and of the GRR evaluation's
+    parts: the row and column contractions (B2/B3 levels, overflow and
+    spill), the hot-side matmuls and the spill ``index_add_`` alone."""
+    dev = w_t.device
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(X.indptr.astype(np.int64)),
+        torch.from_numpy(X.indices.astype(np.int64)),
+        torch.from_numpy(X.data.astype(np.float32)), X.shape).to(dev)
+    Xt = X.T.tocsr()
+    csr_t = torch.sparse_csr_tensor(
+        torch.from_numpy(Xt.indptr.astype(np.int64)),
+        torch.from_numpy(Xt.indices.astype(np.int64)),
+        torch.from_numpy(Xt.data.astype(np.float32)), Xt.shape).to(dev)
+    r = torch.rand(X.shape[0], device=dev) - 0.5
+    pair = batch.grr
+    hot = pair.hot_ids
+    spills = [(d, torch.rand(d.table_len, device=dev))
+              for _, d in plan_levels(pair) if d.n_spill]
+    out = {
+        "vg_grr_ms": time_ms(lambda: obj.value_and_gradient(w_t, batch), 5),
+        "vg_ell_ms": time_ms(lambda: obj.value_and_gradient(w_t, ell), 5),
+        "library_xw_ms": time_ms(lambda: torch.sparse.mm(csr, w_t[:, None]),
+                                 5),
+        "library_xtr_ms": time_ms(
+            lambda: torch.sparse.mm(csr_t, r[:, None]), 5),
+        "row_contract_ms": time_ms(lambda: pair.row_dir.contract(w_t), 5),
+        "col_contract_ms": time_ms(lambda: pair.col_dir.contract(r), 5),
+        "mid_contract_ms": (time_ms(lambda: pair.col_mid.contract(r), 5)
+                            if pair.col_mid is not None else 0.0),
+        "hot_matmul_ms": time_ms(
+            lambda: (torch.matmul(pair.x_hot, w_t[hot]),
+                     torch.matmul(pair.x_hot.T, r)), 5),
+        "spill_index_add_ms": sum(
+            time_ms(lambda d=d, t=t: torch.zeros(d.n_segments, device=dev)
+                    .index_add_(0, d.spill_seg, d.spill_val * t[d.spill_idx]),
+                    5) for d, t in spills),
+    }
+    out["library_ms"] = out["library_xw_ms"] + out["library_xtr_ms"]
+    return out
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -530,10 +995,18 @@ def main() -> int:
               f"{time.perf_counter() - t:.2f} s: "
               + ", ".join(os.path.relpath(p, REPO) for p in libs))
 
+        t = time.perf_counter()
+        train = phase_train_build(seed=3, n=TRAIN_ROWS, device="cuda")
+        train["info"]["plan_stats"] = train["grr"].grr.plan_stats()
+        train["info"]["card"] = card
+        print(f"phase 6 build ({time.perf_counter() - t:.1f} s): "
+              + json.dumps({"train_build": train["info"]}))
+
         model, host = make_model(seed=0)
         table = torch.from_numpy(host["w"]).cuda()
         t = time.perf_counter()
         kernels = [phase_kernels(table, seed=1)]
+        kernels += phase_kernels_grr(train["grr"].grr, seed=5)
         print(f"phase 3 kernel check: ok in {time.perf_counter() - t:.2f} s")
 
         model_dir = os.path.join(WORK, "model")
@@ -545,11 +1018,10 @@ def main() -> int:
         gather_rowsum.launches = 0
         serving = phase_serving(cfg, rows, ref_m, ref_p)
         kernels[0]["launches"] = gather_rowsum.launches
-        for k in kernels:
-            if k["launches"] < max(1, serving["batches"]):
-                raise AssertionError(
-                    f"{k['name']} launched {k['launches']} time(s) for "
-                    f"{serving['batches']} served batches")
+        if kernels[0]["launches"] < max(1, serving["batches"]):
+            raise AssertionError(
+                f"gather_rowsum launched {kernels[0]['launches']} time(s) "
+                f"for {serving['batches']} served batches")
         serving["card"] = card
         print("phase 4 serving: " + json.dumps({"serving": serving}))
         print("phase 4 breakdown: " + json.dumps(
@@ -559,6 +1031,20 @@ def main() -> int:
         cli_m, cli_p = reference(host, cli_rows)
         cli = phase_cli(cfg, cli_rows, cli_m, cli_p)
         print("phase 5 cli: " + json.dumps({"cli": cli}))
+
+        t = time.perf_counter()
+        training = phase_training(train)
+        training["card"] = card
+        print(f"phase 6 training ({time.perf_counter() - t:.1f} s): "
+              + json.dumps({"training": training}))
+        if training["failures"]:
+            raise AssertionError("phase 6: " + "; ".join(
+                training["failures"]))
+        for k in kernels[1:]:
+            k["launches"] = training["launches"][k["name"]]
+            if k["launches"] < 1:
+                raise AssertionError(f"{k['name']} was not launched by "
+                                     "the GRR fit")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"total {time.perf_counter() - t_all:.1f} s")

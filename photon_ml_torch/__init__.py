@@ -15,6 +15,17 @@ What is here so far is the online serving path:
       → estimators.streaming_scorer.run_chunk
       → ops.kernels.gather_rowsum (CUDA C++, csrc/gather_rowsum.cu)
 
+and the fixed-effect GLM training path:
+
+    io.libsvm.read_libsvm → data.batch.make_sparse_batch(grr=True)
+      (data.grr.build_grr_pair: the C++ plan builder in native/)
+      → ops.objective.GLMObjective → optim.problem.OptimizationProblem.run
+      (L-BFGS / OWL-QN) → models.glm.GeneralizedLinearModel
+      → evaluation.evaluators.auc
+    with X·w and Xᵀr through ops.grr_kernel.grr_contract_dense /
+    grr_contract (CUDA C++, csrc/grr_contract.cu), or on the plain-ELL
+    layout through gather_rowsum and index_add_.
+
 Every entry point runs on the GPU unless the caller passes
 ``device="cpu"`` (see ``device.resolve_device``).
 """

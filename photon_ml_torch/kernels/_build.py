@@ -1,12 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-Each ``photon_ml_torch/csrc/<name>.cu`` exports a plain ``extern "C"``
-launcher.  It is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library under ``build/kernels/`` at the repository root, named by a hash
-of its source and flags, and loaded with ``ctypes``.  No PyTorch header
-is included, so a build takes seconds, not minutes.  A library whose
-hash already exists is loaded as it is; any edit to the source builds a
-new one.
+Each ``photon_ml_torch/csrc/<name>.cu`` exports one or more plain
+``extern "C"`` launchers.  It is compiled by ``nvcc`` for ``sm_90a`` into
+a shared library under ``build/kernels/`` at the repository root, named
+by a hash of its source and flags, and loaded with ``ctypes``.  No
+PyTorch header is included, so a build takes seconds, not minutes.  A
+library whose hash already exists is loaded as it is; any edit to the
+source builds a new one.
 
 Building needs ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``), which only the
 machine with the GPU has.  Nothing here runs at import time: a kernel is
@@ -31,17 +31,51 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# name → (argtypes, restype) of its launcher, set on load.
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+
+# source name → {launcher name: argtypes}; each launcher returns an int
+# (the CUDA status of its launch).  The types are set on load.
 _SIGNATURES = {
-    "gather_rowsum": ("gather_rowsum_launch", [
-        ctypes.c_void_p,   # table  f32 [L]
-        ctypes.c_void_p,   # vals   f32 [n, k]
-        ctypes.c_void_p,   # ids    i32 [n, k]
-        ctypes.c_void_p,   # out    f32 [n]
-        ctypes.c_int64,    # n
-        ctypes.c_int32,    # k
-        ctypes.c_void_p,   # cudaStream_t
-    ]),
+    "gather_rowsum": {
+        "gather_rowsum_launch": [
+            _P,      # table  f32 [L]
+            _P,      # vals   f32 [n, k]
+            _P,      # ids    i32 [n, k]
+            _P,      # out    f32 [n]
+            _I64,    # n
+            _I32,    # k
+            _P,      # cudaStream_t
+        ],
+    },
+    "grr_contract": {
+        "grr_contract_dense_launch": [
+            _P,              # table_t f32 [n_gw, 128, 128]
+            _P, _P, _P,      # g1, g2, g3 i8 [n_st_p, 128, 128]
+            _P,              # vals f32 [n_st_p, 128, 128]
+            _P,              # gwg i32 [n_st_p / 4]
+            _P,              # out f32 [n_ow_p, 128 / cap, 128]
+            _P,              # scratch f32 [n_split, n_ow_p, 128 / cap, 128]
+            _I32,            # n_gw
+            _I32,            # n_ow_p
+            _I32,            # cap
+            _I32,            # n_split
+            _P,              # cudaStream_t
+        ],
+        "grr_contract_launch": [
+            _P,              # table_t f32 [n_gw, 128, 128]
+            _P, _P, _P,      # g1, g2, g3 i8 [n_st, 128, 128]
+            _P,              # vals f32 [n_st, 128, 128]
+            _P,              # gw_of_st i32 [n_st]
+            _P,              # ow_of_st i32 [n_st], sorted
+            _P,              # out f32 [n_ow, 128 / cap, 128]
+            _P,              # scratch f32 [n_split, n_ow, 128 / cap, 128]
+            _I64,            # n_st
+            _I32,            # n_ow
+            _I32,            # cap
+            _I32,            # n_split
+            _P,              # cudaStream_t
+        ],
+    },
 }
 
 _LOCK = threading.Lock()
@@ -112,17 +146,17 @@ def build_all(names=None) -> list[Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (built on first use), with
-    its launcher's argument types set."""
+    """The loaded library of source ``name`` (built on first use), with
+    every launcher's argument types set."""
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is not None:
             return lib
         build_all([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LOADED[name] = lib
         return lib

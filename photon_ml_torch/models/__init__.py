@@ -1,4 +1,4 @@
-"""Model containers: Coefficients, task types, GAME models."""
+"""Model containers: Coefficients, task types, GLMs, GAME models."""
 
 from photon_ml_torch.models.coefficients import Coefficients
 from photon_ml_torch.models.game import (
@@ -6,12 +6,13 @@ from photon_ml_torch.models.game import (
     GameModel,
     RandomEffectModel,
 )
-from photon_ml_torch.models.glm import TaskType
+from photon_ml_torch.models.glm import GeneralizedLinearModel, TaskType
 
 __all__ = [
     "Coefficients",
     "FixedEffectModel",
     "GameModel",
+    "GeneralizedLinearModel",
     "RandomEffectModel",
     "TaskType",
 ]

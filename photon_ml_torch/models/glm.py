@@ -1,15 +1,18 @@
-"""GLM task types.
+"""Generalized linear models: task types and per-task scoring.
 
-Counterpart of ``photon_ml_tpu/models/glm.py``.  Only ``TaskType`` is
-here so far: the task selects the pointwise loss, and with it the mean
-function scoring applies.  ``GeneralizedLinearModel`` comes with the
-training path.
+Counterpart of ``photon_ml_tpu/models/glm.py``.  The task selects the
+pointwise loss, and with it the mean function scoring applies;
+``GeneralizedLinearModel.compute_score`` is the margin.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 
+import torch
+
+from photon_ml_torch.models.coefficients import Coefficients
 from photon_ml_torch.ops.losses import PointwiseLoss, get_loss
 
 
@@ -24,3 +27,15 @@ class TaskType(str, enum.Enum):
     @property
     def loss(self) -> PointwiseLoss:
         return get_loss(self.value)
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneralizedLinearModel:
+    """A trained GLM: coefficients + task type."""
+
+    coefficients: Coefficients
+    task: TaskType
+
+    def compute_score(self, batch) -> torch.Tensor:
+        """Margins x·w + offset, on the batch's device."""
+        return batch.margins(self.coefficients.means)

@@ -41,6 +41,17 @@ def test_port_has_the_serving_slice():
         assert (REPO / rel).is_file(), rel
 
 
+def test_port_has_the_training_slice():
+    for rel in ("photon_ml_torch/csrc/grr_contract.cu",
+                "photon_ml_torch/native/fast_etl.cpp",
+                "photon_ml_torch/data/grr.py",
+                "photon_ml_torch/optim/lbfgs.py"):
+        assert (REPO / rel).is_file(), rel
+    # The C++ ETL source is the JAX package's, byte for byte.
+    assert (REPO / "photon_ml_torch/native/fast_etl.cpp").read_bytes() == (
+        REPO / "photon_ml_tpu/native/fast_etl.cpp").read_bytes()
+
+
 @pytest.mark.parametrize("rel", PORT_FILES)
 def test_no_jax_import_in_port_source(rel):
     bad = [m for m in _imported_modules(REPO / rel)
@@ -57,6 +68,15 @@ def test_fresh_import_leaves_jax_out():
         "import photon_ml_torch.io.model_io\n"
         "import photon_ml_torch.ops.kernels\n"
         "import photon_ml_torch.kernels._build\n"
+        "import photon_ml_torch.native\n"
+        "import photon_ml_torch.data.grr\n"
+        "import photon_ml_torch.data.batch\n"
+        "import photon_ml_torch.data.statistics\n"
+        "import photon_ml_torch.io.libsvm\n"
+        "import photon_ml_torch.cache.plan_cache\n"
+        "import photon_ml_torch.ops.objective\n"
+        "import photon_ml_torch.optim.problem\n"
+        "import photon_ml_torch.evaluation.evaluators\n"
         f"print(json.dumps(sorted(m for m in sys.modules "
         f"if m.split('.')[0] in {FORBIDDEN!r})))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
