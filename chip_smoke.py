@@ -15,11 +15,15 @@ raises on failure:
 2. build: every hand-written kernel from ``photon_ml_torch/csrc``, one
    nvcc per source, all started together;
 3. kernel check: each kernel against its plain PyTorch version on the
-   card, with CUDA-event times (median of 20 samples after 3 warm-ups)
-   beside the bound and a library call: ``gather_rowsum`` at the serving
-   path's shapes; ``grr_contract_dense`` and ``grr_contract`` at every
-   level of the full-width GRR plan that phase 6 trains on (each
-   direction, column range and overflow level);
+   card, with CUDA-event times beside the bound and a library call:
+   ``gather_rowsum`` at the serving path's shapes (median of 20 samples
+   of back-to-back calls, after 3 warm-ups); ``grr_contract_dense`` and
+   ``grr_contract`` at every level of the full-width GRR plan that phase
+   6 trains on (each direction, column range and overflow level), each
+   level launched twice and required bitwise equal, and timed L2-cold
+   (median of 20 single calls, each after a 128 MB write; a level read
+   faster than 105 % of its HBM bound fails) with the back-to-back
+   figure beside it as ``*_warm``;
 4. serving: the config-5 GAME model (KDD Cup 2012 track 2 widths: a
    sparse fixed effect over 100,000 features plus an intercept, 30
    non-zeros a row; a per-user random effect of 100,000 entities x 2
@@ -51,7 +55,8 @@ The line before the card's and the result's is one JSON object with a
 phase 4; the GRR kernels: phase 6's GRR fit), the largest kernel-vs-plain
 difference over all checked shapes, and its times and bound (``gather_
 rowsum``: at the serving bucket, 64 rows x 32 slots; the GRR kernels:
-summed over the plan levels they run, i.e. one X·w plus one Xᵀr);
+L2-cold, summed over the plan levels they run, i.e. one X·w plus one
+Xᵀr, with the warm sums beside);
 ``shapes`` holds every checked shape.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -157,6 +162,13 @@ PERTURBATION = 1e-7
 # in those sums scales with these terms (an output window sums up to
 # n_gw of them, and near-zero outputs come from their cancellation).
 GRR_RTOL, GRR_ATOL_SCALE = 1e-5, 1e-5
+# L2-cold timing of the GRR levels: bytes written between two samples
+# (the H100's L2 holds 50 MB), and a spin of about 1 ms that covers the
+# host's enqueue time.  A level read faster than its HBM bound by more
+# than GRR_BOUND_SLACK is a measurement fault, not a gain.
+FLUSH_BYTES = 128 << 20
+SPIN_CYCLES = 2_000_000
+GRR_BOUND_SLACK = 1.05
 
 
 # -- the model and its float64 reference -------------------------------------
@@ -296,6 +308,30 @@ def time_ms(fn, reps: int) -> float:
         end.record()
         end.synchronize()
         samples.append(start.elapsed_time(end) / reps)
+    return float(np.median(samples))
+
+
+def cold_ms(fn, n: int = 20) -> float:
+    """Median over ``n`` samples of one call between its own pair of CUDA
+    events, each after writing ``FLUSH_BYTES`` (which evicts the 50 MB
+    L2, as a whole evaluation between two launches of a plan level does)
+    and a spin kernel that keeps the card busy while the call is
+    enqueued, so that no host time falls between the events."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for i in range(n):
+        flush.fill_(i & 0xFF)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
+    del flush
     return float(np.median(samples))
 
 
@@ -713,8 +749,11 @@ def check_grr_level(name: str, d, rng, time_it: bool = True) -> dict:
                                           d.gw_of_st, d.ow_of_st, d.n_ow,
                                           d.cap)
     got = run()
+    again = run()
     if got.is_cuda:
         torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{kernel} at {name}: two launches differ")
     want = plain()
     got_h, want_h = got.cpu().numpy(), want.cpu().numpy()
     if not np.isfinite(got_h).all():
@@ -744,10 +783,14 @@ def check_grr_level(name: str, d, rng, time_it: bool = True) -> dict:
         "bound_ms": bound, "bound_by": bound_by,
     }
     if time_it:
-        out["ms"] = time_ms(run, 10)
-        out["plain_ms"] = time_ms(plain, 2)
-        out["library_ms"] = time_ms(
-            lambda: torch.sparse.mm(csr, table[:, None]), 10)
+        def library():
+            return torch.sparse.mm(csr, table[:, None])
+
+        for key, fn, reps in (("ms", run, 10), ("plain_ms", plain, 2),
+                              ("library_ms", library, 10)):
+            out[key] = cold_ms(fn)
+            out[key + "_warm"] = time_ms(fn, reps)
+        out["share_of_bound"] = bound / out["ms"]
     del csr
     return out
 
@@ -760,6 +803,12 @@ def phase_kernels_grr(pair, seed: int, time_it: bool = True) -> list:
     for name, d in plan_levels(pair):
         levels.append(check_grr_level(name, d, rng, time_it))
         print(f"  {levels[-1]['kernel']} {name}: " + json.dumps(levels[-1]))
+    fast = [lv["level"] for lv in levels
+            if lv.get("share_of_bound", 0.0) > GRR_BOUND_SLACK]
+    if fast:
+        raise AssertionError(f"L2-cold times beat the HBM bound by more "
+                             f"than {GRR_BOUND_SLACK - 1:.0%} at {fast}: "
+                             f"the timing does not measure HBM reads")
     entries = []
     for kernel, replaces in (
             ("grr_contract_dense", "photon_ml_tpu/ops/grr_kernel.py:121"),
@@ -778,7 +827,8 @@ def phase_kernels_grr(pair, seed: int, time_it: bool = True) -> list:
             "library_call": "torch.sparse.mm(CSR of the level, table)",
             "levels": len(mine), "shapes": mine,
         }
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        for key in ("ms", "ms_warm", "plain_ms", "plain_ms_warm",
+                    "library_ms", "library_ms_warm", "bound_ms"):
             entry[key] = (sum(lv[key] for lv in mine)
                           if key in mine[0] else None)
         entries.append(entry)
@@ -918,11 +968,33 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
     return out
 
 
+def device_ms(fn, n: int = 5):
+    """Device busy ms per call: the kernels and copies of ``n`` calls in
+    a ``torch.profiler`` trace, summed, over ``n``; None where the trace
+    holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    return busy_us / n / 1e3 if busy_us else None
+
+
 def time_evaluations(obj, batch, ell, X, w_t) -> dict:
-    """CUDA-event ms of one ``value_and_gradient`` on each layout, of one
+    """CUDA-event ms of one ``value_and_gradient`` on each layout (back to
+    back: the host's launch rate sets it where the host is slower), of one
     cuSPARSE CSR product per direction, and of the GRR evaluation's
     parts: the row and column contractions (B2/B3 levels, overflow and
-    spill), the hot-side matmuls and the spill ``index_add_`` alone."""
+    spill), the hot-side matmuls and the spill ``index_add_`` alone.
+    Then each layout's device busy ms per evaluation (profiler) and the
+    card's idle share of the back-to-back time."""
     dev = w_t.device
     csr = torch.sparse_csr_tensor(
         torch.from_numpy(X.indptr.astype(np.int64)),
@@ -958,6 +1030,12 @@ def time_evaluations(obj, batch, ell, X, w_t) -> dict:
                     5) for d, t in spills),
     }
     out["library_ms"] = out["library_xw_ms"] + out["library_xtr_ms"]
+    for layout, b in (("grr", batch), ("ell", ell)):
+        busy = device_ms(lambda b=b: obj.value_and_gradient(w_t, b))
+        out[f"vg_{layout}_device_ms"] = busy
+        out[f"vg_{layout}_idle_share"] = (
+            None if busy is None else max(0.0, 1.0 - busy
+                                          / out[f"vg_{layout}_ms"]))
     return out
 
 

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
 
@@ -28,8 +29,10 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+# spills; a build prints that report to stderr.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
 
@@ -54,11 +57,11 @@ _SIGNATURES = {
             _P,              # vals f32 [n_st_p, 128, 128]
             _P,              # gwg i32 [n_st_p / 4]
             _P,              # out f32 [n_ow_p, 128 / cap, 128]
-            _P,              # scratch f32 [n_split, n_ow_p, 128 / cap, 128]
+            _P,              # scratch f32 [n_blocks, 2, 128 / cap, 128]
             _I32,            # n_gw
             _I32,            # n_ow_p
             _I32,            # cap
-            _I32,            # n_split
+            _I32,            # n_blocks
             _P,              # cudaStream_t
         ],
         "grr_contract_launch": [
@@ -68,11 +71,11 @@ _SIGNATURES = {
             _P,              # gw_of_st i32 [n_st]
             _P,              # ow_of_st i32 [n_st], sorted
             _P,              # out f32 [n_ow, 128 / cap, 128]
-            _P,              # scratch f32 [n_split, n_ow, 128 / cap, 128]
+            _P,              # scratch f32 [n_blocks, 2, 128 / cap, 128]
             _I64,            # n_st
             _I32,            # n_ow
             _I32,            # cap
-            _I32,            # n_split
+            _I32,            # n_blocks
             _P,              # cudaStream_t
         ],
     },
@@ -124,6 +127,7 @@ def _finish_build(name: str, started) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(rc {proc.returncode}):\n{out}")
+    print(f"nvcc {name}.cu:\n{out}", file=sys.stderr, end="")
     os.replace(tmp, final)
 
 

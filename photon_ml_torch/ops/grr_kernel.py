@@ -104,9 +104,18 @@ def _check(name: str, table_t: Tensor, planes, vals: Tensor, maps,
                          f"{sorted(map(str, devices))}")
     if table_t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {table_t.device}")
-    if table_t.device.type == "cuda" and not all(
-            t.is_contiguous() for t in (table_t, vals, *planes, *maps)):
+    if table_t.device.type == "cuda":
+        _check_layout(name, (table_t, vals, *planes, *maps))
+
+
+def _check_layout(name: str, tensors) -> None:
+    """What the CUDA kernel needs of its inputs' memory: contiguous, and
+    16-byte aligned (its bulk copies and vector loads)."""
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}'s CUDA kernel takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}'s CUDA kernel takes 16-byte aligned "
+                         f"tensors")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -114,25 +123,22 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-# Blocks a launch aims for, per SM: windows fewer than this cut their tile
-# walk into shares run by separate blocks.
-_BLOCKS_PER_SM = 4
 _SM_COUNT: dict = {}
 
 
-def _launch_shape(device: torch.device, n_windows: int, n_gw: int, cap: int
+def _launch_shape(device: torch.device, n_tiles: int, cap: int
                   ) -> tuple[int, Tensor]:
-    """(n_split, scratch) for a launch over ``n_windows`` output windows
-    whose walks are at most ``n_gw`` tiles long."""
+    """(n_blocks, scratch) for a launch over ``n_tiles`` tiles: one tile
+    range a block, at most one block an SM, and the scratch that holds
+    the pieces of the windows whose runs two ranges share."""
     if device not in _SM_COUNT:
         _SM_COUNT[device] = torch.cuda.get_device_properties(
             device).multi_processor_count
-    want = -(-_BLOCKS_PER_SM * _SM_COUNT[device] // n_windows)
-    n_split = max(1, min(n_gw, want, 65535))
+    n_blocks = max(1, min(n_tiles, _SM_COUNT[device]))
     scratch = torch.empty(
-        (n_split if n_split > 1 else 0, n_windows, TILE // cap, TILE),
+        (n_blocks if n_blocks > 1 else 0, 2, TILE // cap, TILE),
         dtype=torch.float32, device=device)
-    return n_split, scratch
+    return n_blocks, scratch
 
 
 def grr_contract_dense(table_t: Tensor, g1: Tensor, g2: Tensor, g3: Tensor,
@@ -165,13 +171,13 @@ def grr_contract_dense(table_t: Tensor, g1: Tensor, g2: Tensor, g3: Tensor,
 
     lib = _build.load("grr_contract")
     n_gw = n_st_p // n_ow_p
-    n_split, scratch = _launch_shape(vals.device, n_ow_p, n_gw, cap)
+    n_blocks, scratch = _launch_shape(vals.device, n_st_p, cap)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = lib.grr_contract_dense_launch(
             table_t.data_ptr(), g1.data_ptr(), g2.data_ptr(), g3.data_ptr(),
             vals.data_ptr(), gwg.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), n_gw, n_ow_p, cap, n_split, stream)
+            scratch.data_ptr(), n_gw, n_ow_p, cap, n_blocks, stream)
     _raise_on(err, "grr_contract_dense")
     grr_contract_dense.launches += 1
     return out
@@ -188,9 +194,9 @@ def grr_contract(table_t: Tensor, g1: Tensor, g2: Tensor, g3: Tensor,
 
     ``gw_of_st``/``ow_of_st`` [n_st] i32 pick each supertile's table and
     output window; ``first_of_ow`` [n_st] i32 marks where each ow run
-    starts (the plan's invariant; the CUDA kernel finds a run by binary
-    search in the sorted ``ow_of_st``, and a window with no supertile
-    comes out as zeros in both versions).
+    starts (the plan's invariant; the CUDA kernel reads the runs off the
+    sorted ``ow_of_st``, and a window with no supertile comes out as zeros
+    in both versions).
     """
     _check("grr_contract", table_t, (g1, g2, g3), vals,
            (gw_of_st, ow_of_st, first_of_ow), cap)
@@ -209,15 +215,13 @@ def grr_contract(table_t: Tensor, g1: Tensor, g2: Tensor, g3: Tensor,
     from photon_ml_torch.kernels import _build
 
     lib = _build.load("grr_contract")
-    # A run is at most one supertile per table window long.
-    n_split, scratch = _launch_shape(vals.device, n_ow, table_t.shape[0],
-                                     cap)
+    n_blocks, scratch = _launch_shape(vals.device, n_st, cap)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = lib.grr_contract_launch(
             table_t.data_ptr(), g1.data_ptr(), g2.data_ptr(), g3.data_ptr(),
             vals.data_ptr(), gw_of_st.data_ptr(), ow_of_st.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), n_st, n_ow, cap, n_split,
+            out.data_ptr(), scratch.data_ptr(), n_st, n_ow, cap, n_blocks,
             stream)
     _raise_on(err, "grr_contract")
     grr_contract.launches += 1

@@ -516,6 +516,32 @@ def test_plan_stats_match_reference():
     assert stats["hot_columns"] == int(ref.hot_ids.shape[0])
 
 
+def test_launch_shape_one_range_a_block(monkeypatch):
+    """At most one block an SM, at least one tile a block (one block for
+    an empty plan), and scratch for two pieces a block when there are
+    several."""
+    dev = torch.device("cpu")
+    monkeypatch.setitem(tk._SM_COUNT, dev, 132)
+    for n_tiles, cap, want in ((2860, 8, 132), (223, 4, 132), (60, 1, 60),
+                               (1, 128, 1), (0, 4, 1)):
+        n_blocks, scratch = tk._launch_shape(dev, n_tiles, cap)
+        assert n_blocks == want
+        assert scratch.dtype == torch.float32
+        assert tuple(scratch.shape) == ((want if want > 1 else 0), 2,
+                                        128 // cap, 128)
+
+
+def test_kernel_layout_check():
+    """The CUDA kernel's layout rule: contiguous and 16-byte aligned."""
+    buf = torch.zeros(2 * 128 * 128 + 16, dtype=torch.int8)
+    ok = buf[:2 * 128 * 128].view(2, 128, 128)
+    tk._check_layout("k", (ok,))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tk._check_layout("k", (buf[1:2 * 128 * 128 + 1].view(2, 128, 128),))
+    with pytest.raises(ValueError, match="contiguous"):
+        tk._check_layout("k", (ok.transpose(1, 2),))
+
+
 def test_kernel_library_holds_both_launchers():
     p = _build.library_path("grr_contract")
     assert p.parent == _build.BUILD_DIR and p.name.startswith(
@@ -625,3 +651,130 @@ def test_cuda_pair_matches_cpu_pair():
         want = getattr(cpu, fn)(torch.from_numpy(x))
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=1e-5, atol=1e-4)
+
+
+# -- tile-range launches: edge shapes, synthetic planes (card only) -----------------
+#
+# The kernels compute the composed chain for any lane indices, so these
+# cases use random planes and hand-made tile maps: one tile, runs of length
+# one, long runs cut by many tile ranges, empty windows at both ends, a
+# single table window, tile counts that are not a multiple of the SM count.
+
+
+def _planes(rng, n_st, n_gw):
+    dev = "cuda"
+    g = [torch.from_numpy(rng.integers(0, 128, (n_st, 128, 128))
+                          .astype(np.int8)).to(dev) for _ in range(3)]
+    vals = torch.from_numpy(rng.normal(0, 1, (n_st, 128, 128))
+                            .astype(np.float32)).to(dev)
+    vals[vals.abs() < 0.5] = 0.0        # unfilled slots
+    tt = torch.from_numpy(rng.uniform(-1, 1, (n_gw, 128, 128))
+                          .astype(np.float32)).to(dev)
+    return tt, g, vals
+
+
+def _check_twice(run, plain):
+    """Two launches agree bitwise, and with the plain version."""
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b), "two launches differ"
+    want = plain()
+    _assert_kernel_close(a, want)
+    return a
+
+
+def _runs_case(rng, ows, n_gw, n_ow, cap):
+    """B3 over tiles whose output windows are ``ows`` (sorted), each run
+    walking table windows in order."""
+    ows = np.asarray(ows, np.int32)
+    gw = np.concatenate([np.arange(c) % n_gw for c in
+                         np.unique(ows, return_counts=True)[1]]).astype(
+        np.int32)
+    first = np.r_[True, ows[1:] != ows[:-1]].astype(np.int32)
+    tt, g, vals = _planes(rng, len(ows), n_gw)
+    maps = [torch.from_numpy(m).cuda() for m in (gw, ows, first)]
+    before = tk.grr_contract.launches
+    got = _check_twice(
+        lambda: tk.grr_contract(tt, *g, vals, *maps, n_ow, cap),
+        lambda: tk.grr_contract_reference(tt, *g, vals, *maps[:2], n_ow,
+                                          cap))
+    assert tk.grr_contract.launches == before + 2
+    return got
+
+
+def _dense_case(rng, n_gw, n_ow_p, cap):
+    tt, g, vals = _planes(rng, n_gw * n_ow_p, n_gw)
+    gwg = torch.from_numpy(np.repeat(np.arange(n_gw, dtype=np.int32),
+                                     n_ow_p // tk.DENSE_B)).cuda()
+    before = tk.grr_contract_dense.launches
+    _check_twice(
+        lambda: tk.grr_contract_dense(tt, *g, vals, gwg, n_ow_p, cap),
+        lambda: tk.grr_contract_dense_reference(tt, *g, vals, n_ow_p, cap))
+    assert tk.grr_contract_dense.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1, 128])
+def test_cuda_extreme_caps(cap):
+    """cap 1 (each slot its own output row) and cap 128 (all 128 rows of a
+    tile into one), on both kernels, with runs cut by tile ranges."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(cap + 20)
+    _dense_case(rng, n_gw=3, n_ow_p=52, cap=cap)
+    _runs_case(rng, np.repeat(np.arange(60), rng.integers(1, 6, 60)), 7,
+               60, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [4, 8])
+def test_cuda_one_tile(cap):
+    _cuda_or_skip()
+    rng = np.random.default_rng(30 + cap)
+    _runs_case(rng, [0], 1, 1, cap)
+    _dense_case(rng, n_gw=1, n_ow_p=4, cap=cap)
+
+
+@pytest.mark.cuda
+def test_cuda_runs_of_length_one_and_one_window():
+    """n_gw = 1: every output window is one tile (B3), and B2's walk over
+    gw is one tile long, over more windows than SMs."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(40)
+    _runs_case(rng, np.arange(300), 1, 300, 4)
+    _dense_case(rng, n_gw=1, n_ow_p=300, cap=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [8, 16, 64])
+def test_cuda_long_runs_cut_by_many_ranges(cap):
+    """Runs far longer than a tile range (the gradient direction's shape:
+    few windows, tens of tiles each), and tile counts that are not a
+    multiple of the SM count: the pieces are summed across many blocks."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(50 + cap)
+    _dense_case(rng, n_gw=55, n_ow_p=8, cap=cap)
+    _runs_case(rng, np.repeat([0, 1, 2], [200, 1, 97]), 200, 3, cap)
+
+
+@pytest.mark.cuda
+def test_cuda_empty_windows_at_both_ends():
+    """Windows with no tile before the first run, between runs and after
+    the last come out as zeros."""
+    _cuda_or_skip()
+    rng = np.random.default_rng(60)
+    ows = np.repeat([2, 3, 7, 8, 12], [3, 1, 40, 2, 5])
+    got = _runs_case(rng, ows, 9, 15, 4)
+    for x in (0, 1, 4, 5, 6, 9, 10, 11, 13, 14):
+        assert not got[x].any()
+
+
+@pytest.mark.cuda
+def test_cuda_empty_plan_is_zero():
+    _cuda_or_skip()
+    rng = np.random.default_rng(70)
+    tt, g, vals = _planes(rng, 0, 1)
+    maps = [torch.zeros(0, dtype=torch.int32, device="cuda")
+            for _ in range(3)]
+    got = tk.grr_contract(tt, *g, vals, *maps, 5, 8)
+    torch.cuda.synchronize()
+    assert got.shape == (5, 16, 128) and not got.any()
