@@ -16,14 +16,17 @@ raises on failure:
    nvcc per source, all started together;
 3. kernel check: each kernel against its plain PyTorch version on the
    card, with CUDA-event times beside the bound and a library call:
-   ``gather_rowsum`` at the serving path's shapes (median of 20 samples
-   of back-to-back calls, after 3 warm-ups); ``grr_contract_dense`` and
+   ``gather_rowsum`` at the serving path's shapes and at phase 6's ELL
+   training arrays (median of 20 samples of back-to-back calls, after 3
+   warm-ups, with the profiler's device ms beside), and checked at the
+   transposed-ELL widths 8, 128 and 512, every shape launched twice and
+   required bitwise equal; ``grr_contract_dense`` and
    ``grr_contract`` at every level of the full-width GRR plan that phase
    6 trains on (each direction, column range and overflow level), each
    level launched twice and required bitwise equal, and timed L2-cold
    (median of 20 single calls, each after a 128 MB write; a level read
    faster than 105 % of its HBM bound fails) with the back-to-back
-   figure beside it as ``*_warm``;
+   figure and the profiler's device ms beside it as ``*_warm``;
 4. serving: the config-5 GAME model (KDD Cup 2012 track 2 widths: a
    sparse fixed effect over 100,000 features plus an intercept, 30
    non-zeros a row; a per-user random effect of 100,000 entities x 2
@@ -46,13 +49,15 @@ raises on failure:
    the plan, and the counts are read.  The loss must fall, the held-out
    AUC reach 0.70, the objective's value, gradient, Hessian-vector
    product and Hessian diagonal agree with a float64 scipy reference,
-   and the same fit on the plain-ELL layout end at the same loss.  Then
-   one ``value_and_gradient`` is timed on both layouts beside one
-   cuSPARSE product per direction.
+   and the same fit on the plain-ELL layout end at the same loss, having
+   launched ``gather_rowsum`` at least once an evaluation.  Then one
+   ``value_and_gradient`` is timed on both layouts beside one cuSPARSE
+   product per direction, the plain-ELL one's device ms split by kernel.
 
 The line before the card's and the result's is one JSON object with a
 ``kernels`` list: per kernel its launches on its path (``gather_rowsum``:
-phase 4; the GRR kernels: phase 6's GRR fit), the largest kernel-vs-plain
+phase 4, and phase 6's ELL fit as ``launches_ell_fit``; the GRR kernels:
+phase 6's GRR fit), the largest kernel-vs-plain
 difference over all checked shapes, and its times and bound (``gather_
 rowsum``: at the serving bucket, 64 rows x 32 slots; the GRR kernels:
 L2-cold, summed over the plan levels they run, i.e. one X·w plus one
@@ -133,9 +138,12 @@ SERVE_ATOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
-# gather_rowsum's checked shapes (n, k): the serving bucket, an odd tail
-# with padding slots and ids at both ends of the table, a scoring chunk.
+# gather_rowsum's timed shapes (n, k): the serving bucket, an odd tail
+# with padding slots and ids at both ends of the table, a scoring chunk
+# (phase 6's ELL training arrays are timed beside them); and the widths
+# of the transposed-ELL virtual rows (capacities 8-512), checked only.
 KERNEL_SHAPES = ((BATCH_ROWS, ELL_CAP), (67, 5), (1 << 20, ELL_CAP))
+WIDTH_SHAPES = ((1 << 16, 8), (1 << 16, 128), (1 << 16, 512))
 
 # Phase 6: config 1 at the config-5 fixed-effect widths (bench.py:83).
 TRAIN_ROWS = 1_000_000      # 10% of them held out
@@ -280,10 +288,15 @@ def kernel_inputs(rng, table: torch.Tensor, n: int, k: int):
 
 
 def check_gather_rowsum(table: torch.Tensor, vals, ids) -> float:
-    """Max |kernel − plain| on these inputs; raises past the tolerance."""
+    """Max |kernel − plain| on these inputs; raises past the tolerance or
+    if two launches differ."""
     got = gather_rowsum(table, vals, ids)
+    again = gather_rowsum(table, vals, ids)
     if got.is_cuda:
         torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"gather_rowsum at {tuple(vals.shape)}: two "
+                             f"launches differ")
     want = gather_rowsum_reference(table, vals, ids)
     got, want = got.cpu().numpy(), want.cpu().numpy()
     if not np.isfinite(got).all():
@@ -348,42 +361,64 @@ def gather_rowsum_bound_ms(table, vals, ids) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels(table: torch.Tensor, seed: int) -> dict:
+def phase_kernels(table: torch.Tensor, seed: int, ell=None,
+                  time_it: bool = True) -> dict:
+    """B1 against its plain version at ``KERNEL_SHAPES``, at phase 6's
+    ELL training arrays ``ell`` (a ``SparseBatch``; ``table`` as its w)
+    and at ``WIDTH_SHAPES``; every shape launched twice and required
+    bitwise equal.  ``time_it``: the timed shapes get CUDA-event ms (back
+    to back) and profiler device ms beside the plain version's, the
+    library call's and the bound."""
     rng = np.random.default_rng(seed)
     column = table[:, None]
+    cases = [(f"{n}x{k}", *kernel_inputs(rng, table, n, k))
+             for n, k in KERNEL_SHAPES]
+    if ell is not None:
+        cases.append(("ell_train", ell.values, ell.col_ids))
     shapes = []
-    for n, k in KERNEL_SHAPES:
-        vals, ids = kernel_inputs(rng, table, n, k)
+    for name, vals, ids in cases:
+        n, k = vals.shape
         err = check_gather_rowsum(table, vals, ids)
         library = torch.nn.functional.embedding_bag(
             ids, column, per_sample_weights=vals, mode="sum")[:, 0]
         lib_err = float((library - gather_rowsum_reference(
             table, vals, ids)).abs().max())
-        reps = 100 if n * k < 1 << 20 else 5
         bound, bound_by = gather_rowsum_bound_ms(table, vals, ids)
-        shapes.append({
-            "n": n, "k": k, "max_abs_err": err,
-            "ms": time_ms(lambda: gather_rowsum(table, vals, ids), reps),
-            "plain_ms": time_ms(
-                lambda: gather_rowsum_reference(table, vals, ids), reps),
-            "library_ms": time_ms(
+        entry = {"shape": name, "n": n, "k": k, "max_abs_err": err,
+                 "library_max_abs_err": lib_err,
+                 "bound_ms": bound, "bound_by": bound_by}
+        if time_it:
+            reps = 100 if n * k < 1 << 20 else 5
+
+            def run():
+                return gather_rowsum(table, vals, ids)
+
+            entry["ms"] = time_ms(run, reps)
+            entry["device_ms"] = device_ms(run, 20)
+            entry["plain_ms"] = time_ms(
+                lambda: gather_rowsum_reference(table, vals, ids), reps)
+            entry["library_ms"] = time_ms(
                 lambda: torch.nn.functional.embedding_bag(
-                    ids, column, per_sample_weights=vals, mode="sum"),
-                reps),
-            "library_max_abs_err": lib_err,
-            "bound_ms": bound, "bound_by": bound_by,
-        })
-        print(f"  gather_rowsum {n}x{k}: " + json.dumps(shapes[-1]))
+                    ids, column, per_sample_weights=vals, mode="sum"), reps)
+            entry["share_of_bound"] = bound / entry["ms"]
+        shapes.append(entry)
+        print(f"  gather_rowsum {name}: " + json.dumps(entry))
+    for n, k in WIDTH_SHAPES:
+        vals, ids = kernel_inputs(rng, table, n, k)
+        shapes.append({"shape": f"{n}x{k}", "n": n, "k": k,
+                       "max_abs_err": check_gather_rowsum(table, vals, ids)})
+        print(f"  gather_rowsum {n}x{k} (checked): " + json.dumps(shapes[-1]))
     main = shapes[0]
     return {
         "name": "gather_rowsum", "route": "cuda",
         "source": "photon_ml_torch/csrc/gather_rowsum.cu",
         "replaces": "photon_ml_tpu/ops/kernels.py:65",
-        "launches": None,
+        "launches": None, "launches_ell_fit": None,
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "ms": main.get("ms"), "device_ms": main.get("device_ms"),
+        "plain_ms": main.get("plain_ms"),
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
+        "library_ms": main.get("library_ms"),
         "library_call": "torch.nn.functional.embedding_bag(mode='sum')",
         "shape": [main["n"], main["k"]],
         "shapes": shapes,
@@ -790,6 +825,7 @@ def check_grr_level(name: str, d, rng, time_it: bool = True) -> dict:
                               ("library_ms", library, 10)):
             out[key] = cold_ms(fn)
             out[key + "_warm"] = time_ms(fn, reps)
+        out["device_ms_warm"] = device_ms(run, 10)
         out["share_of_bound"] = bound / out["ms"]
     del csr
     return out
@@ -827,8 +863,9 @@ def phase_kernels_grr(pair, seed: int, time_it: bool = True) -> list:
             "library_call": "torch.sparse.mm(CSR of the level, table)",
             "levels": len(mine), "shapes": mine,
         }
-        for key in ("ms", "ms_warm", "plain_ms", "plain_ms_warm",
-                    "library_ms", "library_ms_warm", "bound_ms"):
+        for key in ("ms", "ms_warm", "device_ms_warm", "plain_ms",
+                    "plain_ms_warm", "library_ms", "library_ms_warm",
+                    "bound_ms"):
             entry[key] = (sum(lv[key] for lv in mine)
                           if key in mine[0] else None)
         entries.append(entry)
@@ -898,6 +935,10 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
                 "ls_trials": t.ls_trials[1: t.count].tolist()}
 
     traj = {"grr": trajectory(res), "ell": trajectory(res_ell)}
+    # Every evaluation computes X·w once: one per iteration plus the
+    # start (value and gradient), one per line-search trial (value).
+    ell_evaluations = res_ell.iterations + 1 + int(
+        sum(traj["ell"]["ls_trials"]))
     test_auc = float(auc(test.margins(res.w), test.labels, mask=test.mask))
 
     def gap(a, b):
@@ -939,6 +980,7 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
         "perturbed_start_gap_rel": self_gap,
         "test_auc": test_auc, "f64_errors": errors,
         "launches": launches, "ell_gather_rowsum_launches": ell_launches,
+        "ell_evaluations": ell_evaluations,
         "value_evaluations": int(sum(traj["grr"]["ls_trials"])),
         "gradient_evaluations": res.iterations + 1,
         "fit_s": fit_s, "fit_ell_s": fit_ell_s, "trajectories": traj,
@@ -947,6 +989,9 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
         out.update(time_evaluations(obj, batch, ell, X, w_t))
 
     failures = []
+    if dev.type == "cuda" and ell_launches < ell_evaluations:
+        failures.append(f"the ELL fit launched gather_rowsum {ell_launches} "
+                        f"time(s) for {ell_evaluations} evaluations")
     if not traj["grr"]["loss"][-1] < traj["grr"]["loss"][0]:
         failures.append("the GRR fit's loss did not fall")
     if test_auc < TRAIN_AUC_MIN:
@@ -968,10 +1013,10 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
     return out
 
 
-def device_ms(fn, n: int = 5):
-    """Device busy ms per call: the kernels and copies of ``n`` calls in
-    a ``torch.profiler`` trace, summed, over ``n``; None where the trace
-    holds no device event."""
+def device_kernels_ms(fn, n: int = 5) -> dict:
+    """Device ms per call by kernel (or copy) name: the device events of
+    ``n`` calls in a ``torch.profiler`` trace, summed by name, over
+    ``n``; empty where the trace holds no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -982,9 +1027,32 @@ def device_ms(fn, n: int = 5):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA)
-    return busy_us / n / 1e3 if busy_us else None
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / n / 1e3)
+    return by_name
+
+
+def device_ms(fn, n: int = 5):
+    """Device busy ms per call (``device_kernels_ms`` summed); None where
+    the trace holds no device event."""
+    return sum(device_kernels_ms(fn, n).values()) or None
+
+
+def split_ell_evaluation(by_name: dict) -> dict:
+    """A plain-ELL evaluation's device ms by part: B1 (X·w), the float64
+    ``index_add_`` of Xᵀr (PyTorch's ``indexFunc*`` kernels), the rest,
+    and the five largest kernels by name."""
+    parts = {"gather_rowsum": 0.0, "index_add": 0.0, "rest": 0.0}
+    for name, ms in by_name.items():
+        key = ("gather_rowsum" if "gather_rowsum" in name
+               else "index_add" if "indexFunc" in name else "rest")
+        parts[key] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    parts["largest"] = {name[:96]: ms for name, ms in top}
+    return parts
 
 
 def time_evaluations(obj, batch, ell, X, w_t) -> dict:
@@ -1031,7 +1099,10 @@ def time_evaluations(obj, batch, ell, X, w_t) -> dict:
     }
     out["library_ms"] = out["library_xw_ms"] + out["library_xtr_ms"]
     for layout, b in (("grr", batch), ("ell", ell)):
-        busy = device_ms(lambda b=b: obj.value_and_gradient(w_t, b))
+        by_name = device_kernels_ms(lambda b=b: obj.value_and_gradient(w_t, b))
+        busy = sum(by_name.values()) or None
+        if layout == "ell":
+            out["vg_ell_device_split_ms"] = split_ell_evaluation(by_name)
         out[f"vg_{layout}_device_ms"] = busy
         out[f"vg_{layout}_idle_share"] = (
             None if busy is None else max(0.0, 1.0 - busy
@@ -1083,7 +1154,7 @@ def main() -> int:
         model, host = make_model(seed=0)
         table = torch.from_numpy(host["w"]).cuda()
         t = time.perf_counter()
-        kernels = [phase_kernels(table, seed=1)]
+        kernels = [phase_kernels(table, seed=1, ell=train["ell"])]
         kernels += phase_kernels_grr(train["grr"].grr, seed=5)
         print(f"phase 3 kernel check: ok in {time.perf_counter() - t:.2f} s")
 
@@ -1118,6 +1189,8 @@ def main() -> int:
         if training["failures"]:
             raise AssertionError("phase 6: " + "; ".join(
                 training["failures"]))
+        kernels[0]["launches_ell_fit"] = training[
+            "ell_gather_rowsum_launches"]
         for k in kernels[1:]:
             k["launches"] = training["launches"][k["name"]]
             if k["launches"] < 1:

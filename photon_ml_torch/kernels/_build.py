@@ -36,10 +36,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
 
-# source name → {launcher name: argtypes}; each launcher returns an int
-# (the CUDA status of its launch).  The types are set on load.
+# source name → {launcher name: argtypes}; each returns an int (a
+# launcher: the CUDA status of its launch; otherwise as its source
+# says).  The types are set on load.
 _SIGNATURES = {
     "gather_rowsum": {
+        "gather_rowsum_prepare": [],
         "gather_rowsum_launch": [
             _P,      # table  f32 [L]
             _P,      # vals   f32 [n, k]
@@ -47,6 +49,11 @@ _SIGNATURES = {
             _P,      # out    f32 [n]
             _I64,    # n
             _I32,    # k
+            _I32,    # vec: slots a thread loads at once (4 or 1)
+            _I32,    # tpr: threads a row
+            _I32,    # head: table entries copied into shared memory
+            _I32,    # blocks
+            _I32,    # device index
             _P,      # cudaStream_t
         ],
     },

@@ -70,6 +70,39 @@ def test_grr_kernel_checks_on_cpu(train):
             tk.grr_contract.launches) == before
 
 
+def test_gather_rowsum_checks_on_cpu(train):
+    """Phase 3's B1 check rehearsed: the plain version against itself at
+    every shape (the ELL training arrays included), no launch counted."""
+    from photon_ml_torch.ops import kernels as kk
+
+    table = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 0.1, cs.D + 1).astype(np.float32))
+    before = kk.gather_rowsum.launches
+    entry = cs.phase_kernels(table, seed=1, ell=train["ell"], time_it=False)
+    assert kk.gather_rowsum.launches == before
+    assert entry["name"] == "gather_rowsum" and entry["max_abs_err"] == 0.0
+    names = [s["shape"] for s in entry["shapes"]]
+    assert names[0] == f"{cs.BATCH_ROWS}x{cs.ELL_CAP}"
+    assert "ell_train" in names
+    assert {(s["n"], s["k"]) for s in entry["shapes"]} >= set(
+        cs.KERNEL_SHAPES) | set(cs.WIDTH_SHAPES)
+    ell = entry["shapes"][names.index("ell_train")]
+    assert (ell["n"], ell["k"]) == (ROWS - ROWS // 10, cs.ELL_CAP)
+    assert ell["bound_by"] == "bytes" and ell["bound_ms"] > 0
+    assert entry["ms"] is None and entry["launches_ell_fit"] is None
+
+
+def test_ell_split_by_kernel():
+    split = cs.split_ell_evaluation({
+        "void gather_rowsum_kernel<4, 8>(float const*)": 0.25,
+        "void at::native::indexFuncLargeIndex<double, long>": 1.5,
+        "void at::native::vectorized_elementwise_kernel<4>": 0.5,
+        "Memcpy DtoH (Device -> Pinned)": 0.01})
+    assert split["gather_rowsum"] == 0.25 and split["index_add"] == 1.5
+    assert split["rest"] == pytest.approx(0.51)
+    assert len(split["largest"]) == 4
+
+
 def test_training_phase_gates_on_cpu(train):
     out = cs.phase_training(train, time_it=False)
     assert [f for f in out["failures"] if "AUC" not in f] == []

@@ -58,6 +58,18 @@ def _inputs(seed: int, L: int, n: int, k: int, pad_frac: float = 0.3,
     return table, vals, ids
 
 
+def _power_law_inputs(seed: int, L: int, n: int, k: int,
+                      model_scale: bool = False):
+    """ELL inputs whose ids follow the training data's power law (head
+    columns in most rows, as ``chip_smoke.make_training_data`` draws
+    them), 30% padding."""
+    table, vals, ids = _inputs(seed, L, n, k, model_scale=model_scale)
+    rng = np.random.default_rng(seed + 1)
+    ids = ((L - 1) * rng.random((n, k)) ** 2.2).astype(np.int32)
+    ids[vals == 0.0] = 0
+    return table, vals, ids
+
+
 def _torch(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
@@ -87,6 +99,92 @@ def test_gather_rowsum_matches_pallas_interpret(L, n, k):
         interpret=True))
     got = tk.gather_rowsum(*_torch(table, vals, ids))
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("L,n,k", [(1000, 40, 8), (5000, 24, 128),
+                                   (100_001, 9, 512)])
+@pytest.mark.parametrize("ids", ["uniform", "power_law"])
+def test_gather_rowsum_matches_xla_at_virtual_row_widths(L, n, k, ids):
+    """The widths of the transposed-ELL virtual rows (capacities 8-512)
+    and the training data's power-law ids."""
+    jnp, jk = _jax()
+    make = _inputs if ids == "uniform" else _power_law_inputs
+    table, vals, idx = make(n * 7 + k, L, n, k)
+    want = np.asarray(jk._xla_gather_rowsum(
+        jnp.asarray(table), jnp.asarray(vals), jnp.asarray(idx)))
+    got = tk.gather_rowsum(*_torch(table, vals, idx))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("L,n,k", [(1000, 16, 8), (5000, 8, 128),
+                                   (100_001, 8, 512)])
+def test_gather_rowsum_matches_pallas_interpret_at_wide_rows(L, n, k):
+    jnp, jk = _jax()
+    table, vals, ids = _power_law_inputs(n + k, L, n, k)
+    want = np.asarray(jk._pallas_gather_rowsum(
+        jnp.asarray(table), jnp.asarray(vals), jnp.asarray(ids),
+        interpret=True))
+    got = tk.gather_rowsum(*_torch(table, vals, ids))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+# Threads a row on each path, by k: the fewest (a power of two up to 32)
+# whose 4 slots each (the 16-byte path) or 1 slot each cover the row.
+_TPR_VEC4 = {8: 2, 32: 8, 128: 32, 512: 32}
+_TPR_SCALAR = {1: 1, 5: 8, 8: 8, 32: 32, 33: 32, 128: 32, 512: 32}
+_RESIDENT = 132          # one 512-thread block an SM
+_L = 100_001             # the served model's w
+
+
+@pytest.mark.parametrize("k", [1, 5, 8, 32, 33, 128, 512])
+@pytest.mark.parametrize("n", [0, 1, 3, 64, 67, 1 << 20])
+def test_launch_shape(n, k):
+    shape = tk._launch_shape(n, k, True, _RESIDENT, _L)
+    if k % 4 == 0:
+        assert (shape.path, shape.vec) == ("vec4", 4)
+        assert shape.threads_a_row == _TPR_VEC4[k]
+    else:
+        assert (shape.path, shape.vec) == ("scalar", 1)
+        assert shape.threads_a_row == _TPR_SCALAR[k]
+    assert shape.rows_a_warp * shape.threads_a_row == 32
+    groups = -(-n // shape.rows_a_warp)
+    assert shape.blocks == min(-(-groups // 16), _RESIDENT)
+    # A thread's slots a step reach the row's end, or a warp walks it.
+    assert (shape.threads_a_row * shape.vec >= k
+            or shape.threads_a_row == 32)
+    # The table's head goes to shared memory only where n·k pays for it.
+    assert shape.head == (56 * 1024 if n * k >= 1 << 21 else 0)
+    unaligned = tk._launch_shape(n, k, False, _RESIDENT, _L)
+    assert unaligned.path == "scalar"
+    assert unaligned.threads_a_row == _TPR_SCALAR[k]
+    assert unaligned.head == shape.head
+
+
+def test_launch_shape_fills_the_card_at_most_once():
+    shape = tk._launch_shape(1 << 20, 32, True, _RESIDENT, _L)
+    assert shape.blocks == _RESIDENT          # persistent: one wave
+    assert tk._launch_shape(64, 32, True, _RESIDENT, _L).blocks == 1
+
+
+@pytest.mark.parametrize("n,k,L,head", [
+    (65_537, 32, 100_001, 56 * 1024),   # just past the threshold
+    (65_535, 32, 100_001, 0),           # just below it
+    (70_000, 32, 1000, 1000),           # the whole table fits
+    (1 << 20, 5, 7, 7),
+])
+def test_launch_shape_table_head(n, k, L, head):
+    assert tk._launch_shape(n, k, True, _RESIDENT, L).head == head
+
+
+def test_alignment_picks_the_path():
+    """A contiguous view 4 bytes into its storage is not 16-byte
+    aligned, so it takes the scalar path."""
+    base = torch.zeros(4 * 8 + 4)
+    aligned = base[:32].view(4, 8)
+    shifted = base[1:33].view(4, 8)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 4 == 0
+    assert tk._aligned(aligned, aligned)
+    assert not tk._aligned(aligned, shifted)
 
 
 def test_padding_slots_are_multiplied_like_jax():
@@ -158,20 +256,101 @@ def test_kernel_library_is_keyed_by_source_hash():
     assert _build.library_path("gather_rowsum") == p
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,k", [(64, 32), (67, 5), (4096, 32)])
-def test_cuda_kernel_matches_plain(n, k):
-    """At a model's scales: with N(0, 1) weights and values, float32
-    rounding in two summation orders reaches ~2e-6 on a near-zero sum,
-    beyond ``atol`` (simulated over 2**20 rows)."""
+def _cuda(*arrays):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    table, vals, ids = _torch(*_inputs(3, 100_001, n, k, model_scale=True))
-    t, v, i = (x.cuda() for x in (table, vals, ids))
+    return [torch.from_numpy(a).cuda() for a in arrays]
+
+
+def _launch_twice(t, v, i):
+    """The kernel's result, after checking that it launched once a call
+    and that two launches agree bit for bit."""
     before = tk.gather_rowsum.launches
     got = tk.gather_rowsum(t, v, i)
+    again = tk.gather_rowsum(t, v, i)
     torch.cuda.synchronize()
-    assert tk.gather_rowsum.launches == before + 1
+    assert tk.gather_rowsum.launches == before + 2
+    assert torch.equal(got, again) or (
+        torch.equal(got.isnan(), again.isnan())
+        and torch.equal(got.nan_to_num(), again.nan_to_num()))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [
+    (1, 32), (3, 32), (64, 32), (67, 5), (4096, 32), (65_537, 32),
+    (1000, 1), (1000, 8), (999, 128), (257, 512),
+])
+@pytest.mark.parametrize("ids", ["uniform", "power_law"])
+def test_cuda_kernel_matches_plain(n, k, ids):
+    """At a model's scales: with N(0, 1) weights and values, float32
+    rounding in two summation orders reaches ~2e-6 on a near-zero sum,
+    beyond ``atol`` (simulated over 2**20 rows).  Ids at 0 and L-1 are
+    among the slots; two launches are bitwise equal."""
+    make = _inputs if ids == "uniform" else _power_law_inputs
+    table, vals, idx = make(3, 100_001, n, k, model_scale=True)
+    idx[0, 0], idx[-1, -1] = 0, 100_000
+    t, v, i = _cuda(table, vals, idx)
+    got = _launch_twice(t, v, i)
+    want = tk.gather_rowsum_reference(t, v, i)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(64, 32), (1000, 8), (70_000, 32)])
+def test_cuda_unaligned_input_takes_the_scalar_path(n, k):
+    table, vals, ids = _inputs(5, 100_001, n, k, model_scale=True)
+    t, v, i = _cuda(table, vals, ids)
+    # Contiguous copies that start 4 bytes into their storage.
+    v_off = torch.empty(n * k + 1, device="cuda")[1:].view(n, k)
+    i_off = torch.empty(n * k + 1, dtype=torch.int32,
+                        device="cuda")[1:].view(n, k)
+    v_off.copy_(v)
+    i_off.copy_(i)
+    assert v_off.is_contiguous() and not tk._aligned(v_off, i_off)
+    assert tk._launch_shape(n, k, tk._aligned(v_off, i_off), 132,
+                            100_001).path == "scalar"
+    got = _launch_twice(t, v_off, i_off)
+    want = tk.gather_rowsum_reference(t, v, i)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(5, 2), (5, 32), (70_000, 32)])
+def test_cuda_padding_under_inf_gives_nan(n, k):
+    """0 · inf = NaN on every path, as in the plain version (the last
+    case copies the table into shared memory)."""
+    table = np.arange(10, dtype=np.float32)
+    table[0] = np.inf
+    vals = np.ones((n, k), np.float32)
+    ids = np.full((n, k), 3, np.int32)
+    vals[1, -1], ids[1, -1] = 0.0, 0           # a padding slot
+    t, v, i = _cuda(table, vals, ids)
+    got = _launch_twice(t, v, i).cpu().numpy()
+    want = tk.gather_rowsum_reference(t, v, i).cpu().numpy()
+    assert np.isnan(got[1]) and np.isnan(want[1])
+    mask = np.arange(n) != 1
+    np.testing.assert_allclose(got[mask], want[mask], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,L,offset", [
+    (70_000, 32, 100_001, 0),    # head in shared memory, tail through L1
+    (70_000, 32, 100_001, 1),    # a table view not 16-byte aligned
+    (70_000, 33, 100_001, 0),    # the scalar path with the head
+    (70_000, 32, 1000, 0),       # every gather from shared memory
+    (30_000, 128, 58_000, 3),
+])
+def test_cuda_table_head_in_shared_memory(n, k, L, offset):
+    table, vals, ids = _power_law_inputs(7, L, n, k, model_scale=True)
+    ids[0, 0], ids[-1, -1] = 0, L - 1
+    ids[n // 2, 0] = min(L - 1, 56 * 1024)      # the first id past the head
+    t, v, i = _cuda(table, vals, ids)
+    t = torch.cat([torch.zeros(offset, device="cuda"), t])[offset:]
+    assert tk._launch_shape(n, k, True, 132, L).head == min(L, 56 * 1024)
+    got = _launch_twice(t, v, i)
     want = tk.gather_rowsum_reference(t, v, i)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=RTOL, atol=ATOL)
