@@ -16,12 +16,14 @@ raises on failure:
    nvcc per source, all started together;
 3. kernel check: each kernel against its plain PyTorch version on the
    card, with CUDA-event times beside the bound and a library call:
-   ``gather_rowsum`` at the serving path's shapes and at phase 6's ELL
-   training arrays (median of 20 samples of back-to-back calls, after 3
-   warm-ups, with the profiler's device ms beside), and checked at the
-   transposed-ELL widths 8, 128 and 512, every shape launched twice and
-   required bitwise equal; ``grr_contract_dense`` and
-   ``grr_contract`` at every level of the full-width GRR plan that phase
+   ``gather_rowsum`` at the serving path's shapes, at phase 6's ELL
+   training arrays and at their transposed ELL (``build_colmajor``,
+   auto capacity; the table a residual over the 900,000 rows, as in
+   ``ColMajorSlice.xt_dot``) (median of 20 samples of back-to-back
+   calls, after 3 warm-ups, with the profiler's device ms, the bound and
+   ``embedding_bag`` beside), and checked at the widths 8, 128 and 512,
+   every shape launched twice and required bitwise equal;
+   ``grr_contract_dense`` and ``grr_contract`` at every level of the full-width GRR plan that phase
    6 trains on (each direction, column range and overflow level), each
    level launched twice and required bitwise equal, and timed L2-cold
    (median of 20 single calls, each after a 128 MB write; a level read
@@ -50,15 +52,53 @@ raises on failure:
    AUC reach 0.70, the objective's value, gradient, Hessian-vector
    product and Hessian diagonal agree with a float64 scipy reference,
    and the same fit on the plain-ELL layout end at the same loss, having
-   launched ``gather_rowsum`` at least once an evaluation.  Then one
-   ``value_and_gradient`` is timed on both layouts beside one cuSPARSE
-   product per direction, the plain-ELL one's device ms split by kernel.
+   launched ``gather_rowsum`` at least once an evaluation; the same fit
+   on the transposed-ELL layout must end within 1e-3 of the ELL one and
+   launch ``gather_rowsum`` twice a value-and-gradient.  Config 2
+   (squared loss, L2, TRON, 20 iterations) runs on the ELL and the
+   transposed-ELL layout of the same arrays: the loss must fall, the two
+   end within 1e-3, and TRON's final gradient norm must be below that of
+   L-BFGS on the same problem.  Then one ``value_and_gradient`` is timed
+   on the three layouts beside one cuSPARSE product per direction, the
+   plain-ELL one's device ms split by kernel and the transposed-ELL
+   one's into B1 X·w, B1 Xᵀr, the fold and the rest;
+7. GAME training: config 5 at the phase-4 widths (the fixed effect over
+   100,000 power-law columns, 30 a row, plus an intercept; a per-user
+   random effect over 100,000 power-law entities x [1, x]; a per-item
+   one x [1]), 10^6 rows made from seed 7, 10% held out;
+   ``GameEstimator(TrainingConfig(...)).fit`` for 2 coordinate-descent
+   sweeps with L-BFGS on every coordinate, once on the ELL and once on
+   the transposed-ELL layout, beside a fixed-only fit.  The held-out AUC
+   must beat the fixed-only one, the two layouts' AUCs agree within
+   1e-3, ``gather_rowsum`` launch at least once inside every fixed-effect
+   evaluation (``SparseBatch.margins``) and, on the transposed ELL, once
+   inside every gradient (``SparseBatch.xt_dot``), 64 converged entity
+   lanes drawn across every bucket of
+   both random effects each reach, within 1e-4 relative, the objective
+   of a float64 scipy solve of that entity's problem (with the offsets
+   its last solve saw), and the saved model, served by
+   ``ScoringEngine``, give the transformer's margins to 1e-4.  Then
+   ``gather_rowsum`` is checked and timed as in phase 3 on phase 7's
+   own arrays: the fixed effect's ELL as the estimator builds it
+   (900,000 x 31 with the intercept), its transposed ELL, and the
+   transformer's first scoring chunk of the held-out rows.  Printed:
+   the wall a sweep and a coordinate, each bucket's entities, capacity,
+   iterations and solve wall, one profiled sweep's device busy ms and
+   idle share, and the fixed effect's evaluation on the ELL and the
+   transposed-ELL layout split by part;
+8. driver: ``python -m photon_ml_torch.cli.game_training_driver`` in a
+   subprocess, on the card, on the committed config-4 Avro fixture: it
+   exits 0 and reproduces ``tests/resources/golden.json``'s config-4 AUC
+   and fixed-effect coefficients within 2e-3.
 
 The line before the card's and the result's is one JSON object with a
 ``kernels`` list: per kernel its launches on its path (``gather_rowsum``:
-phase 4, and phase 6's ELL fit as ``launches_ell_fit``; the GRR kernels:
-phase 6's GRR fit), the largest kernel-vs-plain
-difference over all checked shapes, and its times and bound (``gather_
+phase 4; phase 6's ELL and transposed-ELL fits as ``launches_ell_fit``
+and ``launches_colmajor_fit``; phase 7's ELL GAME fit as
+``launches_game_fit``; the GRR kernels: phase 6's GRR fit), the largest
+kernel-vs-plain
+difference over all checked shapes (``gather_rowsum``: phases 3 and 7),
+and its times and bound (``gather_
 rowsum``: at the serving bucket, 64 rows x 32 slots; the GRR kernels:
 L2-cold, summed over the plan levels they run, i.e. one X·w plus one
 Xᵀr, with the warm sums beside);
@@ -84,13 +124,25 @@ import numpy as np
 import torch
 
 from photon_ml_torch import native
-from photon_ml_torch.config import ServingConfig, config_to_json
+from photon_ml_torch.config import (
+    CoordinateConfig,
+    CoordinateKind,
+    OptimizerSettings,
+    ServingConfig,
+    TrainingConfig,
+    config_to_json,
+)
 from photon_ml_torch.data import grr as grr_mod
-from photon_ml_torch.data.batch import make_sparse_batch
+from photon_ml_torch.data.batch import SparseBatch, make_sparse_batch
+from photon_ml_torch.data.colmajor import build_colmajor
 from photon_ml_torch.data.normalization import NormalizationContext
 from photon_ml_torch.data.sparse_rows import SparseRows
-from photon_ml_torch.evaluation.evaluators import auc
-from photon_ml_torch.game.dataset import EntityGrouping
+from photon_ml_torch.estimators import game_transformer
+from photon_ml_torch.estimators.game_estimator import GameEstimator
+from photon_ml_torch.estimators.game_transformer import GameTransformer
+from photon_ml_torch.evaluation.evaluators import EvaluatorType, auc
+from photon_ml_torch.game import coordinates as game_coordinates
+from photon_ml_torch.game.dataset import EntityGrouping, GameDataset
 from photon_ml_torch.io.model_io import load_game_model, save_game_model
 from photon_ml_torch.kernels import _build
 from photon_ml_torch.models import (
@@ -111,10 +163,11 @@ from photon_ml_torch.ops.grr_kernel import (
 from photon_ml_torch.ops.kernels import gather_rowsum, gather_rowsum_reference
 from photon_ml_torch.ops.objective import GLMObjective
 from photon_ml_torch.ops.regularization import RegularizationContext
-from photon_ml_torch.optim.base import OptimizerConfig
+from photon_ml_torch.optim.base import OptimizerConfig, OptimizerType
 from photon_ml_torch.optim.problem import OptimizationProblem
-from photon_ml_torch.serving.engine import ScoringEngine
+from photon_ml_torch.serving.engine import ScoringEngine, dataset_rows
 from photon_ml_torch.serving.server import ModelServer
+from photon_ml_torch.utils.run_log import RunLogger, read_run_log
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "smoke")
@@ -177,6 +230,34 @@ GRR_RTOL, GRR_ATOL_SCALE = 1e-5, 1e-5
 FLUSH_BYTES = 128 << 20
 SPIN_CYCLES = 2_000_000
 GRR_BOUND_SLACK = 1.05
+# B1 at the transposed-ELL arrays (virtual rows of up to 512 slots, the
+# residual as the table): sums of up to 512 terms of |r| < 1, so float32
+# rounding in two summation orders reaches ~1e-5 on near-zero sums.
+COLMAJOR_ATOL = 1e-5
+# Phase 6, config 2 (squared loss, L2, TRON) beside L-BFGS on the same
+# problem, both 20 iterations.
+TRON_ITERS = 20
+
+# Phase 7: config 5 GAME training at the phase-4 widths, 10^6 rows made
+# from seed 7 (10% held out), two coordinate-descent sweeps of L-BFGS on
+# every coordinate, once a fixed-effect layout.
+GAME_ROWS = 1_000_000
+GAME_SWEEPS = 2
+GAME_FE_ITERS, GAME_RE_ITERS = 20, 30
+GAME_L2 = 1.0
+GAME_LAYOUT_AUC_ATOL = 1e-3
+# Per-entity check: converged lanes drawn across every bucket of both
+# random effects, their objective against a float64 scipy solve of the
+# entity's own problem (the offsets its last solve saw).
+GAME_ENTITY_CHECKS = 64
+GAME_ENTITY_RTOL = 1e-4
+# The saved model served by ScoringEngine against the transformer.
+GAME_SERVE_ROWS, GAME_SERVE_ATOL = 256, 1e-4
+
+# Phase 8: the training driver on the committed config-4 fixture, at
+# the tolerances of tests/test_fixtures.py.
+FIXTURES = os.path.join(REPO, "tests", "resources")
+DRIVER_AUC_ATOL, DRIVER_COEF_TOL = 2e-3, 2e-3
 
 
 # -- the model and its float64 reference -------------------------------------
@@ -287,7 +368,8 @@ def kernel_inputs(rng, table: torch.Tensor, n: int, k: int):
     return (torch.from_numpy(vals).to(dev), torch.from_numpy(ids).to(dev))
 
 
-def check_gather_rowsum(table: torch.Tensor, vals, ids) -> float:
+def check_gather_rowsum(table: torch.Tensor, vals, ids,
+                        atol: float = ATOL) -> float:
     """Max |kernel − plain| on these inputs; raises past the tolerance or
     if two launches differ."""
     got = gather_rowsum(table, vals, ids)
@@ -301,7 +383,7 @@ def check_gather_rowsum(table: torch.Tensor, vals, ids) -> float:
     got, want = got.cpu().numpy(), want.cpu().numpy()
     if not np.isfinite(got).all():
         raise AssertionError("gather_rowsum returned non-finite values")
-    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=atol)
     return float(np.max(np.abs(got - want))) if got.size else 0.0
 
 
@@ -361,48 +443,65 @@ def gather_rowsum_bound_ms(table, vals, ids) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels(table: torch.Tensor, seed: int, ell=None,
+def check_b1_case(name: str, tab, vals, ids, atol: float,
                   time_it: bool = True) -> dict:
+    """One B1 shape: launched twice (bitwise equal) and held against its
+    plain version; ``embedding_bag`` of the same inputs and the bound
+    beside; with ``time_it``, CUDA-event ms (back to back) and profiler
+    device ms of the kernel, the plain version and the library call."""
+    n, k = vals.shape
+    column = tab[:, None]
+    err = check_gather_rowsum(tab, vals, ids, atol)
+    library = torch.nn.functional.embedding_bag(
+        ids, column, per_sample_weights=vals, mode="sum")[:, 0]
+    lib_err = float((library - gather_rowsum_reference(
+        tab, vals, ids)).abs().max())
+    bound, bound_by = gather_rowsum_bound_ms(tab, vals, ids)
+    entry = {"shape": name, "n": n, "k": k, "table": tab.numel(),
+             "max_abs_err": err, "atol": atol,
+             "library_max_abs_err": lib_err,
+             "bound_ms": bound, "bound_by": bound_by}
+    if time_it:
+        reps = 100 if n * k < 1 << 20 else 5
+
+        def run():
+            return gather_rowsum(tab, vals, ids)
+
+        entry["ms"] = time_ms(run, reps)
+        entry["device_ms"] = device_ms(run, 20)
+        entry["plain_ms"] = time_ms(
+            lambda: gather_rowsum_reference(tab, vals, ids), reps)
+        entry["library_ms"] = time_ms(
+            lambda: torch.nn.functional.embedding_bag(
+                ids, column, per_sample_weights=vals, mode="sum"), reps)
+        entry["share_of_bound"] = bound / entry["ms"]
+    print(f"  gather_rowsum {name}: " + json.dumps(entry))
+    return entry
+
+
+def phase_kernels(table: torch.Tensor, seed: int, ell=None,
+                  colmajor=None, time_it: bool = True) -> dict:
     """B1 against its plain version at ``KERNEL_SHAPES``, at phase 6's
-    ELL training arrays ``ell`` (a ``SparseBatch``; ``table`` as its w)
-    and at ``WIDTH_SHAPES``; every shape launched twice and required
-    bitwise equal.  ``time_it``: the timed shapes get CUDA-event ms (back
-    to back) and profiler device ms beside the plain version's, the
-    library call's and the bound."""
+    ELL training arrays ``ell`` (a ``SparseBatch``; ``table`` as its w),
+    at their transposed ELL ``colmajor`` (a ``ColMajorSlice``; the table
+    a residual over the rows: the Xᵀr of a ``value_and_gradient``) and at
+    ``WIDTH_SHAPES``; every shape launched twice and required bitwise
+    equal.  ``time_it``: the timed shapes get CUDA-event ms (back to
+    back) and profiler device ms beside the plain version's, the library
+    call's and the bound."""
     rng = np.random.default_rng(seed)
-    column = table[:, None]
-    cases = [(f"{n}x{k}", *kernel_inputs(rng, table, n, k))
+    cases = [(f"{n}x{k}", table, *kernel_inputs(rng, table, n, k), ATOL)
              for n, k in KERNEL_SHAPES]
     if ell is not None:
-        cases.append(("ell_train", ell.values, ell.col_ids))
-    shapes = []
-    for name, vals, ids in cases:
-        n, k = vals.shape
-        err = check_gather_rowsum(table, vals, ids)
-        library = torch.nn.functional.embedding_bag(
-            ids, column, per_sample_weights=vals, mode="sum")[:, 0]
-        lib_err = float((library - gather_rowsum_reference(
-            table, vals, ids)).abs().max())
-        bound, bound_by = gather_rowsum_bound_ms(table, vals, ids)
-        entry = {"shape": name, "n": n, "k": k, "max_abs_err": err,
-                 "library_max_abs_err": lib_err,
-                 "bound_ms": bound, "bound_by": bound_by}
-        if time_it:
-            reps = 100 if n * k < 1 << 20 else 5
-
-            def run():
-                return gather_rowsum(table, vals, ids)
-
-            entry["ms"] = time_ms(run, reps)
-            entry["device_ms"] = device_ms(run, 20)
-            entry["plain_ms"] = time_ms(
-                lambda: gather_rowsum_reference(table, vals, ids), reps)
-            entry["library_ms"] = time_ms(
-                lambda: torch.nn.functional.embedding_bag(
-                    ids, column, per_sample_weights=vals, mode="sum"), reps)
-            entry["share_of_bound"] = bound / entry["ms"]
-        shapes.append(entry)
-        print(f"  gather_rowsum {name}: " + json.dumps(entry))
+        cases.append(("ell_train", table, ell.values, ell.col_ids, ATOL))
+    if colmajor is not None:
+        # The residual of a logistic fit at a point near zero.
+        w = torch.from_numpy(rng.normal(0, 0.05, ell.dim).astype(
+            np.float32)).to(table.device)
+        r = (torch.sigmoid(ell.margins(w)) - ell.labels).contiguous()
+        cases.append(("colmajor_train", r, colmajor.tvals, colmajor.trows,
+                      COLMAJOR_ATOL))
+    shapes = [check_b1_case(*case, time_it=time_it) for case in cases]
     for n, k in WIDTH_SHAPES:
         vals, ids = kernel_inputs(rng, table, n, k)
         shapes.append({"shape": f"{n}x{k}", "n": n, "k": k,
@@ -414,6 +513,7 @@ def phase_kernels(table: torch.Tensor, seed: int, ell=None,
         "source": "photon_ml_torch/csrc/gather_rowsum.cu",
         "replaces": "photon_ml_tpu/ops/kernels.py:65",
         "launches": None, "launches_ell_fit": None,
+        "launches_colmajor_fit": None, "launches_game_fit": None,
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": main.get("ms"), "device_ms": main.get("device_ms"),
         "plain_ms": main.get("plain_ms"),
@@ -421,6 +521,8 @@ def phase_kernels(table: torch.Tensor, seed: int, ell=None,
         "library_ms": main.get("library_ms"),
         "library_call": "torch.nn.functional.embedding_bag(mode='sum')",
         "shape": [main["n"], main["k"]],
+        "transposed_shape": next(([s["n"], s["k"]] for s in shapes
+                                  if s["shape"] == "colmajor_train"), None),
         "shapes": shapes,
     }
 
@@ -640,6 +742,15 @@ def make_training_data(seed: int, n: int, d: int = D, k: int = NNZ):
     labels from a planted sparse ``w_true``; then an intercept column
     ``d``.  Returns (SparseRows [n, d + 1], labels)."""
     rng = np.random.default_rng(seed)
+    rows, w_true = _power_law_rows(rng, n, d, k)
+    margins = rows.dot_dense(w_true).astype(np.float64) - 1.0
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-margins))).astype(np.float32)
+    return rows.with_constant_col(d), y
+
+
+def _power_law_rows(rng, n: int, d: int, k: int):
+    """(SparseRows [n, d] of ``k`` distinct power-law columns a row,
+    values 1.0; a planted sparse w_true [d])."""
     cols = np.sort(((d - k) * rng.random((n, k)) ** 2.2).astype(np.int64),
                    axis=1)
     for j in range(1, k):
@@ -651,15 +762,14 @@ def make_training_data(seed: int, n: int, d: int = D, k: int = NNZ):
     n_active = max(d // 20, 200)
     active = rng.choice(d, size=n_active, replace=False)
     w_true[active] = rng.normal(0, 1.2, n_active)
-    margins = rows.dot_dense(w_true).astype(np.float64) - 1.0
-    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-margins))).astype(np.float32)
-    return rows.with_constant_col(d), y
+    return rows, w_true
 
 
 def phase_train_build(seed: int, n: int, device: str) -> dict:
     """Training data; the GRR plan built on the host (the C++ builder
     must be loaded) and placed on ``device``; the plain-ELL view of the
-    same batch; the held-out batch."""
+    same batch and its transposed-ELL view (``build_colmajor``, auto
+    capacity); the held-out batch."""
     if not native.native_available():
         raise RuntimeError("the native GRR plan builder did not load "
                            "(g++ missing?); the numpy fallback would take "
@@ -676,10 +786,19 @@ def phase_train_build(seed: int, n: int, device: str) -> dict:
     phases = dict(grr_mod.last_build_phases)
     test = make_sparse_batch(rows[n_train:], dim, y[n_train:],
                              row_capacity=ELL_CAP, device=device)
+    ell = dataclasses.replace(batch, grr=None)
+    t = time.perf_counter()
+    cm = build_colmajor(ell.col_ids.cpu().numpy(), ell.values.cpu().numpy(),
+                        dim, device=device)
+    colmajor_s = time.perf_counter() - t
     return {
-        "grr": batch, "ell": dataclasses.replace(batch, grr=None),
+        "grr": batch, "ell": ell,
+        "colmajor": dataclasses.replace(ell, colmajor=cm),
         "test": test, "rows": rows[:n_train], "labels": y[:n_train],
         "info": {
+            "colmajor_build_s": colmajor_s,
+            "colmajor_virtual_rows": cm.n_virtual_rows,
+            "colmajor_capacity": cm.capacity,
             "rows": n, "train_rows": n_train, "dim": dim,
             "slots_a_row": int(rows.max_nnz), "ell_capacity": ELL_CAP,
             "positives": float(y.mean()), "data_s": data_s,
@@ -866,8 +985,8 @@ def phase_kernels_grr(pair, seed: int, time_it: bool = True) -> list:
         for key in ("ms", "ms_warm", "device_ms_warm", "plain_ms",
                     "plain_ms_warm", "library_ms", "library_ms_warm",
                     "bound_ms"):
-            entry[key] = (sum(lv[key] for lv in mine)
-                          if key in mine[0] else None)
+            got = [lv.get(key) for lv in mine]
+            entry[key] = (None if None in got else sum(got))
         entries.append(entry)
     return entries
 
@@ -907,13 +1026,14 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
     import scipy.sparse as sp
 
     batch, ell, test = data["grr"], data["ell"], data["test"]
+    cmb = data["colmajor"]
     dev, dim = batch.labels.device, batch.dim
     obj = GLMObjective(losses.LOGISTIC, RegularizationContext.l2(TRAIN_L2),
                        NormalizationContext.identity())
     problem = OptimizationProblem(obj,
                                   config=OptimizerConfig(max_iters=TRAIN_ITERS))
     w0 = torch.zeros(dim, device=dev)
-    for b in (batch, ell):     # first-call costs (cuBLAS handles) not timed
+    for b in (batch, ell, cmb):   # first-call costs (cuBLAS handles) not timed
         obj.value_and_gradient(w0, b)
 
     grr_contract_dense.launches = grr_contract.launches = 0
@@ -925,6 +1045,9 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
     gather_rowsum.launches = 0
     res_ell, fit_ell_s = _fit(problem, ell, w0)
     ell_launches = gather_rowsum.launches
+    gather_rowsum.launches = 0
+    res_cm, fit_cm_s = _fit(problem, cmb, w0)
+    cm_launches = gather_rowsum.launches
     w0_perturbed = PERTURBATION * torch.from_numpy(
         np.random.default_rng(6).normal(size=dim).astype(np.float32)).to(dev)
     res_perturbed, _ = _fit(problem, batch, w0_perturbed)
@@ -934,7 +1057,11 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
         return {"loss": t.values[: t.count].tolist(),
                 "ls_trials": t.ls_trials[1: t.count].tolist()}
 
-    traj = {"grr": trajectory(res), "ell": trajectory(res_ell)}
+    traj = {"grr": trajectory(res), "ell": trajectory(res_ell),
+            "colmajor": trajectory(res_cm)}
+    # Every value_and_gradient of the transposed-ELL fit launches B1
+    # twice (X·w and Xᵀr): one at the start and one an iteration.
+    cm_vg = res_cm.iterations + 1
     # Every evaluation computes X·w once: one per iteration plus the
     # start (value and gradient), one per line-search trial (value).
     ell_evaluations = res_ell.iterations + 1 + int(
@@ -945,6 +1072,7 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
         return abs(float(a) - float(b)) / abs(float(b))
 
     loss_gap = gap(res_ell.value, res.value)
+    cm_loss_gap = gap(res_cm.value, res_ell.value)
     self_gap = gap(res_perturbed.value, res.value)
     early_gap = max(gap(a, b) for a, b in zip(
         traj["ell"]["loss"][: TRAJECTORY_ITERS + 1],
@@ -960,7 +1088,7 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
     w_t = torch.from_numpy(w.astype(np.float32)).to(dev)
     v_t = torch.from_numpy(v.astype(np.float32)).to(dev)
     errors = {}
-    for layout, b in (("grr", batch), ("ell", ell)):
+    for layout, b in (("grr", batch), ("ell", ell), ("colmajor", cmb)):
         val, grad = obj.value_and_gradient(w_t, b)
         got = {"gradient": grad,
                "hessian_vector": obj.hessian_vector(w_t, v_t, b),
@@ -981,14 +1109,27 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
         "test_auc": test_auc, "f64_errors": errors,
         "launches": launches, "ell_gather_rowsum_launches": ell_launches,
         "ell_evaluations": ell_evaluations,
+        "loss_final_colmajor": float(res_cm.value),
+        "colmajor_loss_gap_rel": cm_loss_gap,
+        "colmajor_gather_rowsum_launches": cm_launches,
+        "colmajor_value_and_gradients": cm_vg, "fit_colmajor_s": fit_cm_s,
         "value_evaluations": int(sum(traj["grr"]["ls_trials"])),
         "gradient_evaluations": res.iterations + 1,
         "fit_s": fit_s, "fit_ell_s": fit_ell_s, "trajectories": traj,
     }
+    config2 = phase_config2(ell, cmb)
+    out["config2"] = config2
     if time_it:
-        out.update(time_evaluations(obj, batch, ell, X, w_t))
+        out.update(time_evaluations(obj, batch, ell, X, w_t, cmb))
 
-    failures = []
+    failures = list(config2["failures"])
+    if dev.type == "cuda" and cm_launches < 2 * cm_vg:
+        failures.append(f"the transposed-ELL fit launched gather_rowsum "
+                        f"{cm_launches} time(s) for {cm_vg} value and "
+                        "gradient evaluations (2 each)")
+    if not cm_loss_gap <= LAYOUT_LOSS_RTOL:
+        failures.append(f"transposed-ELL and ELL fits end {cm_loss_gap:g} "
+                        f"apart (relative) > {LAYOUT_LOSS_RTOL:g}")
     if dev.type == "cuda" and ell_launches < ell_evaluations:
         failures.append(f"the ELL fit launched gather_rowsum {ell_launches} "
                         f"time(s) for {ell_evaluations} evaluations")
@@ -1013,25 +1154,86 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
     return out
 
 
-def device_kernels_ms(fn, n: int = 5) -> dict:
+def phase_config2(ell, cmb) -> dict:
+    """Config 2 (squared loss, L2, TRON) on the ELL and transposed-ELL
+    layouts of the same arrays, and L-BFGS on the ELL one: the loss must
+    fall, the layouts end within ``LAYOUT_LOSS_RTOL`` and TRON's final
+    gradient norm must be below L-BFGS's."""
+    obj = GLMObjective(losses.SQUARED, RegularizationContext.l2(TRAIN_L2),
+                       NormalizationContext.identity())
+    cfg = OptimizerConfig(max_iters=TRON_ITERS)
+    w0 = torch.zeros(ell.dim, device=ell.labels.device)
+    tron = OptimizationProblem(obj, OptimizerType.TRON, cfg)
+    out, fits = {"failures": []}, {}
+    for layout, b in (("ell", ell), ("colmajor", cmb)):
+        res, fit_s = _fit(tron, b, w0)
+        fits[layout] = res
+        t = res.tracker
+        out[f"tron_{layout}"] = {
+            "iterations": res.iterations, "converged": res.converged,
+            "loss_first": float(t.values[0]),
+            "loss_final": float(res.value),
+            "grad_norm": float(res.grad_norm),
+            "cg_iterations": t.ls_trials[1: t.count].tolist(),
+            "fit_s": fit_s}
+        if not float(res.value) < float(t.values[0]):
+            out["failures"].append(f"config-2 TRON loss did not fall on "
+                                   f"{layout}")
+    lb, lb_s = _fit(OptimizationProblem(obj, config=cfg), ell, w0)
+    out["lbfgs_ell"] = {"iterations": lb.iterations,
+                        "loss_final": float(lb.value),
+                        "grad_norm": float(lb.grad_norm), "fit_s": lb_s}
+    gap = abs(float(fits["colmajor"].value) - float(fits["ell"].value)) \
+        / abs(float(fits["ell"].value))
+    out["layout_loss_gap_rel"] = gap
+    if not gap <= LAYOUT_LOSS_RTOL:
+        out["failures"].append(f"config-2 TRON fits end {gap:g} apart "
+                               f"(relative) > {LAYOUT_LOSS_RTOL:g}")
+    if not float(fits["ell"].grad_norm) < float(lb.grad_norm):
+        out["failures"].append(
+            f"config-2 TRON ends at gradient norm "
+            f"{float(fits['ell'].grad_norm):g}, not below L-BFGS's "
+            f"{float(lb.grad_norm):g} after {TRON_ITERS} iterations each")
+    return out
+
+
+def split_colmajor_evaluation(by_name: dict, xw_ms: float) -> dict:
+    """A transposed-ELL evaluation's device ms by part: B1's X·w
+    (``xw_ms``: B1's time in a plain-ELL evaluation of the same row
+    arrays), B1's Xᵀr (the rest of B1's time), the float64 fold
+    (PyTorch's ``indexFunc*`` kernels), and the rest."""
+    parts = {"gather_rowsum_xw": xw_ms, "gather_rowsum_xtr": -xw_ms,
+             "fold": 0.0, "rest": 0.0}
+    for name, ms in by_name.items():
+        key = ("gather_rowsum_xtr" if "gather_rowsum" in name
+               else "fold" if "indexFunc" in name else "rest")
+        parts[key] += ms
+    return parts
+
+
+def device_kernels_ms(fn, n: int = 5, tries: int = 3) -> dict:
     """Device ms per call by kernel (or copy) name: the device events of
     ``n`` calls in a ``torch.profiler`` trace, summed by name, over
-    ``n``; empty where the trace holds no device event."""
+    ``n``.  A trace now and then comes back without device events; it
+    is taken again, up to ``tries`` traces; empty if none holds one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / n / 1e3)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / n / 1e3)
+        if by_name:
+            break
     return by_name
 
 
@@ -1055,7 +1257,7 @@ def split_ell_evaluation(by_name: dict) -> dict:
     return parts
 
 
-def time_evaluations(obj, batch, ell, X, w_t) -> dict:
+def time_evaluations(obj, batch, ell, X, w_t, cmb=None) -> dict:
     """CUDA-event ms of one ``value_and_gradient`` on each layout (back to
     back: the host's launch rate sets it where the host is slower), of one
     cuSPARSE CSR product per direction, and of the GRR evaluation's
@@ -1107,6 +1309,487 @@ def time_evaluations(obj, batch, ell, X, w_t) -> dict:
         out[f"vg_{layout}_idle_share"] = (
             None if busy is None else max(0.0, 1.0 - busy
                                           / out[f"vg_{layout}_ms"]))
+    if cmb is not None:
+        # B1's X·w runs on the same row-ELL arrays in both layouts: the
+        # plain-ELL evaluation's B1 time is the transposed one's X·w.
+        out["vg_colmajor_ms"] = time_ms(
+            lambda: obj.value_and_gradient(w_t, cmb), 5)
+        split = split_colmajor_evaluation(
+            device_kernels_ms(lambda: obj.value_and_gradient(w_t, cmb)),
+            out["vg_ell_device_split_ms"]["gather_rowsum"])
+        busy = sum(split.values()) or None
+        out["vg_colmajor_device_split_ms"] = split
+        out["vg_colmajor_device_ms"] = busy
+        out["vg_colmajor_idle_share"] = (
+            None if busy is None else max(0.0, 1.0 - busy
+                                          / out["vg_colmajor_ms"]))
+    return out
+
+
+# -- phase 7: config 5 GAME training ------------------------------------------
+
+
+def make_game_data(seed: int, n: int, d: int = D, k: int = NNZ,
+                   n_entities: int = N_ENTITIES) -> GameDataset:
+    """Config-5 rows (the generator of examples/kdd_scale.py at the
+    phase-4 widths): ``k`` power-law columns of ``d`` a row (the
+    estimator adds the intercept), power-law user and item ids over
+    ``n_entities`` each, a user shard [1, x] and an item shard [1];
+    labels from planted global, per-user (2) and per-item (1) effects."""
+    rng = np.random.default_rng(seed)
+    rows, w_true = _power_law_rows(rng, n, d, k)
+    user = (n_entities * rng.random(n) ** 1.8).astype(np.int64)
+    item = (n_entities * rng.random(n) ** 1.8).astype(np.int64)
+    u_eff = rng.normal(0, 1.0, (n_entities, P_USER)) * [1.2, 0.5]
+    i_eff = rng.normal(0, 0.8, n_entities)
+    x_user = np.stack([np.ones(n), rng.normal(size=n)], 1).astype(np.float32)
+    margins = (rows.dot_dense(w_true).astype(np.float64)
+               + (u_eff[user] * x_user).sum(1) + i_eff[item] - 1.0)
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-margins))).astype(np.float32)
+    return GameDataset(
+        labels=y, features={"global": rows, "user_re": x_user,
+                            "item_re": np.ones((n, P_ITEM), np.float32)},
+        entity_ids={"userId": user, "itemId": item},
+        feature_dims={"global": d})
+
+
+def game_config(layout: str, device: str, fixed_only: bool = False,
+                sweeps: int = GAME_SWEEPS) -> TrainingConfig:
+    """Config 5: logistic, L2, L-BFGS on the fixed effect and on the
+    per-user and per-item random effects (or the fixed effect alone)."""
+    coords = [CoordinateConfig(
+        "global", CoordinateKind.FIXED_EFFECT, "global",
+        optimizer=OptimizerSettings(max_iters=GAME_FE_ITERS,
+                                    reg_weight=GAME_L2))]
+    if not fixed_only:
+        coords += [CoordinateConfig(
+            name, CoordinateKind.RANDOM_EFFECT, shard, entity_key=key,
+            optimizer=OptimizerSettings(max_iters=GAME_RE_ITERS,
+                                        reg_weight=GAME_L2))
+            for name, shard, key in (("per_user", "user_re", "userId"),
+                                     ("per_item", "item_re", "itemId"))]
+    return TrainingConfig(
+        task_type=TaskType.LOGISTIC_REGRESSION, coordinates=coords,
+        update_sequence=[c.name for c in coords], n_iterations=sweeps,
+        evaluators=[EvaluatorType.AUC], sparse_layout=layout, device=device)
+
+
+class _FitProbe:
+    """Counts, during a fit, the fixed-effect evaluations (each calls
+    ``SparseBatch.margins`` once; scoring calls ``x_dot``) and the
+    gradients (``SparseBatch.xt_dot``), with the B1 launches made inside
+    each, and times each bucket's lane-batched solve."""
+
+    def __enter__(self):
+        self.margins_calls = self.margins_launches = 0
+        self.xt_dot_calls = self.xt_dot_launches = 0
+        self.buckets: list = []
+        self._margins = SparseBatch.margins
+        self._xt_dot = SparseBatch.xt_dot
+        self._solve = game_coordinates.solve_batched
+        probe = self
+
+        def margins(batch, w):
+            before = gather_rowsum.launches
+            out = probe._margins(batch, w)
+            probe.margins_calls += 1
+            probe.margins_launches += gather_rowsum.launches - before
+            return out
+
+        def xt_dot(batch, r):
+            before = gather_rowsum.launches
+            out = probe._xt_dot(batch, r)
+            probe.xt_dot_calls += 1
+            probe.xt_dot_launches += gather_rowsum.launches - before
+            return out
+
+        def solve(problem, batches, w0s):
+            t = time.perf_counter()
+            res = probe._solve(problem, batches, w0s)
+            iters = int(res.iterations.max())      # waits for the card
+            probe.buckets.append({
+                "entities": int(batches.x.shape[0]),
+                "capacity": int(batches.x.shape[1]),
+                "width": int(batches.x.shape[2]),
+                "max_iterations": iters,
+                "solve_s": time.perf_counter() - t})
+            return res
+
+        SparseBatch.margins = margins
+        SparseBatch.xt_dot = xt_dot
+        game_coordinates.solve_batched = solve
+        return self
+
+    def __exit__(self, *exc):
+        SparseBatch.margins = self._margins
+        SparseBatch.xt_dot = self._xt_dot
+        game_coordinates.solve_batched = self._solve
+        return False
+
+
+def _fit_game(config: TrainingConfig, train, valid) -> dict:
+    """One ``GameEstimator.fit`` with its B1 launches, fixed-effect
+    evaluations, bucket solves and the run log's sweep and coordinate
+    walls."""
+    log_path = os.path.join(WORK, f"game_{time.monotonic_ns()}.jsonl")
+    gather_rowsum.launches = 0
+    with RunLogger(log_path) as log, _FitProbe() as probe:
+        t = time.perf_counter()
+        result = GameEstimator(config).fit(train, valid, run_logger=log)[0]
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    events = read_run_log(log_path)
+    coord_s: dict = {}
+    for e in events:
+        if e["event"] == "cd_coordinate":
+            coord_s.setdefault(e["iteration"], {})[e["coordinate"]] = \
+                e["duration_s"]
+    return {"result": result, "wall_s": wall,
+            "launches": gather_rowsum.launches,
+            "fe_evaluations": probe.margins_calls,
+            "fe_evaluation_launches": probe.margins_launches,
+            "fe_gradients": probe.xt_dot_calls,
+            "fe_gradient_launches": probe.xt_dot_launches,
+            "buckets": probe.buckets,
+            "sweep_coordinate_s": coord_s,
+            "auc": float(result.evaluations[EvaluatorType.AUC]),
+            "auc_by_sweep": [float(v[EvaluatorType.AUC])
+                             for v in result.validation_history]}
+
+
+def _entity_problem_check(result, train: GameDataset, n_checks: int,
+                          seed: int) -> dict:
+    """For ``n_checks`` converged lanes drawn across every bucket of both
+    random effects: the lane's float64 objective (with the offsets its
+    last solve saw) against a float64 scipy L-BFGS-B solve of the
+    entity's own problem."""
+    import scipy.optimize
+
+    rng = np.random.default_rng(seed)
+    cd = result.descent
+    res_names = [n for n, m in result.model.models.items()
+                 if isinstance(m, RandomEffectModel)]
+    # One converged lane from every bucket first, then the rest at random.
+    pools, skipped = [], 0
+    for name in res_names:
+        for b, r in enumerate(cd.last_results[name]):
+            conv = r.converged.cpu().numpy()
+            skipped += int((~conv).sum())
+            slots = rng.permutation(np.flatnonzero(conv))
+            pools += [[(name, b, int(s)) for s in slots]]
+    picks = [p[0] for p in pools if p]
+    rest = [t for p in pools for t in p[1:]]
+    extra = max(0, n_checks - len(picks))
+    picks += [rest[i] for i in rng.choice(len(rest), min(extra, len(rest)),
+                                          replace=False)]
+    worst, checked = 0.0, []
+    y_all = train.labels.astype(np.float64)
+    for name, b, s in picks:
+        model = result.model.models[name]
+        g = model.grouping
+        e = int(np.flatnonzero((g.entity_bucket == b)
+                               & (g.entity_slot == s))[0])
+        ex = np.flatnonzero(g.example_entity == e)
+        x = train.features[model.feature_shard][ex].astype(np.float64)
+        y = y_all[ex]
+        off = cd.last_offsets[name][torch.from_numpy(ex).to(
+            cd.last_offsets[name].device)].double().cpu().numpy()
+
+        def f(w, x=x, y=y, off=off):
+            z = x @ w + off
+            return np.sum(np.logaddexp(0.0, z) - y * z) + 0.5 * GAME_L2 * w @ w
+
+        def grad(w, x=x, y=y, off=off):
+            z = x @ w + off
+            return x.T @ (1.0 / (1.0 + np.exp(-z)) - y) + GAME_L2 * w
+
+        opt = scipy.optimize.minimize(
+            f, np.zeros(x.shape[1]), jac=grad, method="L-BFGS-B",
+            options={"gtol": 1e-12, "ftol": 1e-15, "maxiter": 1000})
+        w_port = model.coefficient_blocks[b][s].double().numpy()
+        rel = (f(w_port) - opt.fun) / abs(opt.fun)
+        worst = max(worst, rel)
+        checked.append({"coordinate": name, "bucket": b,
+                        "examples": len(ex), "rel": rel})
+    checked.sort(key=lambda c: -c["rel"])
+    return {"checked": len(checked), "worst_rel": worst,
+            "unconverged_lanes": skipped, "worst_five": checked[:5]}
+
+
+def _serve_check(result, valid: GameDataset, device: str) -> float:
+    """The fit's model saved, loaded by ``ScoringEngine`` and served
+    ``GAME_SERVE_ROWS`` held-out rows; max |engine − transformer|."""
+    model_dir = os.path.join(WORK, "game_model")
+    save_game_model(result.model, TaskType.LOGISTIC_REGRESSION, model_dir)
+    model, task = load_game_model(model_dir)
+    engine = ScoringEngine(model, task, ell_row_capacity=ELL_CAP,
+                           spill_dir=os.path.join(WORK, "game_spill"),
+                           device=device)
+    n = min(GAME_SERVE_ROWS, valid.n)
+    sub = valid.take(np.arange(n))
+    want = GameTransformer(model=result.model, task=task,
+                           device=device).transform(sub)
+    got = []
+    for lo in range(0, n, BATCH_ROWS):
+        parsed = engine.parse_rows(dataset_rows(sub, lo, min(lo + BATCH_ROWS,
+                                                             n)))
+        got.append(engine.score_batch(parsed, BATCH_ROWS)[0])
+    engine.close()
+    return float(np.abs(np.concatenate(got) - want).max())
+
+
+def profile_sweep(train: GameDataset, device: str) -> dict:
+    """One coordinate-descent sweep of the ELL config (its coordinates
+    built first, outside the window) under ``torch.profiler``: the wall,
+    the device busy ms (the trace's device events summed) and the idle
+    share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_ml_torch.game.coordinate_descent import (
+        run_coordinate_descent,
+    )
+
+    est = GameEstimator(game_config("ELL", device, sweeps=1))
+    coords = est._build_coordinates(train, est._prepare(train), {})
+    seq = est.config.update_sequence
+    cuda = device != "cpu"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    run_coordinate_descent(coords, seq, 1)         # first-call costs
+    sync()
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        t = time.perf_counter()
+        run_coordinate_descent(coords, seq, 1)
+        sync()
+        wall = time.perf_counter() - t
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return {"wall_s": wall, "device_busy_ms": busy or None,
+            "idle_share": (max(0.0, 1.0 - busy / 1e3 / wall) if busy
+                           else None)}
+
+
+def fe_problem(train: GameDataset, device: str, layout: str) -> tuple:
+    """The phase-7 fixed effect's objective and the batch the estimator
+    builds for it (intercept included) on ``layout``."""
+    est = GameEstimator(game_config(layout, device, fixed_only=True,
+                                    sweeps=1))
+    prep = est._prepare(train)
+    coord = est._build_coordinates(train, prep, {})["global"]
+    return coord.problem.objective, prep["global"]["batch"]
+
+
+def game_kernel_cases(batch, model, valid: GameDataset, device: str,
+                      seed: int) -> list:
+    """B1's inputs on phase 7's own arrays, as ``check_b1_case`` takes
+    them: the fixed effect's ELL (the estimator's transposed-ELL batch,
+    intercept included, ``w`` near zero as the table), its transposed
+    ELL (the residual over the rows as the table) and, on the card, the
+    transformer's first scoring chunk of the held-out rows (the fitted
+    coefficients as the table), caught at its call."""
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.normal(0, 0.05, batch.dim).astype(
+        np.float32)).to(batch.labels.device)
+    r = (torch.sigmoid(batch.margins(w)) - batch.labels).contiguous()
+    cm = batch.colmajor
+    cases = [("game_fe_ell", w, batch.values, batch.col_ids, ATOL),
+             ("game_fe_colmajor", r, cm.tvals, cm.trows, COLMAJOR_ATOL)]
+    seen = []
+    real = game_transformer.gather_rowsum
+
+    def record(table, vals, ids):
+        seen.append((table, vals, ids))
+        return real(table, vals, ids)
+
+    game_transformer.gather_rowsum = record
+    try:
+        GameTransformer(model=model, task=TaskType.LOGISTIC_REGRESSION,
+                        device=device).transform(valid)
+    finally:
+        game_transformer.gather_rowsum = real
+    if device != "cpu":
+        if not seen:
+            raise AssertionError("phase 7: the transformer's scoring did "
+                                 "not call gather_rowsum")
+        table, vals, ids = seen[0]
+        # Phase 3's tolerance holds at terms |w·x| ≤ 1; the fitted
+        # coefficients' terms may be larger, and rounding scales with them.
+        scale = max(1.0, float(table.abs().max()) * float(vals.abs().max()))
+        cases.append(("game_score_chunk", table, vals, ids, ATOL * scale))
+    return cases
+
+
+def fe_evaluation_splits(problems: dict, time_it: bool = True) -> dict:
+    """The phase-7 fixed effect's ``value_and_gradient`` on the batch the
+    estimator builds for it (``fe_problem``), on the ELL and the
+    transposed-ELL layout: its shapes; with ``time_it``, the ms back to
+    back and the device ms by part (``split_ell_evaluation``,
+    ``split_colmajor_evaluation``)."""
+    out = {}
+    for layout in ("ELL", "COLMAJOR"):
+        obj, batch = problems[layout]
+        w = torch.from_numpy(np.random.default_rng(8).normal(
+            0, 0.05, batch.dim).astype(np.float32)).to(batch.labels.device)
+        entry = {"shape": list(batch.values.shape)}
+        if batch.colmajor is not None:
+            entry["transposed_shape"] = [batch.colmajor.n_virtual_rows,
+                                         batch.colmajor.capacity]
+        if time_it:
+            def fn(obj=obj, batch=batch):
+                return obj.value_and_gradient(w, batch)
+
+            entry["ms"] = time_ms(fn, 5)
+            by_name = device_kernels_ms(fn)
+            entry["device_ms"] = sum(by_name.values()) or None
+            entry["device_split_ms"] = (
+                split_ell_evaluation(by_name) if batch.colmajor is None
+                # X·w: the ELL evaluation's B1 time, on the same arrays.
+                else split_colmajor_evaluation(
+                    by_name, out["ell"]["device_split_ms"]["gather_rowsum"]))
+        out[layout.lower()] = entry
+    return out
+
+
+def phase_game(seed: int, n: int, device: str, d: int = D,
+               n_entities: int = N_ENTITIES, time_it: bool = True) -> dict:
+    """Config 5 at full width: ``GameEstimator.fit`` for ``GAME_SWEEPS``
+    sweeps on the ELL and the transposed-ELL layout, and a fixed-only
+    fit of the same data; the gates (module docstring, phase 7)."""
+    t = time.perf_counter()
+    data = make_game_data(seed, n, d=d, n_entities=n_entities)
+    n_train = n - int(n * TRAIN_HOLDOUT)
+    train, valid = data.take(slice(0, n_train)), data.take(slice(n_train, n))
+    out = {"rows": n, "train_rows": n_train, "data_s":
+           time.perf_counter() - t}
+    fits = {}
+    for layout in ("ELL", "COLMAJOR"):
+        fits[layout] = _fit_game(game_config(layout, device), train, valid)
+    fixed = _fit_game(game_config("ELL", device, fixed_only=True,
+                                  sweeps=1), train, valid)
+    res = fits["ELL"]["result"]
+    out["entity_check"] = _entity_problem_check(res, train,
+                                                GAME_ENTITY_CHECKS, seed)
+    out["serve_max_abs_err"] = _serve_check(res, valid, device)
+    for layout, f in fits.items():
+        hist = f["result"].descent.history
+        out[layout.lower()] = {
+            k: v for k, v in f.items() if k != "result"} | {
+            "re_convergence": [{c: h[c] for c in h if c != "global"}
+                               for h in hist],
+            "fe_solver_iterations": [h["global"]["solver_iterations"]
+                                     for h in hist]}
+    out["fixed_only"] = {"auc": fixed["auc"], "wall_s": fixed["wall_s"]}
+    problems = {layout: fe_problem(train, device, layout)
+                for layout in ("ELL", "COLMAJOR")}
+    out["kernel_shapes"] = [
+        check_b1_case(*case, time_it=time_it)
+        for case in game_kernel_cases(problems["COLMAJOR"][1], res.model,
+                                      valid, device, seed)]
+    if time_it and device != "cpu":
+        out["one_sweep_profiled"] = profile_sweep(train, device)
+        out["fe_evaluation_splits"] = fe_evaluation_splits(problems)
+    del problems
+
+    failures = []
+    ell, cm = fits["ELL"], fits["COLMAJOR"]
+    if not ell["auc"] > fixed["auc"]:
+        failures.append(f"GAME AUC {ell['auc']:.4f} does not beat the "
+                        f"fixed-only {fixed['auc']:.4f}")
+    if not abs(ell["auc"] - cm["auc"]) <= GAME_LAYOUT_AUC_ATOL:
+        failures.append(f"ELL and transposed-ELL AUCs {ell['auc']:.5f}, "
+                        f"{cm['auc']:.5f} differ by more than "
+                        f"{GAME_LAYOUT_AUC_ATOL}")
+    if device != "cpu":
+        for layout, f in fits.items():
+            if not f["fe_evaluation_launches"] >= f["fe_evaluations"] >= 1:
+                failures.append(
+                    f"{layout} fit launched gather_rowsum "
+                    f"{f['fe_evaluation_launches']} time(s) in "
+                    f"{f['fe_evaluations']} fixed-effect evaluations")
+        # The transposed ELL's Xᵀr is B1 too: with X·w, two launches a
+        # value-and-gradient.
+        if not cm["fe_gradient_launches"] >= cm["fe_gradients"] >= 1:
+            failures.append(
+                f"COLMAJOR fit launched gather_rowsum "
+                f"{cm['fe_gradient_launches']} time(s) in "
+                f"{cm['fe_gradients']} fixed-effect gradients")
+    ec = out["entity_check"]
+    if ec["checked"] < GAME_ENTITY_CHECKS or not (
+            ec["worst_rel"] <= GAME_ENTITY_RTOL):
+        failures.append(f"per-entity objectives: {ec['checked']} checked, "
+                        f"worst {ec['worst_rel']:g} > {GAME_ENTITY_RTOL:g}")
+    if not out["serve_max_abs_err"] <= GAME_SERVE_ATOL:
+        failures.append(f"served margins differ from the transformer's by "
+                        f"{out['serve_max_abs_err']:g} > {GAME_SERVE_ATOL}")
+    out["failures"] = failures
+    return out
+
+
+# -- phase 8: the training driver ------------------------------------------------
+
+
+def driver_config(out_dir: str) -> dict:
+    """tests/test_fixtures.py's config-4 run on the committed Avro
+    fixture."""
+    return {
+        "task_type": "LOGISTIC_REGRESSION",
+        "coordinates": [
+            {"name": "global", "kind": "FIXED_EFFECT",
+             "feature_shard": "global",
+             "optimizer": {"optimizer": "LBFGS", "reg_weight": 1.0,
+                           "max_iters": 100}},
+            {"name": "per_user", "kind": "RANDOM_EFFECT",
+             "feature_shard": "user_re", "entity_key": "userId",
+             "optimizer": {"optimizer": "LBFGS", "reg_weight": 2.0,
+                           "max_iters": 60}},
+        ],
+        "update_sequence": ["global", "per_user"],
+        "n_iterations": 2,
+        "input_path": os.path.join(FIXTURES, "config4_train.avro"),
+        "validation_path": os.path.join(FIXTURES, "config4_valid.avro"),
+        "output_dir": out_dir,
+        "evaluators": ["AUC"],
+    }
+
+
+def phase_driver(device_args: list) -> dict:
+    """``python -m photon_ml_torch.cli.game_training_driver`` in a
+    subprocess on the config-4 fixture: rc 0, and the saved model and
+    summary reproduce ``golden.json["config4"]``."""
+    out_dir = os.path.join(WORK, "driver_out")
+    cfg_path = os.path.join(WORK, "driver.json")
+    with open(cfg_path, "w") as f:
+        json.dump(driver_config(out_dir), f)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "photon_ml_torch.cli.game_training_driver",
+         "--config", cfg_path, *device_args],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 8: the driver exited {proc.returncode}:"
+                             f" {proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    with open(os.path.join(FIXTURES, "golden.json")) as f:
+        want = json.load(f)["config4"]
+    model, _ = load_game_model(os.path.join(out_dir, "model"))
+    w = model.models["global"].coefficients.means.numpy()
+    auc_v = summary["models"][0]["evaluations"]["AUC"]
+    coef_err = float(np.max(np.abs(w - np.asarray(want["fixed_coefficients"]))
+                            / (1.0 + np.abs(want["fixed_coefficients"]))))
+    out = {"rc": proc.returncode, "wall_s": wall, "auc": auc_v,
+           "golden_auc": want["auc"], "coef_err_rel": coef_err}
+    if not abs(auc_v - want["auc"]) < DRIVER_AUC_ATOL:
+        raise AssertionError(f"phase 8: AUC {auc_v} vs golden {want['auc']}")
+    np.testing.assert_allclose(w, np.asarray(want["fixed_coefficients"]),
+                               rtol=DRIVER_COEF_TOL, atol=DRIVER_COEF_TOL)
     return out
 
 
@@ -1154,7 +1837,8 @@ def main() -> int:
         model, host = make_model(seed=0)
         table = torch.from_numpy(host["w"]).cuda()
         t = time.perf_counter()
-        kernels = [phase_kernels(table, seed=1, ell=train["ell"])]
+        kernels = [phase_kernels(table, seed=1, ell=train["ell"],
+                                 colmajor=train["colmajor"].colmajor)]
         kernels += phase_kernels_grr(train["grr"].grr, seed=5)
         print(f"phase 3 kernel check: ok in {time.perf_counter() - t:.2f} s")
 
@@ -1191,11 +1875,32 @@ def main() -> int:
                 training["failures"]))
         kernels[0]["launches_ell_fit"] = training[
             "ell_gather_rowsum_launches"]
+        kernels[0]["launches_colmajor_fit"] = training[
+            "colmajor_gather_rowsum_launches"]
         for k in kernels[1:]:
             k["launches"] = training["launches"][k["name"]]
             if k["launches"] < 1:
                 raise AssertionError(f"{k['name']} was not launched by "
                                      "the GRR fit")
+        del train
+
+        t = time.perf_counter()
+        game = phase_game(seed=7, n=GAME_ROWS, device="cuda")
+        game["card"] = card
+        print(f"phase 7 GAME training ({time.perf_counter() - t:.1f} s): "
+              + json.dumps({"game": game}))
+        if game["failures"]:
+            raise AssertionError("phase 7: " + "; ".join(game["failures"]))
+        kernels[0]["launches_game_fit"] = game["ell"]["launches"]
+        kernels[0]["game_fit_fe_evaluations"] = game["ell"]["fe_evaluations"]
+        kernels[0]["shapes"] += game["kernel_shapes"]
+        kernels[0]["max_abs_err"] = max(
+            sh["max_abs_err"] for sh in kernels[0]["shapes"])
+
+        t = time.perf_counter()
+        driver = phase_driver([])
+        print(f"phase 8 driver ({time.perf_counter() - t:.1f} s): "
+              + json.dumps({"driver": driver}))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"total {time.perf_counter() - t_all:.1f} s")

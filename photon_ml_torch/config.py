@@ -1,8 +1,13 @@
-"""Serving configuration.
+"""Training and serving configuration.
 
-Counterpart of ``ServingConfig`` in ``photon_ml_tpu/config.py``, with
-the same JSON keys plus ``device``.  What the port does not have yet is
-accepted in the file but must stay off:
+Counterpart of ``photon_ml_tpu/config.py``: ``TrainingConfig`` (with
+``CoordinateConfig`` and ``OptimizerSettings``) and ``ServingConfig``,
+with the same JSON keys plus ``device`` ("cuda", the default, or
+"cpu").  A training config's fields of tiers the port does not have yet
+(tuning, chunked and streamed training, the fused cycle, checkpoints,
+meshes, telemetry, monitor, profiling) are accepted in the file but
+``validate()`` raises ``NotImplementedError`` when one is set to
+anything but its default, naming its ROADMAP item.  For serving:
 
 - ``telemetry``, ``monitor`` and ``trace`` default to ``"off"``, and
   ``replicas`` to 1; ``validate()`` raises ``NotImplementedError`` when
@@ -15,8 +20,205 @@ accepted in the file but must stay off:
 from __future__ import annotations
 
 import dataclasses
+import enum
 import json
 from typing import Any
+
+from photon_ml_torch.data.normalization import NormalizationType
+from photon_ml_torch.evaluation.evaluators import EvaluatorType
+from photon_ml_torch.models.glm import TaskType
+from photon_ml_torch.ops.regularization import RegularizationType
+from photon_ml_torch.optim.base import OptimizerType
+from photon_ml_torch.optim.variance import VarianceComputationType
+
+
+def _validate_device(device: str) -> None:
+    if device not in ("cuda", "cpu") and not device.startswith("cuda:"):
+        raise ValueError("device must be cuda, cuda:<n> or cpu")
+
+
+class CoordinateKind(str, enum.Enum):
+    FIXED_EFFECT = "FIXED_EFFECT"
+    RANDOM_EFFECT = "RANDOM_EFFECT"
+
+
+@dataclasses.dataclass
+class OptimizerSettings:
+    """Per-coordinate optimizer configuration."""
+
+    optimizer: OptimizerType = OptimizerType.LBFGS
+    max_iters: int = 100
+    tolerance: float = 1e-6
+    regularization: RegularizationType = RegularizationType.L2
+    reg_weight: float = 1.0
+    elastic_net_alpha: float = 0.5  # only for ELASTIC_NET
+    variance_type: VarianceComputationType = VarianceComputationType.NONE
+    # Keep the per-solver-iteration (value, ‖g‖) history; it lands in the
+    # run log's cd_coordinate events.
+    track_states: bool = False
+
+    def validate(self) -> None:
+        if not isinstance(self.variance_type, VarianceComputationType):
+            self.variance_type = VarianceComputationType(
+                str(self.variance_type).upper())
+        if self.max_iters <= 0:
+            raise ValueError("max_iters must be positive")
+        if self.tolerance <= 0:
+            raise ValueError("tolerance must be positive")
+        if self.reg_weight < 0:
+            raise ValueError("reg_weight must be non-negative")
+        if not 0.0 <= self.elastic_net_alpha <= 1.0:
+            raise ValueError("elastic_net_alpha must be in [0, 1]")
+        if (self.optimizer == OptimizerType.TRON
+                and self.regularization in (RegularizationType.L1,
+                                            RegularizationType.ELASTIC_NET)):
+            raise ValueError("TRON cannot handle L1/elastic-net; use LBFGS")
+
+
+@dataclasses.dataclass
+class CoordinateConfig:
+    """One GAME coordinate."""
+
+    name: str
+    kind: CoordinateKind
+    feature_shard: str
+    entity_key: str | None = None          # RANDOM_EFFECT only
+    optimizer: OptimizerSettings = dataclasses.field(
+        default_factory=OptimizerSettings)
+    down_sampling_rate: float | None = None  # FIXED_EFFECT only
+
+    def validate(self) -> None:
+        self.optimizer.validate()
+        if self.kind == CoordinateKind.RANDOM_EFFECT and not self.entity_key:
+            raise ValueError(
+                f"random-effect coordinate '{self.name}' needs entity_key")
+        if self.down_sampling_rate is not None:
+            if self.kind != CoordinateKind.FIXED_EFFECT:
+                raise ValueError("down-sampling applies to fixed effects")
+            if not 0.0 < self.down_sampling_rate <= 1.0:
+                raise ValueError("down_sampling_rate must be in (0, 1]")
+
+
+@dataclasses.dataclass
+class TrainingConfig:
+    """A training run (``python -m
+    photon_ml_torch.cli.game_training_driver``)."""
+
+    task_type: TaskType
+    coordinates: list[CoordinateConfig]
+    update_sequence: list[str]
+    input_path: str = ""
+    input_format: str = "auto"             # auto | jsonl | avro | libsvm
+    validation_path: str | None = None
+    validation_fraction: float = 0.0       # split from input if no file
+    output_dir: str = "output"
+    index_dir: str | None = None           # prebuilt index maps (else scan)
+    dense_feature_shards: list[str] = dataclasses.field(default_factory=list)
+    n_iterations: int = 1
+    normalization: NormalizationType = NormalizationType.NONE
+    evaluators: list[EvaluatorType] = dataclasses.field(
+        default_factory=lambda: [EvaluatorType.AUC])
+    # Per-coordinate reg-weight lists, cartesian over coordinates; the
+    # points fit one after another.
+    reg_weight_grid: dict[str, list[float]] = dataclasses.field(
+        default_factory=dict)
+    tuning: Any = None                     # ROADMAP A6
+    model_output_mode: str = "BEST"        # ALL | BEST | EXPLICIT
+    warm_start_model_dir: str | None = None
+    locked_coordinates: list[str] = dataclasses.field(default_factory=list)
+    # Regularize toward the warm-start model's coefficients with
+    # strength prior_weight/σ² when it has variances.
+    use_warm_start_as_prior: bool = False
+    prior_weight: float = 1.0
+    checkpoint_dir: str | None = None      # ROADMAP A8
+    resume: bool = False                   # ROADMAP A8
+    checkpoint_every_sweeps: int = 1
+    checkpoint_every_solver_iters: int = 0
+    intercept: bool = True
+    seed: int = 0
+    # Score the validation set with every evaluator after each sweep.
+    validate_per_iteration: bool = True
+    # Sparse fixed-effect layout: AUTO is plain ELL here (as in the JAX
+    # package off the TPU); GRR and COLMAJOR select the others.
+    sparse_layout: str = "AUTO"
+    n_devices: int | None = None           # ROADMAP A7
+    chunk_rows: int | None = None          # ROADMAP A5
+    chunk_layout: str = "AUTO"
+    chunk_max_resident: int = 1
+    spill_dir: str | None = None           # ROADMAP A5
+    host_max_resident: int = 2
+    prefetch_depth: int = 2
+    re_chunk_entities: int | None = None   # ROADMAP A5
+    re_retirement: bool = True
+    cd_fused: bool = False                 # ROADMAP A5
+    # The GRR plan cache (shared with the JAX package).  The compilation
+    # cache is accepted and has no effect: the port's CUDA kernels are
+    # cached under build/kernels/ by source hash.
+    plan_cache_dir: str | None = None
+    compilation_cache_dir: str | None = None
+    profile_dir: str | None = None         # ROADMAP A8
+    telemetry: str = "off"                 # ROADMAP A8 / D2
+    telemetry_dir: str | None = None
+    monitor: str = "off"                   # ROADMAP D3
+    monitor_every_s: float = 2.0
+    status_port: int | None = None
+    distributed_init: bool = False         # ROADMAP A7
+    # Where training runs: "cuda" (default) or "cpu".
+    device: str = "cuda"
+
+    # (field, default, ROADMAP item) of the tiers not ported yet.
+    _NOT_PORTED = (
+        ("tuning", None, "A6"), ("checkpoint_dir", None, "A8"),
+        ("resume", False, "A8"), ("n_devices", None, "A7"),
+        ("chunk_rows", None, "A5"), ("spill_dir", None, "A5"),
+        ("re_chunk_entities", None, "A5"), ("cd_fused", False, "A5"),
+        ("profile_dir", None, "A8"), ("telemetry", "off", "A8"),
+        ("monitor", "off", "D3"), ("status_port", None, "D3"),
+        ("distributed_init", False, "A7"))
+
+    def validate(self) -> None:
+        names = [c.name for c in self.coordinates]
+        if len(set(names)) != len(names):
+            raise ValueError("duplicate coordinate names")
+        for c in self.coordinates:
+            c.validate()
+        for s in self.update_sequence:
+            if s not in names:
+                raise ValueError(f"update_sequence entry '{s}' unknown")
+        for s in self.locked_coordinates:
+            if s not in names:
+                raise ValueError(f"locked coordinate '{s}' unknown")
+        if self.locked_coordinates and not self.warm_start_model_dir:
+            raise ValueError(
+                "locked_coordinates require warm_start_model_dir (locked "
+                "coefficients come from the previous model)")
+        if self.use_warm_start_as_prior and not self.warm_start_model_dir:
+            raise ValueError(
+                "use_warm_start_as_prior requires warm_start_model_dir")
+        if not 0.0 <= self.validation_fraction < 1.0:
+            raise ValueError("validation_fraction must be in [0, 1)")
+        if self.n_iterations <= 0:
+            raise ValueError("n_iterations must be positive")
+        if self.model_output_mode not in ("ALL", "BEST", "EXPLICIT"):
+            raise ValueError("model_output_mode must be ALL|BEST|EXPLICIT")
+        if self.sparse_layout not in ("AUTO", "GRR", "COLMAJOR", "ELL"):
+            raise ValueError("sparse_layout must be AUTO|GRR|COLMAJOR|ELL")
+        if self.telemetry not in ("off", "metrics", "trace"):
+            raise ValueError("telemetry must be off|metrics|trace")
+        if self.monitor not in ("off", "on"):
+            raise ValueError("monitor must be off|on")
+        for name, grid in self.reg_weight_grid.items():
+            if name not in names:
+                raise ValueError(f"grid entry '{name}' unknown")
+            if not grid:
+                raise ValueError(f"empty grid for '{name}'")
+        _validate_device(self.device)
+        for knob, default, item in self._NOT_PORTED:
+            if getattr(self, knob) != default:
+                raise NotImplementedError(
+                    f"{knob}={getattr(self, knob)!r} is not ported to "
+                    f"photon_ml_torch yet (ROADMAP {item}); leave it at "
+                    f"its default")
 
 
 @dataclasses.dataclass
@@ -112,9 +314,7 @@ class ServingConfig:
             raise ValueError("hot_swap_poll_s must be >= 0 (0 = off)")
         if self.http_timeout_s <= 0:
             raise ValueError("http_timeout_s must be positive")
-        if self.device not in ("cuda", "cpu") and not \
-                self.device.startswith("cuda:"):
-            raise ValueError("device must be cuda, cuda:<n> or cpu")
+        _validate_device(self.device)
         if self.telemetry not in ("off", "metrics", "trace"):
             raise ValueError("telemetry must be off|metrics|trace")
         if self.monitor not in ("off", "on"):
@@ -146,19 +346,78 @@ class ServingConfig:
         return out
 
 
+def _to_jsonable(obj: Any) -> Any:
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: _to_jsonable(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, enum.Enum):
+        return obj.value
+    if isinstance(obj, dict):
+        return {k: _to_jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_to_jsonable(v) for v in obj]
+    return obj
+
+
 def config_to_json(config) -> str:
-    return json.dumps(dataclasses.asdict(config), indent=2)
+    return json.dumps(_to_jsonable(config), indent=2)
+
+
+_ENUMS = {
+    "TaskType": TaskType,
+    "CoordinateKind": CoordinateKind,
+    "OptimizerType": OptimizerType,
+    "RegularizationType": RegularizationType,
+    "NormalizationType": NormalizationType,
+    "EvaluatorType": EvaluatorType,
+    "VarianceComputationType": VarianceComputationType,
+}
+
+
+def _coerce(type_str, v):
+    """Typed coercion from the annotation strings: enums by value or
+    name, nested dataclasses by field name."""
+    t = type_str if isinstance(type_str, str) else getattr(
+        type_str, "__name__", str(type_str))
+    if isinstance(v, list):
+        if "CoordinateConfig" in t:
+            return [_build(CoordinateConfig, c) for c in v]
+        for name, enum_cls in _ENUMS.items():
+            if name in t:
+                return [enum_cls(e) if isinstance(e, str) else e for e in v]
+        return v
+    if isinstance(v, str):
+        for name, enum_cls in _ENUMS.items():
+            if name in t:
+                try:
+                    return enum_cls(v)
+                except ValueError:
+                    return enum_cls[v]
+    if "OptimizerSettings" in t and isinstance(v, dict):
+        return _build(OptimizerSettings, v)
+    return v
 
 
 def _build(cls, data: Any):
     if not isinstance(data, dict):
         raise ValueError(f"{cls.__name__} JSON must be an object")
-    names = {f.name for f in dataclasses.fields(cls)}
-    unknown = set(data) - names
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    unknown = set(data) - set(fields)
     if unknown:
         raise ValueError(f"unknown config keys for {cls.__name__}: "
                          f"{sorted(unknown)}")
-    return cls(**data)
+    return cls(**{k: _coerce(fields[k].type, v) for k, v in data.items()})
+
+
+def training_config_from_json(text: str) -> TrainingConfig:
+    cfg = _build(TrainingConfig, json.loads(text))
+    cfg.validate()
+    return cfg
+
+
+def load_training_config(path: str) -> TrainingConfig:
+    with open(path) as f:
+        return training_config_from_json(f.read())
 
 
 def serving_config_from_json(text: str) -> ServingConfig:

@@ -9,6 +9,10 @@ Counterpart of ``photon_ml_tpu/data/batch.py``.
   - ``grr`` (``data.grr.GrrPair``, ``make_sparse_batch(..., grr=True)``):
     both directions run through the compiled GRR plan (the B2/B3 CUDA
     kernels on the card), hot columns through one matmul;
+  - ``colmajor`` (``data.colmajor.ColMajorSlice``,
+    ``make_sparse_batch(..., col_major=True)``): ``X·w`` through B1 on
+    the row ELL, ``Xᵀr`` through B1 on the transposed ELL plus a small
+    sorted fold;
   - plain ELL: ``X·w`` through the ``gather_rowsum`` kernel (B1) and
     ``Xᵀr`` through ``index_add_``.
 
@@ -24,6 +28,7 @@ from typing import Union
 import numpy as np
 import torch
 
+from photon_ml_torch.data.colmajor import ColMajorSlice, build_colmajor
 from photon_ml_torch.data.grr import GrrPair, build_grr_pair
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.ops.kernels import gather_rowsum
@@ -33,7 +38,12 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class DenseBatch:
-    """Dense feature batch; ``x[i]`` is example i's feature vector."""
+    """Dense feature batch; ``x[i]`` is example i's feature vector.
+
+    With a leading lane axis (``x`` [E, c, p], the per-example fields
+    [E, c]) it holds E independent problems, and the products take
+    coefficients [E, p]: the random-effect buckets, where ``p`` is a few
+    features, so the products are elementwise ops and reductions."""
 
     x: Tensor          # [n, d]
     labels: Tensor     # [n]
@@ -46,18 +56,23 @@ class DenseBatch:
         return self.x.shape[-1]
 
     def margins(self, w: Tensor) -> Tensor:
-        return self.x @ w + self.offsets
+        return self.x_dot(w) + self.offsets
 
     def xt_dot(self, r: Tensor) -> Tensor:
-        return self.x.T @ r
+        if self.x.dim() == 2:
+            return self.x.T @ r
+        return (self.x * r[..., None]).sum(-2)
 
     def x_dot(self, v: Tensor) -> Tensor:
-        return self.x @ v
+        if self.x.dim() == 2:
+            return self.x @ v
+        return (self.x * v[..., None, :]).sum(-1)
 
 
 @dataclasses.dataclass(frozen=True)
 class SparseBatch:
-    """Padded-ELL sparse batch, optionally with its GRR plan."""
+    """Padded-ELL sparse batch, optionally with its transposed ELL or its
+    GRR plan."""
 
     values: Tensor     # [n, k] f32 ([n, 0] when the plan serves alone)
     col_ids: Tensor    # [n, k] i32
@@ -67,13 +82,15 @@ class SparseBatch:
     mask: Tensor       # [n]
     dim: int
     grr: "GrrPair | None" = None
+    colmajor: "ColMajorSlice | None" = None
 
     def margins(self, w: Tensor) -> Tensor:
         """Σ_k values[i,k]·w[col_ids[i,k]] + offset."""
         return self.x_dot(w) + self.offsets
 
     def xt_dot(self, r: Tensor) -> Tensor:
-        """Xᵀr — the GRR plan, else a scatter-add into [dim].
+        """Xᵀr — the GRR plan, else the transposed ELL, else a
+        scatter-add into [dim].
 
         The scatter accumulates in float64: it adds a column's terms one
         after another (atomics on the card), and a power-law head column
@@ -81,6 +98,8 @@ class SparseBatch:
         with ~n·2⁻²⁴ relative error."""
         if self.grr is not None:
             return self.grr.t_dot(r)
+        if self.colmajor is not None:
+            return self.colmajor.xt_dot(r)
         out = torch.zeros(self.dim, dtype=torch.float64, device=r.device)
         out.index_add_(0, self.col_ids.reshape(-1),
                        (self.values * r[:, None]).reshape(-1).double())
@@ -107,6 +126,24 @@ class SparseBatch:
 Batch = Union[DenseBatch, SparseBatch]
 
 
+def make_dense_batch(x: np.ndarray, labels: np.ndarray,
+                     weights: np.ndarray | None = None,
+                     offsets: np.ndarray | None = None,
+                     device=None) -> DenseBatch:
+    """A DenseBatch on ``device`` (default CUDA) from host arrays."""
+    dev = resolve_device(device)
+    n = x.shape[0]
+
+    def col(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    return DenseBatch(
+        x=col(x), labels=col(labels),
+        weights=col(np.ones(n) if weights is None else weights),
+        offsets=col(np.zeros(n) if offsets is None else offsets),
+        mask=col(np.ones(n)))
+
+
 def make_sparse_batch(
     rows,
     dim: int,
@@ -116,6 +153,7 @@ def make_sparse_batch(
     row_capacity: int | None = None,
     pad_to: int | None = None,
     col_major: bool = False,
+    col_capacity: int | None = None,
     grr: bool = False,
     keep_ell: bool = True,
     cache_dir: str | None = None,
@@ -130,16 +168,16 @@ def make_sparse_batch(
       dim: feature-space width.
       row_capacity: per-row nnz capacity; defaults to the max observed.
       pad_to: pad the example count to this.
-      col_major: the transposed-ELL layout, not ported (ROADMAP A2).
-      grr: compile the GRR plan (``data.grr.build_grr_pair``).
+      col_major: also build the transposed ELL (``data.colmajor``), so
+        Xᵀr runs on B1 instead of ``index_add_``.
+      col_capacity: its virtual-row capacity (default: from the column
+        occupancy, ``choose_capacity``).
+      grr: compile the GRR plan (``data.grr.build_grr_pair``); it
+        supersedes ``col_major``.
       keep_ell: with ``grr``, whether the ELL arrays also go to the
         device (feature statistics need them; the plan does not).
       cache_dir: the on-disk GRR plan cache, shared with the JAX package.
     """
-    if col_major:
-        raise NotImplementedError(
-            "col_major (the transposed-ELL layout) is not ported yet: "
-            "ROADMAP A2")
     from photon_ml_torch.data.sparse_rows import SparseRows
 
     dev = resolve_device(device)
@@ -173,14 +211,17 @@ def make_sparse_batch(
         out[:n] = a
         return torch.from_numpy(out).to(dev)
 
+    cm = (build_colmajor(cols, vals, dim, capacity=col_capacity, device=dev)
+          if col_major and not grr else None)
     pair = (build_grr_pair(cols, vals, dim, cache_dir=cache_dir, device=dev)
             if grr else None)
     if grr and not keep_ell:
         vals = np.zeros((n_out, 0), np.float32)
         cols = np.zeros((n_out, 0), np.int32)
     return SparseBatch(
-        values=torch.from_numpy(np.ascontiguousarray(vals, np.float32)).to(dev),
+        values=torch.from_numpy(
+            np.ascontiguousarray(vals, np.float32)).to(dev),
         col_ids=torch.from_numpy(np.ascontiguousarray(cols, np.int32)).to(dev),
         labels=padded(labels), weights=padded(weights),
         offsets=padded(offsets), mask=padded(np.ones(n)),
-        dim=dim, grr=pair)
+        dim=dim, grr=pair, colmajor=cm)

@@ -26,6 +26,40 @@ class SparseRows:
     # -- construction -------------------------------------------------------
 
     @staticmethod
+    def from_rows(rows) -> "SparseRows":
+        """From a ``list[(col_ids, values)]`` (or any sized iterable of
+        pairs); canonicalizes."""
+        if isinstance(rows, SparseRows):
+            return rows
+        counts = np.fromiter((len(c) for c, _ in rows), np.int64,
+                             count=len(rows))
+        indptr = np.zeros(len(rows) + 1, np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        cols = np.empty(int(indptr[-1]), np.int64)
+        vals = np.empty(int(indptr[-1]), np.float64)
+        at = 0
+        for c, v in rows:
+            cols[at:at + len(c)] = c
+            vals[at:at + len(c)] = v
+            at += len(c)
+        return SparseRows.from_flat(indptr, cols, vals)
+
+    @staticmethod
+    def concat(parts: list["SparseRows"]) -> "SparseRows":
+        """Row-wise concatenation."""
+        if not parts:
+            return SparseRows(np.zeros(1, np.int64), np.zeros(0, np.int32),
+                              np.zeros(0, np.float32))
+        indptrs = [np.zeros(1, np.int64)]
+        base = 0
+        for p in parts:
+            indptrs.append(p.indptr[1:] + base)
+            base += p.nnz
+        return SparseRows(indptr=np.concatenate(indptrs),
+                          cols=np.concatenate([p.cols for p in parts]),
+                          vals=np.concatenate([p.vals for p in parts]))
+
+    @staticmethod
     def from_flat(indptr: np.ndarray, cols: np.ndarray, vals: np.ndarray,
                   clip_dim: int | None = None) -> "SparseRows":
         """From raw CSR arrays (e.g. the native LIBSVM parser's output):
@@ -212,3 +246,9 @@ class SparseRows:
         cs = np.zeros(self.nnz + 1, np.float64)
         np.cumsum(contrib, out=cs[1:])
         return (cs[self.indptr[1:]] - cs[self.indptr[:-1]]).astype(np.float32)
+
+    def to_dense(self, dim: int) -> np.ndarray:
+        """Densify to [n, dim] float32 (narrow shards only)."""
+        x = np.zeros((len(self), dim), np.float32)
+        x[self.row_of(), self.cols] = self.vals
+        return x

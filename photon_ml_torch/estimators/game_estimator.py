@@ -1,0 +1,516 @@
+"""GameEstimator: configuration + data → trained, evaluated GAME models.
+
+Counterpart of the resident part of
+``photon_ml_tpu/estimators/game_estimator.py``: build the datasets once
+(intercept column, layout, normalization, down-sampling), then for each
+point of the regularization grid build the coordinates, run coordinate
+descent, export the model in raw feature space and evaluate it on the
+validation data (once a sweep when ``validate_per_iteration``).
+
+Everything runs on ``TrainingConfig.device`` (default CUDA; the entry
+raises without it unless "cpu" is asked for).  ``sparse_layout`` AUTO
+resolves to plain ELL, as in the JAX package off the TPU; COLMAJOR puts
+``Xᵀr`` on B1 over the transposed ELL, GRR on the B2/B3 plan.  The
+batched λ sweep and tuning (ROADMAP A6) and the chunked and fused paths
+(ROADMAP A5) raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import logging
+
+import numpy as np
+import torch
+
+from photon_ml_torch.config import (
+    CoordinateConfig,
+    CoordinateKind,
+    OptimizerSettings,
+    TrainingConfig,
+)
+from photon_ml_torch.data.batch import make_dense_batch, make_sparse_batch
+from photon_ml_torch.data.normalization import (
+    NormalizationContext,
+    NormalizationType,
+    compute_normalization,
+)
+from photon_ml_torch.data.sparse_rows import SparseRows
+from photon_ml_torch.data.statistics import compute_statistics
+from photon_ml_torch.device import resolve_device
+from photon_ml_torch.estimators.game_transformer import GameTransformer
+from photon_ml_torch.evaluation.evaluators import better_than, evaluate
+from photon_ml_torch.game.coordinate_descent import run_coordinate_descent
+from photon_ml_torch.game.coordinates import (
+    FixedEffectCoordinate,
+    build_random_effect_coordinate,
+    build_random_effect_coordinate_sparse,
+)
+from photon_ml_torch.game.dataset import GameDataset, sorted_key_join
+from photon_ml_torch.game.sampling import binary_classification_down_sample
+from photon_ml_torch.models.coefficients import Coefficients
+from photon_ml_torch.models.game import (
+    FixedEffectModel,
+    GameModel,
+    RandomEffectModel,
+)
+from photon_ml_torch.ops.objective import GLMObjective
+from photon_ml_torch.ops.prior import GaussianPrior
+from photon_ml_torch.ops.regularization import (
+    RegularizationContext,
+    RegularizationType,
+    exclude_intercept_mask,
+)
+from photon_ml_torch.optim.base import OptimizerConfig, OptimizerType
+from photon_ml_torch.optim.problem import OptimizationProblem
+from photon_ml_torch.optim.variance import VarianceComputationType
+
+logger = logging.getLogger(__name__)
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class FitResult:
+    """(model, evaluations, grid point), plus the per-sweep validation
+    metrics and the coordinate-descent result behind the model."""
+
+    model: GameModel
+    evaluations: dict            # EvaluatorType → float (validation)
+    reg_weights: dict            # coordinate name → λ used
+    validation_history: list = dataclasses.field(default_factory=list)
+    descent: object = None       # game.coordinate_descent result
+
+
+def _reg_context(settings: OptimizerSettings, weight: float, dim: int,
+                 intercept_index: int | None, device
+                 ) -> RegularizationContext:
+    mask = exclude_intercept_mask(dim, intercept_index, device=device)
+    if settings.regularization == RegularizationType.NONE or weight == 0.0:
+        return RegularizationContext.none()
+    if settings.regularization == RegularizationType.L2:
+        return RegularizationContext.l2(weight, mask)
+    if settings.regularization == RegularizationType.L1:
+        return RegularizationContext.l1(weight, mask)
+    return RegularizationContext.elastic_net(
+        weight, settings.elastic_net_alpha, mask)
+
+
+def _optimizer_config(settings: OptimizerSettings) -> OptimizerConfig:
+    return OptimizerConfig(max_iters=settings.max_iters,
+                           tolerance=settings.tolerance,
+                           track_states=settings.track_states)
+
+
+def _cpu(t: Tensor) -> Tensor:
+    return t.detach().cpu()
+
+
+class GameEstimator:
+    """Build the datasets once; fit once a grid point."""
+
+    def __init__(self, config: TrainingConfig):
+        config.validate()
+        self.config = config
+        self.device = resolve_device(config.device)
+        self.task = config.task_type
+        self.loss = self.task.loss
+        self._warm_model = None
+        if config.warm_start_model_dir:
+            from photon_ml_torch.io.model_io import load_game_model
+
+            self._warm_model, warm_task = load_game_model(
+                config.warm_start_model_dir)
+            if warm_task != self.task:
+                raise ValueError(
+                    f"warm-start model task {warm_task} != {self.task}")
+
+    # -- dataset preparation (once) ----------------------------------------
+
+    def _prepare(self, train: GameDataset) -> dict:
+        return {c.name: self._prepare_fixed(train, c)
+                for c in self.config.coordinates
+                if c.kind == CoordinateKind.FIXED_EFFECT}
+
+    def _layout(self) -> str:
+        layout = self.config.sparse_layout
+        return "ELL" if layout == "AUTO" else layout
+
+    def _prepare_fixed(self, train: GameDataset,
+                       coord_cfg: CoordinateConfig) -> dict:
+        cfg = self.config
+        dev = self.device
+        feats = train.features[coord_cfg.feature_shard]
+        labels = train.labels.astype(np.float32)
+        weights = train.weight_array()
+        intercept_index = None
+        if isinstance(feats, np.ndarray):
+            x = np.asarray(feats, np.float32)
+            if cfg.intercept:
+                x = np.concatenate([x, np.ones((len(x), 1), np.float32)], 1)
+                intercept_index = x.shape[1] - 1
+            batch = make_dense_batch(x, labels, weights=weights, device=dev)
+            dim = x.shape[1]
+        else:
+            dim = train.feature_dim(coord_cfg.feature_shard)
+            rows = SparseRows.from_rows(feats)
+            if cfg.intercept:
+                rows = rows.with_constant_col(dim)
+                intercept_index = dim
+                dim += 1
+            layout = self._layout()
+            # The ELL arrays serve normalization statistics and the
+            # down-sampled view; a GRR batch that needs neither skips them.
+            keep_ell = (cfg.normalization != NormalizationType.NONE
+                        or coord_cfg.down_sampling_rate is not None)
+            batch = make_sparse_batch(
+                rows, dim, labels, weights=weights, grr=(layout == "GRR"),
+                col_major=(layout == "COLMAJOR"), keep_ell=keep_ell,
+                cache_dir=cfg.plan_cache_dir, device=dev)
+
+        norm = NormalizationContext.identity()
+        if cfg.normalization != NormalizationType.NONE:
+            if (cfg.normalization == NormalizationType.STANDARDIZATION
+                    and intercept_index is None):
+                raise ValueError(
+                    "STANDARDIZATION requires intercept=True (the margin "
+                    "shift folds into the intercept at export)")
+            stats = compute_statistics(batch)
+            norm = compute_normalization(
+                stats.mean, stats.std, stats.max_abs, cfg.normalization,
+                intercept_index=intercept_index)
+
+        train_idx = train_weights = None
+        if coord_cfg.down_sampling_rate is not None:
+            idx, new_w = binary_classification_down_sample(
+                labels, weights, coord_cfg.down_sampling_rate, seed=cfg.seed)
+            train_idx = torch.from_numpy(idx.astype(np.int64)).to(dev)
+            train_weights = torch.from_numpy(new_w).to(dev)
+        return {"batch": batch, "norm": norm, "dim": dim,
+                "intercept_index": intercept_index, "train_idx": train_idx,
+                "train_weights": train_weights}
+
+    # -- warm start (a saved raw-space model → training space) -------------
+
+    def _import_fixed(self, comp: FixedEffectModel, p: dict):
+        """Invert ``_export_fixed``: raw-space means (and variances) →
+        model-space tensors on the device."""
+        w_raw = np.asarray(_cpu(comp.coefficients.means), np.float64)
+        dim, ii = p["dim"], p["intercept_index"]
+        if len(w_raw) != dim:
+            raise ValueError(
+                f"warm-start fixed-effect dim {len(w_raw)} != {dim} "
+                "(feature space changed; rebuild index maps)")
+        norm = p["norm"]
+        f = (_cpu(norm.factors).double().numpy()
+             if norm.factors is not None else np.ones(dim))
+        wm = w_raw / f
+        if norm.shifts is not None and ii is not None:
+            s = _cpu(norm.shifts).double().numpy()
+            wm[ii] = w_raw[ii] + float(np.dot(s * f, wm))
+        variances = None
+        if comp.coefficients.variances is not None:
+            variances = np.asarray(_cpu(comp.coefficients.variances),
+                                   np.float64) / (f * f)
+
+        def dev(a):
+            return torch.from_numpy(a.astype(np.float32)).to(self.device)
+        return dev(wm), None if variances is None else dev(variances)
+
+    def _import_random(self, comp: RandomEffectModel, coord) -> list:
+        """A saved random effect mapped onto this run's grouping by
+        entity id (vectorized: one sorted join, then block gathers a
+        (new bucket, old bucket) pair); unseen entities start at 0."""
+        w0s = [np.zeros(shape, np.float32)
+               for shape in coord.coefficient_shapes]
+        g, gs = coord.grouping, comp.grouping
+        if g.n_total_entities and gs.n_total_entities:
+            saved_pos = gs.join_ids(np.asarray(g.entity_ids))
+            found = saved_pos >= 0
+            pos_c = np.maximum(saved_pos, 0)
+            old_bucket = np.asarray(gs.entity_bucket)[pos_c]
+            old_slot = np.asarray(gs.entity_slot)[pos_c]
+            new_bucket = np.asarray(g.entity_bucket)
+            new_slot = np.asarray(g.entity_slot)
+            old_blocks = [_cpu(blk).numpy() for blk in comp.coefficient_blocks]
+            for b in range(len(w0s)):
+                for ob in range(len(old_blocks)):
+                    sel = found & (new_bucket == b) & (old_bucket == ob)
+                    if sel.any():
+                        self._import_cells(
+                            w0s[b], old_blocks[ob], new_slot[sel],
+                            old_slot[sel], coord.projection,
+                            comp.projection, b, ob)
+        return [torch.from_numpy(w).to(self.device) for w in w0s]
+
+    @staticmethod
+    def _import_cells(w0, blk_old_all, ns, os_, proj_new, proj_old, b, ob):
+        blk_old = blk_old_all[os_]                       # [m, p_old]
+        if proj_new is None and proj_old is None:
+            if blk_old.shape[1] == w0.shape[1]:          # else stays at 0
+                w0[ns] = blk_old
+        elif proj_new is None:
+            # Saved projected, target dense: scatter to global columns.
+            if proj_old.global_dim == w0.shape[1]:
+                fids = proj_old.feature_ids[ob][os_]
+                rr, cc = np.nonzero(fids >= 0)
+                w0[ns[rr], fids[rr, cc]] = blk_old[rr, cc]
+        elif proj_old is None:
+            # Saved dense, target projected: gather its subspace columns.
+            fids = proj_new.feature_ids[b][ns]
+            rr, cc = np.nonzero((fids >= 0) & (fids < blk_old.shape[1]))
+            w0[ns[rr], cc] = blk_old[rr, fids[rr, cc]]
+        else:
+            # Both projected: merge-join on (entity, global col) keys.
+            G = np.int64(proj_old.global_dim)
+            f_old = proj_old.feature_ids[ob][os_]
+            ro, co = np.nonzero(f_old >= 0)
+            key_old = ro.astype(np.int64) * G + f_old[ro, co]
+            f_new = proj_new.feature_ids[b][ns]
+            rn, cn = np.nonzero((f_new >= 0) & (f_new < G))
+            key_new = rn.astype(np.int64) * G + f_new[rn, cn]
+            w_at, hit = sorted_key_join(key_old, blk_old[ro, co], key_new)
+            w0[ns[rn[hit]], cn[hit]] = w_at[hit]
+
+    def _warm_coefficients(self, coords: dict, prep: dict) -> dict:
+        out = {}
+        if self._warm_model is None:
+            return out
+        by_name = {c.name: c for c in self.config.coordinates}
+        for name, comp in self._warm_model.models.items():
+            if name not in coords:
+                continue
+            if by_name[name].kind == CoordinateKind.FIXED_EFFECT:
+                out[name], _ = self._import_fixed(comp, prep[name])
+            else:
+                out[name] = self._import_random(comp, coords[name])
+        return out
+
+    # -- coordinates (a grid point) -----------------------------------------
+
+    def _build_coordinates(self, train: GameDataset, prep: dict,
+                           reg_weights: dict) -> dict:
+        cfg = self.config
+        coords = {}
+        for cc in cfg.coordinates:
+            weight = reg_weights.get(cc.name, cc.optimizer.reg_weight)
+            ocfg = _optimizer_config(cc.optimizer)
+            if cc.kind == CoordinateKind.FIXED_EFFECT:
+                p = prep[cc.name]
+                prior = None
+                if (cfg.use_warm_start_as_prior
+                        and self._warm_model is not None
+                        and cc.name in self._warm_model.models):
+                    means, variances = self._import_fixed(
+                        self._warm_model.models[cc.name], p)
+                    if variances is not None:
+                        prior = GaussianPrior.from_model(
+                            means, variances, cfg.prior_weight)
+                objective = GLMObjective(
+                    loss=self.loss,
+                    reg=_reg_context(cc.optimizer, weight, p["dim"],
+                                     p["intercept_index"], self.device),
+                    norm=p["norm"], prior=prior)
+                coords[cc.name] = FixedEffectCoordinate(
+                    name=cc.name, batch=p["batch"],
+                    problem=OptimizationProblem(
+                        objective=objective,
+                        optimizer=cc.optimizer.optimizer, config=ocfg),
+                    train_idx=p["train_idx"],
+                    train_weights=p["train_weights"])
+                continue
+            objective = GLMObjective(
+                loss=self.loss,
+                reg=_reg_context(cc.optimizer, weight, 1, None, self.device),
+                norm=NormalizationContext.identity())
+            if isinstance(train.features[cc.feature_shard], np.ndarray):
+                coord = build_random_effect_coordinate(
+                    cc.entity_key, train, cc.feature_shard, objective,
+                    config=ocfg, optimizer=cc.optimizer.optimizer,
+                    device=self.device)
+            else:
+                coord = build_random_effect_coordinate_sparse(
+                    cc.entity_key, train, cc.feature_shard, objective,
+                    global_dim=train.feature_dim(cc.feature_shard),
+                    config=ocfg, optimizer=cc.optimizer.optimizer,
+                    device=self.device)
+            # Built under its entity key; known by the coordinate name.
+            coord.name = cc.name
+            coords[cc.name] = coord
+        return coords
+
+    # -- export -------------------------------------------------------------
+
+    def _export_fixed(self, coord: FixedEffectCoordinate, w: Tensor,
+                      coord_cfg: CoordinateConfig,
+                      variances=None) -> FixedEffectModel:
+        """Raw feature space: scaled by the normalization factors, the
+        margin shift folded into the intercept, so a saved model scores
+        raw features with a plain dot product."""
+        norm = coord.problem.objective.norm
+        w_raw = _cpu(norm.model_to_raw(w)).clone()
+        if norm.shifts is not None:
+            w_raw[-1] -= float(norm.margin_correction(w))
+        var_raw = None
+        if variances is not None:
+            f = (_cpu(norm.factors) if norm.factors is not None
+                 else torch.ones_like(w_raw))
+            var_raw = _cpu(variances) * f * f
+        return FixedEffectModel(
+            coefficients=Coefficients(means=w_raw, variances=var_raw),
+            feature_shard=coord_cfg.feature_shard,
+            intercept=self.config.intercept)
+
+    def _random_model(self, coord, w, coord_cfg) -> RandomEffectModel:
+        model = coord.as_model([_cpu(b) for b in w])
+        model.feature_shard = coord_cfg.feature_shard
+        model.entity_key = coord_cfg.entity_key
+        return model
+
+    def _model_snapshot(self, coords: dict, coefficients: dict) -> GameModel:
+        """Current coefficients as a model without variances (what the
+        per-sweep validation scores)."""
+        by_name = {c.name: c for c in self.config.coordinates}
+        models = {}
+        for name, w in coefficients.items():
+            cc = by_name[name]
+            models[name] = (
+                self._export_fixed(coords[name], w, cc)
+                if cc.kind == CoordinateKind.FIXED_EFFECT
+                else self._random_model(coords[name], w, cc))
+        return GameModel(models=models)
+
+    def _to_game_model(self, coords: dict, cd) -> GameModel:
+        by_name = {c.name: c for c in self.config.coordinates}
+        models = {}
+        for name, w in cd.coefficients.items():
+            cc = by_name[name]
+            coord = coords[name]
+            vtype = cc.optimizer.variance_type
+            offsets = cd.total_scores - cd.scores[name]
+            if cc.kind == CoordinateKind.FIXED_EFFECT:
+                variances = (None if vtype == VarianceComputationType.NONE
+                             else coord.compute_variances(w, offsets, vtype))
+                models[name] = self._export_fixed(coord, w, cc, variances)
+            else:
+                models[name] = self._random_model(coord, w, cc)
+                if vtype != VarianceComputationType.NONE:
+                    # Per-entity variances are SIMPLE by design.
+                    models[name].variance_blocks = [
+                        _cpu(v) for v in coord.compute_variance_blocks(
+                            w, offsets)]
+        return GameModel(models=models)
+
+    # -- fit ----------------------------------------------------------------
+
+    def _grid_points(self) -> list[dict]:
+        grid = self.config.reg_weight_grid
+        if not grid:
+            return [{}]
+        names = sorted(grid)
+        return [dict(zip(names, vals))
+                for vals in itertools.product(*(grid[n] for n in names))]
+
+    def _swept_coordinate_name(self) -> str | None:
+        """The one trainable LBFGS fixed effect that the reference would
+        train as a batched λ sweep (ROADMAP A6), or None."""
+        cfg = self.config
+        trainable = [n for n in dict.fromkeys(cfg.update_sequence)
+                     if n not in cfg.locked_coordinates]
+        if len(trainable) != 1:
+            return None
+        cc = {c.name: c for c in cfg.coordinates}.get(trainable[0])
+        if (cc is None or cc.kind != CoordinateKind.FIXED_EFFECT
+                or cc.optimizer.optimizer == OptimizerType.TRON):
+            return None
+        for c in cfg.coordinates:
+            if (c.name in cfg.locked_coordinates
+                    and c.optimizer.variance_type
+                    != VarianceComputationType.NONE):
+                return None
+        return trainable[0]
+
+    def _evaluate(self, model: GameModel, validation: GameDataset) -> dict:
+        margins = torch.from_numpy(GameTransformer(
+            model=model, task=self.task,
+            device=str(self.device)).transform(validation))
+        labels = torch.from_numpy(validation.labels.astype(np.float32))
+        weights = torch.from_numpy(validation.weight_array())
+        out = {}
+        for ev in self.config.evaluators:
+            # RMSE and squared loss in mean space, the others on margins.
+            scores = margins
+            if ev.value in ("RMSE", "SQUARED_LOSS"):
+                scores = self.task.loss.mean(margins)
+            out[ev] = float(evaluate(ev, scores, labels, weights))
+        return out
+
+    def _fit_point(self, train: GameDataset, prep: dict, reg_weights: dict,
+                   validation: GameDataset | None, run_logger) -> FitResult:
+        """One coordinate-descent fit at fixed λ a coordinate."""
+        cfg = self.config
+        coords = self._build_coordinates(train, prep, reg_weights)
+        logger.info("fit: point %s", reg_weights or "(default)")
+        warm = self._warm_coefficients(coords, prep)
+        locked = {name: warm[name] for name in cfg.locked_coordinates
+                  if name in warm}
+        missing = set(cfg.locked_coordinates) - set(locked)
+        if missing:
+            raise ValueError(f"locked coordinates {sorted(missing)} absent "
+                             "from the warm-start model")
+        initial = {n: w for n, w in warm.items() if n not in locked}
+        validator = None
+        if validation is not None and cfg.validate_per_iteration:
+            def validator(coefficients, _total_scores):
+                return self._evaluate(
+                    self._model_snapshot(coords, coefficients), validation)
+
+        cd = run_coordinate_descent(
+            coordinates=coords, update_sequence=cfg.update_sequence,
+            n_iterations=cfg.n_iterations, validator=validator,
+            locked_coordinates=locked, initial_coefficients=initial,
+            run_logger=run_logger)
+        model = self._to_game_model(coords, cd)
+        if cd.validation_history:
+            # The last sweep's snapshot scores as the final model does.
+            evals = dict(cd.validation_history[-1])
+        else:
+            evals = (self._evaluate(model, validation)
+                     if validation is not None else {})
+        return FitResult(
+            model=model, evaluations=evals,
+            reg_weights={c.name: reg_weights.get(c.name,
+                                                 c.optimizer.reg_weight)
+                         for c in cfg.coordinates},
+            validation_history=cd.validation_history, descent=cd)
+
+    def fit(self, train: GameDataset, validation: GameDataset | None = None,
+            run_logger=None) -> list[FitResult]:
+        """Fit the λ grid point by point; results in grid order."""
+        prep = self._prepare(train)
+        grid_points = self._grid_points()
+        name = self._swept_coordinate_name()
+        if (len(grid_points) > 1 and name is not None
+                and set(self.config.reg_weight_grid) == {name}):
+            raise NotImplementedError(
+                "this grid is the batched λ sweep of one fixed effect, "
+                "not ported yet (ROADMAP A6); fit its points one config "
+                "at a time")
+        return [self._fit_point(train, prep, rw, validation, run_logger)
+                for rw in grid_points]
+
+    def fit_tuned(self, *args, **kwargs):
+        raise NotImplementedError(
+            "hyperparameter tuning is not ported yet (ROADMAP A6)")
+
+    def best(self, results: list[FitResult]) -> FitResult:
+        """Model selection by the first evaluator."""
+        if not self.config.evaluators or not results[0].evaluations:
+            return results[0]
+        ev = self.config.evaluators[0]
+        best = results[0]
+        for r in results[1:]:
+            if better_than(ev, r.evaluations[ev], best.evaluations[ev]):
+                best = r
+        return best

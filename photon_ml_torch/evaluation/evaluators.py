@@ -107,3 +107,11 @@ def evaluate(evaluator: EvaluatorType, scores: Tensor, labels: Tensor,
     """Dispatch an ``EvaluatorType``: raw margins for AUC and the
     losses, mean-space predictions for RMSE and squared loss."""
     return _EVALUATOR_FNS[evaluator](scores, labels, weights, mask)
+
+
+_LARGER_IS_BETTER = frozenset({EvaluatorType.AUC})
+
+
+def better_than(evaluator: EvaluatorType, a, b) -> bool:
+    """Model-selection order: larger AUC, smaller RMSE and losses."""
+    return (a > b) if evaluator in _LARGER_IS_BETTER else (a < b)

@@ -49,6 +49,25 @@ class RandomEffectModel:
     # coordinate name.
     entity_key: str | None = None
 
+    @property
+    def n_entities(self) -> int:
+        return self.grouping.n_total_entities
+
+    def all_coefficients(self) -> torch.Tensor:
+        """[E_total, p] in global entity order (ascending ids), the
+        gatherable form scoring uses; unprojected models only (every
+        bucket has one width)."""
+        if self.projection is not None:
+            raise ValueError("all_coefficients is width-uniform; use "
+                             "global_coefficients_for on projected models")
+        first = self.coefficient_blocks[0]
+        out = torch.zeros((self.n_entities, first.shape[-1]),
+                          dtype=first.dtype, device=first.device)
+        for b, blk in enumerate(self.coefficient_blocks):
+            idx = np.flatnonzero(self.grouping.entity_bucket == b)
+            out[torch.from_numpy(idx).to(out.device)] = blk[: len(idx)]
+        return out
+
     def coefficients_for(self, entity_id) -> np.ndarray | None:
         """Per-entity coefficients in the entity's LOCAL space."""
         idx = self.grouping.entity_index().get(int(entity_id))

@@ -3,7 +3,7 @@
 Counterpart of ``photon_ml_tpu/native/__init__.py``.  ``fast_etl.cpp`` is
 a verbatim copy of the JAX package's source; this module binds the parts
 the training path uses (``pml_libsvm_*``, ``pml_edge_color``,
-``pml_grr_routes``, ``pml_grr_plan*``).  It is host code, not a kernel of
+``pml_grr_routes``, ``pml_grr_plan*``, ``pml_colmajor_*``).  It is host code, not a kernel of
 the card.
 
 Build: ``g++ -O3 -shared -fPIC`` into ``build/native/`` at the repository
@@ -80,6 +80,10 @@ def _bind(dll: ctypes.CDLL) -> None:
         ctypes.POINTER(i32)] * 4
     dll.pml_grr_plan_fill.argtypes = [vp] * 10
     dll.pml_grr_plan_free.argtypes = [vp]
+    dll.pml_colmajor_vrows.restype = i64
+    dll.pml_colmajor_vrows.argtypes = [vp, vp, i64, i64, i64, i64, vp]
+    dll.pml_colmajor_fill.argtypes = [vp, vp, i64, i64, i64, i64, vp, i64,
+                                      vp, vp, vp]
 
 
 def lib() -> "ctypes.CDLL | None":
@@ -173,6 +177,34 @@ def grr_routes_native(dst: np.ndarray, hi: np.ndarray):
     if rc != 0:
         raise ValueError("pml_grr_routes: dst tile is not a bijection")
     return g1, g2, g3
+
+
+def colmajor_build_native(cols: np.ndarray, vals: np.ndarray, dim: int,
+                          capacity: int):
+    """Transposed-ELL build → (tvals, trows, vcol), or None without the
+    library.  A counting sort in row-scan order: the arrays of
+    ``data.colmajor``'s numpy path, byte for byte."""
+    dll = lib()
+    if dll is None:
+        return None
+    from photon_ml_torch.ops.kernels import vrow_pad
+
+    n, k = cols.shape
+    cols = np.ascontiguousarray(cols, np.int32)
+    vals = np.ascontiguousarray(vals, np.float32)
+    counts = np.zeros(dim, np.int64)
+    v = dll.pml_colmajor_vrows(_ptr(cols), _ptr(vals), n, k, dim, capacity,
+                               _ptr(counts))
+    if v < 0:
+        raise ValueError("column id out of range in colmajor build")
+    v_pad = vrow_pad(int(v))
+    tvals = np.zeros((v_pad, capacity), np.float32)
+    trows = np.zeros((v_pad, capacity), np.int32)
+    vcol = np.zeros(v_pad, np.int32)
+    dll.pml_colmajor_fill(_ptr(cols), _ptr(vals), n, k, dim, capacity,
+                          _ptr(counts), v_pad, _ptr(tvals), _ptr(trows),
+                          _ptr(vcol))
+    return tvals, trows, vcol
 
 
 def grr_plan_native(cols: np.ndarray, vals: np.ndarray, direction: int,

@@ -5,6 +5,12 @@ elementwise loss → masked reduce / transposed contraction.  Total value
 = Σ_i weight_i·ℓ(margin_i, y_i) + ½·λ₂·‖w‖² (+ the prior); L1 is the
 optimizer's (OWL-QN).  The batch is passed per call, so one objective
 serves many batches.  The swept (stacked-λ) surface is ROADMAP A6.
+
+Every method also takes E independent problems at once: a lane-stacked
+``DenseBatch`` (``x`` [E, c, p]) and coefficients [E, p] give [E]
+values and [E, p] vectors (the reductions run over the last axis), the
+counterpart of ``jax.vmap`` of these methods as the random-effect
+buckets run them.
 """
 
 from __future__ import annotations
@@ -42,14 +48,14 @@ class GLMObjective:
 
     def _residual_to_grad(self, r: Tensor, batch: Batch) -> Tensor:
         """r (masked and weighted, [n]) → model-space gradient [dim]."""
-        return self.norm.grad_to_model(batch.xt_dot(r), r.sum())
+        return self.norm.grad_to_model(batch.xt_dot(r), r.sum(-1))
 
     # ---- value / gradient / Hessian ---------------------------------------
 
     def value(self, w: Tensor, batch: Batch) -> Tensor:
         m = self._margins(w, batch)
         wl = batch.weights * batch.mask
-        val = (wl * self.loss.loss(m, batch.labels)).sum() \
+        val = (wl * self.loss.loss(m, batch.labels)).sum(-1) \
             + self.reg.l2_value(w)
         if self.prior is not None:
             val = val + self.prior.value(w)
@@ -61,7 +67,7 @@ class GLMObjective:
         transposed contraction."""
         m = self._margins(w, batch)
         wl = batch.weights * batch.mask
-        val = (wl * self.loss.loss(m, batch.labels)).sum() \
+        val = (wl * self.loss.loss(m, batch.labels)).sum(-1) \
             + self.reg.l2_value(w)
         r = wl * self.loss.d1(m, batch.labels)
         grad = self._residual_to_grad(r, batch) + self.reg.l2_gradient(w)
@@ -105,7 +111,7 @@ class GLMObjective:
         if self.norm.shifts is not None:
             s = self.norm.shifts
             cross = batch.xt_dot(d2)            # Σ_i d2_i · x_ij
-            total = d2.sum()                    # Σ_i d2_i
+            total = d2.sum(-1)                  # Σ_i d2_i
             diag = diag - 2.0 * f * f * s * cross + f * f * s * s * total
         return diag + self.reg.l2_hessian_diagonal(w) + prior_diag
 
@@ -125,6 +131,8 @@ def _elementwise_square_batch(batch: Batch) -> Batch:
     assert isinstance(batch, SparseBatch)
     return dataclasses.replace(
         batch, values=batch.values * batch.values,
+        colmajor=(None if batch.colmajor is None
+                  else batch.colmajor.squared()),
         grr=None if batch.grr is None else batch.grr.squared())
 
 

@@ -36,7 +36,7 @@ class GaussianPrior:
 
     def value(self, w: Tensor) -> Tensor:
         d = w - self.means
-        return 0.5 * self.weight * torch.dot(d, self.precisions * d)
+        return 0.5 * self.weight * (d * self.precisions * d).sum(-1)
 
     def gradient(self, w: Tensor) -> Tensor:
         return self.weight * self.precisions * (w - self.means)

@@ -63,7 +63,7 @@ class RegularizationContext:
 
     def l2_value(self, w: Tensor) -> Tensor:
         wm = self._masked(w)
-        return 0.5 * self.l2_weight * torch.dot(wm, wm)
+        return 0.5 * self.l2_weight * (wm * wm).sum(-1)
 
     def l2_gradient(self, w: Tensor) -> Tensor:
         return self.l2_weight * self._masked(w)

@@ -6,6 +6,9 @@ kernel checks (here the plain versions against themselves) and the fit's
 gates run here on CPU tensors at 60,000 rows.  At that size the held-out
 AUC is below the script's 0.70 gate (a property of the generator: it
 grows with the row count), so that one gate is expected to report.
+Phase 7 (GAME training) runs at 8,000 rows over 2,000 columns and 300
+entities a random effect, with every gate; phase 8 runs the driver in a
+subprocess with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,18 @@ def train():
     if not native.native_available():
         pytest.skip("the native plan builder needs g++")
     return cs.phase_train_build(seed=3, n=ROWS, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def training(train):
+    """Phase 6 on the CPU, once for the tests that read it."""
+    return cs.phase_training(train, time_it=False)
+
+
+@pytest.fixture
+def work(tmp_path, monkeypatch):
+    monkeypatch.setattr(cs, "WORK", str(tmp_path))
+    return tmp_path
 
 
 def test_main_refuses_without_cuda(capsys):
@@ -103,11 +118,128 @@ def test_ell_split_by_kernel():
     assert len(split["largest"]) == 4
 
 
-def test_training_phase_gates_on_cpu(train):
-    out = cs.phase_training(train, time_it=False)
+def test_training_phase_gates_on_cpu(training):
+    out = training
     assert [f for f in out["failures"] if "AUC" not in f] == []
     assert out["loss_final"] < out["loss_first"]
     assert out["early_loss_gap_rel"] <= cs.TRAJECTORY_RTOL
     assert max(out["f64_errors"]["grr"].values()) <= cs.F64_VECTOR_RTOL
     assert out["launches"] == {"grr_contract_dense": 0, "grr_contract": 0,
                                "gather_rowsum": 0}
+
+
+def test_transposed_ell_kernel_check_on_cpu(train):
+    """Phase 3's B1 check at the transposed-ELL arrays: the residual over
+    the training rows as the table, auto capacity."""
+    table = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 0.1, cs.D + 1).astype(np.float32))
+    cm = train["colmajor"].colmajor
+    entry = cs.phase_kernels(table, seed=1, ell=train["ell"], colmajor=cm,
+                             time_it=False)
+    shape = next(s for s in entry["shapes"] if s["shape"] == "colmajor_train")
+    assert (shape["n"], shape["k"]) == (cm.n_virtual_rows, cm.capacity)
+    assert entry["transposed_shape"] == [cm.n_virtual_rows, cm.capacity]
+    assert shape["table"] == ROWS - ROWS // 10
+    assert shape["atol"] == cs.COLMAJOR_ATOL and shape["max_abs_err"] == 0.0
+    assert shape["bound_by"] == "bytes" and shape["bound_ms"] > 0
+    assert cm.capacity % 8 == 0 and 8 <= cm.capacity <= 512
+    assert entry["launches_game_fit"] is None
+
+
+def test_training_phase_colmajor_and_config2_on_cpu(training):
+    out = training
+    assert out["colmajor_loss_gap_rel"] <= cs.LAYOUT_LOSS_RTOL
+    assert out["colmajor_gather_rowsum_launches"] == 0       # plain on CPU
+    assert max(out["f64_errors"]["colmajor"].values()) <= cs.F64_VECTOR_RTOL
+    c2 = out["config2"]
+    assert c2["failures"] == []
+    for layout in ("ell", "colmajor"):
+        assert c2[f"tron_{layout}"]["loss_final"] < \
+            c2[f"tron_{layout}"]["loss_first"]
+    assert c2["tron_ell"]["grad_norm"] < c2["lbfgs_ell"]["grad_norm"]
+
+
+def test_colmajor_split_by_kernel():
+    split = cs.split_colmajor_evaluation({
+        "void gather_rowsum_kernel<4>": 0.4,
+        "void at::native::vectorized_elementwise_kernel": 0.05,
+        "void at::native::indexFuncSmallIndex<double>": 0.02}, 0.1)
+    assert split == pytest.approx({"gather_rowsum_xw": 0.1,
+                                   "gather_rowsum_xtr": 0.3, "fold": 0.02,
+                                   "rest": 0.05})
+
+
+def test_game_data_shape_and_seed():
+    ds = cs.make_game_data(seed=7, n=400, d=2000, n_entities=50)
+    assert ds.n == 400 and ds.features["global"].max_nnz == cs.NNZ
+    assert ds.feature_dim("global") == 2000
+    assert ds.features["user_re"].shape == (400, cs.P_USER)
+    assert ds.features["item_re"].shape == (400, cs.P_ITEM)
+    assert ds.entity_ids["userId"].max() < 50
+    again = cs.make_game_data(seed=7, n=400, d=2000, n_entities=50)
+    np.testing.assert_array_equal(ds.labels, again.labels)
+    # Power-law entities: the most frequent user holds many rows.
+    assert np.bincount(ds.entity_ids["userId"]).max() > 400 / 50
+
+
+def test_game_phase_on_cpu(work):
+    """Phase 7 at a small size, every gate on: GAME beats fixed-only, the
+    layouts agree, the per-entity float64 check and the served margins;
+    B1 checked at the fixed effect's own arrays; the fit probe and the
+    scoring recorder leave no patch behind."""
+    from photon_ml_torch.data.batch import SparseBatch
+    from photon_ml_torch.estimators import game_transformer
+    from photon_ml_torch.game import coordinates
+
+    solve, margins = coordinates.solve_batched, SparseBatch.margins
+    xt_dot, score_b1 = SparseBatch.xt_dot, game_transformer.gather_rowsum
+    out = cs.phase_game(seed=7, n=8000, device="cpu", d=2000,
+                        n_entities=300, time_it=False)
+    assert out["failures"] == []
+    assert coordinates.solve_batched is solve
+    assert SparseBatch.margins is margins and SparseBatch.xt_dot is xt_dot
+    assert game_transformer.gather_rowsum is score_b1
+    assert out["entity_check"]["checked"] == cs.GAME_ENTITY_CHECKS
+    assert out["serve_max_abs_err"] <= cs.GAME_SERVE_ATOL
+    shapes = {sh["shape"]: sh for sh in out["kernel_shapes"]}
+    assert sorted(shapes) == ["game_fe_colmajor", "game_fe_ell"]  # no chunk
+    n_train = 8000 - int(8000 * cs.TRAIN_HOLDOUT)
+    assert (shapes["game_fe_ell"]["n"], shapes["game_fe_ell"]["k"]) == (
+        n_train, cs.NNZ + 1)
+    assert shapes["game_fe_colmajor"]["table"] == n_train
+    for layout in ("ell", "colmajor"):
+        f = out[layout]
+        assert f["fe_evaluations"] > 0 and f["launches"] == 0
+        assert f["fe_evaluation_launches"] == f["fe_gradient_launches"] == 0
+        assert f["fe_gradients"] > 0
+        assert len(f["auc_by_sweep"]) == cs.GAME_SWEEPS
+        assert sorted(f["sweep_coordinate_s"]) == [1, 2]
+        assert {b["width"] for b in f["buckets"]} == {cs.P_USER, cs.P_ITEM}
+    assert out["ell"]["auc"] > out["fixed_only"]["auc"]
+
+
+def test_driver_phase_on_cpu(work):
+    out = cs.phase_driver(["--device", "cpu"])
+    assert out["rc"] == 0
+    assert abs(out["auc"] - out["golden_auc"]) < cs.DRIVER_AUC_ATOL
+
+
+def test_profile_sweep_on_cpu():
+    """The profiled sweep runs here with no device events to sum."""
+    ds = cs.make_game_data(seed=7, n=2000, d=500, n_entities=40)
+    out = cs.profile_sweep(ds, "cpu")
+    assert out["wall_s"] > 0
+    assert out["device_busy_ms"] is None and out["idle_share"] is None
+
+
+def test_fe_evaluation_splits_on_cpu():
+    """The phase-7 fixed-effect batches the split times: the estimator's
+    ELL batch (30 columns + the intercept) and its transposed ELL."""
+    ds = cs.make_game_data(seed=7, n=2000, d=500, n_entities=40)
+    out = cs.fe_evaluation_splits(
+        {layout: cs.fe_problem(ds, "cpu", layout)
+         for layout in ("ELL", "COLMAJOR")}, time_it=False)
+    assert out["ell"]["shape"] == [2000, cs.NNZ + 1]
+    assert "transposed_shape" not in out["ell"]
+    v, c = out["colmajor"]["transposed_shape"]
+    assert c % 8 == 0 and v * c >= 2000 * (cs.NNZ + 1)

@@ -16,6 +16,8 @@ run where only PyTorch is installed::
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -354,3 +356,69 @@ def test_cuda_table_head_in_shared_memory(n, k, L, offset):
     want = tk.gather_rowsum_reference(t, v, i)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=RTOL, atol=ATOL)
+
+
+def _transposed_ell(seed: int, n: int, d: int, capacity: int | None):
+    """B1's inputs at the transposed-ELL shapes: the virtual rows of a
+    power-law [n, 32] ELL (``data.colmajor``) over ``d`` columns, and a
+    residual table over the n rows."""
+    from photon_ml_torch.data.colmajor import build_colmajor_arrays
+
+    rng = np.random.default_rng(seed)
+    cols = np.sort(((d - 32) * rng.random((n, 32)) ** 2.2).astype(np.int64),
+                   axis=1)
+    for j in range(1, 32):
+        bump = cols[:, j] <= cols[:, j - 1]
+        cols[bump, j] = cols[bump, j - 1] + 1
+    vals = rng.random((n, 32)).astype(np.float32)
+    vals[:, 30:] = 0.0                               # padding slots
+    tvals, trows, _ = build_colmajor_arrays(cols.astype(np.int32), vals, d,
+                                            capacity=capacity)
+    r = rng.normal(0, 1, n).astype(np.float32)
+    return r, tvals, trows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [8, 16, 64, 128, 512, None])
+def test_cuda_kernel_at_transposed_ell_capacities(capacity):
+    """Virtual rows of capacity 8-512 (thousands of them), ids sorted
+    row indices within a column, a table (r over 100,000 rows) larger
+    than the shared-memory head; bitwise across launches and within
+    tolerance of the plain version."""
+    r, tvals, trows = _transposed_ell(11, 100_000, 20_000, capacity)
+    assert tvals.shape[0] >= 1000
+    t, v, i = _cuda(r, tvals, trows)
+    got = _launch_twice(t, v, i)
+    want = tk.gather_rowsum_reference(t, v, i)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_colmajor_xt_dot_matches_index_add():
+    """``ColMajorSlice.xt_dot`` on the card (B1 + the float64 fold)
+    against the plain ELL scatter ``index_add_`` of the same rows."""
+    from photon_ml_torch.data.batch import make_sparse_batch
+    from photon_ml_torch.data.sparse_rows import SparseRows
+
+    rng = np.random.default_rng(12)
+    n, d, k = 50_000, 5_000, 32
+    cols = np.sort(((d - k) * rng.random((n, k)) ** 2.2).astype(np.int64),
+                   axis=1)
+    for j in range(1, k):
+        bump = cols[:, j] <= cols[:, j - 1]
+        cols[bump, j] = cols[bump, j - 1] + 1
+    rows = SparseRows.from_flat(np.arange(n + 1) * k, cols.reshape(-1),
+                                rng.random(n * k).astype(np.float32))
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    cm = make_sparse_batch(rows, d, np.zeros(n), col_major=True,
+                           device="cuda")
+    plain = dataclasses.replace(cm, colmajor=None)
+    r = torch.randn(n, device="cuda")
+    before = tk.gather_rowsum.launches
+    got = cm.xt_dot(r)
+    assert tk.gather_rowsum.launches == before + 1
+    want = plain.xt_dot(r)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * float(want.abs().max()))

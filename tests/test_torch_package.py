@@ -52,6 +52,18 @@ def test_port_has_the_training_slice():
         REPO / "photon_ml_tpu/native/fast_etl.cpp").read_bytes()
 
 
+def test_port_has_the_game_training_slice():
+    for rel in ("photon_ml_torch/optim/tron.py",
+                "photon_ml_torch/optim/variance.py",
+                "photon_ml_torch/data/colmajor.py",
+                "photon_ml_torch/game/coordinates.py",
+                "photon_ml_torch/game/coordinate_descent.py",
+                "photon_ml_torch/estimators/game_estimator.py",
+                "photon_ml_torch/estimators/game_transformer.py",
+                "photon_ml_torch/cli/game_training_driver.py"):
+        assert (REPO / rel).is_file(), rel
+
+
 @pytest.mark.parametrize("rel", PORT_FILES)
 def test_no_jax_import_in_port_source(rel):
     bad = [m for m in _imported_modules(REPO / rel)
@@ -77,6 +89,23 @@ def test_fresh_import_leaves_jax_out():
         "import photon_ml_torch.ops.objective\n"
         "import photon_ml_torch.optim.problem\n"
         "import photon_ml_torch.evaluation.evaluators\n"
+        "import photon_ml_torch.optim.tron\n"
+        "import photon_ml_torch.optim.variance\n"
+        "import photon_ml_torch.data.colmajor\n"
+        "import photon_ml_torch.game.dataset\n"
+        "import photon_ml_torch.game.sampling\n"
+        "import photon_ml_torch.game.projector\n"
+        "import photon_ml_torch.game.coordinates\n"
+        "import photon_ml_torch.game.coordinate_descent\n"
+        "import photon_ml_torch.estimators.game_transformer\n"
+        "import photon_ml_torch.estimators.game_estimator\n"
+        "import photon_ml_torch.config\n"
+        "import photon_ml_torch.io.avro\n"
+        "import photon_ml_torch.io.avro_schemas\n"
+        "import photon_ml_torch.io.index_map\n"
+        "import photon_ml_torch.io.dataset\n"
+        "import photon_ml_torch.utils.run_log\n"
+        "import photon_ml_torch.cli.game_training_driver\n"
         f"print(json.dumps(sorted(m for m in sys.modules "
         f"if m.split('.')[0] in {FORBIDDEN!r})))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -407,16 +407,32 @@ def test_regularization_and_prior_match_reference():
 
 
 def test_unported_options_raise():
+    """The transposed ELL and TRON are ported now (they ran into
+    ``NotImplementedError`` naming A2 before); the options still missing
+    raise, naming their ROADMAP items: the swept λ solve (A6) and the
+    chunked and streamed tiers (A5)."""
+    from photon_ml_torch.game.coordinates import (
+        ChunkedFixedEffectCoordinate,
+        FixedEffectCoordinate,
+        build_streamed_random_effect_coordinate,
+    )
+
     rows, labels = _a1a(50)
-    with pytest.raises(NotImplementedError, match="A2"):
-        make_sparse_batch(rows, 123, labels, col_major=True, device=CPU)
+    batch = make_sparse_batch(rows, 123, labels, col_major=True, device=CPU)
+    assert batch.colmajor is not None
     problem = OptimizationProblem(
         GLMObjective(losses.LOGISTIC, RegularizationContext.l2(1.0),
                      NormalizationContext.identity()),
         optimizer=OptimizerType.TRON)
-    with pytest.raises(NotImplementedError, match="A2"):
-        problem.run(make_sparse_batch(rows, 123, labels, device=CPU),
-                    torch.zeros(123))
+    res = problem.run(batch, torch.zeros(123))
+    assert res.converged and res.iterations > 0
+    coord = FixedEffectCoordinate("global", batch, problem)
+    with pytest.raises(NotImplementedError, match="A6"):
+        coord.train_swept(torch.zeros(50), None)
+    with pytest.raises(NotImplementedError, match="A5"):
+        ChunkedFixedEffectCoordinate()
+    with pytest.raises(NotImplementedError, match="A5"):
+        build_streamed_random_effect_coordinate()
 
 
 def test_duplicate_ids_rejected():
