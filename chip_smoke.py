@@ -29,6 +29,12 @@ raises on failure:
    (median of 20 single calls, each after a 128 MB write; a level read
    faster than 105 % of its HBM bound fails) with the back-to-back
    figure and the profiler's device ms beside it as ``*_warm``;
+   ``gather_rowsum_lanes`` at phase 6's ELL arrays with a [100,001, L]
+   table at L = 2, 8 and 16, and at their transposed ELL with L = 8 (the
+   table a residual over the rows, [900,000, 8]), each launched twice
+   and required bitwise equal and within B1's tolerances, timed as B1 is
+   with ``embedding_bag`` over the [T, L] table and L single-lane
+   ``gather_rowsum`` launches beside;
 4. serving: the config-5 GAME model (KDD Cup 2012 track 2 widths: a
    sparse fixed effect over 100,000 features plus an intercept, 30
    non-zeros a row; a per-user random effect of 100,000 entities x 2
@@ -86,23 +92,52 @@ raises on failure:
    iterations and solve wall, one profiled sweep's device busy ms and
    idle share, and the fixed effect's evaluation on the ELL and the
    transposed-ELL layout split by part;
-8. driver: ``python -m photon_ml_torch.cli.game_training_driver`` in a
+8. drivers: ``python -m photon_ml_torch.cli.game_training_driver`` in a
    subprocess, on the card, on the committed config-4 Avro fixture: it
    exits 0 and reproduces ``tests/resources/golden.json``'s config-4 AUC
-   and fixed-effect coefficients within 2e-3.
+   and fixed-effect coefficients within 2e-3.  Then, in subprocesses,
+   ``feature_indexing_driver`` writes index maps equal to the training
+   driver's, and ``game_scoring_driver`` scores the validation file from
+   the saved model to ``.npz`` and to ``.avro``: its AUC equals the
+   training driver's within 1e-6, the two outputs' scores agree within
+   1e-6 and the Avro file reads back with the port's reader.  The
+   ``.npz`` scoring runs once more in this process with the B1 count set
+   to 0 (it must launch), and ``export_model_avro`` writes the model,
+   which reads back to the same coefficients;
+9. swept λ: config 1 on phase 6's arrays (the intercept one of their
+   columns) over 8 λ log-spaced on [0.01, 100], ``GameEstimator.fit`` of
+   the grid with L-BFGS for 20 iterations, on the ELL and the
+   transposed-ELL layout.  Each grid must take the swept path (one
+   swept solve, ``_fit_point`` never called), ``gather_rowsum_lanes``
+   must launch inside every swept evaluation (``SparseBatch.margins``
+   with W [L, d]) and, on the transposed ELL, every swept gradient,
+   and single-lane ``gather_rowsum`` never inside either; lanes 0, 3
+   and 7 must end within 1e-3 (relative loss) and 1e-3 (held-out AUC)
+   of single-λ fits of their λ.  A RANDOM ``fit_tuned`` of 8 trials, 4 a
+   round, must take the swept path (the same kernel gates) with every λ
+   in range and its best AUC at least the grid's worst.  The lane
+   kernel is then checked and timed as in phase 3 at every shape these
+   fits launched it at, on the last inputs each had (the estimator's
+   900,000 x 31 ELL at 8 and 4 lanes, and its transposed ELL at 8),
+   each shape carrying its launches.  Printed: the swept solves' walls
+   against the single-λ ones, and one swept ``value_and_gradient`` at
+   L = 8 on each layout, its device ms split by part, and the idle share.
 
 The line before the card's and the result's is one JSON object with a
 ``kernels`` list: per kernel its launches on its path (``gather_rowsum``:
 phase 4; phase 6's ELL and transposed-ELL fits as ``launches_ell_fit``
 and ``launches_colmajor_fit``; phase 7's ELL GAME fit as
-``launches_game_fit``; the GRR kernels: phase 6's GRR fit), the largest
-kernel-vs-plain
-difference over all checked shapes (``gather_rowsum``: phases 3 and 7),
-and its times and bound (``gather_
-rowsum``: at the serving bucket, 64 rows x 32 slots; the GRR kernels:
-L2-cold, summed over the plan levels they run, i.e. one X·w plus one
-Xᵀr, with the warm sums beside);
-``shapes`` holds every checked shape.  The last line is
+``launches_game_fit``; phase 8's in-process scoring as
+``launches_scoring_driver``; the GRR kernels: phase 6's GRR fit;
+``gather_rowsum_lanes``: phase 9's ELL, transposed-ELL and tuned fits,
+and by shape in ``shapes``),
+the largest kernel-vs-plain difference over all checked shapes
+(``gather_rowsum``: phases 3 and 7), and its times and bound
+(``gather_rowsum``: at the serving bucket, 64 rows x 32 slots; the GRR
+kernels: L2-cold, summed over the plan levels they run, i.e. one X·w
+plus one Xᵀr, with the warm sums beside; ``gather_rowsum_lanes``: at
+phase 6's 900,000 x 32 ELL arrays with 8 lanes); ``shapes`` holds every
+checked shape.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -130,8 +165,11 @@ from photon_ml_torch.config import (
     OptimizerSettings,
     ServingConfig,
     TrainingConfig,
+    TuningConfig,
     config_to_json,
 )
+from photon_ml_torch.data import batch as batch_mod
+from photon_ml_torch.data import colmajor as colmajor_mod
 from photon_ml_torch.data import grr as grr_mod
 from photon_ml_torch.data.batch import SparseBatch, make_sparse_batch
 from photon_ml_torch.data.colmajor import build_colmajor
@@ -160,8 +198,13 @@ from photon_ml_torch.ops.grr_kernel import (
     grr_contract_reference,
     tile_partials,
 )
-from photon_ml_torch.ops.kernels import gather_rowsum, gather_rowsum_reference
-from photon_ml_torch.ops.objective import GLMObjective
+from photon_ml_torch.ops.kernels import (
+    gather_rowsum,
+    gather_rowsum_lanes,
+    gather_rowsum_lanes_reference,
+    gather_rowsum_reference,
+)
+from photon_ml_torch.ops.objective import GLMObjective, sweep_value_and_gradient
 from photon_ml_torch.ops.regularization import RegularizationContext
 from photon_ml_torch.optim.base import OptimizerConfig, OptimizerType
 from photon_ml_torch.optim.problem import OptimizationProblem
@@ -255,9 +298,31 @@ GAME_ENTITY_RTOL = 1e-4
 GAME_SERVE_ROWS, GAME_SERVE_ATOL = 256, 1e-4
 
 # Phase 8: the training driver on the committed config-4 fixture, at
-# the tolerances of tests/test_fixtures.py.
+# the tolerances of tests/test_fixtures.py; then the indexing and scoring
+# drivers and the Avro export on the same fixture.  The scoring driver
+# runs the training driver's validation transform again, so its AUC and
+# its two outputs' scores agree to float32 rounding.
 FIXTURES = os.path.join(REPO, "tests", "resources")
 DRIVER_AUC_ATOL, DRIVER_COEF_TOL = 2e-3, 2e-3
+SCORING_ATOL = 1e-6
+
+# gather_rowsum_lanes in phase 3: the λ-lane counts checked and timed at
+# phase 6's ELL arrays, and the one at their transposed ELL (the main
+# path's: phase 9 sweeps 8 λ).
+LANE_COUNTS = (2, 8, 16)
+LANES_MAIN = 8
+
+# Phase 9: config 1 at the config-5 fixed-effect widths (phase 6's
+# arrays) fitted over a λ grid of 8 log-spaced points as ONE swept
+# solve, L-BFGS 20 iterations, on the ELL and the transposed-ELL layout.
+# Lanes SWEEP_CHECK_LANES are held against single-λ fits at the layout
+# gates of phase 6 (final loss 1e-3 relative; held-out AUC 1e-3).  Then
+# a RANDOM tuned fit of TUNE_TRIALS trials, TUNE_BATCH a swept round.
+SWEEP_LAMS = tuple(float(x) for x in np.logspace(-2, 2, 8))
+SWEEP_ITERS = 20
+SWEEP_CHECK_LANES = (0, 3, 7)
+SWEEP_LOSS_RTOL, SWEEP_AUC_ATOL = 1e-3, 1e-3
+TUNE_TRIALS, TUNE_BATCH = 8, 4
 
 
 # -- the model and its float64 reference -------------------------------------
@@ -523,6 +588,128 @@ def phase_kernels(table: torch.Tensor, seed: int, ell=None,
         "shape": [main["n"], main["k"]],
         "transposed_shape": next(([s["n"], s["k"]] for s in shapes
                                   if s["shape"] == "colmajor_train"), None),
+        "shapes": shapes,
+    }
+
+
+def check_gather_rowsum_lanes(table: torch.Tensor, vals, ids,
+                              atol: float = ATOL) -> float:
+    """Max |lane kernel − plain| on these inputs; raises past the
+    tolerance or if two launches differ."""
+    got = gather_rowsum_lanes(table, vals, ids)
+    again = gather_rowsum_lanes(table, vals, ids)
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"gather_rowsum_lanes at {tuple(vals.shape)} x "
+                             f"{table.shape[1]} lanes: two launches differ")
+    want = gather_rowsum_lanes_reference(table, vals, ids)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    if not np.isfinite(got).all():
+        raise AssertionError("gather_rowsum_lanes returned non-finite "
+                             "values")
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=atol)
+    return float(np.max(np.abs(got - want))) if got.size else 0.0
+
+
+def gather_rowsum_lanes_bound_ms(table, vals, ids) -> tuple[float, str]:
+    """Least time on one H100 for these inputs: vals and ids read once
+    for every lane, the table rows these ids touch read once (L floats
+    each), out [n, L] written once; 2 float32 operations a slot and a
+    lane."""
+    n, k = vals.shape
+    lanes = table.shape[1]
+    touched = int(torch.unique(ids).numel())
+    nbytes = n * k * (4 + 4) + touched * lanes * 4 + n * lanes * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * n * k * lanes / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_lanes_case(name: str, tab, vals, ids, atol: float,
+                     time_it: bool = True) -> dict:
+    """One lane-kernel shape: launched twice (bitwise equal) and held
+    against its plain version; ``embedding_bag`` over the [T, L] table
+    and the bound beside; with ``time_it``, CUDA-event ms (back to back)
+    and profiler device ms of the kernel, of the plain version, of the
+    library call and of L single-lane ``gather_rowsum`` launches (one a
+    lane: what the sweep would cost without the lane kernel)."""
+    n, k = vals.shape
+    lanes = tab.shape[1]
+    err = check_gather_rowsum_lanes(tab, vals, ids, atol)
+    library = torch.nn.functional.embedding_bag(
+        ids, tab, per_sample_weights=vals, mode="sum")
+    lib_err = float((library - gather_rowsum_lanes_reference(
+        tab, vals, ids)).abs().max())
+    bound, bound_by = gather_rowsum_lanes_bound_ms(tab, vals, ids)
+    entry = {"shape": name, "n": n, "k": k, "lanes": lanes,
+             "table": tab.shape[0], "max_abs_err": err, "atol": atol,
+             "library_max_abs_err": lib_err,
+             "bound_ms": bound, "bound_by": bound_by}
+    if time_it:
+        columns = [tab[:, j].contiguous() for j in range(lanes)]
+
+        def run():
+            return gather_rowsum_lanes(tab, vals, ids)
+
+        def singles():
+            return [gather_rowsum(c, vals, ids) for c in columns]
+
+        entry["ms"] = time_ms(run, 5)
+        entry["device_ms"] = device_ms(run, 20)
+        entry["single_lanes_ms"] = time_ms(singles, 2)
+        entry["plain_ms"] = time_ms(
+            lambda: gather_rowsum_lanes_reference(tab, vals, ids), 2)
+        entry["library_ms"] = time_ms(
+            lambda: torch.nn.functional.embedding_bag(
+                ids, tab, per_sample_weights=vals, mode="sum"), 2)
+        entry["share_of_bound"] = bound / entry["ms"]
+    print(f"  gather_rowsum_lanes {name}: " + json.dumps(entry))
+    return entry
+
+
+def phase_kernels_lanes(ell, colmajor, seed: int,
+                        time_it: bool = True) -> dict:
+    """The lane kernel against its plain version at phase 6's ELL arrays
+    ``ell`` (a ``SparseBatch``; a [T, L] table of small coefficients) at
+    every lane count of ``LANE_COUNTS``, and at their transposed ELL
+    ``colmajor`` with ``LANES_MAIN`` lanes (the table a residual over the
+    rows, [n, L]: the swept Xᵀr); every shape launched twice and
+    required bitwise equal."""
+    rng = np.random.default_rng(seed)
+    dev = ell.values.device
+    shapes = []
+    for lanes in LANE_COUNTS:
+        tab = torch.from_numpy(rng.normal(0, 0.05, (ell.dim, lanes)).astype(
+            np.float32)).to(dev)
+        shapes.append(check_lanes_case(f"ell_train_L{lanes}", tab,
+                                       ell.values, ell.col_ids, ATOL,
+                                       time_it=time_it))
+    if colmajor is not None:
+        W = torch.from_numpy(rng.normal(0, 0.05, (LANES_MAIN, ell.dim))
+                             .astype(np.float32)).to(dev)
+        R = (torch.sigmoid(ell.margins(W)) - ell.labels).T.contiguous()
+        shapes.append(check_lanes_case(
+            f"colmajor_train_L{LANES_MAIN}", R, colmajor.tvals,
+            colmajor.trows, COLMAJOR_ATOL, time_it=time_it))
+    main = next(sh for sh in shapes
+                if sh["shape"] == f"ell_train_L{LANES_MAIN}")
+    return {
+        "name": "gather_rowsum_lanes", "route": "cuda",
+        "source": "photon_ml_torch/csrc/gather_rowsum.cu",
+        "replaces": "photon_ml_tpu/ops/kernels.py:65 (under jax.vmap)",
+        "launches": None, "launches_ell_fit": None,
+        "launches_colmajor_fit": None, "launches_tuned_fit": None,
+        "max_abs_err": max(sh["max_abs_err"] for sh in shapes),
+        "ms": main.get("ms"), "device_ms": main.get("device_ms"),
+        "plain_ms": main.get("plain_ms"),
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main.get("library_ms"),
+        "library_call": "torch.nn.functional.embedding_bag(table [T, L], "
+                        "mode='sum')",
+        "single_lanes_ms": main.get("single_lanes_ms"),
+        "shape": [main["n"], main["k"]], "lanes": LANES_MAIN,
         "shapes": shapes,
     }
 
@@ -795,6 +982,7 @@ def phase_train_build(seed: int, n: int, device: str) -> dict:
         "grr": batch, "ell": ell,
         "colmajor": dataclasses.replace(ell, colmajor=cm),
         "test": test, "rows": rows[:n_train], "labels": y[:n_train],
+        "test_rows": rows[n_train:], "test_labels": y[n_train:],
         "info": {
             "colmajor_build_s": colmajor_s,
             "colmajor_virtual_rows": cm.n_virtual_rows,
@@ -1212,29 +1400,36 @@ def split_colmajor_evaluation(by_name: dict, xw_ms: float) -> dict:
 
 
 def device_kernels_ms(fn, n: int = 5, tries: int = 3) -> dict:
-    """Device ms per call by kernel (or copy) name: the device events of
-    ``n`` calls in a ``torch.profiler`` trace, summed by name, over
-    ``n``.  A trace now and then comes back without device events; it
-    is taken again, up to ``tries`` traces; empty if none holds one."""
+    """Device ms per call by kernel (or copy) name: the name's mean event
+    time in a ``torch.profiler`` trace of ``n`` calls, times its events
+    a call (its event count over ``n``, rounded, at least 1).  Late in a
+    long run a trace may miss some device events (up to ~40 % of one
+    kernel's seen here) or hold a late one, which a sum over ``n`` turns
+    into a wrong time and the mean does not.  A trace that comes back
+    without device events is taken again, up to ``tries`` traces; empty
+    if none holds one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    by_name: dict = {}
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
+        total: dict = {}
+        count: dict = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = (by_name.get(e.name, 0.0)
-                                   + e.time_range.elapsed_us() / n / 1e3)
-        if by_name:
-            break
-    return by_name
+                total[e.name] = (total.get(e.name, 0.0)
+                                 + e.time_range.elapsed_us() / 1e3)
+                count[e.name] = count.get(e.name, 0) + 1
+        if total:
+            return {name: total[name] / count[name]
+                    * max(1, round(count[name] / n)) for name in total}
+    return {}
 
 
 def device_ms(fn, n: int = 5):
@@ -1759,37 +1954,511 @@ def driver_config(out_dir: str) -> dict:
     }
 
 
+def _run_module(module: str, args: list) -> tuple[dict, float]:
+    """``python -m <module> <args>`` from the repository root; its last
+    stdout line as JSON, and its wall."""
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 8: {module} exited {proc.returncode}:"
+                             f" {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    return (json.loads(lines[-1]) if lines else {}), wall
+
+
 def phase_driver(device_args: list) -> dict:
     """``python -m photon_ml_torch.cli.game_training_driver`` in a
     subprocess on the config-4 fixture: rc 0, and the saved model and
-    summary reproduce ``golden.json["config4"]``."""
+    summary reproduce ``golden.json["config4"]``.  Then, each in a
+    subprocess: ``feature_indexing_driver`` on the training file must
+    write the training driver's index maps, and ``game_scoring_driver``
+    scores the validation file from the saved model to ``.npz`` and to
+    ``.avro``: the training driver's validation AUC, the two outputs'
+    scores alike, and the Avro file read back by the port's reader.
+    The ``.npz`` scoring runs once more in this process with the B1
+    launch count set to 0; ``export_model_avro`` writes the model and it
+    reads back to the same coefficients."""
+    from photon_ml_torch.cli import game_scoring_driver
+    from photon_ml_torch.config import load_scoring_config
+    from photon_ml_torch.io.avro import read_container
+    from photon_ml_torch.io.avro_schemas import read_model_avro
+    from photon_ml_torch.io.index_map import load_index_maps
+    from photon_ml_torch.io.model_io import export_model_avro
+
     out_dir = os.path.join(WORK, "driver_out")
     cfg_path = os.path.join(WORK, "driver.json")
+    cfg = driver_config(out_dir)
     with open(cfg_path, "w") as f:
-        json.dump(driver_config(out_dir), f)
-    t = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "photon_ml_torch.cli.game_training_driver",
-         "--config", cfg_path, *device_args],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t
-    if proc.returncode != 0:
-        raise AssertionError(f"phase 8: the driver exited {proc.returncode}:"
-                             f" {proc.stderr[-3000:]}")
-    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        json.dump(cfg, f)
+    summary, wall = _run_module("photon_ml_torch.cli.game_training_driver",
+                                ["--config", cfg_path, *device_args])
     with open(os.path.join(FIXTURES, "golden.json")) as f:
         want = json.load(f)["config4"]
-    model, _ = load_game_model(os.path.join(out_dir, "model"))
+    model_dir = os.path.join(out_dir, "model")
+    model, task = load_game_model(model_dir)
     w = model.models["global"].coefficients.means.numpy()
     auc_v = summary["models"][0]["evaluations"]["AUC"]
     coef_err = float(np.max(np.abs(w - np.asarray(want["fixed_coefficients"]))
                             / (1.0 + np.abs(want["fixed_coefficients"]))))
-    out = {"rc": proc.returncode, "wall_s": wall, "auc": auc_v,
+    out = {"rc": 0, "wall_s": wall, "auc": auc_v,
            "golden_auc": want["auc"], "coef_err_rel": coef_err}
     if not abs(auc_v - want["auc"]) < DRIVER_AUC_ATOL:
         raise AssertionError(f"phase 8: AUC {auc_v} vs golden {want['auc']}")
     np.testing.assert_allclose(w, np.asarray(want["fixed_coefficients"]),
                                rtol=DRIVER_COEF_TOL, atol=DRIVER_COEF_TOL)
+
+    maps_dir = os.path.join(WORK, "index_maps")
+    sizes, out["indexing_wall_s"] = _run_module(
+        "photon_ml_torch.cli.feature_indexing_driver",
+        ["--input", cfg["input_path"], "--output-dir", maps_dir])
+    built, trained = (load_index_maps(maps_dir),
+                      load_index_maps(os.path.join(out_dir, "index_maps")))
+    for mine, theirs in zip(built, trained):
+        if ({k: m.index for k, m in mine.items()}
+                != {k: m.index for k, m in theirs.items()}):
+            raise AssertionError("phase 8: the indexing driver's maps "
+                                 "differ from the training driver's")
+    out["index_sizes"] = sizes
+
+    scores = {}
+    for ext in ("npz", "avro"):
+        sc_path = os.path.join(WORK, f"score_{ext}.json")
+        with open(sc_path, "w") as f:
+            json.dump({"input_path": cfg["validation_path"],
+                       "model_dir": model_dir,
+                       "output_path": os.path.join(WORK, f"scores.{ext}"),
+                       "evaluators": ["AUC"]}, f)
+        res, out[f"scoring_{ext}_wall_s"] = _run_module(
+            "photon_ml_torch.cli.game_scoring_driver",
+            ["--config", sc_path, *device_args])
+        scores[ext] = res
+    npz = np.load(os.path.join(WORK, "scores.npz"))
+    _, recs = read_container(os.path.join(WORK, "scores.avro"))
+    recs = list(recs)
+    avro_pred = np.asarray([r["predictionScore"] for r in recs])
+    out["scoring_auc"] = scores["npz"]["evaluation"]["AUC"]
+    out["scoring_auc_gap"] = abs(out["scoring_auc"] - auc_v)
+    out["scoring_outputs_max_abs_diff"] = float(
+        np.abs(avro_pred - npz["predictions"]).max())
+    out["scoring_rows"] = len(recs)
+    if not out["scoring_auc_gap"] <= SCORING_ATOL:
+        raise AssertionError(f"phase 8: the scoring driver's AUC "
+                             f"{out['scoring_auc']} vs the training "
+                             f"driver's {auc_v}")
+    if not (len(recs) == len(npz["scores"]) and
+            out["scoring_outputs_max_abs_diff"] <= SCORING_ATOL):
+        raise AssertionError("phase 8: the .avro and .npz scores differ")
+
+    config = load_scoring_config(os.path.join(WORK, "score_npz.json"))
+    if device_args:
+        config.device = device_args[-1]
+    gather_rowsum.launches = 0
+    game_scoring_driver.run(config)
+    out["scoring_gather_rowsum_launches"] = gather_rowsum.launches
+
+    avro_dir = os.path.join(WORK, "model_avro")
+    paths = export_model_avro(model, task, trained[0], avro_dir)
+    imap = trained[0][model.models["global"].feature_shard]
+    dim = len(w)
+
+    def key_to_index(name, term):
+        return dim - 1 if name == "(INTERCEPT)" else imap.get_feature(
+            name, term)
+
+    _, means, _ = read_model_avro(os.path.join(avro_dir, "global.avro"),
+                                  key_to_index, dim)
+    out["export_files"] = [os.path.basename(p) for p in paths]
+    out["export_max_abs_diff"] = float(np.abs(means - w).max())
+    if out["export_max_abs_diff"] != 0.0:
+        raise AssertionError("phase 8: the exported model reads back to "
+                             "other coefficients")
+    return out
+
+
+# -- phase 9: the swept λ grid and the tuned fit ------------------------------
+
+
+class _SweepProbe:
+    """Counts, during a fit, the swept evaluations (``SparseBatch.margins``
+    with coefficient lanes W [L, d]) and swept gradients
+    (``SparseBatch.xt_dot`` with R [L, n]) with the lane-kernel and the
+    single-lane B1 launches made inside each; the lane kernel's launches
+    by the shape they ran at, ``(product, n, k, L)`` (product ``"xw"``:
+    X·Wᵀ over the row ELL; ``"xtr"``: XᵀR over the transposed ELL), with
+    the last inputs of each shape, caught at ``lane_gather_rowsum`` in
+    its two callers; the ``_fit_point`` calls; and each
+    fixed-effect solve's result and wall (``train_swept`` and
+    ``train``)."""
+
+    def __enter__(self):
+        self.evaluations = self.evaluation_lane_launches = 0
+        self.evaluation_single_launches = 0
+        self.evaluations_without_lane_kernel = 0
+        self.gradients = self.gradient_lane_launches = 0
+        self.gradient_single_launches = 0
+        self.fit_point_calls = 0
+        self.solves: list = []
+        self.lane_launches: dict = {}
+        self.lane_inputs: dict = {}
+        self._saved = (SparseBatch.margins, SparseBatch.xt_dot,
+                       GameEstimator._fit_point,
+                       game_coordinates.FixedEffectCoordinate.train_swept,
+                       game_coordinates.FixedEffectCoordinate.train,
+                       batch_mod.lane_gather_rowsum,
+                       colmajor_mod.lane_gather_rowsum)
+        (margins0, xt_dot0, fit_point0, swept0, train0, xw0,
+         xtr0) = self._saved
+        probe = self
+
+        def margins(batch, w):
+            if w.dim() == 1:
+                return margins0(batch, w)
+            lane0, single0 = (gather_rowsum_lanes.launches,
+                              gather_rowsum.launches)
+            out = margins0(batch, w)
+            probe.evaluations += 1
+            lane_launches = gather_rowsum_lanes.launches - lane0
+            probe.evaluation_lane_launches += lane_launches
+            probe.evaluations_without_lane_kernel += lane_launches == 0
+            probe.evaluation_single_launches += (gather_rowsum.launches
+                                                 - single0)
+            return out
+
+        def xt_dot(batch, r):
+            if r.dim() == 1:
+                return xt_dot0(batch, r)
+            lane0, single0 = (gather_rowsum_lanes.launches,
+                              gather_rowsum.launches)
+            out = xt_dot0(batch, r)
+            probe.gradients += 1
+            probe.gradient_lane_launches += (gather_rowsum_lanes.launches
+                                             - lane0)
+            probe.gradient_single_launches += (gather_rowsum.launches
+                                               - single0)
+            return out
+
+        def recorder(product, real):
+            def lanes(v, vals, ids):
+                before = gather_rowsum_lanes.launches
+                out = real(v, vals, ids)
+                if v.dim() == 2 and v.shape[0] > 1:
+                    key = (product, *vals.shape, v.shape[0])
+                    probe.lane_launches[key] = (
+                        probe.lane_launches.get(key, 0)
+                        + gather_rowsum_lanes.launches - before)
+                    # The kernel's own table: lane-minor [T, L].
+                    probe.lane_inputs[key] = (v.T.contiguous(), vals, ids)
+                return out
+            return lanes
+
+        def fit_point(est, *a, **kw):
+            probe.fit_point_calls += 1
+            return fit_point0(est, *a, **kw)
+
+        def timed(kind, fn):
+            def solve(coord, *a, **kw):
+                t = time.perf_counter()
+                w, res = fn(coord, *a, **kw)
+                value = res.value.detach().cpu().numpy()   # waits for the card
+                probe.solves.append({"kind": kind, "value": value,
+                                     "iterations": res.iterations,
+                                     "solve_s": time.perf_counter() - t})
+                return w, res
+            return solve
+
+        SparseBatch.margins = margins
+        SparseBatch.xt_dot = xt_dot
+        GameEstimator._fit_point = fit_point
+        game_coordinates.FixedEffectCoordinate.train_swept = timed(
+            "swept", swept0)
+        game_coordinates.FixedEffectCoordinate.train = timed("single", train0)
+        batch_mod.lane_gather_rowsum = recorder("xw", xw0)
+        colmajor_mod.lane_gather_rowsum = recorder("xtr", xtr0)
+        return self
+
+    def __exit__(self, *exc):
+        (SparseBatch.margins, SparseBatch.xt_dot, GameEstimator._fit_point,
+         game_coordinates.FixedEffectCoordinate.train_swept,
+         game_coordinates.FixedEffectCoordinate.train,
+         batch_mod.lane_gather_rowsum,
+         colmajor_mod.lane_gather_rowsum) = self._saved
+        return False
+
+    def counts(self) -> dict:
+        """The swept evaluations' and gradients' counts (see the class)."""
+        return {
+            "evaluations": self.evaluations,
+            "evaluation_lane_launches": self.evaluation_lane_launches,
+            "evaluations_without_lane_kernel":
+                self.evaluations_without_lane_kernel,
+            "evaluation_single_launches": self.evaluation_single_launches,
+            "gradients": self.gradients,
+            "gradient_lane_launches": self.gradient_lane_launches,
+            "gradient_single_launches": self.gradient_single_launches,
+            "lane_launches_by_shape": {
+                lane_shape_name(key): n
+                for key, n in self.lane_launches.items()},
+        }
+
+
+def lane_shape_name(key: tuple) -> str:
+    """A lane-kernel shape key ``(product, n, k, L)`` as a ``shapes`` name."""
+    product, n, k, lanes = key
+    return f"sweep_{product}_{n}x{k}_L{lanes}"
+
+
+def sweep_data(data: dict) -> tuple:
+    """Phase 6's arrays (the intercept column included) as the estimator's
+    (train, validation) ``GameDataset``s."""
+    dim = D + 1
+
+    def ds(rows, labels):
+        return GameDataset(labels=labels, features={"global": rows},
+                           entity_ids={}, feature_dims={"global": dim})
+
+    return (ds(data["rows"], data["labels"]),
+            ds(data["test_rows"], data["test_labels"]))
+
+
+def sweep_config(layout: str, device: str, **over) -> TrainingConfig:
+    """Config 1 as phase 6 fits it (logistic, L-BFGS 20 iterations, L2
+    on every coefficient: the intercept is one of phase 6's columns),
+    over the λ grid ``SWEEP_LAMS`` unless ``over`` says otherwise."""
+    base = dict(
+        task_type=TaskType.LOGISTIC_REGRESSION,
+        coordinates=[CoordinateConfig(
+            "global", CoordinateKind.FIXED_EFFECT, "global",
+            optimizer=OptimizerSettings(max_iters=SWEEP_ITERS,
+                                        tolerance=1e-7))],
+        update_sequence=["global"], evaluators=[EvaluatorType.AUC],
+        reg_weight_grid={"global": list(SWEEP_LAMS)}, intercept=False,
+        sparse_layout=layout, device=device)
+    base.update(over)
+    return TrainingConfig(**base)
+
+
+def _swept_fit(layout: str, train, valid, device: str) -> dict:
+    """``GameEstimator.fit`` of the λ grid on ``layout`` under the probe,
+    with the lane kernel's count set to 0 just before and read just
+    after: (the fit's figures, the probe)."""
+    gather_rowsum_lanes.launches = 0
+    with _SweepProbe() as probe:
+        t = time.perf_counter()
+        results = GameEstimator(sweep_config(layout, device)).fit(train,
+                                                                   valid)
+        wall = time.perf_counter() - t
+    launches = gather_rowsum_lanes.launches
+    swept = [sv for sv in probe.solves if sv["kind"] == "swept"]
+    # The solve's lanes run λ-descending.
+    order = np.argsort(-np.asarray(SWEEP_LAMS), kind="stable")
+    loss = np.empty(len(SWEEP_LAMS))
+    loss[order] = swept[-1]["value"] if swept else np.nan
+    return {
+        "wall_s": wall, "launches": launches,
+        "fit_point_calls": probe.fit_point_calls,
+        "swept_solves": len(swept),
+        "swept_solve_s": sum(sv["solve_s"] for sv in swept),
+        "solver_iterations": (swept[-1]["iterations"].tolist()
+                              if swept else None),
+        **probe.counts(),
+        "loss": loss.tolist(),
+        "auc": [float(r.evaluations[EvaluatorType.AUC]) for r in results],
+        "validation_entries": [len(r.validation_history) for r in results],
+    }, probe
+
+
+def sweep_lane_cases(probes: list, time_it: bool = True) -> list:
+    """The lane kernel checked (``check_lanes_case``) at every shape that
+    phase 9's fits launched it at, on the last inputs each shape had
+    there (the fitted Wᵀ, or the residual Rᵀ, as the table); each entry
+    carries the launches the fits of ``probes`` made at its shape."""
+    launches, inputs = {}, {}
+    for probe in probes:
+        for key, n in probe.lane_launches.items():
+            launches[key] = launches.get(key, 0) + n
+        inputs.update(probe.lane_inputs)
+    shapes = []
+    for key in sorted(inputs):
+        table, vals, ids = inputs[key]
+        if key[0] == "xtr":
+            atol = COLMAJOR_ATOL
+        else:
+            # As at phase 7's scoring chunk: the fitted coefficients' terms
+            # may pass 1, and rounding scales with them.
+            atol = ATOL * max(1.0, float(table.abs().max())
+                              * float(vals.abs().max()))
+        shapes.append(check_lanes_case(lane_shape_name(key), table, vals,
+                                       ids, atol, time_it=time_it))
+        shapes[-1]["launches"] = launches[key]
+    return shapes
+
+
+def sweep_evaluation_splits(train, device: str,
+                            time_it: bool = True) -> dict:
+    """One swept ``value_and_gradient`` at ``LANES_MAIN`` lanes on the
+    batch the estimator builds (ELL and transposed ELL): its shapes;
+    with ``time_it``, ms back to back, device ms split into the lane
+    kernel's X·Wᵀ, the Xᵀr (``index_add_``, or the lane kernel and the
+    fold) and the rest, and the card's idle share."""
+    out = {}
+    rng = np.random.default_rng(10)
+    for layout in ("ELL", "COLMAJOR"):
+        est = GameEstimator(sweep_config(layout, device, reg_weight_grid={}))
+        prep = est._prepare(train)
+        obj = est._build_coordinates(train, prep, {})[
+            "global"].problem.objective
+        batch = prep["global"]["batch"]
+        W = torch.from_numpy(rng.normal(0, 0.05, (LANES_MAIN, batch.dim))
+                             .astype(np.float32)).to(batch.labels.device)
+        l2s = torch.tensor(SWEEP_LAMS, dtype=torch.float32,
+                           device=W.device)
+        entry = {"shape": list(batch.values.shape), "lanes": LANES_MAIN}
+        if batch.colmajor is not None:
+            entry["transposed_shape"] = [batch.colmajor.n_virtual_rows,
+                                         batch.colmajor.capacity]
+        if time_it:
+            def fn(obj=obj, batch=batch):
+                return sweep_value_and_gradient(obj, W, batch, l2s)
+
+            entry["ms"] = time_ms(fn, 5)
+            by_name = device_kernels_ms(fn)
+            busy = sum(by_name.values()) or None
+            entry["device_ms"] = busy
+            entry["idle_share"] = (None if busy is None
+                                   else max(0.0, 1.0 - busy / entry["ms"]))
+            entry["device_split_ms"] = (
+                split_ell_evaluation(by_name) if batch.colmajor is None
+                # X·Wᵀ: the ELL evaluation's lane-kernel time, on the
+                # same row arrays.
+                else split_colmajor_evaluation(
+                    by_name, out["ell"]["device_split_ms"]["gather_rowsum"]))
+        out[layout.lower()] = entry
+        del prep, batch, obj
+    return out
+
+
+def phase_sweep(data: dict, device: str, time_it: bool = True) -> dict:
+    """Config 1 at full width over an 8-point λ grid as ONE swept solve on
+    the ELL and the transposed-ELL layout, lanes ``SWEEP_CHECK_LANES``
+    against single-λ fits, and a RANDOM tuned fit; the gates (module
+    docstring, phase 9)."""
+    train, valid = sweep_data(data)
+    out = {"rows": train.n + valid.n, "train_rows": train.n,
+           "lams": list(SWEEP_LAMS)}
+    fits, probes = {}, []
+    for layout in ("ELL", "COLMAJOR"):
+        fits[layout], probe = _swept_fit(layout, train, valid, device)
+        probes.append(probe)
+
+    est = GameEstimator(sweep_config("ELL", device, reg_weight_grid={}))
+    prep = est._prepare(train)
+    singles = []
+    with _SweepProbe() as probe:
+        for j in SWEEP_CHECK_LANES:
+            t = time.perf_counter()
+            r = est._fit_point(train, prep, {"global": SWEEP_LAMS[j]}, valid,
+                               None)
+            singles.append({"lane": j, "lam": SWEEP_LAMS[j],
+                            "wall_s": time.perf_counter() - t,
+                            "auc": float(r.evaluations[EvaluatorType.AUC])})
+        solves = [sv for sv in probe.solves if sv["kind"] == "single"]
+    for single, sv in zip(singles, solves):
+        single["loss"] = float(sv["value"])
+        single["solve_s"] = sv["solve_s"]
+    del prep, est
+    out["singles"] = singles
+
+    tune_cfg = sweep_config("ELL", device, reg_weight_grid={},
+                            tuning=TuningConfig(
+                                n_trials=TUNE_TRIALS, mode="RANDOM",
+                                trial_batch=TUNE_BATCH, seed=0,
+                                reg_weight_ranges={"global": {
+                                    "low": SWEEP_LAMS[0],
+                                    "high": SWEEP_LAMS[-1]}}))
+    gather_rowsum_lanes.launches = 0
+    with _SweepProbe() as probe:
+        t = time.perf_counter()
+        trials = GameEstimator(tune_cfg).fit_tuned(train, valid)
+        tuned = {"wall_s": time.perf_counter() - t,
+                 "launches": gather_rowsum_lanes.launches,
+                 "fit_point_calls": probe.fit_point_calls,
+                 "swept_solves": sum(sv["kind"] == "swept"
+                                     for sv in probe.solves),
+                 **probe.counts()}
+    probes.append(probe)
+    tuned["lams"] = [t.reg_weights["global"] for t in trials]
+    tuned["auc"] = [float(t.evaluations[EvaluatorType.AUC]) for t in trials]
+    out["tuned"] = tuned
+    for layout, f in fits.items():
+        out[layout.lower()] = f
+        f["single_solves_s_sum"] = sum(s["solve_s"] for s in singles)
+    # The lane kernel at the shapes these fits ran it at.
+    out["lane_shapes"] = sweep_lane_cases(probes, time_it=time_it)
+    del probes, probe
+    if time_it and device != "cpu":
+        out["evaluation_splits"] = sweep_evaluation_splits(train, device)
+
+    failures = []
+    for layout, f in fits.items():
+        if f["fit_point_calls"] or f["swept_solves"] != 1:
+            failures.append(f"{layout} grid did not take the swept path "
+                            f"({f['fit_point_calls']} _fit_point calls, "
+                            f"{f['swept_solves']} swept solves)")
+        if f["validation_entries"] != [1] * len(SWEEP_LAMS):
+            failures.append(f"{layout} lanes' validation entries "
+                            f"{f['validation_entries']} (one a sweep)")
+    for name, f in (*fits.items(), ("tuned", tuned)):
+        if device != "cpu":
+            if f["launches"] < 1 or f["evaluations"] < 1 or \
+                    f["evaluations_without_lane_kernel"]:
+                failures.append(
+                    f"{name} swept fit: gather_rowsum_lanes launched "
+                    f"{f['launches']} time(s); "
+                    f"{f['evaluations_without_lane_kernel']} of "
+                    f"{f['evaluations']} swept evaluations without it")
+            # Lanes > 1 never route to the single-lane kernel.
+            if f["evaluation_single_launches"] or \
+                    f["gradient_single_launches"]:
+                failures.append(
+                    f"{name} swept products launched single-lane "
+                    f"gather_rowsum {f['evaluation_single_launches']} + "
+                    f"{f['gradient_single_launches']} time(s)")
+            if name == "COLMAJOR" and not (
+                    f["gradient_lane_launches"] >= f["gradients"] >= 1):
+                failures.append(
+                    f"COLMAJOR swept gradients: {f['gradient_lane_launches']}"
+                    f" lane launches in {f['gradients']}")
+        if sum(f["lane_launches_by_shape"].values()) != f["launches"]:
+            failures.append(f"{name} swept fit: lane launches by shape "
+                            f"{f['lane_launches_by_shape']} do not sum to "
+                            f"{f['launches']}")
+    for layout, f in fits.items():
+        for single in singles:
+            j = single["lane"]
+            gap = abs(f["loss"][j] - single["loss"]) / abs(single["loss"])
+            single[f"{layout.lower()}_loss_gap_rel"] = gap
+            single[f"{layout.lower()}_auc_gap"] = abs(f["auc"][j]
+                                                      - single["auc"])
+            if not gap <= SWEEP_LOSS_RTOL:
+                failures.append(f"{layout} lane {j}: final loss "
+                                f"{f['loss'][j]:.6g} vs single "
+                                f"{single['loss']:.6g} ({gap:g} > "
+                                f"{SWEEP_LOSS_RTOL:g})")
+            if not abs(f["auc"][j] - single["auc"]) <= SWEEP_AUC_ATOL:
+                failures.append(f"{layout} lane {j}: AUC {f['auc'][j]:.5f} "
+                                f"vs single {single['auc']:.5f}")
+    if tuned["fit_point_calls"] or tuned["swept_solves"] < 1:
+        failures.append(f"the tuned fit did not take the swept path "
+                        f"({tuned['fit_point_calls']} _fit_point calls)")
+    if len(tuned["lams"]) != TUNE_TRIALS or not all(
+            SWEEP_LAMS[0] <= lam <= SWEEP_LAMS[-1] for lam in tuned["lams"]):
+        failures.append(f"tuned trials' λ {tuned['lams']} out of range")
+    if not max(tuned["auc"]) >= min(fits["ELL"]["auc"]):
+        failures.append(f"the best tuned AUC {max(tuned['auc']):.5f} is "
+                        f"below the grid's worst {min(fits['ELL']['auc'])}")
+    out["failures"] = failures
     return out
 
 
@@ -1840,6 +2509,9 @@ def main() -> int:
         kernels = [phase_kernels(table, seed=1, ell=train["ell"],
                                  colmajor=train["colmajor"].colmajor)]
         kernels += phase_kernels_grr(train["grr"].grr, seed=5)
+        kernels.append(phase_kernels_lanes(train["ell"],
+                                           train["colmajor"].colmajor,
+                                           seed=9))
         print(f"phase 3 kernel check: ok in {time.perf_counter() - t:.2f} s")
 
         model_dir = os.path.join(WORK, "model")
@@ -1877,11 +2549,13 @@ def main() -> int:
             "ell_gather_rowsum_launches"]
         kernels[0]["launches_colmajor_fit"] = training[
             "colmajor_gather_rowsum_launches"]
-        for k in kernels[1:]:
+        for k in kernels[1:3]:          # the GRR kernels
             k["launches"] = training["launches"][k["name"]]
             if k["launches"] < 1:
                 raise AssertionError(f"{k['name']} was not launched by "
                                      "the GRR fit")
+        sweep = {key: train[key] for key in ("rows", "labels", "test_rows",
+                                              "test_labels")}
         del train
 
         t = time.perf_counter()
@@ -1901,6 +2575,36 @@ def main() -> int:
         driver = phase_driver([])
         print(f"phase 8 driver ({time.perf_counter() - t:.1f} s): "
               + json.dumps({"driver": driver}))
+        kernels[0]["launches_scoring_driver"] = driver[
+            "scoring_gather_rowsum_launches"]
+        if kernels[0]["launches_scoring_driver"] < 1:
+            raise AssertionError("phase 8: the scoring driver did not "
+                                 "launch gather_rowsum")
+
+        t = time.perf_counter()
+        swept = phase_sweep(sweep, device="cuda")
+        swept["card"] = card
+        print(f"phase 9 swept λ ({time.perf_counter() - t:.1f} s): "
+              + json.dumps({"sweep": swept}))
+        if swept["failures"]:
+            raise AssertionError("phase 9: " + "; ".join(swept["failures"]))
+        lanes = kernels[3]
+        lanes["launches_ell_fit"] = swept["ell"]["launches"]
+        lanes["launches_colmajor_fit"] = swept["colmajor"]["launches"]
+        lanes["launches_tuned_fit"] = swept["tuned"]["launches"]
+        lanes["launches"] = (lanes["launches_ell_fit"]
+                             + lanes["launches_colmajor_fit"]
+                             + lanes["launches_tuned_fit"])
+        # Phase 3's shapes are checks only; phase 9's carry its launches.
+        for sh in lanes["shapes"]:
+            sh["launches"] = 0
+        lanes["shapes"] += swept["lane_shapes"]
+        if sum(sh["launches"] for sh in lanes["shapes"]) != \
+                lanes["launches"]:
+            raise AssertionError("phase 9: lane launches by shape do not "
+                                 "sum to the fits' launches")
+        lanes["max_abs_err"] = max(sh["max_abs_err"]
+                                   for sh in lanes["shapes"])
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"total {time.perf_counter() - t_all:.1f} s")

@@ -2,8 +2,9 @@
 
 Counterpart of ``photon_ml_tpu/cli/game_training_driver.py``: read the
 config, index and read the training and validation data (Avro, JSONL or
-LIBSVM), fit the regularization grid with ``GameEstimator``, select and
-save the models (the format the port's server loads) with the index
+LIBSVM), fit the regularization grid with ``GameEstimator`` (or tune it:
+``"tuning": {...}`` runs ``GameEstimator.fit_tuned``), select and save
+the models (the format the port's server loads) with the index
 maps, a ``summary.json`` and the effective ``config.json``.
 
 Usage::
@@ -14,7 +15,7 @@ Usage::
 The run is on the card unless ``--device cpu`` (or ``"device": "cpu"``
 in the config) asks for the CPU; without CUDA it raises.  The fleet and
 multi-host bootstrap (ROADMAP A7), telemetry and the monitor (ROADMAP
-A8, D3) are not ported: their config fields must stay at their
+A8b, D3) are not ported: their config fields must stay at their
 defaults.
 """
 
@@ -141,8 +142,16 @@ def _run(config: TrainingConfig, log: RunLogger) -> dict:
     train, valid, feature_maps, entity_maps = prepare_data(config, log)
     log.event("datasets", n_train=train.n,
               n_valid=(valid.n if valid is not None else 0))
-    with log.timed("fit"):
-        results = estimator.fit(train, validation=valid, run_logger=log)
+    if config.tuning is not None:
+        if valid is None:
+            raise ValueError(
+                "hyperparameter tuning needs validation data "
+                "(validation_path or validation_fraction)")
+        with log.timed("fit", mode="tuning", trials=config.tuning.n_trials):
+            results = estimator.fit_tuned(train, valid, run_logger=log)
+    else:
+        with log.timed("fit"):
+            results = estimator.fit(train, validation=valid, run_logger=log)
     best = estimator.best(results)
     for i, r in enumerate(results):
         log.event("grid_result", index=i, reg_weights=r.reg_weights,

@@ -1,11 +1,12 @@
-"""Training and serving configuration.
+"""Training, scoring and serving configuration.
 
 Counterpart of ``photon_ml_tpu/config.py``: ``TrainingConfig`` (with
-``CoordinateConfig`` and ``OptimizerSettings``) and ``ServingConfig``,
-with the same JSON keys plus ``device`` ("cuda", the default, or
-"cpu").  A training config's fields of tiers the port does not have yet
-(tuning, chunked and streamed training, the fused cycle, checkpoints,
-meshes, telemetry, monitor, profiling) are accepted in the file but
+``CoordinateConfig``, ``OptimizerSettings`` and ``TuningConfig``),
+``ScoringConfig`` and ``ServingConfig``, with the same JSON keys plus
+``device`` ("cuda", the default, or "cpu").  A training or scoring
+config's fields of tiers the port does not have yet (chunked and
+streamed training and scoring, the fused cycle, checkpoints, meshes,
+telemetry, monitor, profiling) are accepted in the file but
 ``validate()`` raises ``NotImplementedError`` when one is set to
 anything but its default, naming its ROADMAP item.  For serving:
 
@@ -100,6 +101,36 @@ class CoordinateConfig:
 
 
 @dataclasses.dataclass
+class TuningConfig:
+    """Hyperparameter-tuning settings (``GameEstimator.fit_tuned``)."""
+
+    n_trials: int = 10
+    mode: str = "BAYESIAN"                 # BAYESIAN | RANDOM
+    # coordinate name → {"low": float, "high": float, "scale": "LOG"|"LINEAR"}
+    reg_weight_ranges: dict[str, dict] = dataclasses.field(
+        default_factory=dict)
+    seed: int = 0
+    # Trials proposed (and, when the workload is swept-eligible, trained
+    # as one swept solve) a round.  None = the strategy's default
+    # (RANDOM: 16 — swept solver state grows with the lane count;
+    # BAYESIAN: 4, so later proposals condition on earlier results).
+    trial_batch: int | None = None
+
+    def validate(self) -> None:
+        if self.n_trials <= 0:
+            raise ValueError("n_trials must be positive")
+        if self.mode not in ("BAYESIAN", "RANDOM"):
+            raise ValueError("tuning mode must be BAYESIAN or RANDOM")
+        if self.trial_batch is not None and self.trial_batch <= 0:
+            raise ValueError("trial_batch must be positive when set")
+        if not self.reg_weight_ranges:
+            raise ValueError("tuning needs reg_weight_ranges")
+        for name, r in self.reg_weight_ranges.items():
+            if "low" not in r or "high" not in r:
+                raise ValueError(f"range for '{name}' needs low and high")
+
+
+@dataclasses.dataclass
 class TrainingConfig:
     """A training run (``python -m
     photon_ml_torch.cli.game_training_driver``)."""
@@ -118,11 +149,12 @@ class TrainingConfig:
     normalization: NormalizationType = NormalizationType.NONE
     evaluators: list[EvaluatorType] = dataclasses.field(
         default_factory=lambda: [EvaluatorType.AUC])
-    # Per-coordinate reg-weight lists, cartesian over coordinates; the
-    # points fit one after another.
+    # Per-coordinate reg-weight lists, cartesian over coordinates; a
+    # grid over one trainable LBFGS fixed effect trains as one swept
+    # solve, any other grid point by point.
     reg_weight_grid: dict[str, list[float]] = dataclasses.field(
         default_factory=dict)
-    tuning: Any = None                     # ROADMAP A6
+    tuning: TuningConfig | None = None     # GameEstimator.fit_tuned
     model_output_mode: str = "BEST"        # ALL | BEST | EXPLICIT
     warm_start_model_dir: str | None = None
     locked_coordinates: list[str] = dataclasses.field(default_factory=list)
@@ -130,8 +162,8 @@ class TrainingConfig:
     # strength prior_weight/σ² when it has variances.
     use_warm_start_as_prior: bool = False
     prior_weight: float = 1.0
-    checkpoint_dir: str | None = None      # ROADMAP A8
-    resume: bool = False                   # ROADMAP A8
+    checkpoint_dir: str | None = None      # ROADMAP A8a
+    resume: bool = False                   # ROADMAP A8a
     checkpoint_every_sweeps: int = 1
     checkpoint_every_solver_iters: int = 0
     intercept: bool = True
@@ -156,8 +188,8 @@ class TrainingConfig:
     # cached under build/kernels/ by source hash.
     plan_cache_dir: str | None = None
     compilation_cache_dir: str | None = None
-    profile_dir: str | None = None         # ROADMAP A8
-    telemetry: str = "off"                 # ROADMAP A8 / D2
+    profile_dir: str | None = None         # ROADMAP A8b
+    telemetry: str = "off"                 # ROADMAP A8b / D2
     telemetry_dir: str | None = None
     monitor: str = "off"                   # ROADMAP D3
     monitor_every_s: float = 2.0
@@ -168,11 +200,11 @@ class TrainingConfig:
 
     # (field, default, ROADMAP item) of the tiers not ported yet.
     _NOT_PORTED = (
-        ("tuning", None, "A6"), ("checkpoint_dir", None, "A8"),
-        ("resume", False, "A8"), ("n_devices", None, "A7"),
+        ("checkpoint_dir", None, "A8a"),
+        ("resume", False, "A8a"), ("n_devices", None, "A7"),
         ("chunk_rows", None, "A5"), ("spill_dir", None, "A5"),
         ("re_chunk_entities", None, "A5"), ("cd_fused", False, "A5"),
-        ("profile_dir", None, "A8"), ("telemetry", "off", "A8"),
+        ("profile_dir", None, "A8b"), ("telemetry", "off", "A8b"),
         ("monitor", "off", "D3"), ("status_port", None, "D3"),
         ("distributed_init", False, "A7"))
 
@@ -212,6 +244,75 @@ class TrainingConfig:
                 raise ValueError(f"grid entry '{name}' unknown")
             if not grid:
                 raise ValueError(f"empty grid for '{name}'")
+        if self.tuning is not None:
+            self.tuning.validate()
+            if self.reg_weight_grid:
+                raise ValueError("tuning and reg_weight_grid are exclusive")
+            if not self.evaluators:
+                raise ValueError("tuning needs at least one evaluator")
+            for name in self.tuning.reg_weight_ranges:
+                if name not in names:
+                    raise ValueError(f"tuning range '{name}' unknown")
+        _validate_device(self.device)
+        for knob, default, item in self._NOT_PORTED:
+            if getattr(self, knob) != default:
+                raise NotImplementedError(
+                    f"{knob}={getattr(self, knob)!r} is not ported to "
+                    f"photon_ml_torch yet (ROADMAP {item}); leave it at "
+                    f"its default")
+
+
+@dataclasses.dataclass
+class ScoringConfig:
+    """A scoring run (``python -m
+    photon_ml_torch.cli.game_scoring_driver``)."""
+
+    input_path: str
+    model_dir: str
+    output_path: str = "scores.npz"        # .npz, or .avro records
+    input_format: str = "auto"             # auto | jsonl | avro | libsvm
+    index_dir: str | None = None           # default: <model_dir>/../index_maps
+    dense_feature_shards: list[str] = dataclasses.field(default_factory=list)
+    evaluators: list[EvaluatorType] = dataclasses.field(default_factory=list)
+    # Accepted for config compatibility; has no effect in the port.
+    compilation_cache_dir: str | None = None
+    # The streamed scoring pipeline is ROADMAP A5: these stay at their
+    # defaults (validate() raises otherwise).
+    score_chunk_rows: int | None = None
+    spill_dir: str | None = None
+    host_max_resident: int = 2
+    prefetch_depth: int = 2
+    # Not ported yet: telemetry (ROADMAP A8b), the monitor (ROADMAP D3).
+    telemetry: str = "off"
+    telemetry_dir: str | None = None
+    monitor: str = "off"
+    monitor_every_s: float = 2.0
+    status_port: int | None = None
+    # Where scoring runs: "cuda" (default) or "cpu".
+    device: str = "cuda"
+
+    # (field, default, ROADMAP item) of the tiers not ported yet.
+    _NOT_PORTED = (
+        ("score_chunk_rows", None, "A5"), ("spill_dir", None, "A5"),
+        ("host_max_resident", 2, "A5"), ("prefetch_depth", 2, "A5"),
+        ("telemetry", "off", "A8b"), ("monitor", "off", "D3"),
+        ("status_port", None, "D3"))
+
+    def validate(self) -> None:
+        if self.score_chunk_rows is not None and self.score_chunk_rows <= 0:
+            raise ValueError("score_chunk_rows must be positive")
+        if self.telemetry not in ("off", "metrics", "trace"):
+            raise ValueError("telemetry must be off|metrics|trace")
+        if self.monitor not in ("off", "on"):
+            raise ValueError("monitor must be off|on")
+        if self.host_max_resident < 1:
+            raise ValueError("host_max_resident must be >= 1")
+        if self.prefetch_depth < 0:
+            raise ValueError("prefetch_depth must be >= 0")
+        if self.spill_dir is not None and self.score_chunk_rows is None:
+            raise ValueError(
+                "spill_dir requires streamed scoring (score_chunk_rows):"
+                " only score chunks spill to the disk tier")
         _validate_device(self.device)
         for knob, default, item in self._NOT_PORTED:
             if getattr(self, knob) != default:
@@ -395,6 +496,8 @@ def _coerce(type_str, v):
                     return enum_cls[v]
     if "OptimizerSettings" in t and isinstance(v, dict):
         return _build(OptimizerSettings, v)
+    if "TuningConfig" in t and isinstance(v, dict):
+        return _build(TuningConfig, v)
     return v
 
 
@@ -418,6 +521,17 @@ def training_config_from_json(text: str) -> TrainingConfig:
 def load_training_config(path: str) -> TrainingConfig:
     with open(path) as f:
         return training_config_from_json(f.read())
+
+
+def scoring_config_from_json(text: str) -> ScoringConfig:
+    cfg = _build(ScoringConfig, json.loads(text))
+    cfg.validate()
+    return cfg
+
+
+def load_scoring_config(path: str) -> ScoringConfig:
+    with open(path) as f:
+        return scoring_config_from_json(f.read())
 
 
 def serving_config_from_json(text: str) -> ServingConfig:

@@ -231,6 +231,168 @@ const void* kernel_of(int vec, int tpr, bool head) {
   return nullptr;
 }
 
+// ---------------------------------------------------------------------------
+// gather_rowsum_lanes: out[i, l] = sum_k vals[i,k] * table[ids[i,k], l]
+//
+// Replaces photon_ml_tpu/ops/kernels.py::_pallas_gather_rowsum under
+// jax.vmap over lambda-lanes: the swept fit of a lambda grid
+// (photon_ml_tpu/ops/objective.py sweep_value_and_gradient) contracts one
+// shared batch against L coefficient lanes at once, X.W^T over row ELL and
+// X^T.R over the transposed ELL.  The table is lane-minor, [T, LANES]: one
+// gathered id brings every lane's float in LANES * 4 contiguous bytes (one
+// 32-byte sector at 8 lanes), so the ids/vals streams (8 bytes a slot) are
+// read once for all lanes instead of once a lane.
+//
+// Bound: bytes.  n*k*8 bytes of streams, T*LANES*4 of table (each entry
+// read once at best) and n*LANES*4 of output; 2*n*k*LANES flops, far below
+// the fp32 rate.  On an H100 80GB HBM3 at 700 W (chip_smoke.py phase 3,
+// PERF.md section 6) it reads 900,000 x 32 slots at 8 lanes in ~0.28 ms,
+// 28 % of that bound and 3.5x faster than 8 single-lane launches; its
+// time grows with the lanes (the gathered bytes), not with the streams.
+//
+// Design (simple first): the row layout of gather_rowsum above (TPR
+// threads a row, VEC slots a thread, 16-byte stream loads where k % 4 == 0
+// and the streams are aligned, the scalar path otherwise); warps walk the
+// row groups grid-stride.  A thread keeps LANES accumulators and gathers
+// each of its slots' LANES-wide table row with 16-byte loads (8-byte at
+// 2 lanes).  A __shfl_xor_sync tree then folds every lane's sum over the
+// row's TPR threads, and the row's threads share the 16-byte stores of
+// the LANES outputs.  A thread sums its slots in slot order and the tree
+// is fixed: no atomics, two launches agree bit for bit.  No shared-memory
+// head and no stream prefetch (gather_rowsum's two devices above): a later
+// lever.  Padding slots (id 0, val 0) are multiplied like any other slot,
+// as in the JAX semantics.
+constexpr int kLaneThreads = 256;
+
+template <int LANES>
+__device__ __forceinline__ void gather_lane_row(
+    const float* __restrict__ table, int32_t x, float (&g)[LANES]) {
+  if constexpr (LANES == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(table) + x);
+    g[0] = t.x;
+    g[1] = t.y;
+  } else {
+    const float4* p = reinterpret_cast<const float4*>(table) +
+                      static_cast<int64_t>(x) * (LANES / 4);
+#pragma unroll
+    for (int c = 0; c < LANES / 4; ++c) {
+      const float4 t = __ldg(p + c);
+      g[4 * c] = t.x;
+      g[4 * c + 1] = t.y;
+      g[4 * c + 2] = t.z;
+      g[4 * c + 3] = t.w;
+    }
+  }
+}
+
+template <int VEC, int TPR, int LANES>
+__global__ void __launch_bounds__(kLaneThreads)
+gather_rowsum_lanes_kernel(const float* __restrict__ table,
+                           const float* __restrict__ vals,
+                           const int32_t* __restrict__ ids,
+                           float* __restrict__ out, int64_t n, int32_t k) {
+  constexpr int RPW = 32 / TPR;
+  // Output stores: CH chunks of W floats a row (16 bytes, 8 at 2 lanes).
+  constexpr int W = LANES == 2 ? 2 : 4;
+  constexpr int CH = LANES / W;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % TPR;
+  const int rw = lane / TPR;
+  const int64_t groups = (n + RPW - 1) / RPW;
+  const int64_t nwarps =
+      static_cast<int64_t>(gridDim.x) * (kLaneThreads / 32);
+  for (int64_t group = static_cast<int64_t>(blockIdx.x) *
+                           (kLaneThreads / 32) + (threadIdx.x >> 5);
+       group < groups; group += nwarps) {
+    const int64_t row = group * RPW + rw;
+    float acc[LANES];
+#pragma unroll
+    for (int l = 0; l < LANES; ++l) acc[l] = 0.0f;
+    const int32_t end = row < n ? k : 0;
+    for (int32_t j = sub * VEC; j < end; j += VEC * TPR) {
+      Chunk<VEC> c;
+      load_stream(vals + row * k + j, ids + row * k + j, c);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float g[LANES];
+        gather_lane_row<LANES>(table, c.id[e], g);
+#pragma unroll
+        for (int l = 0; l < LANES; ++l) acc[l] = fmaf(c.v[e], g[l], acc[l]);
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < LANES; ++l) {
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off >>= 1) {
+        acc[l] += __shfl_xor_sync(0xffffffffu, acc[l], off);
+      }
+    }
+    if (row < n) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        if (c % TPR == sub) {
+          float* dst = out + row * LANES + c * W;
+          if constexpr (W == 2) {
+            *reinterpret_cast<float2*>(dst) =
+                make_float2(acc[2 * c], acc[2 * c + 1]);
+          } else {
+            *reinterpret_cast<float4*>(dst) = make_float4(
+                acc[4 * c], acc[4 * c + 1], acc[4 * c + 2], acc[4 * c + 3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int VEC, int LANES>
+const void* lanes_kernel_of(int tpr) {
+  switch (tpr) {
+    case 1:
+      return reinterpret_cast<const void*>(
+          gather_rowsum_lanes_kernel<VEC, 1, LANES>);
+    case 2:
+      return reinterpret_cast<const void*>(
+          gather_rowsum_lanes_kernel<VEC, 2, LANES>);
+    case 4:
+      return reinterpret_cast<const void*>(
+          gather_rowsum_lanes_kernel<VEC, 4, LANES>);
+    case 8:
+      return reinterpret_cast<const void*>(
+          gather_rowsum_lanes_kernel<VEC, 8, LANES>);
+    case 16:
+      return reinterpret_cast<const void*>(
+          gather_rowsum_lanes_kernel<VEC, 16, LANES>);
+    case 32:
+      return reinterpret_cast<const void*>(
+          gather_rowsum_lanes_kernel<VEC, 32, LANES>);
+    default:
+      return nullptr;
+  }
+}
+
+template <int VEC>
+const void* lanes_kernel_of(int lanes, int tpr) {
+  switch (lanes) {
+    case 2:
+      return lanes_kernel_of<VEC, 2>(tpr);
+    case 4:
+      return lanes_kernel_of<VEC, 4>(tpr);
+    case 8:
+      return lanes_kernel_of<VEC, 8>(tpr);
+    case 16:
+      return lanes_kernel_of<VEC, 16>(tpr);
+    default:
+      return nullptr;
+  }
+}
+
+const void* lanes_kernel_of(int vec, int lanes, int tpr) {
+  if (vec == 4) return lanes_kernel_of<4>(lanes, tpr);
+  if (vec == 1) return lanes_kernel_of<1>(lanes, tpr);
+  return nullptr;
+}
+
 }  // namespace
 
 // On the current device: lets every head variant take kHeadMax floats of
@@ -294,6 +456,43 @@ extern "C" int gather_rowsum_launch(const float* table, const float* vals,
   void* args[] = {&table, &vals, &ids, &out, &n, &k, &head};
   err = cudaLaunchKernel(fn, dim3(static_cast<unsigned int>(blocks)),
                          dim3(kThreads), args, static_cast<size_t>(head) * 4,
+                         static_cast<cudaStream_t>(stream));
+  if (current != device) {
+    const cudaError_t back = cudaSetDevice(current);
+    if (err == cudaSuccess) err = back;
+  }
+  return static_cast<int>(err);
+}
+
+// Launches `blocks` blocks of kLaneThreads threads of the (vec, lanes,
+// tpr) variant of gather_rowsum_lanes on `stream` (a cudaStream_t of
+// `device`, passed as void*) and returns the launch status; it neither
+// synchronises nor allocates, and leaves the calling thread's current
+// device as it found it.  table is [T, lanes] and out [n, lanes], both
+// contiguous and 16-byte aligned; lanes is 2, 4, 8 or 16; vec = 4 needs
+// k % 4 == 0 and 16-byte aligned vals and ids; tpr is a power of two up
+// to 32.
+extern "C" int gather_rowsum_lanes_launch(const float* table,
+                                          const float* vals,
+                                          const int32_t* ids, float* out,
+                                          int64_t n, int32_t k,
+                                          int32_t lanes, int32_t vec,
+                                          int32_t tpr, int32_t blocks,
+                                          int32_t device, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  const void* fn = lanes_kernel_of(vec, lanes, tpr);
+  if (fn == nullptr || blocks <= 0 || k < 0 || (vec == 4 && k % 4 != 0) ||
+      (reinterpret_cast<uintptr_t>(table) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&table, &vals, &ids, &out, &n, &k};
+  err = cudaLaunchKernel(fn, dim3(static_cast<unsigned int>(blocks)),
+                         dim3(kLaneThreads), args, 0,
                          static_cast<cudaStream_t>(stream));
   if (current != device) {
     const cudaError_t back = cudaSetDevice(current);

@@ -16,6 +16,15 @@ Counterpart of ``photon_ml_tpu/data/batch.py``.
   - plain ELL: ``X·w`` through the ``gather_rowsum`` kernel (B1) and
     ``Xᵀr`` through ``index_add_``.
 
+  The products also take a λ-lane axis (the swept fit, the counterpart
+  of ``jax.vmap`` of these products over a shared batch): W [L, d] →
+  [L, n] and R [L, n] → [L, d].  ``X·Wᵀ`` (and the transposed ELL's
+  ``XᵀR``) run the lane kernel ``gather_rowsum_lanes`` once for every
+  lane, so the ELL streams are read once; one lane stays on
+  ``gather_rowsum``.  The plain-ELL ``XᵀR`` is one float64
+  ``index_add_`` into a [d, L] target.  GRR runs the lanes one after
+  another through its plan.
+
 Both carry per-example ``labels, weights, offsets`` and a validity
 ``mask`` (1 = real example, 0 = padding row).
 """
@@ -31,7 +40,7 @@ import torch
 from photon_ml_torch.data.colmajor import ColMajorSlice, build_colmajor
 from photon_ml_torch.data.grr import GrrPair, build_grr_pair
 from photon_ml_torch.device import resolve_device
-from photon_ml_torch.ops.kernels import gather_rowsum
+from photon_ml_torch.ops.kernels import lane_gather_rowsum
 
 Tensor = torch.Tensor
 
@@ -43,7 +52,9 @@ class DenseBatch:
     With a leading lane axis (``x`` [E, c, p], the per-example fields
     [E, c]) it holds E independent problems, and the products take
     coefficients [E, p]: the random-effect buckets, where ``p`` is a few
-    features, so the products are elementwise ops and reductions."""
+    features, so the products are elementwise ops and reductions.  A
+    shared ``x`` [n, d] with λ-lane coefficients W [L, d] (the swept
+    fit) gives [L, n] margins and takes [L, n] residuals."""
 
     x: Tensor          # [n, d]
     labels: Tensor     # [n]
@@ -60,12 +71,12 @@ class DenseBatch:
 
     def xt_dot(self, r: Tensor) -> Tensor:
         if self.x.dim() == 2:
-            return self.x.T @ r
+            return self.x.T @ r if r.dim() == 1 else r @ self.x
         return (self.x * r[..., None]).sum(-2)
 
     def x_dot(self, v: Tensor) -> Tensor:
         if self.x.dim() == 2:
-            return self.x @ v
+            return self.x @ v if v.dim() == 1 else v @ self.x.T
         return (self.x * v[..., None, :]).sum(-1)
 
 
@@ -85,31 +96,45 @@ class SparseBatch:
     colmajor: "ColMajorSlice | None" = None
 
     def margins(self, w: Tensor) -> Tensor:
-        """Σ_k values[i,k]·w[col_ids[i,k]] + offset."""
+        """Σ_k values[i,k]·w[col_ids[i,k]] + offset ([L, n] for W [L, d])."""
         return self.x_dot(w) + self.offsets
 
     def xt_dot(self, r: Tensor) -> Tensor:
         """Xᵀr — the GRR plan, else the transposed ELL, else a
-        scatter-add into [dim].
+        scatter-add into [dim] (R [L, n] → [L, dim]).
 
         The scatter accumulates in float64: it adds a column's terms one
         after another (atomics on the card), and a power-law head column
         collects a term from nearly every row, which float32 would sum
         with ~n·2⁻²⁴ relative error."""
         if self.grr is not None:
+            if r.dim() == 2:
+                return torch.stack([self.grr.t_dot(r_l) for r_l in r])
             return self.grr.t_dot(r)
         if self.colmajor is not None:
             return self.colmajor.xt_dot(r)
+        if r.dim() == 2:
+            # One call for every lane: rows of a [dim, L] target.
+            lanes = r.shape[0]
+            out = torch.zeros((self.dim, lanes), dtype=torch.float64,
+                              device=r.device)
+            out.index_add_(0, self.col_ids.reshape(-1),
+                           (self.values[..., None] * r.T[:, None, :])
+                           .reshape(-1, lanes).double())
+            return out.T.to(r.dtype)
         out = torch.zeros(self.dim, dtype=torch.float64, device=r.device)
         out.index_add_(0, self.col_ids.reshape(-1),
                        (self.values * r[:, None]).reshape(-1).double())
         return out.to(r.dtype)
 
     def x_dot(self, v: Tensor) -> Tensor:
-        """X·v — the GRR plan, else the ``gather_rowsum`` kernel."""
+        """X·v — the GRR plan, else the ``gather_rowsum`` kernel; X·Wᵀ
+        [L, n] for W [L, d], through ``gather_rowsum_lanes``."""
         if self.grr is not None:
+            if v.dim() == 2:
+                return torch.stack([self.grr.dot(v_l) for v_l in v])
             return self.grr.dot(v)
-        return gather_rowsum(v, self.values, self.col_ids)
+        return lane_gather_rowsum(v, self.values, self.col_ids)
 
     def to_dense(self) -> DenseBatch:
         """Densify (tests, small dims)."""

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from photon_ml_torch.device import resolve_device
-from photon_ml_torch.ops.kernels import gather_rowsum, vrow_pad
+from photon_ml_torch.ops.kernels import lane_gather_rowsum, vrow_pad
 
 Tensor = torch.Tensor
 
@@ -61,11 +61,19 @@ class ColMajorSlice:
 
     def xt_dot(self, r: Tensor) -> Tensor:
         """Xᵀr: B1 over the virtual rows with ``r`` as the table, then
-        the float64 fold over ``vcol``."""
-        part = gather_rowsum(r.contiguous(), self.tvals, self.trows)   # [V]
-        out = torch.zeros(self.dim, dtype=torch.float64, device=r.device)
-        out.index_add_(0, self.vcol, part.double())
-        return out.to(r.dtype)
+        the float64 fold over ``vcol``.  R [L, n] → [L, dim]: every lane
+        in one ``gather_rowsum_lanes`` over the table Rᵀ [n, L], and one
+        fold into a [dim, L] target."""
+        part = lane_gather_rowsum(r.contiguous(), self.tvals, self.trows)
+        if r.dim() == 1:                                          # [V]
+            out = torch.zeros(self.dim, dtype=torch.float64,
+                              device=r.device)
+            out.index_add_(0, self.vcol, part.double())
+            return out.to(r.dtype)
+        out = torch.zeros((self.dim, r.shape[0]), dtype=torch.float64,
+                          device=r.device)
+        out.index_add_(0, self.vcol, part.T.double())          # [V, L]
+        return out.T.to(r.dtype)
 
     def squared(self) -> "ColMajorSlice":
         """Values → values² (for the Hessian diagonal)."""

@@ -23,7 +23,7 @@ the CPU.  There is no switch that turns the kernels off.
 
 Left out of this port (ROADMAP A7): the mesh-sharded builder
 ``build_sharded_grr_pairs`` and its padding helpers; the spill-fraction
-warning aggregation (its telemetry counter is ROADMAP A8).
+warning aggregation (its telemetry counter is ROADMAP A8b).
 """
 
 from __future__ import annotations

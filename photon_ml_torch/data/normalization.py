@@ -46,21 +46,25 @@ class NormalizationContext:
         return w if self.factors is None else w * self.factors
 
     def margin_correction(self, w: Tensor) -> Tensor:
-        """Scalar subtracted from every margin: dot(shifts ⊙ factors, w)."""
+        """Scalar subtracted from every margin: dot(shifts ⊙ factors, w)
+        (one a lane for W [L, d])."""
         if self.shifts is None:
-            return torch.zeros((), dtype=w.dtype, device=w.device)
+            return torch.zeros(w.shape[:-1], dtype=w.dtype, device=w.device)
         f = self.factors if self.factors is not None else torch.ones_like(w)
-        return torch.dot(self.shifts * f, w)
+        if w.dim() == 1:
+            return torch.dot(self.shifts * f, w)
+        return (self.shifts * f * w).sum(-1)
 
     def grad_to_model(self, g_raw: Tensor, r_sum: Tensor) -> Tensor:
-        """g_model = f ⊙ g_raw − (Σ_i r_i)·(f ⊙ s)."""
+        """g_model = f ⊙ g_raw − (Σ_i r_i)·(f ⊙ s) (a lane's Σ_i r_i
+        for G [L, d])."""
         if self.is_identity:
             return g_raw
         f = (self.factors if self.factors is not None
              else torch.ones_like(g_raw))
         g = g_raw * f
         if self.shifts is not None:
-            g = g - r_sum * (f * self.shifts)
+            g = g - r_sum[..., None] * (f * self.shifts)
         return g
 
 

@@ -5,14 +5,18 @@ Counterpart of the resident part of
 (intercept column, layout, normalization, down-sampling), then for each
 point of the regularization grid build the coordinates, run coordinate
 descent, export the model in raw feature space and evaluate it on the
-validation data (once a sweep when ``validate_per_iteration``).
+validation data (once a sweep when ``validate_per_iteration``).  A grid
+over the one trainable L-BFGS/OWL-QN fixed effect trains as ONE swept
+solve (``_fit_grid_swept``: L coefficient lanes share every objective
+evaluation), and ``fit_tuned`` runs the hyperparameter tuner, a swept
+solve a proposal round where the same holds.
 
 Everything runs on ``TrainingConfig.device`` (default CUDA; the entry
 raises without it unless "cpu" is asked for).  ``sparse_layout`` AUTO
 resolves to plain ELL, as in the JAX package off the TPU; COLMAJOR puts
 ``Xᵀr`` on B1 over the transposed ELL, GRR on the B2/B3 plan.  The
-batched λ sweep and tuning (ROADMAP A6) and the chunked and fused paths
-(ROADMAP A5) raise.
+chunked and fused paths (ROADMAP A5) and checkpoints (ROADMAP A8a)
+raise.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import logging
+import time
 
 import numpy as np
 import torch
@@ -60,6 +65,7 @@ from photon_ml_torch.ops.prior import GaussianPrior
 from photon_ml_torch.ops.regularization import (
     RegularizationContext,
     RegularizationType,
+    SweptRegularization,
     exclude_intercept_mask,
 )
 from photon_ml_torch.optim.base import OptimizerConfig, OptimizerType
@@ -89,12 +95,8 @@ def _reg_context(settings: OptimizerSettings, weight: float, dim: int,
     mask = exclude_intercept_mask(dim, intercept_index, device=device)
     if settings.regularization == RegularizationType.NONE or weight == 0.0:
         return RegularizationContext.none()
-    if settings.regularization == RegularizationType.L2:
-        return RegularizationContext.l2(weight, mask)
-    if settings.regularization == RegularizationType.L1:
-        return RegularizationContext.l1(weight, mask)
-    return RegularizationContext.elastic_net(
-        weight, settings.elastic_net_alpha, mask)
+    return RegularizationContext.of(settings.regularization, weight,
+                                    settings.elastic_net_alpha, mask)
 
 
 def _optimizer_config(settings: OptimizerSettings) -> OptimizerConfig:
@@ -413,8 +415,12 @@ class GameEstimator:
                 for vals in itertools.product(*(grid[n] for n in names))]
 
     def _swept_coordinate_name(self) -> str | None:
-        """The one trainable LBFGS fixed effect that the reference would
-        train as a batched λ sweep (ROADMAP A6), or None."""
+        """The single trainable fixed effect eligible for swept-λ
+        training, or None: exactly one trainable (non-locked) coordinate
+        in the update sequence, a fixed effect, L-BFGS/OWL-QN (TRON fits
+        stay point by point), and no locked coordinate asking for
+        variances.  Locked coordinates fold into the lane-shared
+        offsets."""
         cfg = self.config
         trainable = [n for n in dict.fromkeys(cfg.update_sequence)
                      if n not in cfg.locked_coordinates]
@@ -430,6 +436,151 @@ class GameEstimator:
                     != VarianceComputationType.NONE):
                 return None
         return trainable[0]
+
+    # -- the swept λ grid (one data stream for the whole grid) -------------
+
+    def _locked_offsets(self, coords: dict, locked: dict, n: int) -> Tensor:
+        """The offsets the one trainable coordinate sees: the locked
+        coordinates' scores summed."""
+        total = torch.zeros(n, dtype=torch.float32, device=self.device)
+        for name, w in locked.items():
+            total = total + coords[name].score(w)
+        return total
+
+    def _lane_coordinate(self, coord: FixedEffectCoordinate,
+                         coord_cfg: CoordinateConfig, lam: float):
+        """The fixed effect with one lane's λ installed (a lane's
+        variances: the Hessian includes λ₂)."""
+        opt = coord_cfg.optimizer
+        obj = coord.problem.objective
+        obj_l = dataclasses.replace(obj, reg=RegularizationContext.of(
+            opt.regularization, lam, opt.elastic_net_alpha,
+            obj.reg.reg_mask))
+        return dataclasses.replace(coord, problem=dataclasses.replace(
+            coord.problem, objective=obj_l))
+
+    def _swept_lane_model(self, coords: dict, name: str, w_j: Tensor,
+                          locked: dict, offsets: Tensor, lam: float,
+                          with_variances: bool = True) -> GameModel:
+        """One lane's GameModel: the snapshot (the fixed effect at this
+        λ and the locked coordinates), its fixed effect exported with
+        the lane's variances when they are asked for."""
+        model = self._model_snapshot(coords, {**locked, name: w_j})
+        cc = {c.name: c for c in self.config.coordinates}[name]
+        vtype = cc.optimizer.variance_type
+        if with_variances and vtype != VarianceComputationType.NONE:
+            variances = self._lane_coordinate(
+                coords[name], cc, lam).compute_variances(w_j, offsets, vtype)
+            model.models[name] = self._export_fixed(coords[name], w_j, cc,
+                                                    variances)
+        return model
+
+    def _train_swept_lanes(self, coords: dict, name: str, lams,
+                           offsets: Tensor, locked: dict, validation,
+                           run_logger, warm_W: Tensor | None = None,
+                           base_w0: Tensor | None = None,
+                           checkpointer=None, resume: bool = False):
+        """Train λ lanes as ONE batched solve a sweep; returns
+        (FitResults in the order of ``lams``, W [L, dim] in that order).
+
+        The lanes run λ-descending inside the solve (strongly
+        regularized lanes converge first and coast while the weak ones
+        refine); results come back in the caller's order.  With
+        ``validate_per_iteration`` every lane is evaluated after every
+        sweep, as ``_fit_point`` does."""
+        if checkpointer is not None or resume:
+            raise NotImplementedError(
+                "swept and tuner checkpoints are not ported yet (ROADMAP "
+                "A8a)")
+        cfg = self.config
+        cc = {c.name: c for c in cfg.coordinates}[name]
+        coord = coords[name]
+        lams_arr = np.asarray(lams, np.float32)
+        order = np.argsort(-lams_arr, kind="stable")
+        inv = torch.from_numpy(np.argsort(order)).to(self.device)
+        reg = SweptRegularization.from_grid(
+            cc.optimizer.regularization, lams_arr[order],
+            cc.optimizer.elastic_net_alpha)
+        L = len(lams)
+        W = None
+        if warm_W is not None:
+            W = warm_W[torch.from_numpy(order).to(warm_W.device)]
+        elif base_w0 is not None:
+            W = base_w0[None, :].expand(L, -1).clone()
+        validate = validation is not None and cfg.validate_per_iteration
+        lane_history: list[list] = [[] for _ in range(L)]
+        t0 = time.perf_counter()
+        res = None
+        for _ in range(cfg.n_iterations):
+            W, res = coord.train_swept(offsets, reg, warm_start=W)
+            if validate:
+                W_now = W[inv]
+                for j in range(L):
+                    snap = self._swept_lane_model(
+                        coords, name, W_now[j], locked, offsets,
+                        float(lams[j]), with_variances=False)
+                    lane_history[j].append(self._evaluate(snap, validation))
+        elapsed = time.perf_counter() - t0
+        logger.info("swept fit: %d λ-lanes of '%s' in %.2fs", L, name,
+                    elapsed)
+        if run_logger is not None:
+            run_logger.event(
+                "swept_fit", coordinate=name, lanes=L,
+                duration_s=round(elapsed, 4),
+                lanes_converged=int(res.converged.sum()),
+                max_solver_iterations=int(res.iterations.max()))
+        W_out = W[inv]
+        results = []
+        for j in range(L):
+            # The caller's λ, not its float32 round trip.
+            lam = float(lams[j])
+            model = self._swept_lane_model(coords, name, W_out[j], locked,
+                                           offsets, lam)
+            if lane_history[j]:
+                # The last sweep's snapshot scores as the final model.
+                evals = dict(lane_history[j][-1])
+            else:
+                evals = (self._evaluate(model, validation)
+                         if validation is not None else {})
+            results.append(FitResult(
+                model=model, evaluations=evals,
+                reg_weights={c.name: (lam if c.name == name
+                                      else c.optimizer.reg_weight)
+                             for c in cfg.coordinates},
+                validation_history=lane_history[j]))
+        return results, W_out
+
+    def _swept_setup(self, train: GameDataset, prep: dict, name: str,
+                     lam_build: float):
+        """The swept fit's preamble: coordinates built once (at the
+        largest λ, so the reg context carries the intercept mask), warm
+        coefficients, the locked coordinates and the lane-shared
+        offsets.  Returns (coords, locked, offsets, base_w0)."""
+        cfg = self.config
+        coords = self._build_coordinates(train, prep, {name: lam_build})
+        warm = self._warm_coefficients(coords, prep)
+        locked = {n: warm[n] for n in cfg.locked_coordinates if n in warm}
+        missing = set(cfg.locked_coordinates) - set(locked)
+        if missing:
+            raise ValueError(f"locked coordinates {sorted(missing)} absent "
+                             "from the warm-start model")
+        offsets = self._locked_offsets(coords, locked, train.n)
+        return coords, locked, offsets, warm.get(name)
+
+    def _fit_grid_swept(self, train: GameDataset, prep: dict, name: str,
+                        grid_points: list[dict], validation,
+                        run_logger) -> list[FitResult]:
+        """The whole ``reg_weight_grid`` as ONE swept solve; results in
+        grid order, each with its per-sweep validation history."""
+        lams = [gp[name] for gp in grid_points]
+        coords, locked, offsets, base_w0 = self._swept_setup(
+            train, prep, name, max(lams))
+        logger.info("fit: swept λ grid over '%s' (%d lanes)", name,
+                    len(lams))
+        results, _ = self._train_swept_lanes(
+            coords, name, lams, offsets, locked, validation, run_logger,
+            base_w0=base_w0)
+        return results
 
     def _evaluate(self, model: GameModel, validation: GameDataset) -> dict:
         margins = torch.from_numpy(GameTransformer(
@@ -487,22 +638,96 @@ class GameEstimator:
 
     def fit(self, train: GameDataset, validation: GameDataset | None = None,
             run_logger=None) -> list[FitResult]:
-        """Fit the λ grid point by point; results in grid order."""
+        """Train the λ grid; results in grid order.  An eligible
+        fixed-effect grid (``_swept_coordinate_name``) trains as ONE
+        swept solve; other grids fit point by point."""
         prep = self._prepare(train)
         grid_points = self._grid_points()
         name = self._swept_coordinate_name()
         if (len(grid_points) > 1 and name is not None
                 and set(self.config.reg_weight_grid) == {name}):
-            raise NotImplementedError(
-                "this grid is the batched λ sweep of one fixed effect, "
-                "not ported yet (ROADMAP A6); fit its points one config "
-                "at a time")
+            return self._fit_grid_swept(train, prep, name, grid_points,
+                                        validation, run_logger)
         return [self._fit_point(train, prep, rw, validation, run_logger)
                 for rw in grid_points]
 
-    def fit_tuned(self, *args, **kwargs):
-        raise NotImplementedError(
-            "hyperparameter tuning is not ported yet (ROADMAP A6)")
+    def fit_tuned(self, train: GameDataset, validation: GameDataset,
+                  run_logger=None) -> list[FitResult]:
+        """Bayesian or random tuning of per-coordinate reg weights
+        (``config.tuning``); one FitResult a trial, in trial order."""
+        cfg = self.config
+        if cfg.tuning is None:
+            raise ValueError("fit_tuned requires config.tuning")
+        if not cfg.evaluators:
+            raise ValueError("tuning needs at least one evaluator")
+        return self._fit_tuned_inner(train, validation, run_logger,
+                                     cfg.evaluators[0], cfg.tuning)
+
+    def _fit_tuned_inner(self, train, validation, run_logger, ev,
+                         tuning) -> list[FitResult]:
+        from photon_ml_torch.hyperparameter import (
+            HyperparameterTuner,
+            ParamRange,
+            ParamScale,
+            SearchSpace,
+            TunerMode,
+        )
+
+        space = SearchSpace([
+            ParamRange(name, r["low"], r["high"],
+                       ParamScale(r.get("scale", "LOG")))
+            for name, r in sorted(tuning.reg_weight_ranges.items())])
+        prep = self._prepare(train)
+        tuner = HyperparameterTuner(
+            space, mode=TunerMode(tuning.mode),
+            larger_is_better=ev.larger_is_better, seed=tuning.seed)
+        swept_name = self._swept_coordinate_name()
+        if (swept_name is not None
+                and set(tuning.reg_weight_ranges) == {swept_name}):
+            return self._fit_tuned_swept(train, prep, swept_name, tuner,
+                                         validation, run_logger, ev)
+
+        def evaluate_fn(point: dict):
+            result = self._fit_point(train, prep, dict(point), validation,
+                                     run_logger)
+            return result.evaluations[ev], result
+
+        trials = tuner.run(evaluate_fn, tuning.n_trials,
+                           run_logger=run_logger)
+        return [t.payload for t in trials]
+
+    def _fit_tuned_swept(self, train: GameDataset, prep: dict, name: str,
+                         tuner, validation: GameDataset, run_logger,
+                         ev) -> list[FitResult]:
+        """Batched trials: each tuner round proposes a batch of λ points
+        and the batch trains as one swept solve.  Each new lane starts
+        from the previous round's solution at the nearest log-λ."""
+        tuning = self.config.tuning
+        hi = float(tuning.reg_weight_ranges[name]["high"])
+        coords, locked, offsets, base_w0 = self._swept_setup(
+            train, prep, name, hi)
+        prev: dict = {"lams": None, "W": None}
+
+        def evaluate_batch(configs: list[dict]):
+            lams = [float(c[name]) for c in configs]
+            warm_W = None
+            if prev["W"] is not None:
+                log_prev = np.log(np.maximum(
+                    np.asarray(prev["lams"], np.float64), 1e-30))
+                idx = [int(np.argmin(np.abs(
+                    np.log(max(lam, 1e-30)) - log_prev))) for lam in lams]
+                warm_W = prev["W"][torch.as_tensor(idx)
+                                   .to(prev["W"].device)]
+            results, W_out = self._train_swept_lanes(
+                coords, name, lams, offsets, locked, validation,
+                run_logger, warm_W=warm_W, base_w0=base_w0)
+            prev["lams"], prev["W"] = lams, W_out
+            return [(r.evaluations[ev], r) for r in results]
+
+        trials = tuner.run_batched(evaluate_batch, tuning.n_trials,
+                                   batch_size=tuning.trial_batch,
+                                   run_logger=run_logger)
+        return [t.payload for t in trials]
 
     def best(self, results: list[FitResult]) -> FitResult:
         """Model selection by the first evaluator."""

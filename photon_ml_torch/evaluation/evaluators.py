@@ -21,6 +21,10 @@ class EvaluatorType(str, enum.Enum):
     POISSON_LOSS = "POISSON_LOSS"
     SQUARED_LOSS = "SQUARED_LOSS"
 
+    @property
+    def larger_is_better(self) -> bool:
+        return self == EvaluatorType.AUC
+
 
 def _masked_weights(scores: Tensor, weights: Tensor | None,
                     mask: Tensor | None) -> Tensor:
@@ -109,9 +113,6 @@ def evaluate(evaluator: EvaluatorType, scores: Tensor, labels: Tensor,
     return _EVALUATOR_FNS[evaluator](scores, labels, weights, mask)
 
 
-_LARGER_IS_BETTER = frozenset({EvaluatorType.AUC})
-
-
 def better_than(evaluator: EvaluatorType, a, b) -> bool:
     """Model-selection order: larger AUC, smaller RMSE and losses."""
-    return (a > b) if evaluator in _LARGER_IS_BETTER else (a < b)
+    return (a > b) if evaluator.larger_is_better else (a < b)

@@ -13,7 +13,7 @@ semantics:
       (validation once a sweep)
 
 The loop is host Python; scores and offsets stay on the device for the
-whole descent.  Checkpoint/resume (ROADMAP A8) and the fused streamed
+whole descent.  Checkpoint/resume (ROADMAP A8a) and the fused streamed
 cycle (ROADMAP A5) are not ported and raise.
 """
 
@@ -122,13 +122,13 @@ def run_coordinate_descent(
         the coordinate starts scored at them instead of at zero.
       run_logger: optional ``utils.run_log.RunLogger`` for per-coordinate
         and per-sweep events.
-      checkpoint_dir, resume, checkpointer: ROADMAP A8, not ported.
+      checkpoint_dir, resume, checkpointer: ROADMAP A8a, not ported.
       fused_engine: the fused streamed cycle, ROADMAP A5, not ported.
     """
     if checkpoint_dir or resume or checkpointer is not None:
         raise NotImplementedError(
             "coordinate-descent checkpoints and resume are not ported yet "
-            "(ROADMAP A8)")
+            "(ROADMAP A8a)")
     if fused_engine is not None:
         raise NotImplementedError(
             "the fused streamed CD cycle is not ported yet (ROADMAP A5)")

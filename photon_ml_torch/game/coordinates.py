@@ -16,8 +16,10 @@ coordinates.
   lane converging on its own criteria.  Offsets move from example space
   to block space with ``index_put_`` and scores come back by a gather.
 
-The chunked, streamed, swept and mesh variants are ROADMAP A5, A6 and
-A7; they raise ``NotImplementedError``.
+``FixedEffectCoordinate.train_swept`` trains a whole λ grid as one
+lane-batched solve over the shared batch (``optim.lbfgs
+.lbfgs_solve_swept``).  The chunked, streamed and mesh variants are
+ROADMAP A5 and A7; they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,8 +39,13 @@ from photon_ml_torch.game.dataset import (
     group_by_entity,
 )
 from photon_ml_torch.models.game import RandomEffectModel
-from photon_ml_torch.ops.objective import GLMObjective
+from photon_ml_torch.ops.objective import (
+    GLMObjective,
+    sweep_value,
+    sweep_value_and_gradient,
+)
 from photon_ml_torch.optim.base import OptimizerConfig, OptimizerType
+from photon_ml_torch.optim.lbfgs import lbfgs_solve_swept
 from photon_ml_torch.optim.problem import OptimizationProblem, solve_batched
 
 logger = logging.getLogger(__name__)
@@ -121,8 +128,39 @@ class FixedEffectCoordinate(Coordinate):
         return res.w, res
 
     def train_swept(self, offsets: Tensor, reg, warm_start=None):
-        raise NotImplementedError(
-            "the batched λ sweep is not ported yet (ROADMAP A6)")
+        """Train the whole λ grid as ONE batched solve: L stacked
+        coefficient lanes share every objective evaluation against the
+        same training view.
+
+        Args:
+          offsets: [n] scores shared by every lane (the sweep varies
+            only the regularization).
+          reg: ``ops.regularization.SweptRegularization``, a lane a grid
+            point.
+          warm_start: optional [L, dim] starting points.
+
+        Returns (W [L, dim], the lane-batched OptimizationResult).
+        """
+        if self.problem.optimizer == OptimizerType.TRON:
+            raise ValueError(
+                "train_swept supports LBFGS/OWL-QN lanes only (the λ "
+                "sweep is the L-BFGS grid workload; fit TRON "
+                "coordinates per grid point)")
+        dev = self.batch.labels.device
+        dim = self.batch.dim
+        W0 = (torch.zeros((reg.n_lanes, dim), dtype=torch.float32,
+                          device=dev) if warm_start is None
+              else warm_start.to(device=dev, dtype=torch.float32))
+        obj = self.problem.objective
+        l1v = (reg.l1_vectors(dim, obj.reg.reg_mask).to(dev)
+               if reg.has_l1() else None)
+        l2s = reg.l2_weights.to(dev)
+        view = self._training_batch(offsets)
+        res = lbfgs_solve_swept(
+            lambda W: sweep_value_and_gradient(obj, W, view, l2s), W0,
+            self.problem.config, l1_weights=l1v,
+            value=lambda W: sweep_value(obj, W, view, l2s))
+        return res.w, res
 
     def score(self, coefficients: Tensor) -> Tensor:
         return self.batch.x_dot(coefficients)

@@ -11,6 +11,10 @@ The adapters translate between these records and the host-side record
 shape of ``io.dataset`` (``{"label", "weight", "offset", "features":
 {bag: [(name, term, value), ...]}, "ids": {key: id}}``), so the JSONL
 and Avro paths share one index-resolution pipeline.
+
+The records keep the JAX package's namespace (``photon_ml_tpu.avro``):
+it is part of every file's schema, and the two packages write the same
+files.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from photon_ml_torch.io.avro import Schema, read_container, write_container
 NAME_TERM_VALUE = {
     "type": "record",
     "name": "NameTermValueAvro",
-    "namespace": "photon_ml_torch.avro",
+    "namespace": "photon_ml_tpu.avro",
     "fields": [
         {"name": "name", "type": "string"},
         {"name": "term", "type": "string", "default": ""},
@@ -60,7 +64,7 @@ def training_example_schema(
     return Schema({
         "type": "record",
         "name": "TrainingExampleAvro",
-        "namespace": "photon_ml_torch.avro",
+        "namespace": "photon_ml_tpu.avro",
         "fields": fields,
     })
 
@@ -68,7 +72,7 @@ def training_example_schema(
 SCORING_RESULT_SCHEMA = Schema({
     "type": "record",
     "name": "ScoringResultAvro",
-    "namespace": "photon_ml_torch.avro",
+    "namespace": "photon_ml_tpu.avro",
     "fields": [
         {"name": "uid", "type": "long"},
         {"name": "predictionScore", "type": "double"},
@@ -86,7 +90,7 @@ def bayesian_linear_model_schema() -> Schema:
     return Schema({
         "type": "record",
         "name": "BayesianLinearModelAvro",
-        "namespace": "photon_ml_torch.avro",
+        "namespace": "photon_ml_tpu.avro",
         "fields": [
             {"name": "modelId", "type": "string"},
             {"name": "modelClass", "type": "string", "default": ""},

@@ -14,7 +14,9 @@ other:
 ``game_model_from_tree`` turns the numpy state tree (the manifest's
 content, equal to what the JAX package's ``_model_tree`` produces) into
 the port's ``(GameModel, TaskType)``: the way weights cross from one
-package to the other.  Avro export comes later.
+package to the other.  ``export_model_avro`` writes the reference's
+``BayesianLinearModelAvro`` files, byte for byte what the JAX package
+writes for the same model (given the same container sync marker).
 """
 
 from __future__ import annotations
@@ -280,3 +282,66 @@ def load_game_model(model_dir: str) -> tuple[GameModel, TaskType]:
             }
     return game_model_from_tree({"task": meta["task_type"],
                                  "coordinates": coords})
+
+
+def export_model_avro(model: GameModel, task: TaskType, feature_maps: dict,
+                      out_dir: str) -> list[str]:
+    """Write one ``BayesianLinearModelAvro`` container a coordinate.
+
+    Coefficients are keyed by (name, term), so the file is portable
+    across feature-index rebuilds.  A fixed effect is one record; a
+    random effect one record an entity (``modelId`` = the entity id).
+
+    ``feature_maps``: feature shard → IndexMap, covering every shard the
+    model references; the intercept column the estimator appends is
+    written as name="(INTERCEPT)".
+    """
+    from photon_ml_torch.io.avro import write_container
+    from photon_ml_torch.io.avro_schemas import (
+        bayesian_linear_model_schema,
+        write_model_avro,
+    )
+
+    os.makedirs(out_dir, exist_ok=True)
+    written = []
+
+    def keyer(imap):
+        def index_to_key(i):
+            if i >= len(imap):          # the estimator-appended intercept
+                return ("(INTERCEPT)", "")
+            return imap.feature_at(i)
+        return index_to_key
+
+    for name, comp in model.models.items():
+        path = os.path.join(out_dir, f"{name}.avro")
+        if isinstance(comp, FixedEffectModel):
+            means = _np(comp.coefficients.means)
+            variances = (None if comp.coefficients.variances is None
+                         else _np(comp.coefficients.variances))
+            write_model_avro(
+                path, name, means, keyer(feature_maps[comp.feature_shard]),
+                variances=variances, loss_function=task.value)
+        elif isinstance(comp, RandomEffectModel):
+            key = keyer(feature_maps[comp.feature_shard])
+
+            def records(comp=comp, key=key):
+                for eid in np.asarray(comp.grouping.entity_ids):
+                    w = comp.global_coefficients_for(int(eid))
+                    if w is None:
+                        continue
+                    yield {
+                        "modelId": str(int(eid)),
+                        "modelClass": "",
+                        "lossFunction": task.value,
+                        "means": [
+                            {"name": key(int(i))[0], "term": key(int(i))[1],
+                             "value": float(w[i])}
+                            for i in np.nonzero(w)[0]],
+                        "variances": None,
+                    }
+
+            write_container(path, bayesian_linear_model_schema(), records())
+        else:
+            raise TypeError(f"unknown component model {type(comp)}")
+        written.append(path)
+    return written

@@ -56,6 +56,20 @@ _SIGNATURES = {
             _I32,    # device index
             _P,      # cudaStream_t
         ],
+        "gather_rowsum_lanes_launch": [
+            _P,      # table  f32 [T, lanes], lane-minor
+            _P,      # vals   f32 [n, k]
+            _P,      # ids    i32 [n, k]
+            _P,      # out    f32 [n, lanes]
+            _I64,    # n
+            _I32,    # k
+            _I32,    # lanes: 2, 4, 8 or 16
+            _I32,    # vec: slots a thread loads at once (4 or 1)
+            _I32,    # tpr: threads a row
+            _I32,    # blocks
+            _I32,    # device index
+            _P,      # cudaStream_t
+        ],
     },
     "grr_contract": {
         "grr_contract_dense_launch": [

@@ -4,13 +4,20 @@ Counterpart of ``photon_ml_tpu/ops/objective.py``: margin contraction →
 elementwise loss → masked reduce / transposed contraction.  Total value
 = Σ_i weight_i·ℓ(margin_i, y_i) + ½·λ₂·‖w‖² (+ the prior); L1 is the
 optimizer's (OWL-QN).  The batch is passed per call, so one objective
-serves many batches.  The swept (stacked-λ) surface is ROADMAP A6.
+serves many batches.
 
 Every method also takes E independent problems at once: a lane-stacked
 ``DenseBatch`` (``x`` [E, c, p]) and coefficients [E, p] give [E]
 values and [E, p] vectors (the reductions run over the last axis), the
 counterpart of ``jax.vmap`` of these methods as the random-effect
 buckets run them.
+
+The swept (stacked-λ) surface, ``sweep_value_and_gradient`` and
+``sweep_value``, is the same objective over one shared batch with
+coefficients W [L, d] and a per-lane L2 weight [L] installed in its
+regularization context: the products take the lane axis
+(``SparseBatch``: one read of the ELL streams for every lane), the
+arithmetic is this module's.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ class GLMObjective:
     def _margins(self, w: Tensor, batch: Batch) -> Tensor:
         m = batch.margins(self.norm.model_to_raw(w))
         if not self.norm.is_identity:
-            m = m - self.norm.margin_correction(w)
+            m = m - self.norm.margin_correction(w)[..., None]
         return m
 
     def _residual_to_grad(self, r: Tensor, batch: Batch) -> Tensor:
@@ -87,7 +94,7 @@ class GLMObjective:
         d2 = wl * self.loss.d2(m, batch.labels)
         xv = batch.x_dot(self.norm.model_to_raw(v))
         if not self.norm.is_identity:
-            xv = xv - self.norm.margin_correction(v)
+            xv = xv - self.norm.margin_correction(v)[..., None]
         out = self._residual_to_grad(d2 * xv, batch) \
             + self.reg.l2_hessian_vector(v)
         if self.prior is not None:
@@ -134,6 +141,27 @@ def _elementwise_square_batch(batch: Batch) -> Batch:
         colmajor=(None if batch.colmajor is None
                   else batch.colmajor.squared()),
         grr=None if batch.grr is None else batch.grr.squared())
+
+
+def _lane_objective(obj: GLMObjective, l2_weights: Tensor) -> GLMObjective:
+    """``obj`` with a per-lane L2 weight [L] installed.  Only the smooth
+    L2 part varies across lanes; per-lane L1 is the optimizer's
+    (OWL-QN)."""
+    return dataclasses.replace(obj, reg=dataclasses.replace(
+        obj.reg, l2_weight=l2_weights))
+
+
+def sweep_value_and_gradient(obj: GLMObjective, W: Tensor, batch: Batch,
+                             l2_weights: Tensor) -> tuple[Tensor, Tensor]:
+    """(W [L, dim], shared batch) → (values [L], gradients [L, dim]),
+    with lane l's L2 weight ``l2_weights[l]``."""
+    return _lane_objective(obj, l2_weights).value_and_gradient(W, batch)
+
+
+def sweep_value(obj: GLMObjective, W: Tensor, batch: Batch,
+                l2_weights: Tensor) -> Tensor:
+    """Value-only lane sweep (line-search trials): W [L, dim] → [L]."""
+    return _lane_objective(obj, l2_weights).value(W, batch)
 
 
 class ObjectiveFns(NamedTuple):

@@ -20,7 +20,11 @@ curvature guard and stopping decisions; a finished lane keeps its
 state.  One host read a line-search trial and one an iteration ask
 whether any lane is still running.
 
-The swept (stacked-λ) solvers are ROADMAP A6.
+``lbfgs_solve_swept`` / ``owlqn_solve_swept`` are the λ-sweep entries:
+the same batched loop over L λ-lanes of ONE problem, whose objective
+evaluates every lane against a shared batch
+(``ops.objective.sweep_value_and_gradient``), with per-lane L1 weights
+for OWL-QN.
 """
 
 from __future__ import annotations
@@ -265,3 +269,43 @@ def owlqn_solve(value_and_grad: ValueAndGrad, w0: Tensor,
     """OWL-QN = L-BFGS with orthant-wise L1 handling."""
     return lbfgs_solve(value_and_grad, w0, config, l1_weight=l1_weight,
                        value=value)
+
+
+def lbfgs_solve_swept(value_and_grad, w0s: Tensor,
+                      config: OptimizerConfig = OptimizerConfig(),
+                      l1_weights: Tensor | None = None,
+                      value=None) -> OptimizationResult:
+    """Batched masked-lane L-BFGS / OWL-QN over the L points of a λ grid.
+
+    One solve drives every grid point at once, so each objective
+    evaluation serves all L coefficient lanes against the SAME batch:
+    one data stream amortized across the grid.  Every lane converges on
+    its own criteria, as ``lbfgs_solve`` would alone.
+
+    Args:
+      value_and_grad: ``W [L, d] → (f [L], G [L, d])`` over the shared
+        batch, each lane with its own L2 weight
+        (``ops.objective.sweep_value_and_gradient``).
+      w0s: [L, d] stacked starting points.
+      l1_weights: None (L-BFGS) or per-lane L1 weights, [L] scalars or
+        [L, d] vectors, which turn on OWL-QN on EVERY lane (a zero row
+        is an all-zero L1 vector).
+      value: optional ``W → f [L]`` for line-search trials
+        (``ops.objective.sweep_value``).
+    """
+    l1 = None
+    if l1_weights is not None:
+        l1 = torch.as_tensor(l1_weights, dtype=w0s.dtype, device=w0s.device)
+        if l1.dim() == 1:
+            l1 = l1[:, None]
+        l1 = l1.expand(w0s.shape)
+    return lbfgs_solve_batched(value_and_grad, w0s, config, l1_weight=l1,
+                               value=value)
+
+
+def owlqn_solve_swept(value_and_grad, w0s: Tensor, l1_weights: Tensor,
+                      config: OptimizerConfig = OptimizerConfig(),
+                      value=None) -> OptimizationResult:
+    """Batched-lane OWL-QN (see ``lbfgs_solve_swept``)."""
+    return lbfgs_solve_swept(value_and_grad, w0s, config,
+                             l1_weights=l1_weights, value=value)

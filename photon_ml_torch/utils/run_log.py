@@ -6,7 +6,7 @@ machine-readable; the same events go to the stdlib logger.  ``event`` is
 thread-safe, the file handle has a lifecycle (``close()``, a context
 manager, an ``atexit`` flush fallback), and a schema-versioned
 ``run_header`` (run id, argv, torch and CUDA versions) opens a fresh
-file.  Telemetry spans and profiling (ROADMAP A8) are not ported.
+file.  Telemetry spans and profiling (ROADMAP A8b) are not ported.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def _runtime_info() -> dict:
         info["torch"] = getattr(torch, "__version__", None)
         info["cuda"] = getattr(torch.version, "cuda", None)
         if torch.cuda.is_initialized():
-            info["device"] = torch.cuda.get_device_name()
+            info["device_name"] = torch.cuda.get_device_name()
     return info
 
 

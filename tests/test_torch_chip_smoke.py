@@ -7,8 +7,10 @@ gates run here on CPU tensors at 60,000 rows.  At that size the held-out
 AUC is below the script's 0.70 gate (a property of the generator: it
 grows with the row count), so that one gate is expected to report.
 Phase 7 (GAME training) runs at 8,000 rows over 2,000 columns and 300
-entities a random effect, with every gate; phase 8 runs the driver in a
-subprocess with ``--device cpu``.
+entities a random effect, with every gate; phase 8 runs the training,
+indexing and scoring drivers in subprocesses with ``--device cpu``;
+phase 9 (the swept λ grid, single-λ fits and the tuned fit) runs on the
+60,000 rows, every gate but the card-only launch counts.
 """
 
 from __future__ import annotations
@@ -219,9 +221,144 @@ def test_game_phase_on_cpu(work):
 
 
 def test_driver_phase_on_cpu(work):
+    """Phase 8: the training driver's golden, then the indexing driver's
+    maps, the scoring driver's AUC and outputs, and the Avro export."""
     out = cs.phase_driver(["--device", "cpu"])
     assert out["rc"] == 0
     assert abs(out["auc"] - out["golden_auc"]) < cs.DRIVER_AUC_ATOL
+    assert out["index_sizes"]["entities"]["userId"] > 0
+    assert out["scoring_auc_gap"] <= cs.SCORING_ATOL
+    assert out["scoring_outputs_max_abs_diff"] <= cs.SCORING_ATOL
+    assert out["scoring_rows"] > 0
+    assert out["scoring_gather_rowsum_launches"] == 0       # plain on CPU
+    assert out["export_files"] == ["global.avro", "per_user.avro"]
+    assert out["export_max_abs_diff"] == 0.0
+
+
+KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms"}
+
+
+def test_lane_kernel_checks_on_cpu(train):
+    """Phase 3's lane-kernel check rehearsed: the plain version against
+    itself at 2, 8 and 16 lanes on the ELL arrays and 8 on their
+    transposed ELL, no launch counted; the ``kernels`` entry carries
+    every key of the line."""
+    from photon_ml_torch.ops import kernels as kk
+
+    cm = train["colmajor"].colmajor
+    before = kk.gather_rowsum_lanes.launches
+    entry = cs.phase_kernels_lanes(train["ell"], cm, seed=9, time_it=False)
+    assert kk.gather_rowsum_lanes.launches == before
+    assert KERNEL_KEYS <= set(entry)
+    assert entry["name"] == "gather_rowsum_lanes" and entry["route"] == "cuda"
+    assert entry["replaces"] == ("photon_ml_tpu/ops/kernels.py:65 "
+                                 "(under jax.vmap)")
+    assert entry["max_abs_err"] == 0.0 and entry["bound_by"] == "bytes"
+    assert entry["lanes"] == cs.LANES_MAIN
+    assert entry["shape"] == [ROWS - ROWS // 10, cs.ELL_CAP]
+    shapes = {sh["shape"]: sh for sh in entry["shapes"]}
+    assert sorted(shapes) == sorted(
+        [f"ell_train_L{n}" for n in cs.LANE_COUNTS]
+        + [f"colmajor_train_L{cs.LANES_MAIN}"])
+    t = shapes[f"colmajor_train_L{cs.LANES_MAIN}"]
+    assert (t["n"], t["k"], t["table"]) == (cm.n_virtual_rows, cm.capacity,
+                                            ROWS - ROWS // 10)
+    assert t["atol"] == cs.COLMAJOR_ATOL
+    # More lanes move more table and output bytes.
+    bounds = [shapes[f"ell_train_L{n}"]["bound_ms"] for n in cs.LANE_COUNTS]
+    assert bounds == sorted(bounds)
+
+
+def test_kernel_entries_carry_every_key(train):
+    """Every entry of the ``kernels`` line has the keys the line needs."""
+    table = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 0.1, cs.D + 1).astype(np.float32))
+    entries = [cs.phase_kernels(table, seed=1, time_it=False)]
+    entries += cs.phase_kernels_grr(train["grr"].grr, seed=5, time_it=False)
+    for e in entries:
+        assert KERNEL_KEYS <= set(e), e["name"]
+
+
+def test_sweep_phase_on_cpu(train):
+    """Phase 9 at 60,000 rows: both layouts' grids take the swept path
+    (one swept solve, no ``_fit_point``), one validation entry a lane,
+    lanes 0, 3 and 7 within the gates of their single-λ fits, the tuned
+    fit swept and in range; the lane kernel's plain version checked at
+    every shape the fits ran it at (the estimator's ELL, intercept
+    included, at 8 and 4 lanes; its transposed ELL at 8); no launch
+    counted on the CPU and no patch left behind."""
+    from photon_ml_torch.data.batch import SparseBatch
+    from photon_ml_torch.data import batch, colmajor
+    from photon_ml_torch.estimators.game_estimator import GameEstimator
+    from photon_ml_torch.game import coordinates
+
+    saved = (SparseBatch.margins, SparseBatch.xt_dot,
+             GameEstimator._fit_point,
+             coordinates.FixedEffectCoordinate.train_swept,
+             coordinates.FixedEffectCoordinate.train,
+             batch.lane_gather_rowsum, colmajor.lane_gather_rowsum)
+    out = cs.phase_sweep(train, "cpu", time_it=False)
+    assert out["failures"] == []
+    assert saved == (SparseBatch.margins, SparseBatch.xt_dot,
+                     GameEstimator._fit_point,
+                     coordinates.FixedEffectCoordinate.train_swept,
+                     coordinates.FixedEffectCoordinate.train,
+                     batch.lane_gather_rowsum, colmajor.lane_gather_rowsum)
+    n_train = ROWS - ROWS // 10
+    assert out["train_rows"] == n_train
+    for layout in ("ell", "colmajor", "tuned"):
+        f = out[layout]
+        assert f["launches"] == 0 and f["evaluations"] > 0
+        assert f["gradients"] > 0
+        assert f["evaluation_single_launches"] == 0
+        assert f["gradient_single_launches"] == 0
+    xw8 = f"sweep_xw_{n_train}x{cs.NNZ + 1}_L{cs.LANES_MAIN}"
+    xw4 = f"sweep_xw_{n_train}x{cs.NNZ + 1}_L{cs.TUNE_BATCH}"
+    assert set(out["ell"]["lane_launches_by_shape"]) == {xw8}
+    assert set(out["tuned"]["lane_launches_by_shape"]) == {xw4}
+    xtr = [s for s in out["colmajor"]["lane_launches_by_shape"] if s != xw8]
+    assert len(xtr) == 1 and xtr[0].startswith("sweep_xtr_")
+    shapes = {sh["shape"]: sh for sh in out["lane_shapes"]}
+    assert sorted(shapes) == sorted([xw8, xw4, xtr[0]])
+    for sh in shapes.values():
+        assert sh["max_abs_err"] == 0.0 and sh["launches"] == 0
+        assert KERNEL_KEYS - {"ms", "plain_ms", "library_ms", "name",
+                              "route", "source", "replaces"} <= set(sh)
+    assert shapes[xtr[0]]["atol"] == cs.COLMAJOR_ATOL
+    assert shapes[xtr[0]]["table"] == n_train
+    assert shapes[xw4]["lanes"] == cs.TUNE_BATCH
+    for layout in ("ell", "colmajor"):
+        f = out[layout]
+        assert f["swept_solves"] == 1 and f["fit_point_calls"] == 0
+        assert len(f["loss"]) == len(f["auc"]) == len(cs.SWEEP_LAMS)
+        # λ-ascending lanes: the regularized loss grows with λ.
+        assert f["loss"] == sorted(f["loss"])
+    assert [s["lane"] for s in out["singles"]] == list(cs.SWEEP_CHECK_LANES)
+    for single in out["singles"]:
+        assert single["ell_loss_gap_rel"] <= cs.SWEEP_LOSS_RTOL
+        assert single["colmajor_auc_gap"] <= cs.SWEEP_AUC_ATOL
+    tuned = out["tuned"]
+    assert tuned["fit_point_calls"] == 0
+    assert tuned["swept_solves"] == cs.TUNE_TRIALS // cs.TUNE_BATCH
+    assert len(tuned["lams"]) == cs.TUNE_TRIALS
+
+
+def test_sweep_evaluation_splits_on_cpu():
+    """The batches the swept evaluation is timed on: the estimator's ELL
+    (30 columns + the intercept column of phase 6's rows, no estimator
+    intercept) and its transposed ELL."""
+    rows, y = cs.make_training_data(seed=3, n=2000, d=500)
+    data = {"rows": rows[:1800], "labels": y[:1800],
+            "test_rows": rows[1800:], "test_labels": y[1800:]}
+    train, valid = cs.sweep_data(data)
+    assert valid.n == 200
+    out = cs.sweep_evaluation_splits(train, "cpu", time_it=False)
+    assert out["ell"]["shape"] == [1800, cs.NNZ + 1]
+    assert out["ell"]["lanes"] == cs.LANES_MAIN
+    v, c = out["colmajor"]["transposed_shape"]
+    assert c % 8 == 0 and v * c >= 1800 * (cs.NNZ + 1)
 
 
 def test_profile_sweep_on_cpu():

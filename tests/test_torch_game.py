@@ -484,5 +484,8 @@ def test_estimator_defaults_to_cuda_and_rejects_unported():
     one["coordinates"] = one["coordinates"][:1]
     data = _movielens(n_users=20, n_items=5, n_obs=300, seed=2)
     train, _ = _datasets(data, 300, "torch")
-    with pytest.raises(NotImplementedError, match="A6"):
-        GameEstimator(training_config_from_json(json.dumps(one))).fit(train)
+    # The swept λ grid of one fixed effect is ported now (it raised
+    # naming A6 before): it fits both points.
+    results = GameEstimator(training_config_from_json(
+        json.dumps(one))).fit(train)
+    assert [r.reg_weights["global"] for r in results] == [0.1, 1.0]

@@ -422,3 +422,183 @@ def test_cuda_colmajor_xt_dot_matches_index_add():
     want = plain.xt_dot(r)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+# -- the lane kernel: gather_rowsum_lanes -------------------------------------
+
+
+def _lane_table(seed: int, L: int, T: int) -> np.ndarray:
+    """Coefficient lanes W [L, T] at a model's scale."""
+    return np.random.default_rng(seed).normal(0, 0.1, (L, T)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("L", [1, 3, 8])
+@pytest.mark.parametrize("k", [8, 31])
+def test_gather_rowsum_lanes_matches_pallas_vmap(L, k):
+    """The plain lane version against ``jax.vmap`` of the Pallas kernel
+    (interpret mode) over the lanes of W [L, T], the counterpart the
+    swept objective traces: rtol 1e-5, atol 1e-6."""
+    import jax
+
+    jnp, jk = _jax()
+    T, n = 5000, 64
+    _, vals, ids = _power_law_inputs(L * 10 + k, T, n, k)
+    W = _lane_table(k + L, L, T)
+    want = np.asarray(jax.vmap(lambda t: jk._pallas_gather_rowsum(
+        t, jnp.asarray(vals), jnp.asarray(ids), interpret=True))(
+            jnp.asarray(W)))                                    # [L, n]
+    got = tk.gather_rowsum_lanes_reference(*_torch(
+        np.ascontiguousarray(W.T), vals, ids))                  # [n, L]
+    assert got.shape == (n, L)
+    np.testing.assert_allclose(got.numpy().T, want, rtol=RTOL, atol=ATOL)
+
+
+def test_gather_rowsum_lanes_cpu_runs_the_plain_version():
+    """On CPU tensors the wrapper is the plain version, counts nothing,
+    and every lane equals ``gather_rowsum`` of that lane's column."""
+    table, vals, ids = _inputs(5, 300, 40, 7)
+    W = _lane_table(6, 5, 300)
+    t, v, i = _torch(np.ascontiguousarray(W.T), vals, ids)
+    before = tk.gather_rowsum_lanes.launches
+    got = tk.gather_rowsum_lanes(t, v, i)
+    assert tk.gather_rowsum_lanes.launches == before
+    for lane in range(5):
+        np.testing.assert_allclose(
+            got[:, lane].numpy(),
+            tk.gather_rowsum(t[:, lane].contiguous(), v, i).numpy(),
+            rtol=RTOL, atol=ATOL)
+
+
+def test_lane_gather_rowsum_keeps_one_lane_on_gather_rowsum(monkeypatch):
+    """One lane is the single-λ path bit for bit; more go to the lane
+    kernel, whose [n, L] output comes back as [L, n]."""
+    table, vals, ids = _inputs(9, 200, 30, 6)
+    t, v, i = _torch(table, vals, ids)
+    one = tk.lane_gather_rowsum(t[None], v, i)
+    assert one.shape == (1, 30)
+    assert torch.equal(one[0], tk.gather_rowsum(t, v, i))
+    called = []
+    monkeypatch.setattr(tk, "gather_rowsum_lanes",
+                        lambda *a: called.append(1)
+                        or tk.gather_rowsum_lanes_reference(*a))
+    W = torch.from_numpy(_lane_table(3, 4, 200))
+    out = tk.lane_gather_rowsum(W, v, i)
+    assert called == [1] and out.shape == (4, 30)
+
+
+@pytest.mark.parametrize("shape,match", [
+    ((300,), r"\[T, L\]"), ((300, 0), r"\[T, L\]"), ((300, 17), r"\[T, L\]"),
+])
+def test_gather_rowsum_lanes_rejects_shapes(shape, match):
+    _, vals, ids = _inputs(1, 300, 4, 3)
+    with pytest.raises(ValueError, match=match):
+        tk.gather_rowsum_lanes(torch.zeros(shape), *_torch(vals, ids))
+
+
+def test_gather_rowsum_lanes_rejects_dtypes():
+    _, vals, ids = _inputs(1, 300, 4, 3)
+    v, i = _torch(vals, ids)
+    with pytest.raises(TypeError, match="gather_rowsum_lanes takes float32"):
+        tk.gather_rowsum_lanes(torch.zeros((300, 2), dtype=torch.float64),
+                               v, i)
+    with pytest.raises(TypeError, match="int32 ids"):
+        tk.gather_rowsum_lanes(torch.zeros((300, 2)), v, i.long())
+
+
+def _launch_lanes_twice(t, v, i):
+    """The lane kernel's result, after checking that it launched once a
+    call and that two launches agree bit for bit."""
+    before = tk.gather_rowsum_lanes.launches
+    got = tk.gather_rowsum_lanes(t, v, i)
+    again = tk.gather_rowsum_lanes(t, v, i)
+    torch.cuda.synchronize()
+    assert tk.gather_rowsum_lanes.launches == before + 2
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [
+    (1, 32), (67, 5), (4096, 31), (65_537, 32), (1000, 1), (999, 128),
+    (257, 264), (129, 512),
+])
+@pytest.mark.parametrize("lanes", [2, 3, 8, 16])
+def test_cuda_lane_kernel_matches_plain(n, k, lanes):
+    """Power-law ids over a 100,001-row table at a model's scales, both
+    stream paths (k % 4 == 0 and not), lane counts on the built widths
+    and one padded (3 → 4); bitwise across launches, within rtol 1e-5,
+    atol 1e-6 of the plain version, as B1."""
+    _, vals, idx = _power_law_inputs(5, 100_001, n, k, model_scale=True)
+    idx[0, 0], idx[-1, -1] = 0, 100_000
+    W = _lane_table(n + lanes, lanes, 100_001)
+    t, v, i = _cuda(np.ascontiguousarray(W.T), vals, idx)
+    got = _launch_lanes_twice(t, v, i)
+    assert got.shape == (n, lanes)
+    want = tk.gather_rowsum_lanes_reference(t, v, i)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_lane_kernel_unaligned_streams_and_table():
+    """Streams that start off a 16-byte boundary take the scalar path; a
+    table view off the boundary is copied aligned; results unchanged."""
+    n, k, lanes = 1000, 32, 8
+    _, vals, ids = _power_law_inputs(7, 5000, n, k, model_scale=True)
+    W = _lane_table(8, lanes, 5000)
+    t, v, i = _cuda(np.ascontiguousarray(W.T), vals, ids)
+    want = tk.gather_rowsum_lanes(t, v, i)
+    v_off = torch.empty(n * k + 1, device="cuda")[1:].view(n, k)
+    i_off = torch.empty(n * k + 1, dtype=torch.int32,
+                        device="cuda")[1:].view(n, k)
+    v_off.copy_(v)
+    i_off.copy_(i)
+    t_off = torch.empty(5000 * lanes + 1, device="cuda")[1:].view(5000, lanes)
+    t_off.copy_(t)
+    got = _launch_lanes_twice(t_off, v_off, i_off)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col_major", [False, True])
+def test_cuda_batch_lane_products_match_single_lanes(col_major):
+    """``SparseBatch.x_dot`` over W [L, d] (one lane-kernel launch) and
+    ``xt_dot`` over R [L, n] (one float64 ``index_add_``, or one lane
+    launch and one fold on the transposed ELL) against the single-λ
+    products lane by lane."""
+    from photon_ml_torch.data.batch import make_sparse_batch
+    from photon_ml_torch.data.sparse_rows import SparseRows
+
+    rng = np.random.default_rng(13)
+    n, d, k, lanes = 40_000, 4_000, 31, 8
+    cols = np.sort(rng.choice(d, (n, k)), axis=1)
+    for j in range(1, k):
+        bump = cols[:, j] <= cols[:, j - 1]
+        cols[bump, j] = cols[bump, j - 1] + 1
+    cols = np.minimum(cols, d - 1)
+    keep = np.concatenate([np.ones((n, 1), bool), np.diff(cols, axis=1) > 0],
+                          axis=1)
+    rows = SparseRows.from_flat(
+        np.concatenate([[0], np.cumsum(keep.sum(1))]), cols[keep],
+        rng.random(int(keep.sum())).astype(np.float32))
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    batch = make_sparse_batch(rows, d, np.zeros(n), col_major=col_major,
+                              device="cuda")
+    W = torch.from_numpy(_lane_table(1, lanes, d)).cuda()
+    R = torch.randn(lanes, n, device="cuda")
+    before = tk.gather_rowsum_lanes.launches
+    xw = batch.x_dot(W)
+    xtr = batch.xt_dot(R)
+    torch.cuda.synchronize()
+    assert tk.gather_rowsum_lanes.launches == before + 1 + int(col_major)
+    for lane in range(lanes):
+        np.testing.assert_allclose(xw[lane].cpu().numpy(),
+                                   batch.x_dot(W[lane]).cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+        want = batch.xt_dot(R[lane].contiguous())
+        np.testing.assert_allclose(
+            xtr[lane].cpu().numpy(), want.cpu().numpy(), rtol=1e-5,
+            atol=1e-5 * float(want.abs().max()))

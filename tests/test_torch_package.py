@@ -64,6 +64,19 @@ def test_port_has_the_game_training_slice():
         assert (REPO / rel).is_file(), rel
 
 
+def test_port_has_the_sweep_and_scoring_slice():
+    for rel in ("photon_ml_torch/hyperparameter/__init__.py",
+                "photon_ml_torch/hyperparameter/kernels.py",
+                "photon_ml_torch/hyperparameter/gp.py",
+                "photon_ml_torch/hyperparameter/search.py",
+                "photon_ml_torch/hyperparameter/tuner.py",
+                "photon_ml_torch/io/score_sink.py",
+                "photon_ml_torch/cli/game_scoring_driver.py",
+                "photon_ml_torch/cli/feature_indexing_driver.py"):
+        assert (REPO / rel).is_file(), rel
+        assert rel in PORT_FILES     # so the import scan covers it
+
+
 @pytest.mark.parametrize("rel", PORT_FILES)
 def test_no_jax_import_in_port_source(rel):
     bad = [m for m in _imported_modules(REPO / rel)
@@ -106,6 +119,13 @@ def test_fresh_import_leaves_jax_out():
         "import photon_ml_torch.io.dataset\n"
         "import photon_ml_torch.utils.run_log\n"
         "import photon_ml_torch.cli.game_training_driver\n"
+        "import photon_ml_torch.cli.game_scoring_driver\n"
+        "import photon_ml_torch.cli.feature_indexing_driver\n"
+        "import photon_ml_torch.io.score_sink\n"
+        "import photon_ml_torch.hyperparameter\n"
+        "import photon_ml_torch.hyperparameter.gp\n"
+        "import photon_ml_torch.hyperparameter.search\n"
+        "import photon_ml_torch.hyperparameter.tuner\n"
         f"print(json.dumps(sorted(m for m in sys.modules "
         f"if m.split('.')[0] in {FORBIDDEN!r})))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

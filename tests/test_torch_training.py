@@ -41,6 +41,7 @@ from photon_ml_torch.ops import losses
 from photon_ml_torch.ops.objective import GLMObjective
 from photon_ml_torch.ops.regularization import (
     RegularizationContext,
+    SweptRegularization,
     exclude_intercept_mask,
 )
 from photon_ml_torch.optim.base import OptimizerConfig, OptimizerType
@@ -407,10 +408,11 @@ def test_regularization_and_prior_match_reference():
 
 
 def test_unported_options_raise():
-    """The transposed ELL and TRON are ported now (they ran into
-    ``NotImplementedError`` naming A2 before); the options still missing
-    raise, naming their ROADMAP items: the swept λ solve (A6) and the
-    chunked and streamed tiers (A5)."""
+    """The transposed ELL, TRON and the swept λ solve are ported now
+    (they ran into ``NotImplementedError`` naming A2 and A6 before); a
+    swept solve of a TRON coordinate raises ``ValueError`` as in the
+    reference, and the options still missing raise, naming their ROADMAP
+    items: the chunked and streamed tiers (A5)."""
     from photon_ml_torch.game.coordinates import (
         ChunkedFixedEffectCoordinate,
         FixedEffectCoordinate,
@@ -427,8 +429,9 @@ def test_unported_options_raise():
     res = problem.run(batch, torch.zeros(123))
     assert res.converged and res.iterations > 0
     coord = FixedEffectCoordinate("global", batch, problem)
-    with pytest.raises(NotImplementedError, match="A6"):
-        coord.train_swept(torch.zeros(50), None)
+    with pytest.raises(ValueError, match="LBFGS/OWL-QN lanes only"):
+        coord.train_swept(torch.zeros(50), SweptRegularization.from_grid(
+            "L2", [1.0, 0.1]))
     with pytest.raises(NotImplementedError, match="A5"):
         ChunkedFixedEffectCoordinate()
     with pytest.raises(NotImplementedError, match="A5"):
