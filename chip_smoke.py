@@ -30,11 +30,17 @@ raises on failure:
    faster than 105 % of its HBM bound fails) with the back-to-back
    figure and the profiler's device ms beside it as ``*_warm``;
    ``gather_rowsum_lanes`` at phase 6's ELL arrays with a [100,001, L]
-   table at L = 2, 8 and 16, and at their transposed ELL with L = 8 (the
-   table a residual over the rows, [900,000, 8]), each launched twice
-   and required bitwise equal and within B1's tolerances, timed as B1 is
-   with ``embedding_bag`` over the [T, L] table and L single-lane
-   ``gather_rowsum`` launches beside;
+   table at L = 2, 8 and 16, at those arrays cut to their 31 real slots
+   (the estimator's ELL, intercept included, as phase 9 fits it) at L =
+   4 and 8, and at their transposed ELL with L = 8 (the table a residual
+   over the rows, [900,000, 8]), each launched twice and required
+   bitwise equal and within B1's tolerances, timed as B1 is with
+   ``embedding_bag`` over the [T, L] table and L single-lane
+   ``gather_rowsum`` launches beside (a shape read faster than 105 % of
+   its HBM bound fails), the 31-slot and transposed shapes also timed
+   with every id 0 (the streams and sums alone) and the 31-slot ones
+   with no table head kept (the table grown with zero rows) and with
+   their ids mirrored (the popular rows past the head);
 4. serving: the config-5 GAME model (KDD Cup 2012 track 2 widths: a
    sparse fixed effect over 100,000 features plus an intercept, 30
    non-zeros a row; a per-user random effect of 100,000 entities x 2
@@ -119,8 +125,10 @@ raises on failure:
    kernel is then checked and timed as in phase 3 at every shape these
    fits launched it at, on the last inputs each had (the estimator's
    900,000 x 31 ELL at 8 and 4 lanes, and its transposed ELL at 8),
-   each shape carrying its launches.  Printed: the swept solves' walls
-   against the single-λ ones, and one swept ``value_and_gradient`` at
+   each shape carrying its launches (none read faster than 105 % of its
+   bound).  Printed: each grid fit's wall by stage (data preparation,
+   swept setup, swept solve, validations, the rest), the swept solves'
+   walls against the single-λ ones, and one swept ``value_and_gradient`` at
    L = 8 on each layout, its device ms split by part, and the idle share.
 
 The line before the card's and the result's is one JSON object with a
@@ -136,8 +144,8 @@ the largest kernel-vs-plain difference over all checked shapes
 (``gather_rowsum``: at the serving bucket, 64 rows x 32 slots; the GRR
 kernels: L2-cold, summed over the plan levels they run, i.e. one X·w
 plus one Xᵀr, with the warm sums beside; ``gather_rowsum_lanes``: at
-phase 6's 900,000 x 32 ELL arrays with 8 lanes); ``shapes`` holds every
-checked shape.  The last line is
+phase 6's ELL arrays cut to the estimator's 900,000 x 31 with 8 lanes);
+``shapes`` holds every checked shape.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -269,7 +277,9 @@ GRR_RTOL, GRR_ATOL_SCALE = 1e-5, 1e-5
 # L2-cold timing of the GRR levels: bytes written between two samples
 # (the H100's L2 holds 50 MB), and a spin of about 1 ms that covers the
 # host's enqueue time.  A level read faster than its HBM bound by more
-# than GRR_BOUND_SLACK is a measurement fault, not a gain.
+# than GRR_BOUND_SLACK is a measurement fault, not a gain; so is a shape
+# of the lane kernel (a kernel that skips work, or a timing that does not
+# measure it).
 FLUSH_BYTES = 128 << 20
 SPIN_CYCLES = 2_000_000
 GRR_BOUND_SLACK = 1.05
@@ -307,9 +317,12 @@ DRIVER_AUC_ATOL, DRIVER_COEF_TOL = 2e-3, 2e-3
 SCORING_ATOL = 1e-6
 
 # gather_rowsum_lanes in phase 3: the λ-lane counts checked and timed at
-# phase 6's ELL arrays, and the one at their transposed ELL (the main
-# path's: phase 9 sweeps 8 λ).
+# phase 6's ELL arrays, the ones checked and timed at those arrays cut to
+# the estimator's 31 slots (the tuned fit's rounds of 4 and the grid's
+# 8), and the one at their transposed ELL (the main path's: phase 9
+# sweeps 8 λ).
 LANE_COUNTS = (2, 8, 16)
+LANE_COUNTS_31 = (4, 8)
 LANES_MAIN = 8
 
 # Phase 9: config 1 at the config-5 fixed-effect widths (phase 6's
@@ -669,23 +682,65 @@ def check_lanes_case(name: str, tab, vals, ids, atol: float,
     return entry
 
 
+def lane_limits(tab, vals, ids, head: bool) -> dict:
+    """Limiter runs of the lane kernel on these inputs (CUDA-event ms,
+    back to back, as ``check_lanes_case`` times it): every id 0 (the
+    streams and sums alone; each gather the same table row); and where
+    the launch keeps a table ``head``, the table grown to 8 times its
+    rows with zero rows (the same gathers, no head kept: it would hold
+    under 1/32 of the table) and the ids mirrored, t → T − 1 − t (the
+    same gathers, the popular rows past the head that is kept)."""
+    zero = torch.zeros_like(ids)
+    out = {"ids_zero_ms": time_ms(
+        lambda: gather_rowsum_lanes(tab, vals, zero), 5)}
+    if head:
+        grown = torch.cat([tab, tab.new_zeros(7 * tab.shape[0],
+                                              tab.shape[1])])
+        flipped = (tab.shape[0] - 1 - ids).to(torch.int32)
+        out["no_head_ms"] = time_ms(
+            lambda: gather_rowsum_lanes(grown, vals, ids), 5)
+        out["ids_mirrored_ms"] = time_ms(
+            lambda: gather_rowsum_lanes(tab, vals, flipped), 5)
+    return out
+
+
+def lanes_past_bound(shapes: list) -> list:
+    """The lane-kernel shapes timed faster than ``GRR_BOUND_SLACK`` times
+    their bound."""
+    return [sh["shape"] for sh in shapes
+            if sh.get("share_of_bound", 0.0) > GRR_BOUND_SLACK]
+
+
 def phase_kernels_lanes(ell, colmajor, seed: int,
                         time_it: bool = True) -> dict:
     """The lane kernel against its plain version at phase 6's ELL arrays
     ``ell`` (a ``SparseBatch``; a [T, L] table of small coefficients) at
-    every lane count of ``LANE_COUNTS``, and at their transposed ELL
+    every lane count of ``LANE_COUNTS``, at those arrays cut to their
+    ``NNZ + 1`` real slots (the estimator's ELL, intercept included: the
+    main path's width) at ``LANE_COUNTS_31``, and at their transposed ELL
     ``colmajor`` with ``LANES_MAIN`` lanes (the table a residual over the
-    rows, [n, L]: the swept Xᵀr); every shape launched twice and
-    required bitwise equal."""
+    rows, [n, L]: the swept Xᵀr); every shape launched twice and required
+    bitwise equal, and none timed faster than its bound allows; the
+    main-path shapes also timed on their limiter inputs
+    (``lane_limits``)."""
     rng = np.random.default_rng(seed)
     dev = ell.values.device
+    if bool((ell.values[:, NNZ + 1:] != 0).any()):
+        raise AssertionError(f"phase 6's ELL holds more than {NNZ + 1} "
+                             f"slots a row")
+    vals31 = ell.values[:, :NNZ + 1].contiguous()
+    ids31 = ell.col_ids[:, :NNZ + 1].contiguous()
     shapes = []
-    for lanes in LANE_COUNTS:
-        tab = torch.from_numpy(rng.normal(0, 0.05, (ell.dim, lanes)).astype(
-            np.float32)).to(dev)
-        shapes.append(check_lanes_case(f"ell_train_L{lanes}", tab,
-                                       ell.values, ell.col_ids, ATOL,
-                                       time_it=time_it))
+    for name, counts, vals, ids in (
+            ("ell_train", LANE_COUNTS, ell.values, ell.col_ids),
+            (f"ell{NNZ + 1}_train", LANE_COUNTS_31, vals31, ids31)):
+        for lanes in counts:
+            tab = torch.from_numpy(rng.normal(
+                0, 0.05, (ell.dim, lanes)).astype(np.float32)).to(dev)
+            shapes.append(check_lanes_case(f"{name}_L{lanes}", tab, vals,
+                                           ids, ATOL, time_it=time_it))
+            if time_it and counts is LANE_COUNTS_31:
+                shapes[-1]["limits"] = lane_limits(tab, vals, ids, True)
     if colmajor is not None:
         W = torch.from_numpy(rng.normal(0, 0.05, (LANES_MAIN, ell.dim))
                              .astype(np.float32)).to(dev)
@@ -693,11 +748,19 @@ def phase_kernels_lanes(ell, colmajor, seed: int,
         shapes.append(check_lanes_case(
             f"colmajor_train_L{LANES_MAIN}", R, colmajor.tvals,
             colmajor.trows, COLMAJOR_ATOL, time_it=time_it))
+        if time_it:
+            shapes[-1]["limits"] = lane_limits(R, colmajor.tvals,
+                                               colmajor.trows, False)
+    fast = lanes_past_bound(shapes)
+    if fast:
+        raise AssertionError(f"gather_rowsum_lanes read faster than its HBM "
+                             f"bound by more than {GRR_BOUND_SLACK - 1:.0%} "
+                             f"at {fast}")
     main = next(sh for sh in shapes
-                if sh["shape"] == f"ell_train_L{LANES_MAIN}")
+                if sh["shape"] == f"ell{NNZ + 1}_train_L{LANES_MAIN}")
     return {
         "name": "gather_rowsum_lanes", "route": "cuda",
-        "source": "photon_ml_torch/csrc/gather_rowsum.cu",
+        "source": "photon_ml_torch/csrc/gather_rowsum_lanes.cu",
         "replaces": "photon_ml_tpu/ops/kernels.py:65 (under jax.vmap)",
         "launches": None, "launches_ell_fit": None,
         "launches_colmajor_fit": None, "launches_tuned_fit": None,
@@ -2088,9 +2151,10 @@ class _SweepProbe:
     by the shape they ran at, ``(product, n, k, L)`` (product ``"xw"``:
     X·Wᵀ over the row ELL; ``"xtr"``: XᵀR over the transposed ELL), with
     the last inputs of each shape, caught at ``lane_gather_rowsum`` in
-    its two callers; the ``_fit_point`` calls; and each
-    fixed-effect solve's result and wall (``train_swept`` and
-    ``train``)."""
+    its two callers; the ``_fit_point`` calls; each fixed-effect
+    solve's result and wall (``train_swept`` and ``train``); and the
+    wall of the estimator's data preparation, swept setup and
+    validations (``stage_s``, each timed to the card's end)."""
 
     def __enter__(self):
         self.evaluations = self.evaluation_lane_launches = 0
@@ -2102,6 +2166,10 @@ class _SweepProbe:
         self.solves: list = []
         self.lane_launches: dict = {}
         self.lane_inputs: dict = {}
+        self.stage_s: dict = {}
+        self._stages = {name: getattr(GameEstimator, name)
+                        for name in ("_prepare", "_swept_setup",
+                                     "_evaluate")}
         self._saved = (SparseBatch.margins, SparseBatch.xt_dot,
                        GameEstimator._fit_point,
                        game_coordinates.FixedEffectCoordinate.train_swept,
@@ -2168,6 +2236,19 @@ class _SweepProbe:
                 return w, res
             return solve
 
+        def stage(name, fn):
+            def run(est, *a, **kw):
+                t = time.perf_counter()
+                out = fn(est, *a, **kw)
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                probe.stage_s[name] = (probe.stage_s.get(name, 0.0)
+                                       + time.perf_counter() - t)
+                return out
+            return run
+
+        for name, fn in self._stages.items():
+            setattr(GameEstimator, name, stage(name, fn))
         SparseBatch.margins = margins
         SparseBatch.xt_dot = xt_dot
         GameEstimator._fit_point = fit_point
@@ -2184,6 +2265,8 @@ class _SweepProbe:
          game_coordinates.FixedEffectCoordinate.train,
          batch_mod.lane_gather_rowsum,
          colmajor_mod.lane_gather_rowsum) = self._saved
+        for name, fn in self._stages.items():
+            setattr(GameEstimator, name, fn)
         return False
 
     def counts(self) -> dict:
@@ -2255,11 +2338,15 @@ def _swept_fit(layout: str, train, valid, device: str) -> dict:
     order = np.argsort(-np.asarray(SWEEP_LAMS), kind="stable")
     loss = np.empty(len(SWEEP_LAMS))
     loss[order] = swept[-1]["value"] if swept else np.nan
+    stages = {**probe.stage_s,
+              "swept_solve": sum(sv["solve_s"] for sv in swept)}
+    stages["rest"] = wall - sum(stages.values())
     return {
         "wall_s": wall, "launches": launches,
+        "stage_s": stages,
         "fit_point_calls": probe.fit_point_calls,
         "swept_solves": len(swept),
-        "swept_solve_s": sum(sv["solve_s"] for sv in swept),
+        "swept_solve_s": stages["swept_solve"],
         "solver_iterations": (swept[-1]["iterations"].tolist()
                               if swept else None),
         **probe.counts(),
@@ -2449,6 +2536,11 @@ def phase_sweep(data: dict, device: str, time_it: bool = True) -> dict:
             if not abs(f["auc"][j] - single["auc"]) <= SWEEP_AUC_ATOL:
                 failures.append(f"{layout} lane {j}: AUC {f['auc'][j]:.5f} "
                                 f"vs single {single['auc']:.5f}")
+    fast = lanes_past_bound(out["lane_shapes"])
+    if fast:
+        failures.append(f"gather_rowsum_lanes read faster than its HBM "
+                        f"bound by more than {GRR_BOUND_SLACK - 1:.0%} at "
+                        f"{fast}")
     if tuned["fit_point_calls"] or tuned["swept_solves"] < 1:
         failures.append(f"the tuned fit did not take the swept path "
                         f"({tuned['fit_point_calls']} _fit_point calls)")

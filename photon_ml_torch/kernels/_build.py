@@ -56,6 +56,9 @@ _SIGNATURES = {
             _I32,    # device index
             _P,      # cudaStream_t
         ],
+    },
+    "gather_rowsum_lanes": {
+        "gather_rowsum_lanes_prepare": [],
         "gather_rowsum_lanes_launch": [
             _P,      # table  f32 [T, lanes], lane-minor
             _P,      # vals   f32 [n, k]
@@ -64,8 +67,12 @@ _SIGNATURES = {
             _I64,    # n
             _I32,    # k
             _I32,    # lanes: 2, 4, 8 or 16
-            _I32,    # vec: slots a thread loads at once (4 or 1)
-            _I32,    # tpr: threads a row
+            _I32,    # staged (1) or direct (0)
+            _I32,    # vec: slots a thread reads at once (4 or 1)
+            _I32,    # slot_threads: threads that split a row's slots
+            _I32,    # run: most slots a thread sums a row
+            _I32,    # tile_rows
+            _I32,    # head: table rows copied into shared memory
             _I32,    # blocks
             _I32,    # device index
             _P,      # cudaStream_t

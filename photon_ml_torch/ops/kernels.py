@@ -17,10 +17,11 @@ an XLA formulation (the live path) and a Pallas kernel,
 - ``gather_rowsum_lanes`` is the same contraction over L coefficient
   lanes at once, ``out[i, l] = Σ_k vals[i,k] · table[ids[i,k], l]``
   with a lane-minor table [T, L]: the counterpart of ``jax.vmap`` of the
-  Pallas kernel over a λ grid (the swept fit).  It launches the second
-  kernel of ``csrc/gather_rowsum.cu`` (counted in
-  ``gather_rowsum_lanes.launches``) on CUDA tensors and runs
-  ``gather_rowsum_lanes_reference`` on CPU tensors.
+  Pallas kernel over a λ grid (the swept fit).  On CUDA tensors it
+  launches ``csrc/gather_rowsum_lanes.cu`` in the shape
+  ``_lane_launch_shape`` picks (counted in
+  ``gather_rowsum_lanes.launches``); on CPU tensors it runs
+  ``gather_rowsum_lanes_reference``.
 
 Padding slots (id 0, val 0) are multiplied like any other slot in both
 versions, as in the JAX package.
@@ -43,13 +44,31 @@ _THREADS = 512
 _WARPS = _THREADS // 32
 _HEAD_MAX = 56 * 1024
 _HEAD_MIN_SLOTS = 1 << 21
-# The lane kernel: threads a block (the source's kLaneThreads), the lane
-# widths it is built for (other L pad to the next with zero lanes), and
-# blocks an SM the grid-stride launch asks for at most.
-_LANE_THREADS = 256
+# The lane kernel, csrc/gather_rowsum_lanes.cu: the lane widths it is
+# built for (other L pad to the next with zero lanes); its launch, as the
+# source fixes it (PERF.md, the lane kernel on an H100): one block of 512
+# threads that gather and sum (and a producer warp) an SM, a ring of 2
+# stages, the most shared memory a block may ask (227 KB, the source's
+# kSmemMax) and the ring's barriers at its start (kBarrierBytes).  Its
+# choices here: tiles of about ``_LANE_STAGE_BYTES`` of streams (vals and
+# ids), runs of at most ``_LANE_RUN`` slots a thread, and the table's
+# head in the shared memory the ring leaves, from
+# ``_LANE_HEAD_MIN_SLOTS`` slots on, at up to ``_LANE_HEAD_MAX_LANES``
+# lanes (64-byte rows read from shared memory conflict more than they
+# save), where it holds at least ``_LANE_HEAD_MIN_SHARE`` of the table's
+# rows (a head of a few thousand of the transposed ELL's 900,000 rows
+# was slower than none).
 LANE_WIDTHS = (2, 4, 8, 16)
 MAX_LANES = LANE_WIDTHS[-1]
-_LANE_BLOCKS_AN_SM = 8
+_LANE_CONSUMERS = 512
+_LANE_STAGES = 2
+_LANE_SMEM_BLOCK = 232_448
+_LANE_BARRIER_BYTES = 2 * _LANE_STAGES * 8
+_LANE_STAGE_BYTES = 16 << 10
+_LANE_RUN = 8
+_LANE_HEAD_MIN_SLOTS = 1 << 21
+_LANE_HEAD_MIN_SHARE = 1 / 32
+_LANE_HEAD_MAX_LANES = 8
 
 
 def gather_rowsum_reference(table: Tensor, vals: Tensor, ids: Tensor
@@ -116,7 +135,7 @@ def _row_split(k: int, aligned: bool) -> tuple[int, int]:
     """(slots a thread loads at once, threads a row) over rows of ``k``
     slots: 4 (16-byte loads) where ``k % 4 == 0`` and the streams are
     ``aligned``, else 1; the fewest threads (a power of two, at most a
-    warp) that cover a row in one step.  Both kernels split rows so."""
+    warp) that cover a row in one step."""
     vec = 4 if aligned and k % 4 == 0 and k > 0 else 1
     tpr = 1
     while tpr < 32 and tpr * vec < k:
@@ -147,11 +166,10 @@ def _aligned(vals: Tensor, ids: Tensor) -> bool:
     return (vals.data_ptr() | ids.data_ptr()) % 16 == 0
 
 
-# Per CUDA device index: the library's launch functions (the library is
-# loaded once a process), the blocks the device's SMs hold at once, the
-# device's SM count, and PyTorch's getter of the current raw
-# cudaStream_t (the one its own compiled kernels use; cheaper than
-# building a ``torch.cuda.Stream``).
+# Per CUDA device index: the library's launch function (the library is
+# loaded once a process), the blocks the device's SMs hold at once, and
+# PyTorch's getter of the current raw cudaStream_t (the one its own
+# compiled kernels use; cheaper than building a ``torch.cuda.Stream``).
 _LAUNCHERS: dict[int, "_Launcher"] = {}
 
 
@@ -159,12 +177,10 @@ class _Launcher(NamedTuple):
     launch: object
     resident: int
     raw_stream: object
-    launch_lanes: object
-    sms: int
 
 
 def _launcher(device: torch.device) -> _Launcher:
-    """The launch functions and the card's figures for ``device``; the
+    """The launch function and the card's figures for ``device``; the
     card is asked once a device."""
     got = _LAUNCHERS.get(device.index)
     if got is None:
@@ -178,8 +194,7 @@ def _launcher(device: torch.device) -> _Launcher:
                                f"error {-per_sm})")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         got = _Launcher(lib.gather_rowsum_launch, per_sm * sms,
-                        torch._C._cuda_getCurrentRawStream,
-                        lib.gather_rowsum_lanes_launch, sms)
+                        torch._C._cuda_getCurrentRawStream)
         _LAUNCHERS[device.index] = got
     return got
 
@@ -223,6 +238,117 @@ def gather_rowsum(table: Tensor, vals: Tensor, ids: Tensor) -> Tensor:
 gather_rowsum.launches = 0
 
 
+class LaneLaunchShape(NamedTuple):
+    """How ``csrc/gather_rowsum_lanes.cu`` runs over [n, k] rows at a
+    lane width L: ``threads_a_slot`` threads share a slot's lanes (16
+    bytes of the table row each; one at 2 lanes), ``slot_threads``
+    threads split a row's slots into runs of at most ``run`` consecutive
+    slots, a block takes tiles of ``tile_rows`` rows; the staged path
+    copies each tile's vals and ids into the shared-memory ring (read
+    ``vec`` slots at a time) and keeps the table's first ``head`` rows in
+    shared memory; the direct path reads the slots from device memory.
+    ``blocks`` persistent blocks walk the tiles, one an SM."""
+
+    staged: bool
+    vec: int
+    threads_a_slot: int
+    slot_threads: int
+    run: int
+    tile_rows: int
+    head: int
+    blocks: int
+
+    @property
+    def path(self) -> str:
+        return "staged" if self.staged else "direct"
+
+    @property
+    def threads_a_row(self) -> int:
+        return self.threads_a_slot * self.slot_threads
+
+    @property
+    def stages(self) -> int:
+        return _LANE_STAGES if self.staged else 0
+
+
+def _lane_smem(lanes: int, k: int, tile_rows: int, head: int) -> int:
+    """Shared memory a staged launch takes (the source's layout): the
+    barriers, the table's first ``head`` rows (16-byte rounded) and the
+    ring's stages of ``tile_rows`` rows."""
+    return (_LANE_BARRIER_BYTES + -(-head * lanes * 4 // 16) * 16
+            + _LANE_STAGES * tile_rows * k * 8)
+
+
+@functools.lru_cache(maxsize=256)
+def _lane_launch_shape(n: int, k: int, lanes: int, aligned: bool,
+                       table_rows: int, sms: int) -> LaneLaunchShape:
+    """The lane kernel's launch over [n, k] rows, ``lanes`` (a built
+    width) and a table of ``table_rows`` rows on a card of ``sms`` SMs:
+    the fewest slot threads (a power of two) that keep a run within
+    ``_LANE_RUN`` slots; tiles of whole passes of the block's threads,
+    about ``_LANE_STAGE_BYTES`` of streams each (a multiple of 4 rows:
+    every tile starts 16-byte aligned); the staged path wherever the
+    streams are ``aligned`` and two stages fit a block, else the direct
+    path; the table's head in the room the ring leaves (see
+    ``_LANE_HEAD_MIN_SLOTS``); one block an SM, at most a tile each."""
+    floats = 2 if lanes == 2 else 4
+    per_slot = lanes // floats
+    slot_threads = 1
+    while per_slot * slot_threads < 32 and -(-k // slot_threads) > _LANE_RUN:
+        slot_threads *= 2
+    run = -(-k // slot_threads)
+    rows_a_pass = _LANE_CONSUMERS // (per_slot * slot_threads)
+    row_bytes = 8 * k
+    passes = (max(1, _LANE_STAGE_BYTES // (row_bytes * rows_a_pass))
+              if k else 1)
+    tile_rows = passes * rows_a_pass
+    blocks = min(-(-n // tile_rows), sms)
+    if not (aligned and _lane_smem(lanes, k, tile_rows, 0)
+            <= _LANE_SMEM_BLOCK):
+        return LaneLaunchShape(False, 1, per_slot, slot_threads, run,
+                               tile_rows, 0, blocks)
+    vec = 4 if k % 4 == 0 and run % 4 == 0 and k > 0 else 1
+    room = _LANE_SMEM_BLOCK - _lane_smem(lanes, k, tile_rows, 0)
+    most = min(table_rows, room // 16 * 16 // (4 * lanes))
+    head = most if (n * k >= _LANE_HEAD_MIN_SLOTS
+                    and lanes <= _LANE_HEAD_MAX_LANES
+                    and most >= table_rows * _LANE_HEAD_MIN_SHARE) else 0
+    return LaneLaunchShape(True, vec, per_slot, slot_threads, run,
+                           tile_rows, head, blocks)
+
+
+# Per CUDA device index: the lane library's launch function, PyTorch's
+# getter of the current raw cudaStream_t, and the device's SM count.
+_LANE_LAUNCHERS: dict[int, "_LaneLauncher"] = {}
+
+
+class _LaneLauncher(NamedTuple):
+    launch: object
+    raw_stream: object
+    sms: int
+
+
+def _lane_launcher(device: torch.device) -> _LaneLauncher:
+    """The lane library's launch function and the card's SM count for
+    ``device``; every variant is prepared, and one block an SM checked to
+    fit, once a device."""
+    got = _LANE_LAUNCHERS.get(device.index)
+    if got is None:
+        from photon_ml_torch.kernels import _build
+
+        lib = _build.load("gather_rowsum_lanes")
+        with torch.cuda.device(device):
+            per_sm = lib.gather_rowsum_lanes_prepare()
+        if per_sm <= 0:
+            raise RuntimeError(f"gather_rowsum_lanes: no block fits an SM "
+                               f"(CUDA error {-per_sm})")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        got = _LaneLauncher(lib.gather_rowsum_lanes_launch,
+                            torch._C._cuda_getCurrentRawStream, sms)
+        _LANE_LAUNCHERS[device.index] = got
+    return got
+
+
 def gather_rowsum_lanes(table: Tensor, vals: Tensor, ids: Tensor) -> Tensor:
     """``out[i, l] = Σ_k vals[i,k] · table[ids[i,k], l]`` over L lanes.
 
@@ -257,14 +383,14 @@ def gather_rowsum_lanes(table: Tensor, vals: Tensor, ids: Tensor) -> Tensor:
     out = torch.empty((n, width), dtype=torch.float32, device=dev)
     if n == 0:
         return out[:, :lanes]
-    lib = _launcher(dev)
-    vec, tpr = _row_split(k, _aligned(vals, ids))
-    groups = -(-n // (32 // tpr))
-    blocks = min(-(-groups // (_LANE_THREADS // 32)),
-                 _LANE_BLOCKS_AN_SM * lib.sms)
-    err = lib.launch_lanes(table.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-                           out.data_ptr(), n, k, width, vec, tpr, blocks,
-                           dev.index, lib.raw_stream(dev.index))
+    lib = _lane_launcher(dev)
+    shape = _lane_launch_shape(n, k, width, _aligned(vals, ids),
+                               table.shape[0], lib.sms)
+    err = lib.launch(table.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+                     out.data_ptr(), n, k, width, int(shape.staged),
+                     shape.vec, shape.slot_threads, shape.run,
+                     shape.tile_rows, shape.head, shape.blocks, dev.index,
+                     lib.raw_stream(dev.index))
     if err != 0:
         raise RuntimeError(f"gather_rowsum_lanes kernel launch failed: "
                            f"CUDA error {err}")

@@ -242,9 +242,10 @@ KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
 
 def test_lane_kernel_checks_on_cpu(train):
     """Phase 3's lane-kernel check rehearsed: the plain version against
-    itself at 2, 8 and 16 lanes on the ELL arrays and 8 on their
-    transposed ELL, no launch counted; the ``kernels`` entry carries
-    every key of the line."""
+    itself at 2, 8 and 16 lanes on the ELL arrays, at 4 and 8 on those
+    arrays cut to the estimator's 31 slots (the line's main shape) and 8
+    on their transposed ELL, no launch counted; the ``kernels`` entry
+    carries every key of the line."""
     from photon_ml_torch.ops import kernels as kk
 
     cm = train["colmajor"].colmajor
@@ -257,11 +258,16 @@ def test_lane_kernel_checks_on_cpu(train):
                                  "(under jax.vmap)")
     assert entry["max_abs_err"] == 0.0 and entry["bound_by"] == "bytes"
     assert entry["lanes"] == cs.LANES_MAIN
-    assert entry["shape"] == [ROWS - ROWS // 10, cs.ELL_CAP]
+    assert entry["shape"] == [ROWS - ROWS // 10, cs.NNZ + 1]
     shapes = {sh["shape"]: sh for sh in entry["shapes"]}
     assert sorted(shapes) == sorted(
         [f"ell_train_L{n}" for n in cs.LANE_COUNTS]
+        + [f"ell{cs.NNZ + 1}_train_L{n}" for n in cs.LANE_COUNTS_31]
         + [f"colmajor_train_L{cs.LANES_MAIN}"])
+    for n in cs.LANE_COUNTS_31:
+        sh = shapes[f"ell{cs.NNZ + 1}_train_L{n}"]
+        assert (sh["n"], sh["k"], sh["lanes"]) == (ROWS - ROWS // 10,
+                                                   cs.NNZ + 1, n)
     t = shapes[f"colmajor_train_L{cs.LANES_MAIN}"]
     assert (t["n"], t["k"], t["table"]) == (cm.n_virtual_rows, cm.capacity,
                                             ROWS - ROWS // 10)
@@ -269,6 +275,18 @@ def test_lane_kernel_checks_on_cpu(train):
     # More lanes move more table and output bytes.
     bounds = [shapes[f"ell_train_L{n}"]["bound_ms"] for n in cs.LANE_COUNTS]
     assert bounds == sorted(bounds)
+
+
+def test_lane_bound_gate():
+    """A lane-kernel shape read faster than 105 % of its HBM bound is
+    named (phase 3 raises on it, phase 9 fails on it); untimed shapes
+    and shapes at or below the slack pass."""
+    shapes = [{"shape": "a", "share_of_bound": 0.3},
+              {"shape": "b", "share_of_bound": 1.05},
+              {"shape": "c", "share_of_bound": 1.06},
+              {"shape": "d"}]
+    assert cs.lanes_past_bound(shapes) == ["c"]
+    assert cs.lanes_past_bound(shapes[:2] + shapes[3:]) == []
 
 
 def test_kernel_entries_carry_every_key(train):

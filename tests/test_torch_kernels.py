@@ -433,8 +433,8 @@ def _lane_table(seed: int, L: int, T: int) -> np.ndarray:
         np.float32)
 
 
-@pytest.mark.parametrize("L", [1, 3, 8])
-@pytest.mark.parametrize("k", [8, 31])
+@pytest.mark.parametrize("L", [1, 3, 4, 8])
+@pytest.mark.parametrize("k", [8, 31, 264])
 def test_gather_rowsum_lanes_matches_pallas_vmap(L, k):
     """The plain lane version against ``jax.vmap`` of the Pallas kernel
     (interpret mode) over the lanes of W [L, T], the counterpart the
@@ -452,6 +452,78 @@ def test_gather_rowsum_lanes_matches_pallas_vmap(L, k):
         np.ascontiguousarray(W.T), vals, ids))                  # [n, L]
     assert got.shape == (n, L)
     np.testing.assert_allclose(got.numpy().T, want, rtol=RTOL, atol=ATOL)
+
+
+_SMS = 132                   # an H100's SMs
+
+
+@pytest.mark.parametrize("k", [1, 5, 31, 32, 264])
+@pytest.mark.parametrize("L", [2, 4, 8, 16])
+@pytest.mark.parametrize("n", [3, 4097, 900_000])
+def test_lane_launch_shape(n, k, L):
+    """The lane kernel's launch: a slot's lanes over L/4 threads (one at
+    L = 2), the fewest slot threads that keep a run within 8 slots (at
+    most a warp a row), tiles of whole passes of a block's 512 threads
+    and a multiple of 4 rows, about 16 KB of streams, 2 stages, one block
+    an SM holding the ring and, from 2**21 slots on at up to 8 lanes,
+    the table's head in the room left where that holds 1/32 of the
+    table; 16-byte stage reads where k and the run are multiples of 4; a
+    persistent grid.  Unaligned streams take the direct path with the
+    same threads and tiles."""
+    T = 100_001
+    shape = tk._lane_launch_shape(n, k, L, True, T, _SMS)
+    assert shape.path == "staged" and shape.staged
+    assert shape.threads_a_slot == max(1, L // 4)
+    tpr = shape.threads_a_row
+    assert tpr <= 32 and tpr & (tpr - 1) == 0
+    assert shape.slot_threads * shape.run >= k
+    assert shape.run <= 8 or tpr == 32
+    if shape.slot_threads > 1:       # the fewest such threads
+        assert -(-k // (shape.slot_threads // 2)) > 8
+    rows_a_pass = tk._LANE_CONSUMERS // tpr
+    assert tk._LANE_CONSUMERS == 512
+    assert shape.tile_rows % 4 == 0 and shape.tile_rows % rows_a_pass == 0
+    assert shape.tile_rows * k * 8 <= max(16 << 10, rows_a_pass * k * 8)
+    assert shape.stages == 2
+    assert shape.vec == (4 if k % 4 == 0 and shape.run % 4 == 0 else 1)
+    ring = shape.stages * shape.tile_rows * k * 8
+    head_bytes = -(-shape.head * L * 4 // 16) * 16
+    smem = tk._lane_smem(L, k, shape.tile_rows, shape.head)
+    assert smem == tk._LANE_BARRIER_BYTES + head_bytes + ring
+    assert smem <= tk._LANE_SMEM_BLOCK == 227 * 1024
+    most = min(T, (tk._LANE_SMEM_BLOCK - tk._LANE_BARRIER_BYTES - ring)
+               // 16 * 16 // (4 * L))
+    assert shape.head == (most if n * k >= 1 << 21 and L <= 8
+                          and most >= T / 32 else 0)
+    assert shape.blocks == min(-(-n // shape.tile_rows), _SMS)
+    direct = tk._lane_launch_shape(n, k, L, False, T, _SMS)
+    assert direct.path == "direct"
+    assert (direct.stages, direct.head, direct.vec) == (0, 0, 1)
+    assert direct._replace(staged=True, head=shape.head,
+                           vec=shape.vec) == shape
+
+
+@pytest.mark.parametrize("L", [2, 4, 8, 16])
+def test_lane_launch_shape_head_and_wide_rows(L):
+    """A table shorter than the room gets a head of the whole table (at
+    up to 8 lanes); at k = 264 a 100,001-row table keeps one, the
+    transposed ELL's millions of rows do not (the head would hold under
+    1/32 of them); too few slots keep none; rows too wide for two stages
+    in a block take the direct path even when aligned."""
+    n, k = 900_000, 31
+    short = tk._lane_launch_shape(n, k, L, True, 500, _SMS)
+    assert short.head == (500 if L <= 8 else 0)
+    assert tk._lane_smem(L, k, short.tile_rows, short.head) == (
+        tk._LANE_BARRIER_BYTES + -(-short.head * L * 4 // 16) * 16
+        + 2 * short.tile_rows * k * 8)
+    model = tk._lane_launch_shape(8191, 264, L, True, 100_001, _SMS)
+    assert (model.head > 100_001 / 32) == (L <= 8)
+    wide_table = tk._lane_launch_shape(148_520, 264, L, True, 1 << 22, _SMS)
+    assert wide_table.head == 0
+    small = tk._lane_launch_shape(1000, k, L, True, 100_001, _SMS)
+    assert small.head == 0
+    wide = tk._lane_launch_shape(4096, 8192, L, True, 100_001, _SMS)
+    assert wide.path == "direct" and wide.stages == 0
 
 
 def test_gather_rowsum_lanes_cpu_runs_the_plain_version():
@@ -519,19 +591,36 @@ def _launch_lanes_twice(t, v, i):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k", [
-    (1, 32), (67, 5), (4096, 31), (65_537, 32), (1000, 1), (999, 128),
-    (257, 264), (129, 512),
+@pytest.mark.parametrize("n,k,rows", [
+    (1, 32, 100_001), (3, 31, 100_001), (67, 5, 100_001),
+    (4096, 31, 100_001), (4097, 31, 100_001),
+    (65_537, 32, 100_001), (1000, 1, 100_001),
+    (999, 128, 100_001), (257, 264, 100_001),
+    (2049, 264, 100_001), (129, 512, 100_001),
+    # The table's head in shared memory (at up to 8 lanes, from 2**21
+    # slots): ids on both sides of its end, and a table shorter than the
+    # room for it.
+    (70_001, 31, 100_001), (100_003, 31, 100_001),
+    (8191, 264, 100_001),
+    (70_001, 31, 500), (8191, 264, 900),
 ])
-@pytest.mark.parametrize("lanes", [2, 3, 8, 16])
-def test_cuda_lane_kernel_matches_plain(n, k, lanes):
-    """Power-law ids over a 100,001-row table at a model's scales, both
-    stream paths (k % 4 == 0 and not), lane counts on the built widths
-    and one padded (3 → 4); bitwise across launches, within rtol 1e-5,
-    atol 1e-6 of the plain version, as B1."""
-    _, vals, idx = _power_law_inputs(5, 100_001, n, k, model_scale=True)
-    idx[0, 0], idx[-1, -1] = 0, 100_000
-    W = _lane_table(n + lanes, lanes, 100_001)
+@pytest.mark.parametrize("lanes", [2, 3, 4, 8, 16])
+def test_cuda_lane_kernel_matches_plain(n, k, rows, lanes):
+    """Power-law ids over a table of ``rows`` rows at a model's scales:
+    the 16-byte and the 4-byte stage reads (k % 4 == 0 and not), n not a
+    multiple of a tile's rows and n < 4, the estimator's 31 slots and
+    the transposed ELL's 264, the head in shared memory (ids just below
+    and at its end), lane counts on the built widths and one padded (3 →
+    4); bitwise across launches, within rtol 1e-5, atol 1e-6 of the
+    plain version, as B1."""
+    _, vals, idx = _power_law_inputs(5, rows, n, k, model_scale=True)
+    width = 4 if lanes == 3 else lanes
+    shape = tk._lane_launch_shape(n, k, width, True, rows, _SMS)
+    if shape.head:
+        idx[0, 0], idx[-1, -1] = shape.head - 1, min(shape.head, rows - 1)
+    else:
+        idx[0, 0], idx[-1, -1] = 0, rows - 1
+    W = _lane_table(n + lanes, lanes, rows)
     t, v, i = _cuda(np.ascontiguousarray(W.T), vals, idx)
     got = _launch_lanes_twice(t, v, i)
     assert got.shape == (n, lanes)

@@ -77,6 +77,17 @@ def test_port_has_the_sweep_and_scoring_slice():
         assert rel in PORT_FILES     # so the import scan covers it
 
 
+def test_port_has_the_lane_kernel_source():
+    """The lane kernel has its own source (built by ``_build`` at first
+    use); B1's source no longer holds it."""
+    assert (REPO / "photon_ml_torch/csrc/gather_rowsum_lanes.cu").is_file()
+    from photon_ml_torch.kernels import _build
+
+    assert "gather_rowsum_lanes" in _build._SIGNATURES
+    assert "gather_rowsum_lanes" not in (
+        REPO / "photon_ml_torch/csrc/gather_rowsum.cu").read_text()
+
+
 @pytest.mark.parametrize("rel", PORT_FILES)
 def test_no_jax_import_in_port_source(rel):
     bad = [m for m in _imported_modules(REPO / rel)
