@@ -129,18 +129,56 @@ raises on failure:
    bound).  Printed: each grid fit's wall by stage (data preparation,
    swept setup, swept solve, validations, the rest), the swept solves'
    walls against the single-λ ones, and one swept ``value_and_gradient`` at
-   L = 8 on each layout, its device ms split by part, and the idle share.
+   L = 8 on each layout, its device ms split by part, and the idle share;
+10. streamed training: (a) phase 7's ELL config 5 (its data remade
+   from seed 7) with the fixed effect chunk-streamed from disk
+   (``chunk_rows`` 131,072: 7 ELL chunks of the 900,000 training rows,
+   spilled to a temporary dir, one chunk kept on the card, two decoded
+   in host RAM, two prefetched, so every evaluation streams every chunk
+   from disk) for 2 sweeps: its held-out AUC within 1e-3 of phase 7's
+   resident ELL fit and its fixed effect's final loss within 1e-3
+   relative (max |Δw| printed), ``gather_rowsum`` launched at least
+   once a chunk in every fixed-effect evaluation, every chunk file in
+   the spill dir, the store quiesced after the fit and every placed
+   chunk leaf on the card.  Printed: the fit's wall by stage, one
+   streamed ``value_and_gradient`` (CUDA-event ms, wall, the profiler's
+   device ms split into kernels and host-to-device copies, the idle
+   share, the bytes placed, the copy rate, the prefetch consumer's
+   wait), and the same fit and evaluation with every chunk kept on the
+   card (the transfer paid once); B1 checked and timed at a placed
+   chunk (131,072 x 31).  (b) The same fit with solver snapshots every
+   5 iterations and an ``error`` fault at a ``prefetch.load``
+   occurrence three quarters into sweep 2's fixed-effect solve: the
+   fault raises in-band, a new estimator with ``resume=True`` finishes
+   from a solver snapshot at an iteration > 0, within (a)'s gates of
+   (a)'s fit (bitwise equality printed); the same resume again from a
+   copy of the interrupted checkpoints, with a ``corrupt_file`` fault
+   at the first chunk load: the chunk rebuilds from lineage and the fit
+   ends within the gates.  (c) ``python -m
+   photon_ml_torch.cli.game_training_driver`` in a subprocess on phase
+   8's config-4 fixture, chunked (64 rows), spilled and snapshotted
+   every solver iteration (``--spill-dir``, ``--checkpoint-dir``,
+   ``--checkpoint-every-solver-iters 1``), SIGKILLed once a
+   ``solver_*.npz`` appears, then rerun with ``--resume``: its model
+   within phase 8's coefficient tolerance of an uninterrupted run's, its
+   run log holding both runs.  (d) Phase 9's ELL grid with the fixed
+   effect chunk-streamed from disk (131,072 rows a chunk):
+   ``gather_rowsum_lanes`` launched at least once a chunk in every swept
+   evaluation and single-lane ``gather_rowsum`` never, lanes 0, 3 and 7
+   within phase 9's gates of its resident swept lanes; the lane kernel
+   checked and timed at a placed chunk with L = 8.
 
 The line before the card's and the result's is one JSON object with a
 ``kernels`` list: per kernel its launches on its path (``gather_rowsum``:
 phase 4; phase 6's ELL and transposed-ELL fits as ``launches_ell_fit``
 and ``launches_colmajor_fit``; phase 7's ELL GAME fit as
 ``launches_game_fit``; phase 8's in-process scoring as
-``launches_scoring_driver``; the GRR kernels: phase 6's GRR fit;
-``gather_rowsum_lanes``: phase 9's ELL, transposed-ELL and tuned fits,
-and by shape in ``shapes``),
+``launches_scoring_driver``; phase 10a's streamed fit as
+``launches_stream_fit``; the GRR kernels: phase 6's GRR fit;
+``gather_rowsum_lanes``: phase 9's ELL, transposed-ELL and tuned fits and
+phase 10d's streamed grid, and by shape in ``shapes``),
 the largest kernel-vs-plain difference over all checked shapes
-(``gather_rowsum``: phases 3 and 7), and its times and bound
+(``gather_rowsum``: phases 3, 7 and 10), and its times and bound
 (``gather_rowsum``: at the serving bucket, 64 rows x 32 slots; the GRR
 kernels: L2-cold, summed over the plan levels they run, i.e. one X·w
 plus one Xᵀr, with the warm sums beside; ``gather_rowsum_lanes``: at
@@ -151,6 +189,9 @@ phase 6's ELL arrays cut to the estimator's 900,000 x 31 with 8 lanes);
 
 from __future__ import annotations
 
+import contextlib
+import glob
+import io
 import json
 import os
 import shutil
@@ -215,7 +256,9 @@ from photon_ml_torch.ops.kernels import (
 from photon_ml_torch.ops.objective import GLMObjective, sweep_value_and_gradient
 from photon_ml_torch.ops.regularization import RegularizationContext
 from photon_ml_torch.optim.base import OptimizerConfig, OptimizerType
+from photon_ml_torch.optim import streaming as streaming_mod
 from photon_ml_torch.optim.problem import OptimizationProblem
+from photon_ml_torch.reliability import faults
 from photon_ml_torch.serving.engine import ScoringEngine, dataset_rows
 from photon_ml_torch.serving.server import ModelServer
 from photon_ml_torch.utils.run_log import RunLogger, read_run_log
@@ -336,6 +379,12 @@ SWEEP_ITERS = 20
 SWEEP_CHECK_LANES = (0, 3, 7)
 SWEEP_LOSS_RTOL, SWEEP_AUC_ATOL = 1e-3, 1e-3
 TUNE_TRIALS, TUNE_BATCH = 8, 4
+# Phase 10: the fixed effect chunk-streamed from disk.
+STREAM_CHUNK_ROWS = 131_072       # 7 chunks of phase 7's 900,000 rows
+STREAM_AUC_ATOL, STREAM_LOSS_RTOL = 1e-3, 1e-3   # phase 7's layout gates
+STREAM_CKPT_EVERY = 5             # solver iterations between snapshots
+STREAM_DRIVER_CHUNK_ROWS = 64     # the config-4 fixture's 750 rows: 12
+STREAM_DRIVER_ITERS = 100
 
 
 # -- the model and its float64 reference -------------------------------------
@@ -1942,7 +1991,10 @@ def phase_game(seed: int, n: int, device: str, d: int = D,
             "re_convergence": [{c: h[c] for c in h if c != "global"}
                                for h in hist],
             "fe_solver_iterations": [h["global"]["solver_iterations"]
-                                     for h in hist]}
+                                     for h in hist],
+            "fe_value": hist[-1]["global"]["value"]}
+    # Phase 10's reference (popped before the phase prints).
+    out["ell_fe_w"] = res.model.models["global"].coefficients.means.numpy()
     out["fixed_only"] = {"auc": fixed["auc"], "wall_s": fixed["wall_s"]}
     problems = {layout: fe_problem(train, device, layout)
                 for layout in ("ELL", "COLMAJOR")}
@@ -2554,6 +2606,560 @@ def phase_sweep(data: dict, device: str, time_it: bool = True) -> dict:
     return out
 
 
+# -- phase 10: the chunk-streamed, disk-spilled fixed effect and resume ------
+
+
+class _StreamProbe:
+    """Records, during a fit: every ``ChunkedGLMObjective`` built; each
+    objective call with its kind, its chunk count and the B1 and
+    lane-kernel launches made inside it; the device of every placed
+    chunk leaf; for each chunked fixed-effect solve (``train`` or
+    ``train_swept``) the prefetch.load occurrences of the installed
+    injector before and after it and its result; and the wall of data
+    preparation (``GameEstimator._prepare``)."""
+
+    KINDS = ("value", "value_and_gradient", "hessian_vector",
+             "hessian_diagonal", "value_swept", "value_and_gradient_swept",
+             "_per_example")
+
+    def __init__(self, injector=None):
+        self.injector = injector
+
+    def __enter__(self):
+        self.objectives: list = []
+        self.calls: list = []
+        self.placed_devices: set = set()
+        self.solves: list = []
+        self.prepare_s = 0.0
+        self._saved = []
+        probe = self
+        cls = streaming_mod.ChunkedGLMObjective
+
+        def patch(owner, name, make):
+            old = getattr(owner, name)
+            self._saved.append((owner, name, old))
+            setattr(owner, name, make(old))
+
+        def init(old):
+            def __init__(obj, *a, **kw):
+                old(obj, *a, **kw)
+                probe.objectives.append(obj)
+            return __init__
+
+        def place(old):
+            def _place(obj, host):
+                placed = old(obj, host)
+                probe.placed_devices.update(
+                    str(getattr(placed.batch, leaf).device)
+                    for leaf in streaming_mod._LEAVES)
+                return placed
+            return _place
+
+        def counted(kind):
+            def make(old):
+                def call(obj, *a, **kw):
+                    b1 = gather_rowsum.launches
+                    lanes = gather_rowsum_lanes.launches
+                    out = old(obj, *a, **kw)
+                    probe.calls.append({
+                        "kind": kind, "chunks": obj.batch.n_chunks,
+                        "b1": gather_rowsum.launches - b1,
+                        "lanes": gather_rowsum_lanes.launches - lanes})
+                    return out
+                return call
+            return make
+
+        def solve(kind):
+            def make(old):
+                def train(coord, *a, **kw):
+                    before = probe._loads()
+                    t = time.perf_counter()
+                    w, res = old(coord, *a, **kw)
+                    probe.solves.append({
+                        "kind": kind, "loads": (before, probe._loads()),
+                        "solve_s": time.perf_counter() - t,
+                        "value": res.value.detach().cpu().numpy(),
+                        "iterations": np.asarray(
+                            res.iterations.cpu() if torch.is_tensor(
+                                res.iterations) else res.iterations)})
+                    return w, res
+                return train
+            return make
+
+        def prepare(old):
+            def _prepare(est, train):
+                t = time.perf_counter()
+                out = old(est, train)
+                probe.prepare_s += time.perf_counter() - t
+                return out
+            return _prepare
+
+        patch(cls, "__init__", init)
+        patch(cls, "_place", place)
+        for kind in self.KINDS:
+            patch(cls, kind, counted(kind))
+        coord_cls = game_coordinates.ChunkedFixedEffectCoordinate
+        patch(coord_cls, "train", solve("single"))
+        patch(coord_cls, "train_swept", solve("swept"))
+        patch(GameEstimator, "_prepare", prepare)
+        return self
+
+    def _loads(self) -> int:
+        return (self.injector.occurrences("prefetch.load")
+                if self.injector is not None else 0)
+
+    def __exit__(self, *exc):
+        for owner, name, old in reversed(self._saved):
+            setattr(owner, name, old)
+        return False
+
+    def evaluations(self, kinds) -> list:
+        return [c for c in self.calls if c["kind"] in kinds]
+
+    def stores(self) -> list:
+        return [o.batch.store for o in self.objectives
+                if o.batch.store is not None]
+
+
+def stream_config(device: str, spill_dir: str | None, chunk_rows: int,
+                  **over) -> TrainingConfig:
+    """Phase 7's ELL config 5 with the fixed effect chunk-streamed:
+    ``chunk_rows`` a chunk, spilled to ``spill_dir`` with one chunk kept
+    on the card, two decoded in host RAM and two prefetched, so every
+    evaluation streams every chunk from disk."""
+    over = {"chunk_rows": chunk_rows, "spill_dir": spill_dir,
+            "chunk_max_resident": 1, "host_max_resident": 2,
+            "prefetch_depth": 2, **over}
+    return dataclasses.replace(game_config("ELL", device), **over)
+
+
+def _stream_fit(config: TrainingConfig, train, valid,
+                injector=None) -> dict:
+    """One ``GameEstimator.fit`` under the probe, with the B1 and lane
+    counts set to 0 just before and read just after, an injector
+    installed (an empty one counts the seams' occurrences), and the run
+    log's stages: data preparation, then per sweep each coordinate's
+    wall and the validation's."""
+    log_path = os.path.join(WORK, f"stream_{time.monotonic_ns()}.jsonl")
+    injector = injector if injector is not None else faults.FaultInjector([])
+    gather_rowsum.launches = gather_rowsum_lanes.launches = 0
+    out = {"log": log_path}
+    with RunLogger(log_path) as log, _StreamProbe(injector) as probe, \
+            faults.injected(injector):
+        t = time.perf_counter()
+        try:
+            out["results"] = GameEstimator(config).fit(train, valid,
+                                                       run_logger=log)
+        except faults.InjectedFault as e:
+            out["raised"] = repr(e)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t
+    out["launches"] = gather_rowsum.launches
+    out["lane_launches"] = gather_rowsum_lanes.launches
+    out["probe"] = probe
+    events = read_run_log(log_path)
+    stages: dict = {"prepare_s": probe.prepare_s}
+    last_t: dict = {}
+    for e in events:
+        it = e.get("iteration")
+        if e["event"] == "cd_coordinate":
+            stages.setdefault(f"sweep{it}", {})[e["coordinate"]] = \
+                e["duration_s"]
+            last_t[it] = e["t"]
+        elif e["event"] == "cd_validation" and it in last_t:
+            stages[f"sweep{it}"]["validation"] = e["t"] - last_t[it]
+    out["stages"] = stages
+    out["events"] = events
+    return out
+
+
+def _fit_summary(fit: dict) -> dict:
+    """AUC, the fixed effect's final loss and coefficients of a fit."""
+    res = fit["results"][0]
+    return {"auc": float(res.evaluations[EvaluatorType.AUC]),
+            "fe_value": float(res.descent.history[-1]["global"]["value"]),
+            "w": res.model.models["global"].coefficients.means.numpy()}
+
+
+def _stream_gates(name: str, got: dict, want: dict, failures: list) -> dict:
+    """AUC within ``STREAM_AUC_ATOL`` and the fixed effect's final loss
+    within ``STREAM_LOSS_RTOL`` of ``want``; max |Δw| and bitwise
+    equality reported."""
+    gaps = {"auc_gap": abs(got["auc"] - want["auc"]),
+            "loss_gap_rel": abs(got["fe_value"] - want["fe_value"])
+            / abs(want["fe_value"]),
+            "max_abs_dw": float(np.abs(got["w"] - want["w"]).max()),
+            "bitwise": bool(np.array_equal(got["w"], want["w"]))}
+    if not gaps["auc_gap"] <= STREAM_AUC_ATOL:
+        failures.append(f"{name}: AUC {got['auc']:.5f} vs "
+                        f"{want['auc']:.5f}")
+    if not gaps["loss_gap_rel"] <= STREAM_LOSS_RTOL:
+        failures.append(f"{name}: fixed-effect loss {got['fe_value']:.6g} "
+                        f"vs {want['fe_value']:.6g}")
+    return gaps
+
+
+def _launch_gates(name: str, probe: _StreamProbe, kinds, counter: str,
+                  device: str, failures: list) -> dict:
+    """Every chunked evaluation of ``kinds`` launched ``counter`` (``b1``
+    or ``lanes``) at least once a chunk, every placed leaf was on the
+    card, and every store is quiesced with its chunk files present."""
+    evals = probe.evaluations(kinds)
+    out = {"evaluations": len(evals),
+           "evaluation_launches": sum(c[counter] for c in evals),
+           "chunks": max((c["chunks"] for c in evals), default=0),
+           "placed_devices": sorted(probe.placed_devices)}
+    if not evals:
+        failures.append(f"{name}: no chunked evaluation")
+    if device != "cpu":
+        short = [c for c in evals if c[counter] < c["chunks"]]
+        if short:
+            failures.append(f"{name}: {len(short)} of {len(evals)} "
+                            f"evaluations launched {counter} fewer times "
+                            f"than their {out['chunks']} chunks")
+        if not all(d.startswith("cuda") for d in probe.placed_devices):
+            failures.append(f"{name}: chunks placed on "
+                            f"{sorted(probe.placed_devices)}")
+        if counter == "lanes" and any(c["b1"] for c in evals):
+            failures.append(f"{name}: single-lane gather_rowsum inside "
+                            "swept evaluations")
+    for store in probe.stores():
+        try:
+            store.assert_quiesced()
+        except RuntimeError as e:
+            failures.append(f"{name}: {e}")
+        missing = [i for i in range(store.n_chunks) if not store.has(i)]
+        if missing:
+            failures.append(f"{name}: chunk files {missing} missing")
+        out["chunk_files"] = store.n_chunks - len(missing)
+        out["rebuilds"] = store.rebuilds
+    return out
+
+
+def streamed_evaluation(co, w, time_it: bool = True) -> dict:
+    """One ``value_and_gradient`` of a chunked objective after a warm-up
+    call: the bytes and chunks placed, the prefetch consumer's wait and
+    the prefetch thread's time loading and placing chunks in one pass;
+    with ``time_it``, its CUDA-event ms, the wall of one call, the
+    profiler's device ms split into kernels and host-to-device copies,
+    the idle share and the copy rate."""
+    co.value_and_gradient(w)
+    before = dict(co.stats)
+    co.value_and_gradient(w)
+    out = {key: co.stats[key] - before[key] for key in co.stats}
+    if time_it:
+        def run():
+            return co.value_and_gradient(w)
+
+        out["ms"] = time_ms(run, 1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        out["wall_ms"] = (time.perf_counter() - t) * 1e3
+        by_name = device_kernels_ms(run, n=3)
+        copies = sum(ms for name, ms in by_name.items() if "Memcpy" in name)
+        out["device_ms"] = sum(by_name.values()) or None
+        out["device_copy_ms"] = copies
+        out["device_kernel_ms"] = sum(by_name.values()) - copies
+        if out["device_ms"]:
+            out["idle_share"] = max(0.0, 1.0 - out["device_ms"] / out["ms"])
+        out["h2d_gb_per_s"] = out["placed_bytes"] / (out["ms"] / 1e3) / 1e9
+    return out
+
+
+def _chunk_arrays(co):
+    """The first chunk of a chunked objective, placed on its device."""
+    return streaming_mod._handover(co._place(co.batch.chunk(0)))
+
+
+def _fault_at(probe: _StreamProbe) -> int:
+    """A prefetch.load occurrence three quarters into sweep 2's
+    fixed-effect solve (past its first solver snapshots)."""
+    singles = [s for s in probe.solves if s["kind"] == "single"]
+    lo, hi = singles[1]["loads"]
+    return lo + 3 * (hi - lo) // 4
+
+
+def _read_log(path: str) -> list:
+    """A run log's events, skipping a killed writer's unfinished line."""
+    events = []
+    with open(path) as f:
+        for line in f:
+            try:
+                events.append(json.loads(line))
+            except ValueError:
+                continue
+    return events
+
+
+def _resume_events(events: list) -> dict:
+    cd = [e for e in events if e["event"] == "cd_resume"]
+    solver = [e for e in events if e["event"] == "checkpoint_solver_resume"]
+    return {"cd_resume": [(e["iteration"], e["coord_pos"]) for e in cd],
+            "solver_resume_iterations": [e["iteration"] for e in solver]}
+
+
+def phase_stream(ref: dict, device: str, seed: int = 7, n: int = GAME_ROWS,
+                 d: int = D, n_entities: int = N_ENTITIES,
+                 chunk_rows: int = STREAM_CHUNK_ROWS,
+                 time_it: bool = True) -> dict:
+    """Phases 10a–10c (module docstring): config 5 with its fixed effect
+    chunk-streamed from disk against phase 7's resident ELL fit
+    (``ref``: its AUC, final loss and coefficients), the same with the
+    chunks kept on the card, a fault inside sweep 2's fixed-effect solve
+    and its resume (and again with a chunk file corrupted), then the
+    training driver SIGKILLed mid-solve and resumed."""
+    failures: list = []
+    t = time.perf_counter()
+    data = make_game_data(seed, n, d=d, n_entities=n_entities)
+    n_train = n - int(n * TRAIN_HOLDOUT)
+    train, valid = data.take(slice(0, n_train)), data.take(slice(n_train, n))
+    del data
+    out = {"rows": n, "train_rows": n_train, "chunk_rows": chunk_rows,
+           "data_s": time.perf_counter() - t}
+    spill = os.path.join(WORK, "stream_spill")
+
+    # 10a: streamed from disk.
+    fit = _stream_fit(stream_config(device, spill, chunk_rows), train, valid)
+    probe = fit["probe"]
+    a = _fit_summary(fit)
+    out["10a"] = {"wall_s": fit["wall_s"], "stages": fit["stages"],
+                  "launches": fit["launches"],
+                  **_launch_gates("10a", probe, ("value",
+                                                 "value_and_gradient"),
+                                  "b1", device, failures),
+                  **_stream_gates("10a vs phase 7", a, ref, failures),
+                  "fe_solves": [{"solve_s": s["solve_s"],
+                                 "iterations": int(s["iterations"])}
+                                for s in probe.solves]}
+    fe = next(o for o in probe.objectives if o.batch.store is not None)
+    co = streaming_mod.ChunkedGLMObjective(
+        fe.objective, fe.batch, max_resident=0, prefetch_depth=2,
+        device=device)
+    w = torch.from_numpy(a["w"]).to(device)
+    out["10a"]["evaluation"] = streamed_evaluation(co, w, time_it and
+                                                   device != "cpu")
+    chunk = _chunk_arrays(co)
+    scale = max(1.0, float(w.abs().max()) * float(chunk.values.abs().max()))
+    out["kernel_shape"] = check_b1_case(
+        f"stream_chunk_{chunk.values.shape[0]}x{chunk.values.shape[1]}",
+        w, chunk.values, chunk.col_ids, ATOL * scale, time_it=time_it)
+    out["kernel_shape"]["launches"] = fit["launches"]
+    del co, chunk, fe
+    fault_at = _fault_at(probe)
+    del fit, probe
+
+    # The same fit with every chunk kept on the card (no spill).
+    n_chunks = -(-n_train // chunk_rows)
+    fit = _stream_fit(stream_config(device, None, chunk_rows,
+                                    chunk_max_resident=n_chunks),
+                      train, valid)
+    r = _fit_summary(fit)
+    fe = fit["probe"].objectives[0]
+    out["10a_resident"] = {
+        "wall_s": fit["wall_s"], "stages": fit["stages"],
+        **_stream_gates("10a resident vs phase 7", r, ref, failures)}
+    out["10a_resident"]["evaluation"] = streamed_evaluation(
+        fe, w, time_it and device != "cpu")
+    del fit, fe
+
+    # 10b: a fault inside sweep 2's fixed-effect solve, then resume.
+    ck = os.path.join(WORK, "stream_ck")
+    ck_cfg = dict(checkpoint_dir=ck,
+                  checkpoint_every_solver_iters=STREAM_CKPT_EVERY)
+    inj = faults.FaultInjector([faults.Fault(site="prefetch.load",
+                                             kind="error", at=fault_at)])
+    fit = _stream_fit(stream_config(device, spill, chunk_rows, **ck_cfg), train, valid,
+                      injector=inj)
+    b = {"fault_at": fault_at, "raised": fit.get("raised"),
+         "fired": inj.fired}
+    if "raised" not in fit:
+        failures.append("10b: the injected prefetch fault did not raise")
+    shutil.copytree(ck, ck + "_copy")
+    fit = _stream_fit(stream_config(device, spill, chunk_rows, resume=True,
+                                    **ck_cfg),
+                      train, valid)
+    b.update(_resume_events(fit["events"]), wall_s=fit["wall_s"],
+             **_stream_gates("10b resume vs 10a", _fit_summary(fit), a,
+                             failures))
+    if not any(it > 0 for it in b["solver_resume_iterations"]):
+        failures.append(f"10b: no solver snapshot restored at an "
+                        f"iteration > 0 ({b['solver_resume_iterations']})")
+    out["10b"] = b
+
+    # The same resume with a chunk file corrupted at its first load.
+    inj = faults.FaultInjector([faults.Fault(site="store.load",
+                                             kind="corrupt_file", at=0)])
+    fit = _stream_fit(stream_config(device, spill, chunk_rows, resume=True,
+                                    checkpoint_dir=ck + "_copy",
+                                    checkpoint_every_solver_iters=
+                                    STREAM_CKPT_EVERY),
+                      train, valid, injector=inj)
+    c = {"fired": inj.fired, "wall_s": fit["wall_s"],
+         "rebuilds": sum(s.rebuilds for s in fit["probe"].stores()),
+         **_stream_gates("10b corrupt-chunk resume vs 10a",
+                         _fit_summary(fit), a, failures)}
+    if not c["fired"] or c["rebuilds"] < 1:
+        failures.append(f"10b: the corrupted chunk was not rebuilt "
+                        f"({c['fired']}, {c['rebuilds']} rebuilds)")
+    out["10b_corrupt"] = c
+    del fit, train, valid
+
+    # 10c: the driver, SIGKILLed once a solver snapshot appears.
+    out["10c"] = phase_stream_driver(
+        [] if device != "cpu" else ["--device", "cpu"], failures)
+    out["failures"] = failures
+    return out
+
+
+def phase_stream_driver(device_args: list, failures: list) -> dict:
+    """Phase 8's config-4 fixture through ``python -m
+    photon_ml_torch.cli.game_training_driver`` with its fixed effect
+    chunked (``STREAM_DRIVER_CHUNK_ROWS``), spilled, and snapshotted
+    every solver iteration: a subprocess SIGKILLed once a
+    ``solver_*.npz`` appears, then rerun with ``--resume``; its model
+    against an uninterrupted run's (both in this process), within phase
+    8's coefficient tolerance."""
+    from photon_ml_torch.cli import game_training_driver
+
+    cfg = driver_config(os.path.join(WORK, "stream_driver_killed"))
+    cfg["chunk_rows"] = STREAM_DRIVER_CHUNK_ROWS
+    cfg["n_iterations"] = GAME_SWEEPS
+    for c in cfg["coordinates"]:
+        c["optimizer"].update(max_iters=STREAM_DRIVER_ITERS,
+                              tolerance=1e-12)
+    cfg_path = os.path.join(WORK, "stream_driver.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    spill = os.path.join(WORK, "stream_driver_spill")
+    ck = os.path.join(WORK, "stream_driver_ck")
+    args = ["--config", cfg_path, "--spill-dir", spill,
+            "--checkpoint-dir", ck, "--checkpoint-every-solver-iters", "1",
+            *device_args]
+    out: dict = {}
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "photon_ml_torch.cli.game_training_driver",
+         *args], cwd=REPO, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE)
+    killed = False
+    try:
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and proc.poll() is None:
+            if glob.glob(os.path.join(ck, "solver_*.npz")):
+                proc.send_signal(signal.SIGKILL)
+                killed = True
+                break
+            time.sleep(0.01)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out["killed_after_s"] = time.perf_counter() - t
+    out["victim_rc"] = proc.returncode
+    if not killed:
+        failures.append(f"10c: the driver was not killed mid-solve (rc "
+                        f"{proc.returncode}: "
+                        f"{proc.stderr.read()[-2000:].decode(errors='replace')})")
+        proc.stderr.close()
+        return out
+    proc.stderr.close()
+    out["snapshots_at_kill"] = sorted(os.listdir(ck))
+    t = time.perf_counter()
+    # In this process; the drivers' summaries stay off this run's stdout.
+    with contextlib.redirect_stdout(io.StringIO()):
+        game_training_driver.main([*args, "--resume"])
+        out["resume_wall_s"] = time.perf_counter() - t
+        full_dir = os.path.join(WORK, "stream_driver_full")
+        game_training_driver.main([
+            "--config", cfg_path, "--output-dir", full_dir, "--spill-dir",
+            spill, "--checkpoint-dir", ck + "_full",
+            "--checkpoint-every-solver-iters", "1", *device_args])
+    got, _ = load_game_model(os.path.join(cfg["output_dir"], "model"))
+    want, _ = load_game_model(os.path.join(full_dir, "model"))
+    w_got = got.models["global"].coefficients.means.numpy()
+    w_want = want.models["global"].coefficients.means.numpy()
+    out["max_abs_dw"] = float(np.abs(w_got - w_want).max())
+    out["bitwise"] = bool(np.array_equal(w_got, w_want))
+    events = _read_log(os.path.join(cfg["output_dir"], "run_log.jsonl"))
+    out["run_headers"] = sum(e["event"] == "run_header" for e in events)
+    out.update(_resume_events(events))
+    if not np.allclose(w_got, w_want, rtol=DRIVER_COEF_TOL,
+                       atol=DRIVER_COEF_TOL):
+        failures.append(f"10c: the resumed model's coefficients differ by "
+                        f"{out['max_abs_dw']:g} from the uninterrupted "
+                        "run's")
+    if out["run_headers"] != 2 or not (out["cd_resume"]
+                                       or out["solver_resume_iterations"]):
+        failures.append(f"10c: the resumed run log holds "
+                        f"{out['run_headers']} runs, CD resumes "
+                        f"{out['cd_resume']} and solver resumes "
+                        f"{out['solver_resume_iterations']}")
+    return out
+
+
+def phase_stream_sweep(data: dict, ref: dict, device: str,
+                       chunk_rows: int = STREAM_CHUNK_ROWS,
+                       time_it: bool = True) -> dict:
+    """Phase 10d: phase 9's ELL grid (config 1, 8 λ, L-BFGS 20) with the
+    fixed effect chunk-streamed from disk: every swept evaluation runs
+    the lane kernel on every chunk, and lanes ``SWEEP_CHECK_LANES`` end
+    within phase 9's gates of its resident swept lanes (``ref``: phase
+    9's ELL fit)."""
+    failures: list = []
+    train, valid = sweep_data(data)
+    cfg = sweep_config("ELL", device, chunk_rows=chunk_rows,
+                       spill_dir=os.path.join(WORK, "sweep_spill"),
+                       chunk_max_resident=1, host_max_resident=2,
+                       prefetch_depth=2)
+    fit = _stream_fit(cfg, train, valid)
+    probe = fit["probe"]
+    swept = [s for s in probe.solves if s["kind"] == "swept"]
+    order = np.argsort(-np.asarray(SWEEP_LAMS), kind="stable")
+    loss = np.full(len(SWEEP_LAMS), np.nan)
+    if swept:
+        loss[order] = swept[-1]["value"]
+    aucs = [float(r.evaluations[EvaluatorType.AUC]) for r in fit["results"]]
+    out = {"wall_s": fit["wall_s"], "prepare_s": probe.prepare_s,
+           "swept_solves": len(swept),
+           "swept_solve_s": sum(s["solve_s"] for s in swept),
+           "resident_swept_solve_s": ref["swept_solve_s"],
+           "lane_launches": fit["lane_launches"],
+           **_launch_gates("10d", probe, ("value_swept",
+                                          "value_and_gradient_swept"),
+                           "lanes", device, failures),
+           "loss": loss.tolist(), "auc": aucs, "lanes": {}}
+    if len(swept) != 1:
+        failures.append(f"10d: {len(swept)} swept solves")
+    for j in SWEEP_CHECK_LANES:
+        gap = abs(loss[j] - ref["loss"][j]) / abs(ref["loss"][j])
+        auc_gap = abs(aucs[j] - ref["auc"][j])
+        out["lanes"][j] = {"loss_gap_rel": gap, "auc_gap": auc_gap}
+        if not gap <= SWEEP_LOSS_RTOL:
+            failures.append(f"10d lane {j}: loss {loss[j]:.6g} vs "
+                            f"{ref['loss'][j]:.6g}")
+        if not auc_gap <= SWEEP_AUC_ATOL:
+            failures.append(f"10d lane {j}: AUC {aucs[j]:.5f} vs "
+                            f"{ref['auc'][j]:.5f}")
+    fe = next(o for o in probe.objectives if o.batch.store is not None)
+    chunk = _chunk_arrays(fe)
+    W = torch.stack([r.model.models["global"].coefficients.means
+                     for r in fit["results"]]).to(device)
+    table = W.T.contiguous()
+    atol = ATOL * max(1.0, float(table.abs().max())
+                      * float(chunk.values.abs().max()))
+    out["kernel_shape"] = check_lanes_case(
+        f"stream_chunk_{chunk.values.shape[0]}x{chunk.values.shape[1]}"
+        f"_L{table.shape[1]}", table, chunk.values, chunk.col_ids, atol,
+        time_it=time_it)
+    out["kernel_shape"]["launches"] = fit["lane_launches"]
+    out["failures"] = failures
+    return out
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -2653,10 +3259,14 @@ def main() -> int:
         t = time.perf_counter()
         game = phase_game(seed=7, n=GAME_ROWS, device="cuda")
         game["card"] = card
+        game_ell_fe_w = game.pop("ell_fe_w")
         print(f"phase 7 GAME training ({time.perf_counter() - t:.1f} s): "
               + json.dumps({"game": game}))
         if game["failures"]:
             raise AssertionError("phase 7: " + "; ".join(game["failures"]))
+        stream_ref = {"auc": game["ell"]["auc"],
+                      "fe_value": game["ell"]["fe_value"],
+                      "w": game_ell_fe_w}
         kernels[0]["launches_game_fit"] = game["ell"]["launches"]
         kernels[0]["game_fit_fe_evaluations"] = game["ell"]["fe_evaluations"]
         kernels[0]["shapes"] += game["kernel_shapes"]
@@ -2695,6 +3305,38 @@ def main() -> int:
                 lanes["launches"]:
             raise AssertionError("phase 9: lane launches by shape do not "
                                  "sum to the fits' launches")
+        lanes["max_abs_err"] = max(sh["max_abs_err"]
+                                   for sh in lanes["shapes"])
+
+        t = time.perf_counter()
+        stream = phase_stream(stream_ref, device="cuda")
+        stream["card"] = card
+        print(f"phase 10a-c streamed training ({time.perf_counter() - t:.1f}"
+              " s): " + json.dumps({"stream": stream}, default=str))
+        if stream["failures"]:
+            raise AssertionError("phase 10: " + "; ".join(
+                stream["failures"]))
+        t = time.perf_counter()
+        stream_sweep = phase_stream_sweep(sweep, swept["ell"], "cuda")
+        stream_sweep["card"] = card
+        print(f"phase 10d streamed swept λ ({time.perf_counter() - t:.1f}"
+              " s): " + json.dumps({"stream_sweep": stream_sweep},
+                                   default=str))
+        if stream_sweep["failures"]:
+            raise AssertionError("phase 10d: " + "; ".join(
+                stream_sweep["failures"]))
+        del sweep
+        kernels[0]["launches_stream_fit"] = stream["10a"]["launches"]
+        kernels[0]["shapes"].append(stream["kernel_shape"])
+        kernels[0]["max_abs_err"] = max(
+            sh["max_abs_err"] for sh in kernels[0]["shapes"])
+        lanes["launches_stream_fit"] = stream_sweep["lane_launches"]
+        lanes["launches"] += lanes["launches_stream_fit"]
+        lanes["shapes"].append(stream_sweep["kernel_shape"])
+        if sum(sh["launches"] for sh in lanes["shapes"]) != \
+                lanes["launches"]:
+            raise AssertionError("phase 10d: lane launches by shape do "
+                                 "not sum to the fits' launches")
         lanes["max_abs_err"] = max(sh["max_abs_err"]
                                    for sh in lanes["shapes"])
     finally:

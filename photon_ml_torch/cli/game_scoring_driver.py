@@ -18,7 +18,7 @@ sinks of ``io.score_sink`` (the reference writes its resident ``.npz``
 with ``np.savez``; ``np.load`` reads either alike).  The
 run is on the card unless ``--device cpu`` (or ``"device": "cpu"``)
 asks for the CPU; without CUDA it raises.  The streamed pipeline
-(``score_chunk_rows`` and its knobs) is ROADMAP A5, telemetry A8b and
+(``score_chunk_rows`` and its knobs) is ROADMAP A5b, telemetry A8b and
 the monitor D3: ``ScoringConfig.validate`` raises on them.
 """
 

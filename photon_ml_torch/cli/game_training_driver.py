@@ -10,10 +10,16 @@ maps, a ``summary.json`` and the effective ``config.json``.
 Usage::
 
     python -m photon_ml_torch.cli.game_training_driver --config cfg.json \\
-        [--output-dir DIR] [--device cuda|cpu]
+        [--output-dir DIR] [--device cuda|cpu] [--spill-dir S] \\
+        [--host-max-resident N] [--prefetch-depth N] \\
+        [--checkpoint-dir D] [--checkpoint-every-sweeps N] \\
+        [--checkpoint-every-solver-iters N] [--resume]
 
 The run is on the card unless ``--device cpu`` (or ``"device": "cpu"``
-in the config) asks for the CPU; without CUDA it raises.  The fleet and
+in the config) asks for the CPU; without CUDA it raises.  A chunked fit
+(``chunk_rows``) spills its fixed effect to ``--spill-dir``; with
+``--checkpoint-dir`` it snapshots, and ``--resume`` continues from the
+most advanced snapshot, appending to the run log.  The fleet and
 multi-host bootstrap (ROADMAP A7), telemetry and the monitor (ROADMAP
 A8b, D3) are not ported: their config fields must stay at their
 defaults.
@@ -129,9 +135,14 @@ def run(config: TrainingConfig, log: RunLogger | None = None) -> dict:
     """The whole training pipeline; returns the written summary."""
     config.validate()
     os.makedirs(config.output_dir, exist_ok=True)
+    # A resumed run appends: the log then holds both runs, each opening
+    # with its run_header.
     with (log or RunLogger(os.path.join(config.output_dir, "run_log.jsonl"),
+                           mode=("a" if config.resume else "w"),
+                           header=True,
                            run_info={"driver": "game_training",
-                                     "device": config.device},
+                                     "device": config.device,
+                                     "resume": config.resume},
                            flush_every_s=DEFAULT_FLUSH_EVERY_S)) as log:
         return _run(config, log)
 
@@ -192,12 +203,46 @@ def main(argv: list[str] | None = None) -> dict:
     parser.add_argument("--device", default=None,
                         help="override config device: cuda (default), "
                              "cuda:<n> or cpu")
+    parser.add_argument("--spill-dir", default=None,
+                        help="override config spill_dir: out-of-core "
+                             "chunk store directory (default also "
+                             "$PHOTON_ML_TPU_SPILL_DIR)")
+    parser.add_argument("--host-max-resident", type=int, default=None,
+                        help="override config host_max_resident: "
+                             "decoded chunks kept live in host RAM "
+                             "when spilling")
+    parser.add_argument("--prefetch-depth", type=int, default=None,
+                        help="override config prefetch_depth: chunks "
+                             "prefetched disk->host->card ahead of "
+                             "compute (0 disables the thread)")
+    parser.add_argument("--checkpoint-dir", default=None,
+                        help="override config checkpoint_dir: CD sweep "
+                             "state and mid-solve solver state land here")
+    parser.add_argument("--resume", action="store_true", default=None,
+                        help="resume from the most advanced checkpoint "
+                             "in checkpoint_dir (the run log appends)")
+    parser.add_argument("--checkpoint-every-sweeps", type=int,
+                        default=None,
+                        help="override config checkpoint_every_sweeps: "
+                             "CD sweep-boundary snapshot cadence")
+    parser.add_argument("--checkpoint-every-solver-iters", type=int,
+                        default=None,
+                        help="override config "
+                             "checkpoint_every_solver_iters: streaming-"
+                             "solver mid-solve snapshot cadence (0 = "
+                             "sweep boundaries only)")
     args = parser.parse_args(argv)
     config = load_training_config(args.config)
     if args.output_dir:
         config.output_dir = args.output_dir
     if args.device is not None:
         config.device = args.device
+    for field in ("spill_dir", "host_max_resident", "prefetch_depth",
+                  "checkpoint_dir", "resume", "checkpoint_every_sweeps",
+                  "checkpoint_every_solver_iters"):
+        if getattr(args, field) is not None:
+            setattr(config, field, getattr(args, field))
+    # Re-validated with the overrides applied.
     config.validate()
     summary = run(config)
     # The last line of stdout: the summary, as JSON.

@@ -3,12 +3,17 @@
 Counterpart of ``photon_ml_tpu/config.py``: ``TrainingConfig`` (with
 ``CoordinateConfig``, ``OptimizerSettings`` and ``TuningConfig``),
 ``ScoringConfig`` and ``ServingConfig``, with the same JSON keys plus
-``device`` ("cuda", the default, or "cpu").  A training or scoring
-config's fields of tiers the port does not have yet (chunked and
-streamed training and scoring, the fused cycle, checkpoints, meshes,
-telemetry, monitor, profiling) are accepted in the file but
-``validate()`` raises ``NotImplementedError`` when one is set to
-anything but its default, naming its ROADMAP item.  For serving:
+``device`` ("cuda", the default, or "cpu").  Checkpoints and resume
+(``checkpoint_dir``, ``resume`` and their cadences) and the
+chunk-streamed, disk-spilled fixed effect (``chunk_rows``,
+``chunk_layout``, ``chunk_max_resident``, ``spill_dir``,
+``host_max_resident``, ``prefetch_depth``) are ported, with the
+reference's validation.  A training or scoring config's fields of tiers
+the port does not have yet (streamed random effects, the fused cycle
+and streamed scoring: ROADMAP A5b; meshes: A7; telemetry and profiling:
+A8b; the monitor: D3) are accepted in the file but ``validate()``
+raises ``NotImplementedError`` when one is set to anything but its
+default, naming its ROADMAP item.  For serving:
 
 - ``telemetry``, ``monitor`` and ``trace`` default to ``"off"``, and
   ``replicas`` to 1; ``validate()`` raises ``NotImplementedError`` when
@@ -162,8 +167,13 @@ class TrainingConfig:
     # strength prior_weight/σ² when it has variances.
     use_warm_start_as_prior: bool = False
     prior_weight: float = 1.0
-    checkpoint_dir: str | None = None      # ROADMAP A8a
-    resume: bool = False                   # ROADMAP A8a
+    # Snapshots of the run (reliability.checkpoint): every
+    # checkpoint_every_sweeps CD sweeps (the last always), and with
+    # checkpoint_every_solver_iters > 0 every that many streaming-solver
+    # iterations and after every coordinate; resume restores the most
+    # advanced one.
+    checkpoint_dir: str | None = None
+    resume: bool = False
     checkpoint_every_sweeps: int = 1
     checkpoint_every_solver_iters: int = 0
     intercept: bool = True
@@ -174,15 +184,23 @@ class TrainingConfig:
     # package off the TPU); GRR and COLMAJOR select the others.
     sparse_layout: str = "AUTO"
     n_devices: int | None = None           # ROADMAP A7
-    chunk_rows: int | None = None          # ROADMAP A5
+    # The chunk-streamed fixed effect (data.chunked_batch): sparse fixed
+    # effects become ceil(n/chunk_rows) congruent chunks streamed to the
+    # card every evaluation; chunk_layout AUTO is ELL here (GRR chunks
+    # are ROADMAP A7); chunk_max_resident placed chunks stay on the
+    # card.  spill_dir (default $PHOTON_ML_TPU_SPILL_DIR) spills the
+    # chunks to disk, host_max_resident decoded chunks stay in host RAM
+    # and prefetch_depth chunks are prefetched disk → host → card ahead
+    # of compute (0: no prefetch thread).
+    chunk_rows: int | None = None
     chunk_layout: str = "AUTO"
     chunk_max_resident: int = 1
-    spill_dir: str | None = None           # ROADMAP A5
+    spill_dir: str | None = None
     host_max_resident: int = 2
     prefetch_depth: int = 2
-    re_chunk_entities: int | None = None   # ROADMAP A5
+    re_chunk_entities: int | None = None   # ROADMAP A5b
     re_retirement: bool = True
-    cd_fused: bool = False                 # ROADMAP A5
+    cd_fused: bool = False                 # ROADMAP A5b
     # The GRR plan cache (shared with the JAX package).  The compilation
     # cache is accepted and has no effect: the port's CUDA kernels are
     # cached under build/kernels/ by source hash.
@@ -200,10 +218,8 @@ class TrainingConfig:
 
     # (field, default, ROADMAP item) of the tiers not ported yet.
     _NOT_PORTED = (
-        ("checkpoint_dir", None, "A8a"),
-        ("resume", False, "A8a"), ("n_devices", None, "A7"),
-        ("chunk_rows", None, "A5"), ("spill_dir", None, "A5"),
-        ("re_chunk_entities", None, "A5"), ("cd_fused", False, "A5"),
+        ("n_devices", None, "A7"),
+        ("re_chunk_entities", None, "A5b"), ("cd_fused", False, "A5b"),
         ("profile_dir", None, "A8b"), ("telemetry", "off", "A8b"),
         ("monitor", "off", "D3"), ("status_port", None, "D3"),
         ("distributed_init", False, "A7"))
@@ -227,6 +243,13 @@ class TrainingConfig:
         if self.use_warm_start_as_prior and not self.warm_start_model_dir:
             raise ValueError(
                 "use_warm_start_as_prior requires warm_start_model_dir")
+        if self.resume and not self.checkpoint_dir:
+            raise ValueError("resume requires checkpoint_dir")
+        if self.checkpoint_every_sweeps < 1:
+            raise ValueError("checkpoint_every_sweeps must be >= 1")
+        if self.checkpoint_every_solver_iters < 0:
+            raise ValueError(
+                "checkpoint_every_solver_iters must be >= 0")
         if not 0.0 <= self.validation_fraction < 1.0:
             raise ValueError("validation_fraction must be in [0, 1)")
         if self.n_iterations <= 0:
@@ -239,6 +262,7 @@ class TrainingConfig:
             raise ValueError("telemetry must be off|metrics|trace")
         if self.monitor not in ("off", "on"):
             raise ValueError("monitor must be off|on")
+        self._validate_chunked()
         for name, grid in self.reg_weight_grid.items():
             if name not in names:
                 raise ValueError(f"grid entry '{name}' unknown")
@@ -261,6 +285,43 @@ class TrainingConfig:
                     f"photon_ml_torch yet (ROADMAP {item}); leave it at "
                     f"its default")
 
+    def _validate_chunked(self) -> None:
+        """The reference's rules for the chunked and spilled tier."""
+        if self.chunk_layout not in ("AUTO", "GRR", "ELL"):
+            raise ValueError("chunk_layout must be AUTO|GRR|ELL")
+        if self.host_max_resident < 1:
+            raise ValueError("host_max_resident must be >= 1")
+        if self.prefetch_depth < 0:
+            raise ValueError("prefetch_depth must be >= 0")
+        if (self.spill_dir is not None and self.chunk_rows is None
+                and self.re_chunk_entities is None):
+            raise ValueError(
+                "spill_dir requires chunked training (chunk_rows) or "
+                "streamed random effects (re_chunk_entities): only "
+                "chunk batches spill to the disk tier")
+        if self.chunk_rows is None:
+            return
+        if self.chunk_rows <= 0:
+            raise ValueError("chunk_rows must be positive")
+        if self.chunk_max_resident < 0:
+            raise ValueError("chunk_max_resident must be >= 0")
+        for c in self.coordinates:
+            if c.kind != CoordinateKind.FIXED_EFFECT:
+                continue
+            if c.down_sampling_rate is not None:
+                raise ValueError(
+                    "down-sampling is not supported with chunked "
+                    "training (chunk_rows)")
+            if c.optimizer.variance_type == VarianceComputationType.FULL:
+                raise ValueError(
+                    "FULL variances materialize a [d, d] Hessian — not "
+                    "supported with chunked training (chunk_rows); use "
+                    "SIMPLE")
+        if self.normalization != NormalizationType.NONE:
+            raise ValueError(
+                "normalization requires resident feature statistics; "
+                "not supported with chunked training (chunk_rows)")
+
 
 @dataclasses.dataclass
 class ScoringConfig:
@@ -276,7 +337,7 @@ class ScoringConfig:
     evaluators: list[EvaluatorType] = dataclasses.field(default_factory=list)
     # Accepted for config compatibility; has no effect in the port.
     compilation_cache_dir: str | None = None
-    # The streamed scoring pipeline is ROADMAP A5: these stay at their
+    # The streamed scoring pipeline is ROADMAP A5b: these stay at their
     # defaults (validate() raises otherwise).
     score_chunk_rows: int | None = None
     spill_dir: str | None = None
@@ -293,8 +354,8 @@ class ScoringConfig:
 
     # (field, default, ROADMAP item) of the tiers not ported yet.
     _NOT_PORTED = (
-        ("score_chunk_rows", None, "A5"), ("spill_dir", None, "A5"),
-        ("host_max_resident", 2, "A5"), ("prefetch_depth", 2, "A5"),
+        ("score_chunk_rows", None, "A5b"), ("spill_dir", None, "A5b"),
+        ("host_max_resident", 2, "A5b"), ("prefetch_depth", 2, "A5b"),
         ("telemetry", "off", "A8b"), ("monitor", "off", "D3"),
         ("status_port", None, "D3"))
 
@@ -320,6 +381,43 @@ class ScoringConfig:
                     f"{knob}={getattr(self, knob)!r} is not ported to "
                     f"photon_ml_torch yet (ROADMAP {item}); leave it at "
                     f"its default")
+
+    def _validate_chunked(self) -> None:
+        """The reference's rules for the chunked and spilled tier."""
+        if self.chunk_layout not in ("AUTO", "GRR", "ELL"):
+            raise ValueError("chunk_layout must be AUTO|GRR|ELL")
+        if self.host_max_resident < 1:
+            raise ValueError("host_max_resident must be >= 1")
+        if self.prefetch_depth < 0:
+            raise ValueError("prefetch_depth must be >= 0")
+        if (self.spill_dir is not None and self.chunk_rows is None
+                and self.re_chunk_entities is None):
+            raise ValueError(
+                "spill_dir requires chunked training (chunk_rows) or "
+                "streamed random effects (re_chunk_entities): only "
+                "chunk batches spill to the disk tier")
+        if self.chunk_rows is None:
+            return
+        if self.chunk_rows <= 0:
+            raise ValueError("chunk_rows must be positive")
+        if self.chunk_max_resident < 0:
+            raise ValueError("chunk_max_resident must be >= 0")
+        for c in self.coordinates:
+            if c.kind != CoordinateKind.FIXED_EFFECT:
+                continue
+            if c.down_sampling_rate is not None:
+                raise ValueError(
+                    "down-sampling is not supported with chunked "
+                    "training (chunk_rows)")
+            if c.optimizer.variance_type == VarianceComputationType.FULL:
+                raise ValueError(
+                    "FULL variances materialize a [d, d] Hessian — not "
+                    "supported with chunked training (chunk_rows); use "
+                    "SIMPLE")
+        if self.normalization != NormalizationType.NONE:
+            raise ValueError(
+                "normalization requires resident feature statistics; "
+                "not supported with chunked training (chunk_rows)")
 
 
 @dataclasses.dataclass

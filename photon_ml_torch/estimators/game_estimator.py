@@ -14,13 +14,17 @@ solve a proposal round where the same holds.
 Everything runs on ``TrainingConfig.device`` (default CUDA; the entry
 raises without it unless "cpu" is asked for).  ``sparse_layout`` AUTO
 resolves to plain ELL, as in the JAX package off the TPU; COLMAJOR puts
-``Xᵀr`` on B1 over the transposed ELL, GRR on the B2/B3 plan.  The
-chunked and fused paths (ROADMAP A5) and checkpoints (ROADMAP A8a)
-raise.
+``Xᵀr`` on B1 over the transposed ELL, GRR on the B2/B3 plan.  With
+``chunk_rows`` the fixed effect is a ``ChunkedBatch`` (ELL chunks,
+spilled to ``spill_dir`` when one is given) streamed to the card on
+every evaluation.  With ``checkpoint_dir`` the coordinate descent, the
+swept fit's lanes and the tuner's rounds snapshot, and ``resume``
+restores them.  The fused cycle is ROADMAP A5b, a mesh A7.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import logging
@@ -46,8 +50,13 @@ from photon_ml_torch.data.statistics import compute_statistics
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.estimators.game_transformer import GameTransformer
 from photon_ml_torch.evaluation.evaluators import better_than, evaluate
-from photon_ml_torch.game.coordinate_descent import run_coordinate_descent
+from photon_ml_torch.game.coordinate_descent import (
+    _revive_validation,
+    _serialize_validation,
+    run_coordinate_descent,
+)
 from photon_ml_torch.game.coordinates import (
+    ChunkedFixedEffectCoordinate,
     FixedEffectCoordinate,
     build_random_effect_coordinate,
     build_random_effect_coordinate_sparse,
@@ -71,6 +80,7 @@ from photon_ml_torch.ops.regularization import (
 from photon_ml_torch.optim.base import OptimizerConfig, OptimizerType
 from photon_ml_torch.optim.problem import OptimizationProblem
 from photon_ml_torch.optim.variance import VarianceComputationType
+from photon_ml_torch.reliability import checkpoint as _ckpt
 
 logger = logging.getLogger(__name__)
 
@@ -148,6 +158,12 @@ class GameEstimator:
         weights = train.weight_array()
         intercept_index = None
         if isinstance(feats, np.ndarray):
+            if cfg.chunk_rows is not None:
+                raise ValueError(
+                    "chunk_rows supports sparse feature shards only; "
+                    f"fixed-effect shard '{coord_cfg.feature_shard}' is "
+                    "a dense array (a resident DenseBatch would defeat "
+                    "the beyond-HBM purpose of chunking)")
             x = np.asarray(feats, np.float32)
             if cfg.intercept:
                 x = np.concatenate([x, np.ones((len(x), 1), np.float32)], 1)
@@ -161,6 +177,9 @@ class GameEstimator:
                 rows = rows.with_constant_col(dim)
                 intercept_index = dim
                 dim += 1
+            if cfg.chunk_rows is not None:
+                return self._prepare_chunked(rows, dim, labels, weights,
+                                             intercept_index)
             layout = self._layout()
             # The ELL arrays serve normalization statistics and the
             # down-sampled view; a GRR batch that needs neither skips them.
@@ -192,6 +211,27 @@ class GameEstimator:
         return {"batch": batch, "norm": norm, "dim": dim,
                 "intercept_index": intercept_index, "train_idx": train_idx,
                 "train_weights": train_weights}
+
+    def _prepare_chunked(self, rows, dim: int, labels, weights,
+                         intercept_index) -> dict:
+        """The chunk-streamed fixed effect: ELL chunks on the host, spilled
+        to ``spill_dir`` (or ``$PHOTON_ML_TPU_SPILL_DIR``: the environment
+        default applies at this layer only).  AUTO resolves to ELL on
+        CUDA, as the reference's AUTO does off the TPU."""
+        from photon_ml_torch.data.chunk_store import resolve_spill_dir
+        from photon_ml_torch.data.chunked_batch import build_chunked_batch
+
+        cfg = self.config
+        layout = "ELL" if cfg.chunk_layout == "AUTO" else cfg.chunk_layout
+        chunked = build_chunked_batch(
+            rows, dim, labels, weights=weights, chunk_rows=cfg.chunk_rows,
+            layout=layout.lower(), cache_dir=cfg.plan_cache_dir,
+            spill_dir=resolve_spill_dir(cfg.spill_dir),
+            host_max_resident=cfg.host_max_resident)
+        return {"chunked": chunked, "batch": None,
+                "norm": NormalizationContext.identity(), "dim": dim,
+                "intercept_index": intercept_index, "train_idx": None,
+                "train_weights": None}
 
     # -- warm start (a saved raw-space model → training space) -------------
 
@@ -314,6 +354,15 @@ class GameEstimator:
                     reg=_reg_context(cc.optimizer, weight, p["dim"],
                                      p["intercept_index"], self.device),
                     norm=p["norm"], prior=prior)
+                if p.get("chunked") is not None:
+                    coords[cc.name] = ChunkedFixedEffectCoordinate(
+                        name=cc.name, chunked=p["chunked"],
+                        objective=objective,
+                        optimizer=cc.optimizer.optimizer, config=ocfg,
+                        max_resident=cfg.chunk_max_resident,
+                        prefetch_depth=cfg.prefetch_depth,
+                        device=self.device)
+                    continue
                 coords[cc.name] = FixedEffectCoordinate(
                     name=cc.name, batch=p["batch"],
                     problem=OptimizationProblem(
@@ -340,7 +389,22 @@ class GameEstimator:
             # Built under its entity key; known by the coordinate name.
             coord.name = cc.name
             coords[cc.name] = coord
+        self._share_chunk_window(coords)
         return coords
+
+    def _share_chunk_window(self, coords: dict) -> None:
+        """One host residency budget (``host_max_resident``) over every
+        store-backed coordinate, when there is more than one."""
+        from photon_ml_torch.data.chunk_store import SharedChunkWindow
+
+        stores = [c.chunked.store for c in coords.values()
+                  if getattr(c, "chunked", None) is not None
+                  and c.chunked.store is not None]
+        if len(stores) < 2:
+            return
+        group = SharedChunkWindow(self.config.host_max_resident)
+        for store in stores:
+            store.join_window_group(group)
 
     # -- export -------------------------------------------------------------
 
@@ -456,6 +520,8 @@ class GameEstimator:
         obj_l = dataclasses.replace(obj, reg=RegularizationContext.of(
             opt.regularization, lam, opt.elastic_net_alpha,
             obj.reg.reg_mask))
+        if isinstance(coord, ChunkedFixedEffectCoordinate):
+            return dataclasses.replace(coord, objective=obj_l)
         return dataclasses.replace(coord, problem=dataclasses.replace(
             coord.problem, objective=obj_l))
 
@@ -479,7 +545,8 @@ class GameEstimator:
                            offsets: Tensor, locked: dict, validation,
                            run_logger, warm_W: Tensor | None = None,
                            base_w0: Tensor | None = None,
-                           checkpointer=None, resume: bool = False):
+                           checkpointer=None, resume: bool = False,
+                           stage: str = "swept"):
         """Train λ lanes as ONE batched solve a sweep; returns
         (FitResults in the order of ``lams``, W [L, dim] in that order).
 
@@ -487,11 +554,11 @@ class GameEstimator:
         regularized lanes converge first and coast while the weak ones
         refine); results come back in the caller's order.  With
         ``validate_per_iteration`` every lane is evaluated after every
-        sweep, as ``_fit_point`` does."""
-        if checkpointer is not None or resume:
-            raise NotImplementedError(
-                "swept and tuner checkpoints are not ported yet (ROADMAP "
-                "A8a)")
+        sweep, as ``_fit_point`` does.  With a ``checkpointer`` the lane
+        matrix, the sweep index and the lanes' validation history
+        snapshot to stage ``stage`` at the sweep cadence, the swept
+        solver snapshots mid-solve under a per-sweep scope, and
+        ``resume`` restores both."""
         cfg = self.config
         cc = {c.name: c for c in cfg.coordinates}[name]
         coord = coords[name]
@@ -509,26 +576,64 @@ class GameEstimator:
             W = base_w0[None, :].expand(L, -1).clone()
         validate = validation is not None and cfg.validate_per_iteration
         lane_history: list[list] = [[] for _ in range(L)]
+        start_sweep = 0
+        res_summary = None
+        if checkpointer is not None and resume:
+            st = checkpointer.load_stage(stage)
+            if (st is not None and [float(x) for x in st["lams"]]
+                    == [float(x) for x in lams]):
+                start_sweep = int(st["sweep"])
+                if st.get("W") is not None:
+                    W = torch.as_tensor(np.asarray(st["W"])).to(
+                        device=self.device, dtype=torch.float32)
+                lane_history = [_revive_validation(h)
+                                for h in st.get("lane_history") or []]
+                lane_history += [[] for _ in range(L - len(lane_history))]
+                res_summary = st.get("res_summary")
+                logger.info("swept fit '%s': resumed at sweep %d/%d",
+                            name, start_sweep, cfg.n_iterations)
         t0 = time.perf_counter()
         res = None
-        for _ in range(cfg.n_iterations):
-            W, res = coord.train_swept(offsets, reg, warm_start=W)
-            if validate:
-                W_now = W[inv]
-                for j in range(L):
-                    snap = self._swept_lane_model(
-                        coords, name, W_now[j], locked, offsets,
-                        float(lams[j]), with_variances=False)
-                    lane_history[j].append(self._evaluate(snap, validation))
+        with _ckpt.session(checkpointer):
+            for i in range(start_sweep, cfg.n_iterations):
+                scope = (checkpointer.scope(f"{stage}_s{i + 1}")
+                         if checkpointer is not None
+                         else contextlib.nullcontext())
+                with scope:
+                    W, res = coord.train_swept(offsets, reg, warm_start=W)
+                if validate:
+                    W_now = W[inv]
+                    for j in range(L):
+                        snap = self._swept_lane_model(
+                            coords, name, W_now[j], locked, offsets,
+                            float(lams[j]), with_variances=False)
+                        lane_history[j].append(
+                            self._evaluate(snap, validation))
+                if checkpointer is not None and (
+                        (i + 1) == cfg.n_iterations
+                        or (i + 1) % checkpointer.every_sweeps == 0):
+                    res_summary = {
+                        "lanes_converged": int(res.converged.sum()),
+                        "max_solver_iterations": int(res.iterations.max())}
+                    checkpointer.save_stage(stage, {
+                        "lams": [float(x) for x in lams],
+                        "sweep": i + 1,
+                        "W": W,   # λ-descending lane order
+                        "lane_history": [_serialize_validation(h)
+                                         for h in lane_history],
+                        "res_summary": res_summary,
+                    })
         elapsed = time.perf_counter() - t0
         logger.info("swept fit: %d λ-lanes of '%s' in %.2fs", L, name,
                     elapsed)
+        if res is not None:
+            res_summary = {
+                "lanes_converged": int(res.converged.sum()),
+                "max_solver_iterations": int(res.iterations.max())}
         if run_logger is not None:
-            run_logger.event(
-                "swept_fit", coordinate=name, lanes=L,
-                duration_s=round(elapsed, 4),
-                lanes_converged=int(res.converged.sum()),
-                max_solver_iterations=int(res.iterations.max()))
+            run_logger.event("swept_fit", coordinate=name, lanes=L,
+                             duration_s=round(elapsed, 4),
+                             **(res_summary or {}))
         W_out = W[inv]
         results = []
         for j in range(L):
@@ -579,8 +684,22 @@ class GameEstimator:
                     len(lams))
         results, _ = self._train_swept_lanes(
             coords, name, lams, offsets, locked, validation, run_logger,
-            base_w0=base_w0)
+            base_w0=base_w0,
+            checkpointer=self._checkpointer(self.config.checkpoint_dir,
+                                            run_logger),
+            resume=self.config.resume)
         return results
+
+    def _checkpointer(self, ckpt_dir: str | None, run_logger):
+        """A ``RunCheckpointer`` for ``ckpt_dir`` with the config's
+        cadence, or None when checkpointing is off."""
+        if not ckpt_dir:
+            return None
+        cfg = self.config
+        return _ckpt.RunCheckpointer(
+            ckpt_dir, every_sweeps=cfg.checkpoint_every_sweeps,
+            every_solver_iters=cfg.checkpoint_every_solver_iters,
+            run_logger=run_logger, resume=cfg.resume)
 
     def _evaluate(self, model: GameModel, validation: GameDataset) -> dict:
         margins = torch.from_numpy(GameTransformer(
@@ -598,8 +717,14 @@ class GameEstimator:
         return out
 
     def _fit_point(self, train: GameDataset, prep: dict, reg_weights: dict,
-                   validation: GameDataset | None, run_logger) -> FitResult:
-        """One coordinate-descent fit at fixed λ a coordinate."""
+                   validation: GameDataset | None, run_logger,
+                   ckpt_tag: str | None = None,
+                   checkpointing: bool = True) -> FitResult:
+        """One coordinate-descent fit at fixed λ a coordinate.
+        ``ckpt_tag`` puts its checkpoints in a subdirectory (a grid point
+        of a point-by-point grid); ``checkpointing=False`` runs without
+        them (the non-swept tuned path, whose trials would overwrite
+        each other)."""
         cfg = self.config
         coords = self._build_coordinates(train, prep, reg_weights)
         logger.info("fit: point %s", reg_weights or "(default)")
@@ -617,11 +742,16 @@ class GameEstimator:
                 return self._evaluate(
                     self._model_snapshot(coords, coefficients), validation)
 
+        ckpt_dir = cfg.checkpoint_dir if checkpointing else None
+        if ckpt_dir and ckpt_tag:
+            ckpt_dir = f"{ckpt_dir}/{ckpt_tag}"
         cd = run_coordinate_descent(
             coordinates=coords, update_sequence=cfg.update_sequence,
             n_iterations=cfg.n_iterations, validator=validator,
             locked_coordinates=locked, initial_coefficients=initial,
-            run_logger=run_logger)
+            checkpoint_dir=ckpt_dir, resume=cfg.resume and checkpointing,
+            run_logger=run_logger,
+            checkpointer=self._checkpointer(ckpt_dir, run_logger))
         model = self._to_game_model(coords, cd)
         if cd.validation_history:
             # The last sweep's snapshot scores as the final model does.
@@ -648,8 +778,10 @@ class GameEstimator:
                 and set(self.config.reg_weight_grid) == {name}):
             return self._fit_grid_swept(train, prep, name, grid_points,
                                         validation, run_logger)
-        return [self._fit_point(train, prep, rw, validation, run_logger)
-                for rw in grid_points]
+        return [self._fit_point(
+                    train, prep, rw, validation, run_logger,
+                    ckpt_tag=f"grid_{gi}" if len(grid_points) > 1 else None)
+                for gi, rw in enumerate(grid_points)]
 
     def fit_tuned(self, train: GameDataset, validation: GameDataset,
                   run_logger=None) -> list[FitResult]:
@@ -687,9 +819,16 @@ class GameEstimator:
             return self._fit_tuned_swept(train, prep, swept_name, tuner,
                                          validation, run_logger, ev)
 
+        if self.config.checkpoint_dir:
+            # Tuner checkpoints ride the swept evaluator; per-point tuned
+            # fits run without them rather than overwrite each other.
+            logger.warning(
+                "checkpoint_dir is set but this tuning shape is not "
+                "swept-eligible; running WITHOUT tuner checkpoints")
+
         def evaluate_fn(point: dict):
             result = self._fit_point(train, prep, dict(point), validation,
-                                     run_logger)
+                                     run_logger, checkpointing=False)
             return result.evaluations[ev], result
 
         trials = tuner.run(evaluate_fn, tuning.n_trials,
@@ -702,11 +841,48 @@ class GameEstimator:
         """Batched trials: each tuner round proposes a batch of λ points
         and the batch trains as one swept solve.  Each new lane starts
         from the previous round's solution at the nearest log-λ."""
-        tuning = self.config.tuning
+        cfg = self.config
+        tuning = cfg.tuning
         hi = float(tuning.reg_weight_ranges[name]["high"])
         coords, locked, offsets, base_w0 = self._swept_setup(
             train, prep, name, hi)
         prev: dict = {"lams": None, "W": None}
+        ck = self._checkpointer(cfg.checkpoint_dir, run_logger)
+        rounds: list = []
+        restored: list = []
+        if ck is not None and cfg.resume:
+            # One stage file a round (``tuner_hist_<r>``): completed
+            # rounds feed the search as observations, and their results
+            # are rebuilt from the saved lane matrices, not retrained.
+            while True:
+                st = ck.load_stage(f"tuner_hist_{len(rounds)}")
+                if st is None:
+                    break
+                rounds.append(st)
+            for r in rounds:
+                W_r = torch.as_tensor(np.asarray(r["W"])).to(
+                    device=self.device, dtype=torch.float32)
+                hists = r.get("histories") or []
+                for j, lam in enumerate(r["lams"]):
+                    lam = float(lam)
+                    model = self._swept_lane_model(
+                        coords, name, W_r[j], locked, offsets, lam)
+                    evals = _revive_validation([r["evals"][j]])[0]
+                    fr = FitResult(
+                        model=model, evaluations=evals,
+                        reg_weights={c.name: (lam if c.name == name
+                                              else c.optimizer.reg_weight)
+                                     for c in cfg.coordinates},
+                        validation_history=_revive_validation(
+                            hists[j] if j < len(hists) else []))
+                    restored.append(({name: lam}, float(r["values"][j]),
+                                     fr))
+                prev["lams"] = [float(x) for x in r["lams"]]
+                prev["W"] = W_r
+            if rounds:
+                logger.info("tuned fit: restored %d trials from %d "
+                            "checkpointed rounds", len(restored),
+                            len(rounds))
 
         def evaluate_batch(configs: list[dict]):
             lams = [float(c[name]) for c in configs]
@@ -720,13 +896,26 @@ class GameEstimator:
                                    .to(prev["W"].device)]
             results, W_out = self._train_swept_lanes(
                 coords, name, lams, offsets, locked, validation,
-                run_logger, warm_W=warm_W, base_w0=base_w0)
+                run_logger, warm_W=warm_W, base_w0=base_w0,
+                checkpointer=ck, resume=cfg.resume,
+                stage=f"tuner_round_{len(rounds)}")
             prev["lams"], prev["W"] = lams, W_out
+            if ck is not None:
+                rd = {"lams": lams,
+                      "values": [float(r.evaluations[ev]) for r in results],
+                      "W": W_out,
+                      "evals": _serialize_validation(
+                          [r.evaluations for r in results]),
+                      "histories": [_serialize_validation(
+                          r.validation_history) for r in results]}
+                rounds.append(rd)
+                ck.save_stage(f"tuner_hist_{len(rounds) - 1}", rd)
             return [(r.evaluations[ev], r) for r in results]
 
         trials = tuner.run_batched(evaluate_batch, tuning.n_trials,
                                    batch_size=tuning.trial_batch,
-                                   run_logger=run_logger)
+                                   run_logger=run_logger,
+                                   restored=restored)
         return [t.payload for t in trials]
 
     def best(self, results: list[FitResult]) -> FitResult:

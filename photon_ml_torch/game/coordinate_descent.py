@@ -13,12 +13,18 @@ semantics:
       (validation once a sweep)
 
 The loop is host Python; scores and offsets stay on the device for the
-whole descent.  Checkpoint/resume (ROADMAP A8a) and the fused streamed
-cycle (ROADMAP A5) are not ported and raise.
+whole descent.  With a ``reliability.checkpoint.RunCheckpointer`` the
+run snapshots at sweep boundaries (and, with solver-iteration
+checkpoints on, after every coordinate), the checkpointer is the active
+session for the streaming solvers' mid-solve snapshots, and ``resume``
+re-enters at the most advanced (iteration, coordinate) with the score
+planes restored, so the resumed offsets are bitwise the uninterrupted
+run's.  The fused streamed cycle is ROADMAP A5b and raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import logging
@@ -27,9 +33,61 @@ import time
 import numpy as np
 import torch
 
+from photon_ml_torch.evaluation.evaluators import EvaluatorType
 from photon_ml_torch.game.coordinates import Coordinate
+from photon_ml_torch.reliability import checkpoint as _ckpt
 
 logger = logging.getLogger(__name__)
+
+
+def _serialize_history(history: list) -> list:
+    """Per-iteration diagnostics → checkpoint-tree form (entries already
+    in it pass through)."""
+    return [{name: (diag if isinstance(diag, dict) else _diag_fields(diag))
+             for name, diag in iter_diag.items()} for iter_diag in history]
+
+
+def _serialize_validation(entries: list) -> list:
+    out = []
+    for e in entries:
+        if isinstance(e, dict):
+            out.append({str(getattr(k, "value", k)): float(v)
+                        for k, v in e.items()})
+        else:
+            out.append(float(e))
+    return out
+
+
+def _revive_validation(entries: list) -> list:
+    """Inverse of ``_serialize_validation``: keys come back as
+    ``EvaluatorType`` where they parse."""
+    out = []
+    for e in entries or []:
+        if isinstance(e, dict):
+            revived = {}
+            for k, v in e.items():
+                try:
+                    revived[EvaluatorType(k)] = v
+                except ValueError:
+                    revived[k] = v
+            out.append(revived)
+        else:
+            out.append(e)
+    return out
+
+
+def _coord_device(coord) -> torch.device:
+    ic = coord.initial_coefficients()
+    return (ic[0] if isinstance(ic, (list, tuple)) else ic).device
+
+
+def _on_device(value, device):
+    """A restored coefficient (tensor, array, or per-bucket list) on
+    ``device``."""
+    if isinstance(value, (list, tuple)):
+        return [_on_device(v, device) for v in value]
+    return torch.as_tensor(np.asarray(value)).to(device=device,
+                                                 dtype=torch.float32)
 
 
 def _diag_fields(diag) -> dict:
@@ -37,6 +95,8 @@ def _diag_fields(diag) -> dict:
     ``OptimizationResult`` (fixed effect) or a per-bucket list of
     lane-batched results (random effect, reduced on the device and read
     back once)."""
+    if isinstance(diag, dict):
+        return dict(diag)
     if hasattr(diag, "value") and diag.value.dim() == 0:
         out = {"value": float(diag.value), "grad_norm": float(diag.grad_norm),
                "solver_iterations": int(diag.iterations),
@@ -122,22 +182,57 @@ def run_coordinate_descent(
         the coordinate starts scored at them instead of at zero.
       run_logger: optional ``utils.run_log.RunLogger`` for per-coordinate
         and per-sweep events.
-      checkpoint_dir, resume, checkpointer: ROADMAP A8a, not ported.
-      fused_engine: the fused streamed cycle, ROADMAP A5, not ported.
+      checkpoint_dir: snapshot the run after every sweep through a
+        ``RunCheckpointer`` built with default cadence (the format is a
+        superset of ``utils.checkpoint``'s).
+      resume: resume from the most advanced snapshot (it overrides
+        ``initial_coefficients`` for the names it holds).
+      checkpointer: a configured ``RunCheckpointer`` (cadence from
+        ``TrainingConfig``); while the loop runs it is the active
+        session the streaming solvers snapshot under, scoped by
+        (iteration, coordinate).
+      fused_engine: the fused streamed cycle, ROADMAP A5b, not ported.
     """
-    if checkpoint_dir or resume or checkpointer is not None:
-        raise NotImplementedError(
-            "coordinate-descent checkpoints and resume are not ported yet "
-            "(ROADMAP A8a)")
     if fused_engine is not None:
         raise NotImplementedError(
-            "the fused streamed CD cycle is not ported yet (ROADMAP A5)")
+            "the fused streamed CD cycle is not ported yet (ROADMAP A5b)")
     locked_coordinates = locked_coordinates or {}
     initial_coefficients = dict(initial_coefficients or {})
     for name in update_sequence:
         if name not in coordinates and name not in locked_coordinates:
             raise ValueError(f"coordinate '{name}' has no trainable unit "
                              "and is not locked")
+
+    if checkpointer is None and checkpoint_dir:
+        checkpointer = _ckpt.RunCheckpointer(checkpoint_dir,
+                                             run_logger=run_logger,
+                                             resume=resume)
+    start_iteration = start_pos = 0
+    ckpt_scores: dict = {}
+    restored_extra: dict = {}
+    if resume:
+        if checkpointer is None:
+            raise ValueError("resume=True requires checkpoint_dir")
+        loaded = checkpointer.load_latest_cd()
+        if loaded is not None:
+            if (loaded["re_state"] or {}).get("__cd_fused__") is not None:
+                raise ValueError(
+                    "checkpoint was written by a fused run (cd_fused); "
+                    "resume with cd_fused=true or start a fresh "
+                    "checkpoint_dir")
+            start_iteration = loaded["iteration"]
+            start_pos = loaded["coord_pos"]
+            for name, value in loaded["coefs"].items():
+                if name in coordinates:
+                    initial_coefficients[name] = _on_device(
+                        value, _coord_device(coordinates[name]))
+            restored_extra = loaded["extra"]
+            device = _coord_device(next(iter(coordinates.values())))
+            ckpt_scores = {k: torch.as_tensor(np.asarray(v)).to(device)
+                           for k, v in loaded["scores"].items()}
+            if run_logger is not None:
+                run_logger.event("cd_resume", iteration=start_iteration,
+                                 coord_pos=start_pos)
 
     coefs: dict = {}
     scores: dict = {}
@@ -147,63 +242,106 @@ def run_coordinate_descent(
     for name in update_sequence:
         if name in locked_coordinates:
             continue
-        if name in initial_coefficients:
+        if name in ckpt_scores and name in initial_coefficients:
+            # Restored score state: bitwise what the uninterrupted loop
+            # carried here.
+            coefs[name] = initial_coefficients[name]
+            scores[name] = ckpt_scores[name]
+        elif name in initial_coefficients:
             coefs[name] = initial_coefficients[name]
             scores[name] = coordinates[name].score(coefs[name])
         else:
             s = coordinates[name].score(
                 coordinates[name].initial_coefficients())
             scores[name] = torch.zeros_like(s)
-    total = None
-    for s in scores.values():
-        total = s if total is None else total + s
+    if "__cd_total__" in ckpt_scores:
+        total = ckpt_scores["__cd_total__"]
+    else:
+        total = None
+        for s in scores.values():
+            total = s if total is None else total + s
 
-    history: list = []
-    validation_history: list = []
-    prev_values: dict = {}
+    history = _serialize_history(restored_extra.get("history") or [])
+    validation_history = _revive_validation(
+        restored_extra.get("validation_history"))
+    prev_values: dict = dict(restored_extra.get("prev_values") or {})
     last_offsets: dict = {}
     last_results: dict = {}
-    for it in range(n_iterations):
-        iter_diag = {}
-        for name in update_sequence:
-            if name in locked_coordinates:
-                continue
-            coord = coordinates[name]
-            t0 = time.perf_counter()
-            offsets = total - scores[name]
-            w, diag = coord.train(offsets, coefs.get(name))
-            new_scores = coord.score(w)
-            total = offsets + new_scores
-            scores[name] = new_scores
-            coefs[name] = w
-            last_offsets[name] = offsets
-            last_results[name] = diag
-            fields = _diag_fields(diag)
-            iter_diag[name] = fields
-            elapsed = time.perf_counter() - t0
-            extra = {}
-            if "value" in fields:
-                if name in prev_values:
-                    extra["value_delta"] = round(
-                        prev_values[name] - fields["value"], 8)
-                prev_values[name] = fields["value"]
-            logger.info("CD iter %d coordinate %s trained in %.2fs",
-                        it + 1, name, elapsed)
-            if run_logger is not None:
-                run_logger.event("cd_coordinate", iteration=it + 1,
-                                 coordinate=name,
-                                 duration_s=round(elapsed, 4), **fields,
-                                 **extra)
-        history.append(iter_diag)
-        if validator is not None:
-            metric = _call_validator(validator, coefs, total)
-            validation_history.append(metric)
-            out = ({str(getattr(k, "value", k)): float(v)
-                    for k, v in metric.items()}
-                   if isinstance(metric, dict) else {"metric": float(metric)})
-            logger.info("CD iter %d validation %s", it + 1, out)
-            if run_logger is not None:
-                run_logger.event("cd_validation", iteration=it + 1, **out)
+
+    def extra() -> dict:
+        return {"history": _serialize_history(history),
+                "validation_history": _serialize_validation(
+                    validation_history),
+                "prev_values": dict(prev_values),
+                "fleet_seq": -1}
+
+    # Re-entering a partial sweep: the coordinates it skips trained
+    # before the interruption, and their diagnostics ride in the
+    # partial snapshot.
+    partial_diag = dict(restored_extra.get("partial_iter_diag") or {})
+    with _ckpt.session(checkpointer):
+        for it in range(start_iteration, n_iterations):
+            iter_diag = dict(partial_diag if it == start_iteration else {})
+            for pos, name in enumerate(update_sequence):
+                if name in locked_coordinates:
+                    continue
+                if it == start_iteration and pos < start_pos:
+                    continue   # trained before the interruption
+                coord = coordinates[name]
+                t0 = time.perf_counter()
+                scope = (checkpointer.scope(f"it{it + 1}", name)
+                         if checkpointer is not None
+                         else contextlib.nullcontext())
+                with scope:
+                    offsets = total - scores[name]
+                    w, diag = coord.train(offsets, coefs.get(name))
+                    new_scores = coord.score(w)
+                total = offsets + new_scores
+                scores[name] = new_scores
+                coefs[name] = w
+                last_offsets[name] = offsets
+                last_results[name] = diag
+                fields = _diag_fields(diag)
+                iter_diag[name] = fields
+                elapsed = time.perf_counter() - t0
+                extra_fields = {}
+                if "value" in fields:
+                    if name in prev_values:
+                        extra_fields["value_delta"] = round(
+                            prev_values[name] - fields["value"], 8)
+                    prev_values[name] = fields["value"]
+                logger.info("CD iter %d coordinate %s trained in %.2fs",
+                            it + 1, name, elapsed)
+                if run_logger is not None:
+                    run_logger.event("cd_coordinate", iteration=it + 1,
+                                     coordinate=name,
+                                     duration_s=round(elapsed, 4),
+                                     **fields, **extra_fields)
+                if checkpointer is not None and \
+                        checkpointer.mid_sweep_enabled:
+                    # ``pos + 1`` entries of sweep ``it + 1`` are done.
+                    checkpointer.save_cd_partial(
+                        it, pos + 1, coefs,
+                        scores={**scores, "__cd_total__": total},
+                        extra={**extra(), "partial_iter_diag":
+                               _serialize_history([iter_diag])[0]})
+            history.append(iter_diag)
+            if validator is not None:
+                metric = _call_validator(validator, coefs, total)
+                validation_history.append(metric)
+                out = ({str(getattr(k, "value", k)): float(v)
+                        for k, v in metric.items()}
+                       if isinstance(metric, dict)
+                       else {"metric": float(metric)})
+                logger.info("CD iter %d validation %s", it + 1, out)
+                if run_logger is not None:
+                    run_logger.event("cd_validation", iteration=it + 1,
+                                     **out)
+            if checkpointer is not None:
+                checkpointer.maybe_save_cd(
+                    it + 1, coefs,
+                    scores={**scores, "__cd_total__": total},
+                    extra=extra(), final=(it + 1 == n_iterations))
     return CoordinateDescentResult(
         coefficients=coefs, scores=scores, total_scores=total,
         history=history, validation_history=validation_history,

@@ -16,10 +16,14 @@ coordinates.
   lane converging on its own criteria.  Offsets move from example space
   to block space with ``index_put_`` and scores come back by a gather.
 
-``FixedEffectCoordinate.train_swept`` trains a whole λ grid as one
-lane-batched solve over the shared batch (``optim.lbfgs
-.lbfgs_solve_swept``).  The chunked, streamed and mesh variants are
-ROADMAP A5 and A7; they raise ``NotImplementedError``.
+- ``ChunkedFixedEffectCoordinate``: the fixed effect over a
+  ``ChunkedBatch`` (host-resident or spilled to disk), streamed to the
+  card on every evaluation by the ``optim.streaming`` solvers.
+
+``train_swept`` trains a whole λ grid as one lane-batched solve over
+the shared batch (``optim.lbfgs.lbfgs_solve_swept``, or its streamed
+counterpart).  The streamed random effect is ROADMAP A5b and the mesh
+variants A7; they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ from photon_ml_torch.game.dataset import (
     bucket_occupancy,
     group_by_entity,
 )
-from photon_ml_torch.models.game import RandomEffectModel
+from photon_ml_torch.models.coefficients import Coefficients
+from photon_ml_torch.models.game import FixedEffectModel, RandomEffectModel
 from photon_ml_torch.ops.objective import (
     GLMObjective,
     sweep_value,
@@ -175,12 +180,150 @@ class FixedEffectCoordinate(Coordinate):
                                  variance_type)
 
 
+@dataclasses.dataclass(eq=False)
 class ChunkedFixedEffectCoordinate(Coordinate):
-    """The chunk-streamed fixed effect: ROADMAP A5."""
+    """A fixed effect trained by chunk-accumulated streaming: the data
+    stays on the host or on disk (``data.chunked_batch``) and streams
+    to the card on every objective evaluation.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "chunked fixed-effect training is not ported yet (ROADMAP A5)")
+    The same ``train``/``score`` contract as ``FixedEffectCoordinate``:
+    the solve is ``optim.streaming.streaming_lbfgs_solve`` (L-BFGS, or
+    OWL-QN with L1) or ``streaming_tron_solve`` (TRON, preconditioned by
+    the Hessian-diagonal pass) over a ``ChunkedGLMObjective``; a spilled
+    batch runs the prefetch pipeline on every training and scoring
+    sweep.  ``train_swept`` runs L-BFGS lanes only, as on the resident
+    path.  Down-sampled views and FULL variances are refused by the
+    config."""
+
+    name: str
+    chunked: "object"                 # data.chunked_batch.ChunkedBatch
+    objective: GLMObjective           # reg and prior added once a pass
+    optimizer: "object"               # OptimizerType
+    config: OptimizerConfig
+    max_resident: int = 1
+    prefetch_depth: int = 2
+    device: "object" = None           # default CUDA; "cpu" when asked
+
+    def __post_init__(self):
+        from photon_ml_torch.optim.streaming import ChunkedGLMObjective
+
+        self.device = resolve_device(self.device)
+        self._obj = ChunkedGLMObjective(
+            self.objective, self.chunked, max_resident=self.max_resident,
+            prefetch_depth=self.prefetch_depth, device=self.device)
+
+    @property
+    def problem(self) -> OptimizationProblem:
+        """The (objective, optimizer, config) triple, as the resident
+        coordinate exposes it (model export reads its normalization)."""
+        return OptimizationProblem(objective=self.objective,
+                                   optimizer=self.optimizer,
+                                   config=self.config)
+
+    def initial_coefficients(self) -> Tensor:
+        return torch.zeros(self.chunked.dim, dtype=torch.float32,
+                           device=self.device)
+
+    def _coerce_offsets(self, offsets) -> np.ndarray:
+        """Offsets → exactly ``chunked.n`` entries.  A longer array is
+        accepted only at the chunk padding grid's length; anything else
+        longer raises, and a shorter one fails in ``set_offsets``."""
+        if isinstance(offsets, Tensor):
+            offsets = offsets.detach().cpu().numpy()
+        off = np.asarray(offsets, np.float32)
+        n = self.chunked.n
+        if off.shape[0] == n:
+            return off
+        grid = self.chunked.n_chunks * self.chunked.chunk_rows
+        if off.shape[0] == grid:
+            return off[:n]
+        if off.shape[0] > n:
+            raise ValueError(
+                f"offsets length {off.shape[0]} exceeds n {n} and does "
+                f"not match the chunk padding grid {grid}")
+        return off
+
+    def _install(self, offsets) -> None:
+        self.chunked.set_offsets(self._coerce_offsets(offsets))
+        self._obj.invalidate()
+
+    def train(self, offsets, warm_start: Tensor | None = None):
+        from photon_ml_torch.optim.streaming import (
+            streaming_lbfgs_solve,
+            streaming_tron_solve,
+        )
+
+        self._install(offsets)
+        w0 = (self.initial_coefficients() if warm_start is None
+              else warm_start.to(device=self.device, dtype=torch.float32))
+        problem = self.problem
+        l1 = problem._l1_vector(w0) if problem.has_l1() else None
+        if self.optimizer == OptimizerType.TRON:
+            if l1 is not None:
+                raise ValueError(
+                    "TRON supports smooth objectives only (no L1) — "
+                    "as on the resident path")
+            res = streaming_tron_solve(
+                self._obj.value_and_gradient, self._obj.hvp_pass, w0,
+                self.config, hessian_diag=self._obj.hessian_diagonal,
+                label=self.name)
+        else:
+            res = streaming_lbfgs_solve(
+                self._obj.value_and_gradient, w0, self.config,
+                l1_weight=l1, value_fn=self._obj.value, label=self.name)
+        return res.w, res
+
+    def train_swept(self, offsets, reg, warm_start=None):
+        """The λ grid as one streamed solve: one chunk sweep an
+        evaluation feeds all L lanes (the lane kernel on every chunk).
+        The contract of ``FixedEffectCoordinate.train_swept``."""
+        from photon_ml_torch.optim.streaming import (
+            streaming_lbfgs_solve_swept,
+        )
+
+        if self.optimizer == OptimizerType.TRON:
+            raise ValueError(
+                "train_swept supports LBFGS/OWL-QN lanes only (the λ "
+                "sweep is the L-BFGS grid workload; fit TRON "
+                "coordinates per grid point)")
+        self._install(offsets)
+        dim = self.chunked.dim
+        W0 = (torch.zeros((reg.n_lanes, dim), dtype=torch.float32,
+                          device=self.device) if warm_start is None
+              else warm_start.to(device=self.device, dtype=torch.float32))
+        l1v = (reg.l1_vectors(dim, self.objective.reg.reg_mask)
+               .to(self.device) if reg.has_l1() else None)
+        res = streaming_lbfgs_solve_swept(
+            lambda W: self._obj.value_and_gradient_swept(W, reg),
+            lambda W: self._obj.value_swept(W, reg),
+            W0, self.config, l1_weights=l1v, label=self.name)
+        return res.w, res
+
+    def score(self, coefficients: Tensor) -> Tensor:
+        """Raw X·w per example (offset-free), on the coordinate's device."""
+        return torch.from_numpy(self._obj.x_dot(coefficients)).to(
+            self.device)
+
+    def as_model(self, coefficients: Tensor) -> FixedEffectModel:
+        return FixedEffectModel(
+            coefficients=Coefficients(means=coefficients),
+            feature_shard=self.name)
+
+    def compute_variances(self, coefficients: Tensor, offsets,
+                          variance_type) -> Tensor | None:
+        """SIMPLE variances from one Hessian-diagonal pass; FULL would
+        materialize a [d, d] Hessian and is refused."""
+        from photon_ml_torch.optim.variance import VarianceComputationType
+
+        if variance_type == VarianceComputationType.NONE:
+            return None
+        if variance_type == VarianceComputationType.FULL:
+            raise ValueError(
+                "FULL variances materialize a [d, d] Hessian — not "
+                "supported on the chunked path; use SIMPLE")
+        self._install(offsets)
+        diag = self._obj.hessian_diagonal(coefficients)
+        return 1.0 / torch.clamp(diag, min=1e-12)
 
 
 @dataclasses.dataclass(eq=False)
@@ -385,6 +528,6 @@ def build_random_effect_coordinate_sparse(
 
 
 def build_streamed_random_effect_coordinate(*args, **kwargs):
-    """Out-of-core random effects: ROADMAP A5."""
+    """Out-of-core random effects: ROADMAP A5b."""
     raise NotImplementedError(
-        "streamed random-effect training is not ported yet (ROADMAP A5)")
+        "streamed random-effect training is not ported yet (ROADMAP A5b)")

@@ -3,9 +3,11 @@
 Counterpart of ``photon_ml_tpu/hyperparameter/tuner.py``: each trial
 trains a model with the proposed configuration (typically a full
 ``GameEstimator`` fit) and reports its validation metric back to the
-search.  The reference's live progress (``monitor.progress``) is
-ROADMAP D3, and the resume of a checkpointed search (``run_batched``'s
-``restored``) ROADMAP A8a; the trials land in the run log as there.
+search.  ``run_batched(restored=...)`` resumes a checkpointed search:
+it replays the restored rounds' proposals so the strategy's random
+stream continues where the interrupted run left it.  The reference's
+live progress (``monitor.progress``) is ROADMAP D3; the trials land in
+the run log as there.
 """
 
 from __future__ import annotations
@@ -69,15 +71,42 @@ class HyperparameterTuner:
 
     def run_batched(self, evaluate_batch_fn, n_trials: int,
                     batch_size: int | None = None,
-                    run_logger=None) -> list[TrialResult]:
+                    run_logger=None, restored=()) -> list[TrialResult]:
         """Trials in proposal rounds: each round proposes q configs
         (``propose_batch``) and hands the list to
         ``evaluate_batch_fn(configs) → [(metric, payload), ...]``, so a
         batched evaluator (the swept-λ ``GameEstimator``) trains a round
         as one fit.  ``batch_size`` None takes the strategy's
-        ``default_batch``."""
+        ``default_batch``.
+
+        ``restored``: ``(config, metric, payload)`` triples from a
+        checkpoint, seeded into the history and the returned trials.
+        Their rounds' proposals are replayed against the history prefix
+        each round saw (proposals are deterministic given the seed and
+        the history), so the strategy's generators continue where the
+        interrupted run left them and the resumed search proposes the
+        rounds it would have."""
         history: list = []
         trials: list[TrialResult] = []
+        for config, metric, payload in restored:
+            history.append((config, metric))
+            trials.append(TrialResult(config=dict(config),
+                                      metric=float(metric),
+                                      payload=payload))
+        if trials and run_logger is not None:
+            run_logger.event("tuning_restored", trials=len(trials))
+        pos = 0
+        while pos < len(trials) and pos < n_trials:
+            q = batch_size or getattr(self.search, "default_batch",
+                                      None) or (n_trials - pos)
+            q = min(q, n_trials - pos)
+            replayed = self.search.propose_batch(history[:pos], q)
+            for cfg, t in zip(replayed, trials[pos:pos + q]):
+                if cfg != t.config and run_logger is not None:
+                    run_logger.event("tuning_replay_divergence",
+                                     trial=pos, proposed=cfg,
+                                     restored=t.config)
+            pos += q
         while len(trials) < n_trials:
             q = batch_size or getattr(self.search, "default_batch",
                                       None) or (n_trials - len(trials))

@@ -52,6 +52,19 @@ def _runtime_info() -> dict:
     return info
 
 
+def _ends_torn(path: str) -> bool:
+    """Whether a non-empty file does not end with a newline."""
+    try:
+        with open(path, "rb") as f:
+            f.seek(0, os.SEEK_END)
+            if f.tell() == 0:
+                return False
+            f.seek(-1, os.SEEK_END)
+            return f.read(1) != b"\n"
+    except OSError:  # unreadable: nothing to repair
+        return False
+
+
 class RunLogger:
     """JSONL event sink.  Events: ``{"t": <seconds since start>,
     "event": <kind>, ...}``; a ``None`` path logs to the stdlib logger
@@ -78,6 +91,10 @@ class RunLogger:
         if path is not None:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             self._f = open(path, mode)
+            if mode == "a" and _ends_torn(path):
+                # A killed predecessor's unfinished last line: start this
+                # run's events on a line of their own.
+                self._f.write("\n")
             atexit.register(self.close)
             if header if header is not None else mode == "w":
                 self.event("run_header", **_runtime_info(),

@@ -10,7 +10,10 @@ Phase 7 (GAME training) runs at 8,000 rows over 2,000 columns and 300
 entities a random effect, with every gate; phase 8 runs the training,
 indexing and scoring drivers in subprocesses with ``--device cpu``;
 phase 9 (the swept λ grid, single-λ fits and the tuned fit) runs on the
-60,000 rows, every gate but the card-only launch counts.
+60,000 rows, every gate but the card-only launch counts.  Phase 10 runs
+at phase 7's small size with 2,048-row chunks (10a–10c, the driver in a
+subprocess with ``--device cpu``) and on 20,000 of the 60,000 rows with
+8,192-row chunks (10d).
 """
 
 from __future__ import annotations
@@ -398,3 +401,61 @@ def test_fe_evaluation_splits_on_cpu():
     assert "transposed_shape" not in out["ell"]
     v, c = out["colmajor"]["transposed_shape"]
     assert c % 8 == 0 and v * c >= 2000 * (cs.NNZ + 1)
+
+
+def test_stream_phase_on_cpu(work):
+    """Phases 10a-10c at a small size: the streamed fit within the gates
+    of the resident one, the fault inside sweep 2's fixed-effect solve
+    raised in-band and resumed from a solver snapshot (bitwise on the
+    CPU), the corrupted chunk rebuilt, the driver SIGKILLed and resumed;
+    the probe leaves no patch behind."""
+    from photon_ml_torch.game import coordinates
+    from photon_ml_torch.optim import streaming
+
+    n, d, n_entities = 8000, 2000, 300
+    data = cs.make_game_data(7, n, d=d, n_entities=n_entities)
+    n_train = n - int(n * cs.TRAIN_HOLDOUT)
+    train, valid = data.take(slice(0, n_train)), data.take(slice(n_train, n))
+    ref = cs._fit_summary(cs._stream_fit(cs.game_config("ELL", "cpu"),
+                                         train, valid))
+    saved = (streaming.ChunkedGLMObjective.value_and_gradient,
+             streaming.ChunkedGLMObjective._place,
+             coordinates.ChunkedFixedEffectCoordinate.train)
+    out = cs.phase_stream(ref, "cpu", n=n, d=d, n_entities=n_entities,
+                          chunk_rows=2048, time_it=False)
+    assert out["failures"] == []
+    assert saved == (streaming.ChunkedGLMObjective.value_and_gradient,
+                     streaming.ChunkedGLMObjective._place,
+                     coordinates.ChunkedFixedEffectCoordinate.train)
+    a = out["10a"]
+    assert a["chunks"] == 4 and a["chunk_files"] == 4
+    assert a["placed_devices"] == ["cpu"] and a["rebuilds"] == 0
+    assert a["evaluation"]["placed_chunks"] == 4
+    assert out["10a_resident"]["evaluation"]["placed_chunks"] == 0
+    assert out["kernel_shape"]["shape"] == "stream_chunk_2048x31"
+    b = out["10b"]
+    assert "InjectedFault" in b["raised"] and b["fired"]
+    assert max(b["solver_resume_iterations"]) > 0 and b["bitwise"]
+    assert out["10b_corrupt"]["rebuilds"] >= 1
+    c = out["10c"]
+    assert c["victim_rc"] == -9 and c["run_headers"] == 2
+    assert c["max_abs_dw"] <= cs.DRIVER_COEF_TOL
+
+
+def test_stream_sweep_phase_on_cpu(train, work):
+    """Phase 10d on 20,000 rows: one streamed swept solve whose lanes 0,
+    3 and 7 end within phase 9's gates of the resident swept fit's; the
+    lane kernel's plain version checked at a chunk."""
+    rows = 20_000
+    sweep = {"rows": train["rows"][:rows], "labels": train["labels"][:rows],
+             "test_rows": train["test_rows"],
+             "test_labels": train["test_labels"]}
+    tr, va = cs.sweep_data(sweep)
+    ref, _ = cs._swept_fit("ELL", tr, va, "cpu")
+    out = cs.phase_stream_sweep(sweep, ref, "cpu", chunk_rows=8192,
+                                time_it=False)
+    assert out["failures"] == []
+    assert out["swept_solves"] == 1 and out["chunks"] == 3
+    assert out["evaluations"] > 0 and out["lane_launches"] == 0
+    assert out["kernel_shape"]["lanes"] == len(cs.SWEEP_LAMS)
+    assert out["kernel_shape"]["max_abs_err"] == 0.0

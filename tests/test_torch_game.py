@@ -362,9 +362,10 @@ def test_locked_coordinate_and_validator():
     assert res.history[0]["per_user"]["entities"] == \
         user.grouping.n_total_entities
     assert res.last_offsets["per_user"].shape == (n,)
-    with pytest.raises(NotImplementedError, match="A8"):
+    # Checkpoints are ported (A8a); the fused streamed cycle is A5b.
+    with pytest.raises(NotImplementedError, match="A5b"):
         run_coordinate_descent({"per_user": user}, ["per_user"], 1,
-                               checkpoint_dir="x")
+                               fused_engine=object())
 
 
 # -- GameEstimator ---------------------------------------------------------------
@@ -473,7 +474,7 @@ def test_estimator_defaults_to_cuda_and_rejects_unported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             GameEstimator(cfg)
-    for knob, value, item in (("chunk_rows", 1000, "A5"),
+    for knob, value, item in (("cd_fused", True, "A5b"),
                               ("n_devices", 2, "A7"),
                               ("telemetry", "trace", "A8")):
         with pytest.raises(NotImplementedError, match=item):

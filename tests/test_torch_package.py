@@ -77,6 +77,20 @@ def test_port_has_the_sweep_and_scoring_slice():
         assert rel in PORT_FILES     # so the import scan covers it
 
 
+def test_port_has_the_streaming_and_checkpoint_slice():
+    """Checkpoints and resume (A8a) and the chunk-streamed fixed effect
+    (A5a); ``reliability/faults.py`` and ``utils/checkpoint.py`` are the
+    port's own copies."""
+    for rel in ("photon_ml_torch/reliability/faults.py",
+                "photon_ml_torch/reliability/checkpoint.py",
+                "photon_ml_torch/utils/checkpoint.py",
+                "photon_ml_torch/data/chunk_store.py",
+                "photon_ml_torch/data/chunked_batch.py",
+                "photon_ml_torch/optim/streaming.py"):
+        assert (REPO / rel).is_file(), rel
+        assert rel in PORT_FILES     # so the import scan covers it
+
+
 def test_port_has_the_lane_kernel_source():
     """The lane kernel has its own source (built by ``_build`` at first
     use); B1's source no longer holds it."""
@@ -137,6 +151,12 @@ def test_fresh_import_leaves_jax_out():
         "import photon_ml_torch.hyperparameter.gp\n"
         "import photon_ml_torch.hyperparameter.search\n"
         "import photon_ml_torch.hyperparameter.tuner\n"
+        "import photon_ml_torch.reliability.faults\n"
+        "import photon_ml_torch.reliability.checkpoint\n"
+        "import photon_ml_torch.utils.checkpoint\n"
+        "import photon_ml_torch.data.chunk_store\n"
+        "import photon_ml_torch.data.chunked_batch\n"
+        "import photon_ml_torch.optim.streaming\n"
         f"print(json.dumps(sorted(m for m in sys.modules "
         f"if m.split('.')[0] in {FORBIDDEN!r})))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

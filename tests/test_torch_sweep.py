@@ -456,19 +456,31 @@ def test_fit_tuned_batched_trials(jax_c1, monkeypatch, mode, n_trials):
                    - next(iter(b.evaluations.values()))) < 1e-3
 
 
-def test_checkpointed_swept_fit_names_a8a():
-    """Swept and tuner checkpoints are not ported: asking for them
-    raises, naming ROADMAP A8a (the config refuses checkpoint_dir
-    first, naming A8)."""
+def test_checkpointed_swept_fit_names_a8a(tmp_path, monkeypatch):
+    """Swept checkpoints, once ROADMAP A8a's open item: the lanes
+    snapshot to their stage after each sweep, and a resumed run that
+    finds the last sweep done restores the lane matrix without training
+    again."""
+    from photon_ml_torch.reliability.checkpoint import RunCheckpointer
+
     x, y, cut = _glm_split(n=200, d=5)
     train, _ = _datasets(x, y, cut, "torch")
     est = GameEstimator(_config("torch", reg_weight_grid={"fixed": [1.0,
                                                                    2.0]}))
     prep = est._prepare(train)
     coords, locked, offsets, _ = est._swept_setup(train, prep, "fixed", 2.0)
-    with pytest.raises(NotImplementedError, match="A8a"):
-        est._train_swept_lanes(coords, "fixed", [1.0, 2.0], offsets, locked,
-                               None, None, checkpointer=object())
+    ck_dir = str(tmp_path / "ck")
+    _, W = est._train_swept_lanes(coords, "fixed", [1.0, 2.0], offsets,
+                                  locked, None, None,
+                                  checkpointer=RunCheckpointer(ck_dir))
+    stage = RunCheckpointer(ck_dir).load_stage("swept")
+    assert stage["sweep"] == est.config.n_iterations
+    monkeypatch.setattr(type(coords["fixed"]), "train_swept",
+                        lambda *a, **kw: pytest.fail("trained again"))
+    _, W2 = est._train_swept_lanes(
+        coords, "fixed", [1.0, 2.0], offsets, locked, None, None,
+        checkpointer=RunCheckpointer(ck_dir, resume=True), resume=True)
+    np.testing.assert_array_equal(W2.numpy(), W.numpy())
 
 
 def test_swept_lane_variances_match_sequential():

@@ -408,11 +408,13 @@ def test_regularization_and_prior_match_reference():
 
 
 def test_unported_options_raise():
-    """The transposed ELL, TRON and the swept λ solve are ported now
-    (they ran into ``NotImplementedError`` naming A2 and A6 before); a
-    swept solve of a TRON coordinate raises ``ValueError`` as in the
-    reference, and the options still missing raise, naming their ROADMAP
-    items: the chunked and streamed tiers (A5)."""
+    """The transposed ELL, TRON, the swept λ solve and the chunked fixed
+    effect are ported now (they ran into ``NotImplementedError`` naming
+    A2, A6 and A5 before); a swept solve of a TRON coordinate raises
+    ``ValueError`` as in the reference, and the options still missing
+    raise, naming their ROADMAP items: the streamed random effect (A5b)
+    and GRR chunks (A7)."""
+    from photon_ml_torch.data.chunked_batch import build_chunked_batch
     from photon_ml_torch.game.coordinates import (
         ChunkedFixedEffectCoordinate,
         FixedEffectCoordinate,
@@ -432,10 +434,13 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="LBFGS/OWL-QN lanes only"):
         coord.train_swept(torch.zeros(50), SweptRegularization.from_grid(
             "L2", [1.0, 0.1]))
-    with pytest.raises(NotImplementedError, match="A5"):
-        ChunkedFixedEffectCoordinate()
+    # The chunked fixed effect is ported (A5a); the streamed random
+    # effect (A5b) and GRR chunks (A7) still raise.
+    assert ChunkedFixedEffectCoordinate.train_swept
     with pytest.raises(NotImplementedError, match="A5"):
         build_streamed_random_effect_coordinate()
+    with pytest.raises(NotImplementedError, match="A7"):
+        build_chunked_batch(rows, 123, labels, n_chunks=2, layout="grr")
 
 
 def test_duplicate_ids_rejected():
