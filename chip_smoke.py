@@ -167,6 +167,35 @@ raises on failure:
    evaluation and single-lane ``gather_rowsum`` never, lanes 0, 3 and 7
    within phase 9's gates of its resident swept lanes; the lane kernel
    checked and timed at a placed chunk with L = 8.
+11. out-of-core GAME training on phase 10's data: (a) both random
+   effects streamed from a spill dir in entity chunks (16,384 entities a
+   chunk a size bucket, two decoded in host RAM, two prefetched),
+   converged entities retired, for 8 sweeps beside a resident 8-sweep
+   fit: held-out AUC within 1e-3 of it, each random effect's entities
+   solved a sweep non-increasing, every entity-chunk file present and the
+   stores quiesced; then one more per-user sweep at the last offsets (no
+   drift) must retire entities, and the sweep after it must solve exactly
+   the rest; printed: the per-sweep entities solved and retired, each
+   random effect's wall a sweep beside the resident fit's, one streamed
+   per-user sweep's wall, device ms by part and idle share.
+   (b) The fused cycle (``cd_fused``) over phase 10a's 131,072-row
+   chunks, spilled with their sidecars, 60 cycles: held-out AUC within
+   1e-3 of phase 10a's per-coordinate fit; every pass launches B1 at
+   least once a chunk and reads every chunk and every sidecar once, one
+   pass a cycle and one or two more for the final model; the sidecar
+   files present.  The engine on the card is held against the port's
+   CPU engine (which the tests hold against the JAX package): the same
+   fused fit over the first two chunks' rows, 60 cycles on each, every
+   cycle's (value, step scale) within 1e-5 relative and every
+   coefficient within 5e-3.  Phase 10a's 2-sweep fit is not converged,
+   so the fused fit's coefficients are recorded beside it, not gated.
+   Printed: each cycle's ms, value and step scale, the bytes a pass, one
+   cycle's device ms by part (B1, the float64 ``index_add_``, the Newton
+   solves, copies) and idle share; B1 checked and timed at a pass's chunk
+   with the fitted coefficients.  (c) An ``error`` fault at a
+   ``prefetch.load`` halfway through each of (a)'s and (b)'s fits (with
+   CD snapshots), then the resume from the snapshot: each ends within its
+   fit's gates, its bitwise equality with the uninterrupted fit printed.
 
 The line before the card's and the result's is one JSON object with a
 ``kernels`` list: per kernel its launches on its path (``gather_rowsum``:
@@ -174,11 +203,13 @@ phase 4; phase 6's ELL and transposed-ELL fits as ``launches_ell_fit``
 and ``launches_colmajor_fit``; phase 7's ELL GAME fit as
 ``launches_game_fit``; phase 8's in-process scoring as
 ``launches_scoring_driver``; phase 10a's streamed fit as
-``launches_stream_fit``; the GRR kernels: phase 6's GRR fit;
+``launches_stream_fit``; phase 11's streamed random-effect and fused
+fits as ``launches_re_stream_fit`` and ``launches_fused_fit``, the fused
+pass's chunk as ``fused_chunk_shape``; the GRR kernels: phase 6's GRR fit;
 ``gather_rowsum_lanes``: phase 9's ELL, transposed-ELL and tuned fits and
 phase 10d's streamed grid, and by shape in ``shapes``),
 the largest kernel-vs-plain difference over all checked shapes
-(``gather_rowsum``: phases 3, 7 and 10), and its times and bound
+(``gather_rowsum``: phases 3, 7, 10 and 11), and its times and bound
 (``gather_rowsum``: at the serving bucket, 64 rows x 32 slots; the GRR
 kernels: L2-cold, summed over the plan levels they run, i.e. one X·w
 plus one Xᵀr, with the warm sums beside; ``gather_rowsum_lanes``: at
@@ -229,6 +260,7 @@ from photon_ml_torch.estimators.game_estimator import GameEstimator
 from photon_ml_torch.estimators.game_transformer import GameTransformer
 from photon_ml_torch.evaluation.evaluators import EvaluatorType, auc
 from photon_ml_torch.game import coordinates as game_coordinates
+from photon_ml_torch.game import fused_sweep as fused_mod
 from photon_ml_torch.game.dataset import EntityGrouping, GameDataset
 from photon_ml_torch.io.model_io import load_game_model, save_game_model
 from photon_ml_torch.kernels import _build
@@ -385,6 +417,18 @@ STREAM_AUC_ATOL, STREAM_LOSS_RTOL = 1e-3, 1e-3   # phase 7's layout gates
 STREAM_CKPT_EVERY = 5             # solver iterations between snapshots
 STREAM_DRIVER_CHUNK_ROWS = 64     # the config-4 fixture's 750 rows: 12
 STREAM_DRIVER_ITERS = 100
+# Phase 11: out-of-core GAME training on phase 10's data.  (a) Both random
+# effects streamed from a spill dir in entity chunks, converged entities
+# retired, against a resident fit of as many sweeps; (b) the fused cycle
+# over phase 10a's chunks against phase 10a's per-coordinate fit; (c) a
+# prefetch fault in each and the resume from its CD snapshot.
+RE_CHUNK_ENTITIES = 16_384
+RE_STREAM_SWEEPS = 8
+FUSED_CYCLES = 60
+FUSED_CKPT_EVERY = 10             # cycles between fused snapshots
+FUSED_CHECK_CHUNKS = 2            # chunks of the card-against-CPU fused fit
+FUSED_TRAJ_RTOL = 1e-5            # its per-cycle (value, alpha)
+FUSED_PARITY_ATOL = 5e-3          # its coefficients (the reference's)
 
 
 # -- the model and its float64 reference -------------------------------------
@@ -2925,6 +2969,9 @@ def phase_stream(ref: dict, device: str, seed: int = 7, n: int = GAME_ROWS,
     fit = _stream_fit(stream_config(device, spill, chunk_rows), train, valid)
     probe = fit["probe"]
     a = _fit_summary(fit)
+    a["blocks"] = {name: m.coefficient_blocks for name, m in
+                   fit["results"][0].model.models.items()
+                   if hasattr(m, "coefficient_blocks")}
     out["10a"] = {"wall_s": fit["wall_s"], "stages": fit["stages"],
                   "launches": fit["launches"],
                   **_launch_gates("10a", probe, ("value",
@@ -3010,6 +3057,7 @@ def phase_stream(ref: dict, device: str, seed: int = 7, n: int = GAME_ROWS,
     # 10c: the driver, SIGKILLed once a solver snapshot appears.
     out["10c"] = phase_stream_driver(
         [] if device != "cpu" else ["--device", "cpu"], failures)
+    out["fit_10a"] = a                                # phase 11's reference
     out["failures"] = failures
     return out
 
@@ -3156,6 +3204,460 @@ def phase_stream_sweep(data: dict, ref: dict, device: str,
         f"_L{table.shape[1]}", table, chunk.values, chunk.col_ids, atol,
         time_it=time_it)
     out["kernel_shape"]["launches"] = fit["lane_launches"]
+    out["failures"] = failures
+    return out
+
+
+# -- phase 11: out-of-core GAME training: streamed random effects, the fused
+# cycle, and their resumes ----------------------------------------------------
+
+
+class _OocProbe:
+    """Records, during a fit: the coordinates every
+    ``GameEstimator._build_coordinates`` returned, the fused engines
+    built, and for every fused pass its B1 launches, its chunks, the
+    reads of the fixed-effect and sidecar stores it made and the bytes it
+    placed on the card."""
+
+    def __enter__(self):
+        self.coords: list = []
+        self.engines: list = []
+        self.passes: list = []
+        self._saved = []
+        probe = self
+
+        def patch(owner, name, make):
+            old = getattr(owner, name)
+            self._saved.append((owner, name, old))
+            setattr(owner, name, make(old))
+
+        def build(old):
+            def _build_coordinates(est, *a, **kw):
+                out = old(est, *a, **kw)
+                probe.coords.append(out)
+                return out
+            return _build_coordinates
+
+        def engine(old):
+            def _fused_engine(est, *a, **kw):
+                out = old(est, *a, **kw)
+                probe.engines.append(out)
+                return out
+            return _fused_engine
+
+        def one_pass(old):
+            def _pass(eng, *a, **kw):
+                stores = [eng.chunked.store, eng.sidecar_store]
+                reads = [0 if s is None else s.loads + s.hits
+                         for s in stores]
+                b1 = gather_rowsum.launches
+                placed = eng._placer.placed_bytes
+                out = old(eng, *a, **kw)
+                after = [0 if s is None else s.loads + s.hits
+                         for s in stores]
+                probe.passes.append({
+                    "b1": gather_rowsum.launches - b1,
+                    "chunks": eng.chunked.n_chunks,
+                    "fe_reads": after[0] - reads[0],
+                    "sidecar_reads": after[1] - reads[1],
+                    "bytes": eng._placer.placed_bytes - placed})
+                return out
+            return _pass
+
+        patch(GameEstimator, "_build_coordinates", build)
+        patch(GameEstimator, "_fused_engine", engine)
+        patch(fused_mod.FusedCycleEngine, "_pass", one_pass)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, old in reversed(self._saved):
+            setattr(owner, name, old)
+        return False
+
+
+def _ooc_fit(config: TrainingConfig, train, valid, injector=None) -> dict:
+    """One ``GameEstimator.fit`` under ``_OocProbe``, the B1 count set to
+    0 just before and read just after, an injector installed (an empty
+    one counts the seams' occurrences), and its run log's events."""
+    log_path = os.path.join(WORK, f"ooc_{time.monotonic_ns()}.jsonl")
+    injector = injector if injector is not None else faults.FaultInjector([])
+    gather_rowsum.launches = 0
+    out = {"log": log_path, "injector": injector}
+    with RunLogger(log_path) as log, _OocProbe() as probe, \
+            faults.injected(injector):
+        t = time.perf_counter()
+        try:
+            out["results"] = GameEstimator(config).fit(train, valid,
+                                                       run_logger=log)
+        except faults.InjectedFault as e:
+            out["raised"] = repr(e)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t
+    out["launches"] = gather_rowsum.launches
+    out["probe"] = probe
+    out["events"] = read_run_log(log_path)
+    return out
+
+
+def _ooc_summary(fit: dict) -> dict:
+    """AUC, the fixed effect's and every random effect's coefficients."""
+    res = fit["results"][0]
+    models = res.model.models
+    return {"auc": float(res.evaluations[EvaluatorType.AUC]),
+            "w": models["global"].coefficients.means.numpy(),
+            "blocks": {name: [b.numpy() for b in m.coefficient_blocks]
+                       for name, m in models.items()
+                       if hasattr(m, "coefficient_blocks")}}
+
+
+def _same_model(a: dict, b: dict) -> bool:
+    return (np.array_equal(a["w"], b["w"])
+            and all(np.array_equal(x, y)
+                    for name in a["blocks"]
+                    for x, y in zip(a["blocks"][name], b["blocks"][name])))
+
+
+def _re_sweeps(events: list) -> dict:
+    """A random effect's per-sweep record from the run log's
+    ``cd_coordinate`` events: wall, entities solved, newly retired,
+    retired at the sweep's start, chunks streamed."""
+    out: dict = {}
+    for e in events:
+        if e["event"] != "cd_coordinate" or e["coordinate"] == "global":
+            continue
+        rec = out.setdefault(e["coordinate"], {"wall_s": [], "solved": [],
+                                               "newly_retired": [],
+                                               "retired": [], "chunks": []})
+        rec["wall_s"].append(e["duration_s"])
+        rec["solved"].append(e.get("entities_solved"))
+        rec["newly_retired"].append(e.get("entities_newly_retired"))
+        rec["retired"].append(e.get("entities_retired"))
+        rec["chunks"].append(e.get("chunks_streamed"))
+    return out
+
+
+def _split_device(by_name: dict, solve_words=()) -> dict:
+    """Device ms by part: B1, the ``index_add_`` kernels, the kernels
+    named by ``solve_words`` (the batched Newton solves), host ↔ card
+    copies, the rest; and the five largest kernels by name."""
+    parts = {"gather_rowsum": 0.0, "index_add": 0.0, "solves": 0.0,
+             "copies": 0.0, "rest": 0.0}
+    for name, ms in by_name.items():
+        low = name.lower()
+        key = ("gather_rowsum" if "gather_rowsum" in name
+               else "index_add" if "indexFunc" in name
+               else "copies" if "Memcpy" in name
+               else "solves" if any(w in low for w in solve_words)
+               else "rest")
+        parts[key] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    parts["largest"] = {name[:96]: ms for name, ms in top}
+    return parts
+
+
+_SOLVE_WORDS = ("getr", "lu_", "trsm", "solve", "pivot", "laswp", "batch")
+
+
+def _profile_call(fn, time_it: bool) -> dict:
+    """One call's wall (synchronized), its device ms by part and the idle
+    share; the parts and the idle share only with ``time_it``."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    out = {"wall_ms": (time.perf_counter() - t) * 1e3}
+    if time_it:
+        by_name = device_kernels_ms(fn, n=1)
+        out["device"] = _split_device(by_name, _SOLVE_WORDS)
+        busy = sum(by_name.values())
+        out["device_ms"] = busy or None
+        if busy:
+            out["idle_share"] = max(0.0, 1.0 - busy / out["wall_ms"])
+    return out
+
+
+def _store_gates(name: str, stores: list, failures: list) -> dict:
+    """Every store quiesced with every chunk file present."""
+    out = {"stores": len(stores), "chunk_files": 0, "rebuilds": 0}
+    if not stores:
+        failures.append(f"{name}: no chunk store")
+    for store in stores:
+        try:
+            store.assert_quiesced()
+        except RuntimeError as e:
+            failures.append(f"{name}: {e}")
+        missing = [i for i in range(store.n_chunks) if not store.has(i)]
+        if missing:
+            failures.append(f"{name}: chunk files {missing} missing")
+        out["chunk_files"] += store.n_chunks - len(missing)
+        out["rebuilds"] += store.rebuilds
+    return out
+
+
+def _joint_value(engine, summary: dict) -> float:
+    """The fused engine's joint objective (data, L2 terms) at a fit's
+    coefficients: one more pass, its statistics unused."""
+    w = torch.from_numpy(summary["w"]).to(engine.device)
+    tabs = [engine._flatten(r, summary["blocks"][r.name])
+            for r in engine.res]
+    acc, _, _ = engine._pass(w, tabs, engine._actives())
+    return engine._total_value(acc[0], w, tabs)
+
+
+def _fused_against_cpu(part, valid, device: str, chunk_rows: int,
+                       cycles: int, failures: list) -> dict:
+    """The fused fit over ``part`` on ``device`` and with the port's CPU
+    engine, ``cycles`` cycles each: every cycle's (value, step scale)
+    within ``FUSED_TRAJ_RTOL`` relative, the coefficients within
+    ``FUSED_PARITY_ATOL``."""
+    runs = {}
+    for tag, dev in (("card", device), ("cpu", "cpu")):
+        fit = _ooc_fit(stream_config(
+            dev, os.path.join(WORK, f"ooc_fused_check_{tag}"), chunk_rows,
+            cd_fused=True, n_iterations=cycles,
+            validate_per_iteration=False), part, valid)
+        cyc = [e for e in fit["events"] if e["event"] == "cd_fused_cycle"]
+        runs[tag] = {"value": np.array([e["value"] for e in cyc]),
+                     "alpha": np.array([e["alpha"] for e in cyc]),
+                     "rejected": sum(bool(e.get("rejected")) for e in cyc),
+                     "wall_s": fit["wall_s"], **_ooc_summary(fit)}
+    card, cpu = runs["card"], runs["cpu"]
+
+    def rel(key):
+        if len(card[key]) != len(cpu[key]):
+            return float("inf")
+        return float((np.abs(card[key] - cpu[key])
+                      / np.abs(cpu[key])).max())
+
+    out = {"rows": len(part.labels), "cycles": cycles,
+           "value_rel": rel("value"), "alpha_rel": rel("alpha"),
+           "max_abs_dw": float(np.abs(card["w"] - cpu["w"]).max()),
+           "max_abs_dblock": max(
+               float(np.abs(x - y).max()) for name in card["blocks"]
+               for x, y in zip(card["blocks"][name], cpu["blocks"][name])),
+           "rejected": [card["rejected"], cpu["rejected"]],
+           "auc": [card["auc"], cpu["auc"]],
+           "wall_s": [card["wall_s"], cpu["wall_s"]]}
+    if len(card["value"]) != cycles or not (
+            out["value_rel"] <= FUSED_TRAJ_RTOL
+            and out["alpha_rel"] <= FUSED_TRAJ_RTOL):
+        failures.append(f"11b: the card's fused trajectory is "
+                        f"{out['value_rel']:.3g} (value) and "
+                        f"{out['alpha_rel']:.3g} (alpha) from the CPU "
+                        f"engine's")
+    if not max(out["max_abs_dw"], out["max_abs_dblock"]) \
+            <= FUSED_PARITY_ATOL:
+        failures.append(f"11b: the card's fused coefficients are "
+                        f"{out['max_abs_dw']:.3g} (fixed effect) and "
+                        f"{out['max_abs_dblock']:.3g} (random effects) "
+                        f"from the CPU engine's")
+    return out
+
+
+def _fault_mid(injector) -> int:
+    """The prefetch.load occurrence halfway through a fit."""
+    return injector.occurrences("prefetch.load") // 2
+
+
+def phase_out_of_core(ref_10a: dict, device: str, seed: int = 7,
+                      n: int = GAME_ROWS, d: int = D,
+                      n_entities: int = N_ENTITIES,
+                      chunk_rows: int = STREAM_CHUNK_ROWS,
+                      re_chunk: int = RE_CHUNK_ENTITIES,
+                      sweeps: int = RE_STREAM_SWEEPS,
+                      cycles: int = FUSED_CYCLES,
+                      time_it: bool = True) -> dict:
+    """Phase 11 (module docstring) on phase 10's data; ``ref_10a`` is
+    phase 10a's per-coordinate streamed fit (its AUC, fixed-effect
+    coefficients and random-effect blocks)."""
+    failures: list = []
+    t = time.perf_counter()
+    data = make_game_data(seed, n, d=d, n_entities=n_entities)
+    n_train = n - int(n * TRAIN_HOLDOUT)
+    train, valid = data.take(slice(0, n_train)), data.take(slice(n_train, n))
+    del data
+    out = {"rows": n, "train_rows": n_train, "data_s": time.perf_counter() - t}
+
+    # 11a: the random effects streamed from disk, retirement on.
+    resident = _ooc_fit(game_config("ELL", device, sweeps=sweeps), train,
+                        valid)
+    r = _ooc_summary(resident)
+    re_spill = os.path.join(WORK, "ooc_re_spill")
+    re_cfg = dict(re_chunk_entities=re_chunk, spill_dir=re_spill,
+                  re_retirement=True, host_max_resident=2, prefetch_depth=2)
+    streamed = _ooc_fit(dataclasses.replace(
+        game_config("ELL", device, sweeps=sweeps), **re_cfg), train, valid)
+    s = _ooc_summary(streamed)
+    coords = streamed["probe"].coords[-1]
+    re_coords = {name: c for name, c in coords.items()
+                 if isinstance(c, game_coordinates
+                               .StreamedRandomEffectCoordinate)}
+    a = {"sweeps": sweeps, "chunk_entities": re_chunk,
+         "chunk_sizes": {k: c.chunk_ents for k, c in re_coords.items()},
+         "wall_s": streamed["wall_s"], "resident_wall_s": resident["wall_s"],
+         "launches": streamed["launches"],
+         "auc": s["auc"], "resident_auc": r["auc"],
+         "auc_gap": abs(s["auc"] - r["auc"]),
+         "max_abs_dw": float(np.abs(s["w"] - r["w"]).max()),
+         "re": _re_sweeps(streamed["events"]),
+         "resident_re_wall_s": {k: v["wall_s"] for k, v in
+                                _re_sweeps(resident["events"]).items()},
+         **_store_gates("11a", [c.store for c in re_coords.values()],
+                        failures)}
+    if set(re_coords) != {"per_user", "per_item"}:
+        failures.append(f"11a: streamed coordinates {sorted(re_coords)}")
+    if not a["auc_gap"] <= STREAM_AUC_ATOL:
+        failures.append(f"11a: AUC {s['auc']:.5f} vs resident {r['auc']:.5f}")
+    for name, rec in a["re"].items():
+        solved = rec["solved"]
+        if any(x < y for x, y in zip(solved, solved[1:])):
+            failures.append(f"11a: {name} solved {solved}: not "
+                            "non-increasing")
+    a["retired_any"] = any(sum(x or 0 for x in rec["newly_retired"])
+                           for rec in a["re"].values())
+    user = re_coords.get("per_user")
+    if user is not None and user._prev_offsets is not None:
+        off = torch.from_numpy(user._prev_offsets.copy())
+        a["sweep_profile"] = _profile_call(lambda: user.train(off), time_it)
+        a["sweep_profile"]["placed_mb"] = user._placer.placed_bytes / 1e6
+        # Retirement at full width: the profiled sweeps re-solved at the
+        # offsets of the fit's last, so the converged entities are
+        # candidates; committed, the next sweep solves only the rest.
+        before = user.train(off)[1]["entities_solved"]
+        retired = user.retire_converged()
+        after = user.train(off)[1]
+        a["still_offsets"] = {"solved": before, "retired": retired,
+                              "solved_next": after["entities_solved"],
+                              "woken": after["entities_woken"]}
+        if not (retired > 0 and after["entities_solved"] == before - retired
+                and after["entities_woken"] == 0):
+            failures.append(f"11a: still offsets retired {retired} of "
+                            f"{before}, then solved "
+                            f"{after['entities_solved']}")
+    out["11a"] = a
+    re_fault_at = _fault_mid(streamed["injector"])
+    del resident, streamed, coords, re_coords, user
+
+    # 11b: the fused cycle over phase 10a's chunks, spilled.
+    fe_spill = os.path.join(WORK, "ooc_fused_spill")
+    fused_cfg = stream_config(device, fe_spill, chunk_rows, cd_fused=True,
+                              n_iterations=cycles,
+                              validate_per_iteration=False)
+    fused = _ooc_fit(fused_cfg, train, valid)
+    f = _ooc_summary(fused)
+    check = _fused_against_cpu(train.take(slice(
+        0, min(n_train, FUSED_CHECK_CHUNKS * chunk_rows))), valid, device,
+        chunk_rows, cycles, failures)
+    engine = fused["probe"].engines[-1]
+    passes = fused["probe"].passes
+    K = engine.chunked.n_chunks
+    cyc = [e for e in fused["events"] if e["event"] == "cd_fused_cycle"]
+    b = {"cycles": cycles, "chunks": K, "chunk_rows": chunk_rows,
+         "wall_s": fused["wall_s"], "launches": fused["launches"],
+         "auc": f["auc"], "ref_10a_auc": ref_10a["auc"],
+         "auc_gap": abs(f["auc"] - ref_10a["auc"]),
+         "max_abs_dw": float(np.abs(f["w"] - ref_10a["w"]).max()),
+         "auc_gap_vs_11a_resident": abs(f["auc"] - r["auc"]),
+         "max_abs_dw_vs_11a_resident": float(np.abs(f["w"] - r["w"]).max()),
+         "max_abs_dw_10a_vs_11a_resident": float(
+             np.abs(ref_10a["w"] - r["w"]).max()),
+         "rejections": engine.rejections,
+         "passes": len(passes),
+         "pass_b1": sorted({p["b1"] for p in passes}),
+         "pass_reads": sorted({(p["fe_reads"], p["sidecar_reads"])
+                               for p in passes}),
+         "cycle_ms": [e["duration_s"] * 1e3 for e in cyc],
+         "alpha": [e["alpha"] for e in cyc],
+         "value": [e["value"] for e in cyc],
+         "entities_retired": [e["entities_retired"] for e in cyc],
+         "against_cpu": check,
+         **_store_gates("11b", [engine.chunked.store, engine.sidecar_store]
+                        if engine.sidecar_store is not None
+                        else [engine.chunked.store], failures)}
+    if engine.sidecar_store is None:
+        failures.append("11b: the sidecars were not spilled")
+    if not b["auc_gap"] <= STREAM_AUC_ATOL:
+        failures.append(f"11b: AUC {f['auc']:.5f} vs 10a "
+                        f"{ref_10a['auc']:.5f}")
+    b["accepted_cycles"] = sum(not e.get("rejected") for e in cyc)
+    if not np.isfinite(f["w"]).all():
+        failures.append("11b: non-finite fixed-effect coefficients")
+    b["joint_value"] = _joint_value(engine, f)
+    b["joint_value_10a"] = _joint_value(engine, ref_10a)
+    b["joint_value_11a_resident"] = _joint_value(engine, r)
+    if not cycles + 1 <= len(passes) <= cycles + 2 or len(cyc) != cycles:
+        failures.append(f"11b: {len(passes)} passes, {len(cyc)} cycles for "
+                        f"{cycles} cycles")
+    if device != "cpu" and any(p["b1"] < p["chunks"] for p in passes):
+        failures.append(f"11b: a pass launched B1 fewer times than its "
+                        f"{K} chunks: {b['pass_b1']}")
+    if any((p["fe_reads"], p["sidecar_reads"]) != (K, K) for p in passes):
+        failures.append(f"11b: a pass read {b['pass_reads']} (fixed "
+                        f"effect, sidecar) chunks, not {K} each")
+    leaves = engine._load(0)
+    b["bytes_a_pass"] = {
+        "fixed_effect": K * sum(v.nbytes for k, v in leaves.items()
+                                if k.startswith("fe.")),
+        "sidecar": K * sum(v.nbytes for k, v in leaves.items()
+                           if not k.startswith("fe."))}
+    b["placed_bytes_a_pass"] = passes[-1]["bytes"] if passes else 0
+    models = fused["results"][0].model.models
+    coefs = {"global": models["global"].coefficients.means.to(device)}
+    coefs.update({name: m.coefficient_blocks for name, m in models.items()
+                  if hasattr(m, "coefficient_blocks")})
+    b["cycle_profile"] = _profile_call(lambda: engine.run_cycle(coefs),
+                                       time_it)
+    chunk = streaming_mod.ArrayPlacer.handover(engine._placer.place(leaves))
+    w = coefs["global"].contiguous()
+    scale = max(1.0, float(w.abs().max())
+                * float(chunk["fe.values"].abs().max()))
+    vals, ids = chunk["fe.values"], chunk["fe.col_ids"]
+    out["kernel_shape"] = check_b1_case(
+        f"fused_chunk_{vals.shape[0]}x{vals.shape[1]}", w, vals, ids,
+        ATOL * scale, time_it=time_it)
+    out["kernel_shape"]["launches"] = fused["launches"]
+    out["11b"] = b
+    fused_fault_at = (cycles // 2) * K + K // 2
+    del fused, engine, chunk, leaves, passes
+
+    # 11c: a prefetch fault in each fit, then the resume from its snapshot.
+    c: dict = {}
+    for name, cfg, at, want in (
+            ("fused", dataclasses.replace(
+                fused_cfg, checkpoint_dir=os.path.join(WORK, "ooc_ck_f"),
+                checkpoint_every_sweeps=FUSED_CKPT_EVERY), fused_fault_at, f),
+            ("re_stream", dataclasses.replace(
+                game_config("ELL", device, sweeps=sweeps), **re_cfg,
+                checkpoint_dir=os.path.join(WORK, "ooc_ck_re")),
+             re_fault_at, s)):
+        inj = faults.FaultInjector([faults.Fault(site="prefetch.load",
+                                                 kind="error", at=at)])
+        first = _ooc_fit(cfg, train, valid, injector=inj)
+        if "raised" not in first:
+            failures.append(f"11c {name}: the injected fault did not raise")
+        again = _ooc_fit(dataclasses.replace(cfg, resume=True), train, valid)
+        got = _ooc_summary(again)
+        resumes = [e for e in again["events"] if e["event"] == "cd_resume"]
+        rec = {"fault_at": at, "fired": inj.fired,
+               "raised": first.get("raised"),
+               "resumed_at": [x["iteration"] for x in resumes],
+               "wall_s": first["wall_s"] + again["wall_s"],
+               "auc_gap": abs(got["auc"] - want["auc"]),
+               "max_abs_dw": float(np.abs(got["w"] - want["w"]).max()),
+               "bitwise": _same_model(got, want)}
+        if not resumes or not resumes[0]["iteration"] > 0:
+            failures.append(f"11c {name}: no resume past iteration 0 "
+                            f"({rec['resumed_at']})")
+        ref_auc = ref_10a["auc"] if name == "fused" else r["auc"]
+        if not abs(got["auc"] - ref_auc) <= STREAM_AUC_ATOL:
+            failures.append(f"11c {name}: AUC {got['auc']:.5f} vs "
+                            f"{ref_auc:.5f}")
+        c[name] = rec
+        del first, again
+    out["11c"] = c
     out["failures"] = failures
     return out
 
@@ -3311,6 +3813,7 @@ def main() -> int:
         t = time.perf_counter()
         stream = phase_stream(stream_ref, device="cuda")
         stream["card"] = card
+        fit_10a = stream.pop("fit_10a")
         print(f"phase 10a-c streamed training ({time.perf_counter() - t:.1f}"
               " s): " + json.dumps({"stream": stream}, default=str))
         if stream["failures"]:
@@ -3339,6 +3842,22 @@ def main() -> int:
                                  "not sum to the fits' launches")
         lanes["max_abs_err"] = max(sh["max_abs_err"]
                                    for sh in lanes["shapes"])
+
+        t = time.perf_counter()
+        ooc = phase_out_of_core(fit_10a, device="cuda")
+        ooc["card"] = card
+        print(f"phase 11 out-of-core GAME training ("
+              f"{time.perf_counter() - t:.1f} s): "
+              + json.dumps({"out_of_core": ooc}, default=str))
+        if ooc["failures"]:
+            raise AssertionError("phase 11: " + "; ".join(ooc["failures"]))
+        kernels[0]["launches_re_stream_fit"] = ooc["11a"]["launches"]
+        kernels[0]["launches_fused_fit"] = ooc["11b"]["launches"]
+        kernels[0]["fused_chunk_shape"] = [ooc["kernel_shape"]["n"],
+                                           ooc["kernel_shape"]["k"]]
+        kernels[0]["shapes"].append(ooc["kernel_shape"])
+        kernels[0]["max_abs_err"] = max(
+            sh["max_abs_err"] for sh in kernels[0]["shapes"])
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"total {time.perf_counter() - t_all:.1f} s")

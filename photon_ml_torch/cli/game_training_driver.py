@@ -12,12 +12,18 @@ Usage::
     python -m photon_ml_torch.cli.game_training_driver --config cfg.json \\
         [--output-dir DIR] [--device cuda|cpu] [--spill-dir S] \\
         [--host-max-resident N] [--prefetch-depth N] \\
+        [--re-chunk-entities N] [--re-retirement on|off] \\
+        [--cd-fused on|off] \\
         [--checkpoint-dir D] [--checkpoint-every-sweeps N] \\
         [--checkpoint-every-solver-iters N] [--resume]
 
 The run is on the card unless ``--device cpu`` (or ``"device": "cpu"``
 in the config) asks for the CPU; without CUDA it raises.  A chunked fit
-(``chunk_rows``) spills its fixed effect to ``--spill-dir``; with
+(``chunk_rows``) spills its fixed effect to ``--spill-dir``;
+``--re-chunk-entities`` streams each random effect from the spill dir in
+entity chunks (retiring converged entities unless ``--re-retirement
+off``), and ``--cd-fused on`` makes each coordinate-descent cycle one
+store pass over the chunked fixed effect and every random effect; with
 ``--checkpoint-dir`` it snapshots, and ``--resume`` continues from the
 most advanced snapshot, appending to the run log.  The fleet and
 multi-host bootstrap (ROADMAP A7), telemetry and the monitor (ROADMAP
@@ -215,6 +221,21 @@ def main(argv: list[str] | None = None) -> dict:
                         help="override config prefetch_depth: chunks "
                              "prefetched disk->host->card ahead of "
                              "compute (0 disables the thread)")
+    parser.add_argument("--re-chunk-entities", type=int, default=None,
+                        help="override config re_chunk_entities: "
+                             "out-of-core random-effect training, "
+                             "entities a streamed chunk a size bucket "
+                             "(requires a spill dir)")
+    parser.add_argument("--re-retirement", choices=("on", "off"),
+                        default=None,
+                        help="override config re_retirement: freeze "
+                             "converged entities between CD sweeps")
+    parser.add_argument("--cd-fused", choices=("on", "off"), default=None,
+                        help="override config cd_fused: one streamed "
+                             "store pass a CD cycle accumulates every "
+                             "coordinate's statistics (Jacobi solves "
+                             "against cycle-start offsets); requires "
+                             "chunk_rows and smooth regularization")
     parser.add_argument("--checkpoint-dir", default=None,
                         help="override config checkpoint_dir: CD sweep "
                              "state and mid-solve solver state land here")
@@ -238,10 +259,14 @@ def main(argv: list[str] | None = None) -> dict:
     if args.device is not None:
         config.device = args.device
     for field in ("spill_dir", "host_max_resident", "prefetch_depth",
-                  "checkpoint_dir", "resume", "checkpoint_every_sweeps",
+                  "re_chunk_entities", "checkpoint_dir", "resume",
+                  "checkpoint_every_sweeps",
                   "checkpoint_every_solver_iters"):
         if getattr(args, field) is not None:
             setattr(config, field, getattr(args, field))
+    for field in ("re_retirement", "cd_fused"):
+        if getattr(args, field) is not None:
+            setattr(config, field, getattr(args, field) == "on")
     # Re-validated with the overrides applied.
     config.validate()
     summary = run(config)

@@ -198,9 +198,12 @@ class TrainingConfig:
     spill_dir: str | None = None
     host_max_resident: int = 2
     prefetch_depth: int = 2
-    re_chunk_entities: int | None = None   # ROADMAP A5b
+    # Out-of-core random effects: entities a streamed chunk a bucket
+    # (spilled to spill_dir), with converged-entity retirement; cd_fused
+    # trains with one store pass a coordinate-descent cycle.
+    re_chunk_entities: int | None = None
     re_retirement: bool = True
-    cd_fused: bool = False                 # ROADMAP A5b
+    cd_fused: bool = False
     # The GRR plan cache (shared with the JAX package).  The compilation
     # cache is accepted and has no effect: the port's CUDA kernels are
     # cached under build/kernels/ by source hash.
@@ -219,7 +222,6 @@ class TrainingConfig:
     # (field, default, ROADMAP item) of the tiers not ported yet.
     _NOT_PORTED = (
         ("n_devices", None, "A7"),
-        ("re_chunk_entities", None, "A5b"), ("cd_fused", False, "A5b"),
         ("profile_dir", None, "A8b"), ("telemetry", "off", "A8b"),
         ("monitor", "off", "D3"), ("status_port", None, "D3"),
         ("distributed_init", False, "A7"))
@@ -299,6 +301,17 @@ class TrainingConfig:
                 "spill_dir requires chunked training (chunk_rows) or "
                 "streamed random effects (re_chunk_entities): only "
                 "chunk batches spill to the disk tier")
+        if self.re_chunk_entities is not None:
+            if self.re_chunk_entities <= 0:
+                raise ValueError("re_chunk_entities must be positive")
+            from photon_ml_torch.data.chunk_store import resolve_spill_dir
+
+            if resolve_spill_dir(self.spill_dir) is None:
+                raise ValueError(
+                    "re_chunk_entities requires spill_dir (or "
+                    "$PHOTON_ML_TPU_SPILL_DIR): streamed random-effect "
+                    "training is store-backed")
+        self._validate_fused()
         if self.chunk_rows is None:
             return
         if self.chunk_rows <= 0:
@@ -321,6 +334,41 @@ class TrainingConfig:
             raise ValueError(
                 "normalization requires resident feature statistics; "
                 "not supported with chunked training (chunk_rows)")
+
+    def _validate_fused(self) -> None:
+        """The reference's rules for ``cd_fused``."""
+        if not self.cd_fused:
+            return
+        if self.chunk_rows is None:
+            raise ValueError(
+                "cd_fused requires chunked training (chunk_rows): the "
+                "fixed effect's chunk grid is the fused cycle's master "
+                "grid")
+        if self.locked_coordinates:
+            raise ValueError(
+                "cd_fused does not support locked_coordinates (the fused "
+                "pass composes every coordinate's margins from live "
+                "coefficients)")
+        if self.n_devices is not None:
+            raise ValueError(
+                "cd_fused is single-device (the fused per-chunk program "
+                "is not mesh-sharded); drop n_devices")
+        fixed = [c for c in self.coordinates
+                 if c.name in self.update_sequence
+                 and c.kind == CoordinateKind.FIXED_EFFECT]
+        if len(fixed) != 1:
+            raise ValueError(
+                "cd_fused requires exactly one fixed-effect coordinate "
+                f"in update_sequence (got {len(fixed)})")
+        for c in self.coordinates:
+            if (c.name in self.update_sequence
+                    and c.optimizer.regularization
+                    not in (RegularizationType.NONE, RegularizationType.L2)):
+                raise ValueError(
+                    "cd_fused requires smooth regularization (NONE or L2) "
+                    f"on every coordinate; '{c.name}' uses "
+                    f"{c.optimizer.regularization.value} — the Jacobi "
+                    "Newton solves have no proximal step")
 
 
 @dataclasses.dataclass
@@ -381,43 +429,6 @@ class ScoringConfig:
                     f"{knob}={getattr(self, knob)!r} is not ported to "
                     f"photon_ml_torch yet (ROADMAP {item}); leave it at "
                     f"its default")
-
-    def _validate_chunked(self) -> None:
-        """The reference's rules for the chunked and spilled tier."""
-        if self.chunk_layout not in ("AUTO", "GRR", "ELL"):
-            raise ValueError("chunk_layout must be AUTO|GRR|ELL")
-        if self.host_max_resident < 1:
-            raise ValueError("host_max_resident must be >= 1")
-        if self.prefetch_depth < 0:
-            raise ValueError("prefetch_depth must be >= 0")
-        if (self.spill_dir is not None and self.chunk_rows is None
-                and self.re_chunk_entities is None):
-            raise ValueError(
-                "spill_dir requires chunked training (chunk_rows) or "
-                "streamed random effects (re_chunk_entities): only "
-                "chunk batches spill to the disk tier")
-        if self.chunk_rows is None:
-            return
-        if self.chunk_rows <= 0:
-            raise ValueError("chunk_rows must be positive")
-        if self.chunk_max_resident < 0:
-            raise ValueError("chunk_max_resident must be >= 0")
-        for c in self.coordinates:
-            if c.kind != CoordinateKind.FIXED_EFFECT:
-                continue
-            if c.down_sampling_rate is not None:
-                raise ValueError(
-                    "down-sampling is not supported with chunked "
-                    "training (chunk_rows)")
-            if c.optimizer.variance_type == VarianceComputationType.FULL:
-                raise ValueError(
-                    "FULL variances materialize a [d, d] Hessian — not "
-                    "supported with chunked training (chunk_rows); use "
-                    "SIMPLE")
-        if self.normalization != NormalizationType.NONE:
-            raise ValueError(
-                "normalization requires resident feature statistics; "
-                "not supported with chunked training (chunk_rows)")
 
 
 @dataclasses.dataclass

@@ -240,6 +240,62 @@ def decode_array_chunk(meta: dict, arrays) -> dict:
     return {k: arrays[k] for k in meta["keys"]}
 
 
+# Entity-block chunk leaves (streamed random effects): ``C`` padded
+# entity problems of one size bucket, x [C, cap, p] and [C, cap] scalar
+# planes.  Offsets are CD state, scattered in when a chunk is assembled.
+_ENTITY_LEAF_FIELDS = ("x", "labels", "weights", "mask")
+
+
+def encode_entity_chunk(chunk: dict) -> tuple[dict, dict]:
+    """Entity-block chunk (``x``/``labels``/``weights``/``mask``) →
+    (manifest, arrays)."""
+    arrays = {f: np.asarray(chunk[f]) for f in _ENTITY_LEAF_FIELDS}
+    meta = {"version": CHUNK_FORMAT_VERSION, "kind": "entity_blocks"}
+    return meta, arrays
+
+
+def decode_entity_chunk(meta: dict, arrays) -> dict:
+    """Inverse of ``encode_entity_chunk``; memmap views pass through."""
+    if meta.get("version") != CHUNK_FORMAT_VERSION:
+        raise ValueError(f"chunk format {meta.get('version')!r} != "
+                         f"{CHUNK_FORMAT_VERSION}")
+    if meta.get("kind") != "entity_blocks":
+        raise ValueError(
+            f"chunk kind {meta.get('kind')!r} != 'entity_blocks'")
+    return {f: arrays[f] for f in _ENTITY_LEAF_FIELDS}
+
+
+ENTITY_CHUNK_CODEC = (encode_entity_chunk, decode_entity_chunk)
+
+
+# Fused-cycle sidecar chunks: per example chunk, every random effect's
+# per-row entity index and (projected) feature plane, "<coordinate>.x"
+# [R, p] and "<coordinate>.idx" [R], beside the fixed-effect chunk of
+# the same rows, so one prefetched pair feeds a whole fused cycle.
+
+
+def encode_fused_chunk(chunk: dict) -> tuple[dict, dict]:
+    """Fused-cycle sidecar chunk → (manifest, arrays)."""
+    arrays = {k: np.asarray(v) for k, v in chunk.items()}
+    meta = {"version": CHUNK_FORMAT_VERSION, "kind": "fused_rows",
+            "keys": sorted(arrays)}
+    return meta, arrays
+
+
+def decode_fused_chunk(meta: dict, arrays) -> dict:
+    """Inverse of ``encode_fused_chunk``; memmap views pass through."""
+    if meta.get("version") != CHUNK_FORMAT_VERSION:
+        raise ValueError(f"chunk format {meta.get('version')!r} != "
+                         f"{CHUNK_FORMAT_VERSION}")
+    if meta.get("kind") != "fused_rows":
+        raise ValueError(f"chunk kind {meta.get('kind')!r} != "
+                         "'fused_rows'")
+    return {k: arrays[k] for k in meta["keys"]}
+
+
+FUSED_CHUNK_CODEC = (encode_fused_chunk, decode_fused_chunk)
+
+
 def array_content_key(arrays, cfg: dict) -> str:
     """Content fingerprint of chunk payloads derived from host arrays:
     exact input bytes (with dtype/shape framing) × build configuration."""

@@ -17,9 +17,13 @@ resolves to plain ELL, as in the JAX package off the TPU; COLMAJOR puts
 ``Xᵀr`` on B1 over the transposed ELL, GRR on the B2/B3 plan.  With
 ``chunk_rows`` the fixed effect is a ``ChunkedBatch`` (ELL chunks,
 spilled to ``spill_dir`` when one is given) streamed to the card on
-every evaluation.  With ``checkpoint_dir`` the coordinate descent, the
-swept fit's lanes and the tuner's rounds snapshot, and ``resume``
-restores them.  The fused cycle is ROADMAP A5b, a mesh A7.
+every evaluation.  With ``re_chunk_entities`` each random effect is a
+``StreamedRandomEffectCoordinate`` (entity chunks spilled to
+``spill_dir``, converged entities retired between sweeps); with
+``cd_fused`` a fit is one ``game.fused_sweep`` pass a cycle over the
+chunked fixed effect and every random effect.  With ``checkpoint_dir``
+the coordinate descent, the swept fit's lanes and the tuner's rounds
+snapshot, and ``resume`` restores them.  A mesh is ROADMAP A7.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from photon_ml_torch.game.coordinates import (
     FixedEffectCoordinate,
     build_random_effect_coordinate,
     build_random_effect_coordinate_sparse,
+    build_streamed_random_effect_coordinate,
 )
 from photon_ml_torch.game.dataset import GameDataset, sorted_key_join
 from photon_ml_torch.game.sampling import binary_classification_down_sample
@@ -129,6 +134,9 @@ class GameEstimator:
         self.task = config.task_type
         self.loss = self.task.loss
         self._warm_model = None
+        # The host residency group of the store-backed coordinates (set
+        # by _share_chunk_window, or by the fused engine's build).
+        self._chunk_window_group = None
         if config.warm_start_model_dir:
             from photon_ml_torch.io.model_io import load_game_model
 
@@ -375,7 +383,25 @@ class GameEstimator:
                 loss=self.loss,
                 reg=_reg_context(cc.optimizer, weight, 1, None, self.device),
                 norm=NormalizationContext.identity())
-            if isinstance(train.features[cc.feature_shard], np.ndarray):
+            if cfg.re_chunk_entities is not None:
+                from photon_ml_torch.data.chunk_store import (
+                    resolve_spill_dir,
+                )
+
+                # The environment default applies at this layer only.
+                spill = resolve_spill_dir(cfg.spill_dir)
+                if spill is None:
+                    raise ValueError(
+                        "re_chunk_entities requires spill_dir (or "
+                        "$PHOTON_ML_TPU_SPILL_DIR)")
+                coord = build_streamed_random_effect_coordinate(
+                    cc.entity_key, train, cc.feature_shard, objective,
+                    spill_dir=spill, chunk_entities=cfg.re_chunk_entities,
+                    config=ocfg, optimizer=cc.optimizer.optimizer,
+                    host_max_resident=cfg.host_max_resident,
+                    prefetch_depth=cfg.prefetch_depth,
+                    retirement=cfg.re_retirement, device=self.device)
+            elif isinstance(train.features[cc.feature_shard], np.ndarray):
                 coord = build_random_effect_coordinate(
                     cc.entity_key, train, cc.feature_shard, objective,
                     config=ocfg, optimizer=cc.optimizer.optimizer,
@@ -394,17 +420,51 @@ class GameEstimator:
 
     def _share_chunk_window(self, coords: dict) -> None:
         """One host residency budget (``host_max_resident``) over every
-        store-backed coordinate, when there is more than one."""
+        store-backed coordinate (a chunked fixed effect's, a streamed
+        random effect's), when there is more than one."""
         from photon_ml_torch.data.chunk_store import SharedChunkWindow
 
+        self._chunk_window_group = None
         stores = [c.chunked.store for c in coords.values()
                   if getattr(c, "chunked", None) is not None
                   and c.chunked.store is not None]
+        stores += [c.store for c in coords.values()
+                   if getattr(c, "store", None) is not None]
         if len(stores) < 2:
             return
         group = SharedChunkWindow(self.config.host_max_resident)
         for store in stores:
             store.join_window_group(group)
+        self._chunk_window_group = group
+
+    def _fused_engine(self, train: GameDataset, coords: dict):
+        """The fused cycle over the built coordinates (the config checked
+        its shape).  The sidecars share the fixed effect's host window:
+        a pass holds fixed-effect chunk i and sidecar i together."""
+        from photon_ml_torch.data.chunk_store import (
+            SharedChunkWindow,
+            resolve_spill_dir,
+        )
+        from photon_ml_torch.game.fused_sweep import build_fused_cycle_engine
+
+        cfg = self.config
+        spill = resolve_spill_dir(cfg.spill_dir)
+        group = self._chunk_window_group
+        if group is None and spill is not None:
+            fe_store = next(
+                (c.chunked.store for c in coords.values()
+                 if getattr(c, "chunked", None) is not None
+                 and c.chunked.store is not None), None)
+            if fe_store is not None:
+                group = SharedChunkWindow(cfg.host_max_resident)
+                fe_store.join_window_group(group)
+                self._chunk_window_group = group
+        return build_fused_cycle_engine(
+            train, coords, cfg.update_sequence,
+            re_shards={c.name: c.feature_shard for c in cfg.coordinates},
+            spill_dir=spill, host_max_resident=cfg.host_max_resident,
+            prefetch_depth=cfg.prefetch_depth,
+            retirement=cfg.re_retirement, window_group=group)
 
     # -- export -------------------------------------------------------------
 
@@ -751,7 +811,9 @@ class GameEstimator:
             locked_coordinates=locked, initial_coefficients=initial,
             checkpoint_dir=ckpt_dir, resume=cfg.resume and checkpointing,
             run_logger=run_logger,
-            checkpointer=self._checkpointer(ckpt_dir, run_logger))
+            checkpointer=self._checkpointer(ckpt_dir, run_logger),
+            fused_engine=(self._fused_engine(train, coords)
+                          if cfg.cd_fused else None))
         model = self._to_game_model(coords, cd)
         if cd.validation_history:
             # The last sweep's snapshot scores as the final model does.
@@ -774,8 +836,11 @@ class GameEstimator:
         prep = self._prepare(train)
         grid_points = self._grid_points()
         name = self._swept_coordinate_name()
+        # cd_fused trains grid points as separate fused fits: the swept
+        # lanes solve coordinate by coordinate.
         if (len(grid_points) > 1 and name is not None
-                and set(self.config.reg_weight_grid) == {name}):
+                and set(self.config.reg_weight_grid) == {name}
+                and not self.config.cd_fused):
             return self._fit_grid_swept(train, prep, name, grid_points,
                                         validation, run_logger)
         return [self._fit_point(

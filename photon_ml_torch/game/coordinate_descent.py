@@ -19,7 +19,14 @@ checkpoints on, after every coordinate), the checkpointer is the active
 session for the streaming solvers' mid-solve snapshots, and ``resume``
 re-enters at the most advanced (iteration, coordinate) with the score
 planes restored, so the resumed offsets are bitwise the uninterrupted
-run's.  The fused streamed cycle is ROADMAP A5b and raises.
+run's.  A streamed random effect's retirement state rides the snapshots'
+``re_state``, and its retirement is committed after each of its updates
+(``Coordinate.retire_converged``).
+
+With a ``game.fused_sweep.FusedCycleEngine`` every iteration is one
+streamed pass that accumulates every coordinate's statistics, then one
+Jacobi Newton step a coordinate against the cycle-start offsets
+(``_run_fused_cycles``); its state rides ``re_state["__cd_fused__"]``.
 """
 
 from __future__ import annotations
@@ -191,11 +198,14 @@ def run_coordinate_descent(
         ``TrainingConfig``); while the loop runs it is the active
         session the streaming solvers snapshot under, scoped by
         (iteration, coordinate).
-      fused_engine: the fused streamed cycle, ROADMAP A5b, not ported.
+      fused_engine: a ``game.fused_sweep.FusedCycleEngine``: each
+        iteration is one streamed pass plus the Jacobi solves, every
+        coordinate updated against the cycle-start offsets (so the
+        validator's ``total_scores`` are the cycle-start scores).
+        Locked coordinates are refused on this path.
     """
-    if fused_engine is not None:
-        raise NotImplementedError(
-            "the fused streamed CD cycle is not ported yet (ROADMAP A5b)")
+    if fused_engine is not None and locked_coordinates:
+        raise ValueError("fused CD does not support locked coordinates")
     locked_coordinates = locked_coordinates or {}
     initial_coefficients = dict(initial_coefficients or {})
     for name in update_sequence:
@@ -210,15 +220,28 @@ def run_coordinate_descent(
     start_iteration = start_pos = 0
     ckpt_scores: dict = {}
     restored_extra: dict = {}
+    fused_state: dict | None = None
     if resume:
         if checkpointer is None:
             raise ValueError("resume=True requires checkpoint_dir")
         loaded = checkpointer.load_latest_cd()
         if loaded is not None:
-            if (loaded["re_state"] or {}).get("__cd_fused__") is not None:
+            re_state = loaded["re_state"] or {}
+            fused_state = re_state.get("__cd_fused__")
+            if fused_state is not None and fused_engine is None:
+                # A fused snapshot pairs post-step coefficients with
+                # cycle-start score planes: the per-coordinate loop
+                # would train against offsets one Jacobi step stale.
                 raise ValueError(
                     "checkpoint was written by a fused run (cd_fused); "
                     "resume with cd_fused=true or start a fresh "
+                    "checkpoint_dir")
+            if fused_state is None and fused_engine is not None:
+                # Its iteration count budgets full inner solves: a fused
+                # run adopting it would end under-converged, silently.
+                raise ValueError(
+                    "checkpoint was written by a per-coordinate run; "
+                    "resume with cd_fused=false or start a fresh "
                     "checkpoint_dir")
             start_iteration = loaded["iteration"]
             start_pos = loaded["coord_pos"]
@@ -227,12 +250,31 @@ def run_coordinate_descent(
                     initial_coefficients[name] = _on_device(
                         value, _coord_device(coordinates[name]))
             restored_extra = loaded["extra"]
-            device = _coord_device(next(iter(coordinates.values())))
-            ckpt_scores = {k: torch.as_tensor(np.asarray(v)).to(device)
-                           for k, v in loaded["scores"].items()}
+            if fused_engine is None:
+                # The fused loop composes margins from coefficients and
+                # never reads these planes back.
+                device = _coord_device(next(iter(coordinates.values())))
+                ckpt_scores = {k: torch.as_tensor(np.asarray(v)).to(device)
+                               for k, v in loaded["scores"].items()}
+            # A streamed random effect's blocks come back with its
+            # retirement state; installed as the warm start, they are
+            # recognized as its own and the state is kept.
+            for name, st in re_state.items():
+                coord = coordinates.get(name)
+                if coord is not None and hasattr(coord,
+                                                 "restore_runtime_state"):
+                    blocks, cached = coord.restore_runtime_state(st)
+                    initial_coefficients[name] = blocks
+                    ckpt_scores.setdefault(name, cached)
             if run_logger is not None:
                 run_logger.event("cd_resume", iteration=start_iteration,
                                  coord_pos=start_pos)
+
+    if fused_engine is not None:
+        return _run_fused_cycles(
+            fused_engine, coordinates, update_sequence, n_iterations,
+            validator, initial_coefficients, checkpointer, run_logger,
+            start_iteration, restored_extra, fused_state)
 
     coefs: dict = {}
     scores: dict = {}
@@ -267,6 +309,12 @@ def run_coordinate_descent(
     prev_values: dict = dict(restored_extra.get("prev_values") or {})
     last_offsets: dict = {}
     last_results: dict = {}
+
+    def re_states() -> dict:
+        return {name: coord.runtime_state()
+                for name, coord in coordinates.items()
+                if hasattr(coord, "runtime_state")
+                and name not in locked_coordinates}
 
     def extra() -> dict:
         return {"history": _serialize_history(history),
@@ -304,7 +352,12 @@ def run_coordinate_descent(
                 fields = _diag_fields(diag)
                 iter_diag[name] = fields
                 elapsed = time.perf_counter() - t0
-                extra_fields = {}
+                # Retirement is committed after the new scores are in
+                # the totals: the next sweep packs only active entities.
+                newly_retired = coord.retire_converged()
+                extra_fields = ({} if newly_retired is None
+                                else {"entities_newly_retired":
+                                      newly_retired})
                 if "value" in fields:
                     if name in prev_values:
                         extra_fields["value_delta"] = round(
@@ -323,26 +376,94 @@ def run_coordinate_descent(
                     checkpointer.save_cd_partial(
                         it, pos + 1, coefs,
                         scores={**scores, "__cd_total__": total},
+                        re_state=re_states(),
                         extra={**extra(), "partial_iter_diag":
                                _serialize_history([iter_diag])[0]})
             history.append(iter_diag)
             if validator is not None:
-                metric = _call_validator(validator, coefs, total)
-                validation_history.append(metric)
-                out = ({str(getattr(k, "value", k)): float(v)
-                        for k, v in metric.items()}
-                       if isinstance(metric, dict)
-                       else {"metric": float(metric)})
-                logger.info("CD iter %d validation %s", it + 1, out)
-                if run_logger is not None:
-                    run_logger.event("cd_validation", iteration=it + 1,
-                                     **out)
+                _record_validation(validator, coefs, total, it,
+                                   validation_history, run_logger)
             if checkpointer is not None:
                 checkpointer.maybe_save_cd(
                     it + 1, coefs,
                     scores={**scores, "__cd_total__": total},
-                    extra=extra(), final=(it + 1 == n_iterations))
+                    re_state=re_states(), extra=extra(),
+                    final=(it + 1 == n_iterations))
     return CoordinateDescentResult(
         coefficients=coefs, scores=scores, total_scores=total,
         history=history, validation_history=validation_history,
         last_offsets=last_offsets, last_results=last_results)
+
+
+def _record_validation(validator, coefs, total, it, validation_history,
+                       run_logger) -> None:
+    metric = _call_validator(validator, coefs, total)
+    validation_history.append(metric)
+    out = ({str(getattr(k, "value", k)): float(v) for k, v in metric.items()}
+           if isinstance(metric, dict) else {"metric": float(metric)})
+    logger.info("CD iter %d validation %s", it + 1, out)
+    if run_logger is not None:
+        run_logger.event("cd_validation", iteration=it + 1, **out)
+
+
+def _run_fused_cycles(engine, coordinates, update_sequence, n_iterations,
+                      validator, initial_coefficients, checkpointer,
+                      run_logger, start_iteration, restored_extra,
+                      fused_state) -> CoordinateDescentResult:
+    """The fused loop: one streamed pass and the Jacobi solves an
+    iteration.  Snapshots land at cycle boundaries with the engine's
+    state (step scale, retirement masks, offset baselines) under
+    ``re_state["__cd_fused__"]``, so a resumed run steps as the
+    uninterrupted one; one last pass brings the score planes to the
+    final coefficients (the last accepted point's when the last step
+    rose)."""
+    engine.restore_runtime_state(fused_state)
+    trainable = list(dict.fromkeys(update_sequence))
+    coefs = {name: initial_coefficients.get(
+        name, coordinates[name].initial_coefficients())
+        for name in trainable}
+    history = _serialize_history(restored_extra.get("history") or [])
+    validation_history = _revive_validation(
+        restored_extra.get("validation_history"))
+
+    def extra() -> dict:
+        return {"history": _serialize_history(history),
+                "validation_history": _serialize_validation(
+                    validation_history),
+                "fleet_seq": -1}
+
+    with _ckpt.session(checkpointer):
+        for it in range(start_iteration, n_iterations):
+            t0 = time.perf_counter()
+            coefs, scores, total, iter_diag = engine.run_cycle(coefs)
+            elapsed = time.perf_counter() - t0
+            history.append(iter_diag)
+            fe_diag = iter_diag.get(engine.fe_name, {})
+            logger.info("CD fused cycle %d in %.2fs (value %s, alpha %s)",
+                        it + 1, elapsed, fe_diag.get("value"),
+                        fe_diag.get("alpha"))
+            if run_logger is not None:
+                run_logger.event(
+                    "cd_fused_cycle", iteration=it + 1,
+                    duration_s=round(elapsed, 4),
+                    value=fe_diag.get("value"),
+                    grad_norm=fe_diag.get("grad_norm"),
+                    alpha=fe_diag.get("alpha"),
+                    rejected=fe_diag.get("rejected", False),
+                    entities_retired=sum(
+                        d.get("entities_retired", 0)
+                        for d in iter_diag.values()))
+            if validator is not None:
+                # ``total`` holds the cycle-start scores (Jacobi).
+                _record_validation(validator, coefs, total, it,
+                                   validation_history, run_logger)
+            if checkpointer is not None:
+                checkpointer.maybe_save_cd(
+                    it + 1, coefs,
+                    scores={**scores, "__cd_total__": total},
+                    re_state={"__cd_fused__": engine.runtime_state()},
+                    extra=extra(), final=(it + 1 == n_iterations))
+    coefs, scores, total = engine.score_pass(coefs)
+    return CoordinateDescentResult(
+        coefficients=coefs, scores=scores, total_scores=total,
+        history=history, validation_history=validation_history)

@@ -32,6 +32,9 @@ The path from disk to the card, for a spilled batch:
 - ``invalidate`` closes the prefetcher, asserts the store is quiesced
   and waits for the copies still in flight, so no buffer is freed
   under a reader or a copy.
+- ``ArrayPlacer``: the same staging for chunks that are dicts of
+  arrays (the streamed random effect's entity chunks, the fused cycle's
+  chunk-and-sidecar pairs), through ``prefetch_stream``.
 
 A failed copy, a dead prefetch thread or a CUDA error raises on the
 consumer's thread; nothing carries on synchronously or on the CPU.
@@ -158,7 +161,7 @@ class _Placed:
 
     __slots__ = ("batch", "event", "nbytes")
 
-    def __init__(self, batch: SparseBatch, event, nbytes: int):
+    def __init__(self, batch, event, nbytes: int):
         self.batch = batch
         self.event = event
         self.nbytes = nbytes
@@ -167,20 +170,22 @@ class _Placed:
 class _Slot:
     __slots__ = ("pinned", "views", "event")
 
-    def __init__(self, host: SparseBatch):
+    def __init__(self, leaves: dict):
         self.pinned = {}
         self.views = {}
-        for leaf in _LEAVES:
-            a = np.asarray(getattr(host, leaf))
-            t = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype,
-                            pin_memory=True)
-            self.pinned[leaf] = t
-            self.views[leaf] = t.numpy()
+        for name, a in leaves.items():
+            a = np.asarray(a)
+            dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+            t = torch.empty(a.shape, dtype=dtype, pin_memory=True)
+            self.pinned[name] = t
+            self.views[name] = t.numpy()
         self.event = None
 
-    def fits(self, host: SparseBatch) -> bool:
-        return all(self.views[leaf].shape == np.shape(getattr(host, leaf))
-                   for leaf in _LEAVES)
+    def fits(self, leaves: dict) -> bool:
+        return (self.views.keys() == leaves.keys()
+                and all(self.views[k].shape == np.shape(a)
+                        and self.views[k].dtype == np.asarray(a).dtype
+                        for k, a in leaves.items()))
 
 
 class _Stager:
@@ -192,43 +197,51 @@ class _Stager:
         self._slots: list = [None] * max(2, int(slots))
         self._next = 0
 
-    def place(self, host: SparseBatch) -> _Placed:
+    def place_arrays(self, leaves: dict) -> _Placed:
+        """Name → host array → name → card tensor, copied through the
+        next pinned slot on the copy stream; ``batch`` of the result is
+        the dict of placed tensors."""
         k = self._next
         self._next = (k + 1) % len(self._slots)
         slot = self._slots[k]
-        if slot is None or not slot.fits(host):
+        if slot is None or not slot.fits(leaves):
             if slot is not None and slot.event is not None:
                 slot.event.synchronize()
-            slot = self._slots[k] = _Slot(host)
+            slot = self._slots[k] = _Slot(leaves)
         elif slot.event is not None:
             # The slot's previous copy must have finished reading it.
             slot.event.synchronize()
         nbytes = 0
         reads = []
-        for leaf in _LEAVES:
-            a = getattr(host, leaf)
+        for name, a in leaves.items():
             if _file_member(a):
-                reads.append((slot.views[leaf], a.filename, a.offset))
+                reads.append((slot.views[name], a.filename, a.offset))
             elif np.asarray(a).flags.writeable:
                 # torch's copy runs on its intra-op threads.
-                slot.pinned[leaf].copy_(torch.from_numpy(np.asarray(a)))
+                slot.pinned[name].copy_(torch.from_numpy(np.asarray(a)))
             else:
-                np.copyto(slot.views[leaf], np.asarray(a), casting="no")
+                np.copyto(slot.views[name], np.asarray(a), casting="no")
             nbytes += a.nbytes
         _read_members(reads)
         placed = {}
         with torch.cuda.stream(self.stream):
-            for leaf in _LEAVES:
-                pin = slot.pinned[leaf]
+            for name in leaves:
+                pin = slot.pinned[name]
                 dev = torch.empty(pin.shape, dtype=pin.dtype,
                                   device=self.device)
                 dev.copy_(pin, non_blocking=True)
-                placed[leaf] = dev
+                placed[name] = dev
             event = torch.cuda.Event()
             event.record(self.stream)
         slot.event = event
-        return _Placed(dataclasses.replace(host, grr=None, colmajor=None,
-                                           **placed), event, nbytes)
+        return _Placed(placed, event, nbytes)
+
+    def place(self, host: SparseBatch) -> _Placed:
+        p = self.place_arrays({leaf: getattr(host, leaf)
+                               for leaf in _LEAVES})
+        p.batch = dataclasses.replace(host, grr=None, colmajor=None,
+                                      **p.batch)
+        return p
 
     def quiesce(self) -> None:
         """Wait for every copy still in flight."""
@@ -237,12 +250,17 @@ class _Stager:
                 slot.event.synchronize()
 
 
+def _place_cpu_arrays(leaves: dict) -> _Placed:
+    placed = {name: torch.from_numpy(np.array(a))
+              for name, a in leaves.items()}
+    nbytes = sum(t.numel() * t.element_size() for t in placed.values())
+    return _Placed(placed, None, nbytes)
+
+
 def _place_cpu(host: SparseBatch) -> _Placed:
-    leaves = {leaf: torch.from_numpy(np.array(getattr(host, leaf)))
-              for leaf in _LEAVES}
-    nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
-    return _Placed(dataclasses.replace(host, grr=None, colmajor=None,
-                                       **leaves), None, nbytes)
+    p = _place_cpu_arrays({leaf: getattr(host, leaf) for leaf in _LEAVES})
+    p.batch = dataclasses.replace(host, grr=None, colmajor=None, **p.batch)
+    return p
 
 
 def _handover(placed: _Placed) -> SparseBatch:
@@ -254,6 +272,48 @@ def _handover(placed: _Placed) -> SparseBatch:
         for leaf in _LEAVES:
             getattr(placed.batch, leaf).record_stream(stream)
     return placed.batch
+
+
+class ArrayPlacer:
+    """Host array dicts → tensors on ``device``: on CUDA through a
+    ``_Stager`` ring (pinned slots, a copy stream, an event a chunk), on
+    the CPU by a copy.  ``place`` runs on the prefetch thread, ``handover``
+    on the consumer's; ``quiesce`` waits for the copies still in flight
+    (before the host arrays may be freed).  The streamed random effect's
+    entity chunks and the fused cycle's chunk pairs take this path."""
+
+    def __init__(self, device, slots: int):
+        self.device = resolve_device(device)
+        self._slots = slots
+        self._stager: _Stager | None = None
+        self.placed_bytes = 0
+        self.placed_chunks = 0
+
+    def place(self, leaves: dict) -> _Placed:
+        if self.device.type != "cuda":
+            placed = _place_cpu_arrays(leaves)
+        else:
+            if self._stager is None:
+                self._stager = _Stager(self.device, self._slots)
+            placed = self._stager.place_arrays(leaves)
+        self.placed_bytes += placed.nbytes
+        self.placed_chunks += 1
+        return placed
+
+    @staticmethod
+    def handover(placed: _Placed) -> dict:
+        """The placed tensors, usable on the current stream."""
+        if placed.event is not None:
+            stream = torch.cuda.current_stream(
+                next(iter(placed.batch.values())).device)
+            stream.wait_event(placed.event)
+            for t in placed.batch.values():
+                t.record_stream(stream)
+        return placed.batch
+
+    def quiesce(self) -> None:
+        if self._stager is not None:
+            self._stager.quiesce()
 
 
 # ---------------------------------------------------------------------------
@@ -401,11 +461,13 @@ class ChunkPrefetcher:
         self._thread = None
 
 
-def prefetch_stream(load, place, order, depth: int, store=None):
+def prefetch_stream(load, place, order, depth: int, store=None,
+                    device=None):
     """Yield ``(i, placed)`` for every ``i`` in ``order`` through the
     prefetch pipeline (``depth`` chunks ahead), or synchronously when
     ``depth <= 0``.  The prefetcher is closed (and the store reader
-    released) whenever the generator exits."""
+    released) whenever the generator exits; ``device`` is the card the
+    prefetch thread places on."""
     order = list(order)
     if depth <= 0:
         if store is not None:
@@ -417,7 +479,7 @@ def prefetch_stream(load, place, order, depth: int, store=None):
             if store is not None:
                 store.end_read()
         return
-    pf = ChunkPrefetcher(load, place, depth, store=store)
+    pf = ChunkPrefetcher(load, place, depth, store=store, device=device)
     pf.start(order)
     try:
         for i in order:

@@ -13,7 +13,10 @@ phase 9 (the swept λ grid, single-λ fits and the tuned fit) runs on the
 60,000 rows, every gate but the card-only launch counts.  Phase 10 runs
 at phase 7's small size with 2,048-row chunks (10a–10c, the driver in a
 subprocess with ``--device cpu``) and on 20,000 of the 60,000 rows with
-8,192-row chunks (10d).
+8,192-row chunks (10d).  Phase 11 runs at phase 10's small size with
+64-entity and 2,048-row chunks; there the fused fit's held-out AUC ends
+above the per-coordinate fit's by more than the 1e-3 gate (a property of
+the size, as phase 6's AUC gate is), so that gate is expected to report.
 """
 
 from __future__ import annotations
@@ -459,3 +462,60 @@ def test_stream_sweep_phase_on_cpu(train, work):
     assert out["evaluations"] > 0 and out["lane_launches"] == 0
     assert out["kernel_shape"]["lanes"] == len(cs.SWEEP_LAMS)
     assert out["kernel_shape"]["max_abs_err"] == 0.0
+
+
+def test_fused_phase_on_cpu(work):
+    """Phase 11 at phase 10's small size: the streamed random effects (2
+    entity chunks and more a bucket, retirement on) within the AUC gate
+    of the resident fit over 8 sweeps with non-increasing solves; the
+    fused cycle over 2,048-row chunks against the per-coordinate
+    streamed fit, one pass a cycle reading every chunk and sidecar once,
+    and the fused fit over two chunks on the phase's device against the
+    CPU engine (both on the CPU here, so equal to the bit); a sweep at
+    still offsets retires entities and the next solves only the rest;
+    a fault in each fit resumed from its CD snapshot (bitwise on the
+    CPU); the probe leaves no patch behind."""
+    from photon_ml_torch.estimators.game_estimator import GameEstimator
+    from photon_ml_torch.game import fused_sweep
+
+    n, d, n_entities = 8000, 2000, 300
+    data = cs.make_game_data(7, n, d=d, n_entities=n_entities)
+    n_train = n - int(n * cs.TRAIN_HOLDOUT)
+    train, valid = data.take(slice(0, n_train)), data.take(slice(n_train, n))
+    ref = cs._ooc_summary(cs._ooc_fit(cs.stream_config(
+        "cpu", str(work / "ref_spill"), 2048), train, valid))
+    saved = (GameEstimator._build_coordinates, GameEstimator._fused_engine,
+             fused_sweep.FusedCycleEngine._pass)
+    out = cs.phase_out_of_core(ref, "cpu", n=n, d=d, n_entities=n_entities,
+                               chunk_rows=2048, re_chunk=64, time_it=False)
+    # At 7,200 training rows 60 fused cycles end 1e-2 above the 2-sweep
+    # per-coordinate fit's held-out AUC (at 900,000 within 1e-3): only
+    # that gate reports, for the fit and for its resume.
+    assert [(f.split(":")[0], "AUC" in f) for f in out["failures"]] == [
+        ("11b", True), ("11c fused", True)]
+    assert saved == (GameEstimator._build_coordinates,
+                     GameEstimator._fused_engine,
+                     fused_sweep.FusedCycleEngine._pass)
+    a = out["11a"]
+    assert a["stores"] == 2 and a["chunk_files"] > 2
+    assert len(a["re"]["per_user"]["solved"]) == cs.RE_STREAM_SWEEPS
+    b = out["11b"]
+    # One pass a cycle, one for the final scores and one more when the
+    # last step rose (the fit then returns the last accepted point).
+    assert b["chunks"] == 4 and b["passes"] in (cs.FUSED_CYCLES + 1,
+                                                 cs.FUSED_CYCLES + 2)
+    chk = b["against_cpu"]
+    assert chk["rows"] == 2 * 2048 and chk["cycles"] == cs.FUSED_CYCLES
+    assert chk["value_rel"] == 0.0 and chk["max_abs_dw"] == 0.0
+    still = a["still_offsets"]
+    assert still["retired"] > 0
+    assert still["solved_next"] == still["solved"] - still["retired"]
+    assert b["rejections"] > 0 and b["joint_value"] > 0
+    assert b["pass_reads"] == [(4, 4)]
+    assert len(b["alpha"]) == cs.FUSED_CYCLES
+    assert b["bytes_a_pass"]["sidecar"] > 0
+    assert out["kernel_shape"]["shape"] == "fused_chunk_2048x31"
+    for name in ("fused", "re_stream"):
+        c = out["11c"][name]
+        assert "InjectedFault" in c["raised"] and c["fired"]
+        assert c["resumed_at"][0] > 0 and c["bitwise"]

@@ -438,8 +438,8 @@ def test_estimator_chunked_fit_matches_resident(jax_c1, rng, tmp_path):
 
 def test_chunked_config_validation(jax_c1):
     """The reference's rules for the chunked tier hold in both packages;
-    GRR chunks and a mesh name ROADMAP A7, the streamed random effects
-    and the fused cycle A5b."""
+    GRR chunks and a mesh name ROADMAP A7, the streamed scoring knobs
+    A5b (the streamed random effects and the fused cycle now validate)."""
     from photon_ml_tpu.config import (
         CoordinateConfig as JCC,
         CoordinateKind as JKind,
@@ -480,9 +480,15 @@ def test_chunked_config_validation(jax_c1):
         Cfg(chunk_rows=100, spill_dir="/tmp/s", checkpoint_dir="/tmp/c",
             resume=True, **kw).validate()
     kw, _ = base("torch")
-    for knob, value in (("re_chunk_entities", 8), ("cd_fused", True)):
+    TrainingConfig(chunk_rows=100, re_chunk_entities=8, spill_dir="/tmp/s",
+                   **kw).validate()
+    TrainingConfig(chunk_rows=100, cd_fused=True, **kw).validate()
+    from photon_ml_torch.config import ScoringConfig
+
+    for knob, value in (("score_chunk_rows", 4096), ("prefetch_depth", 0)):
         with pytest.raises(NotImplementedError, match="A5b"):
-            TrainingConfig(chunk_rows=100, **{knob: value}, **kw).validate()
+            ScoringConfig(input_path="x", model_dir="m",
+                          **{knob: value}).validate()
     rows = SparseRows.from_rows([(np.array([0, 2], np.int32),
                                   np.ones(2, np.float32))] * 4)
     with pytest.raises(NotImplementedError, match="A7"):

@@ -166,8 +166,9 @@ def test_driver_subprocess_defaults_to_cuda(tmp_path):
 
 
 def test_driver_rejects_unported_knobs(tmp_path):
+    # The streamed random effects train now; the mesh is still A7.
     cfg = config4(str(tmp_path / "out"))
-    cfg["re_chunk_entities"] = 8
-    with pytest.raises(NotImplementedError, match="A5"):
+    cfg["n_devices"] = 2
+    with pytest.raises(NotImplementedError, match="A7"):
         game_training_driver.main(["--config", _write(tmp_path, cfg),
                                    "--device", "cpu"])

@@ -362,10 +362,11 @@ def test_locked_coordinate_and_validator():
     assert res.history[0]["per_user"]["entities"] == \
         user.grouping.n_total_entities
     assert res.last_offsets["per_user"].shape == (n,)
-    # Checkpoints are ported (A8a); the fused streamed cycle is A5b.
-    with pytest.raises(NotImplementedError, match="A5b"):
-        run_coordinate_descent({"per_user": user}, ["per_user"], 1,
-                               fused_engine=object())
+    # Checkpoints (A8a) and the fused cycle (A5b) are ported; a
+    # mesh-sharded random effect is still A7.
+    with pytest.raises(NotImplementedError, match="A7"):
+        build_random_effect_coordinate(
+            "userId", ttr, "user_re", to, mesh=object(), device=CPU)
 
 
 # -- GameEstimator ---------------------------------------------------------------
@@ -474,7 +475,8 @@ def test_estimator_defaults_to_cuda_and_rejects_unported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             GameEstimator(cfg)
-    for knob, value, item in (("cd_fused", True, "A5b"),
+    # cd_fused trains now (A5b): its place goes to distributed_init.
+    for knob, value, item in (("distributed_init", True, "A7"),
                               ("n_devices", 2, "A7"),
                               ("telemetry", "trace", "A8")):
         with pytest.raises(NotImplementedError, match=item):

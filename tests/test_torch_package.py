@@ -91,6 +91,19 @@ def test_port_has_the_streaming_and_checkpoint_slice():
         assert rel in PORT_FILES     # so the import scan covers it
 
 
+def test_port_has_the_out_of_core_game_slice():
+    """The streamed random effect with retirement and the fused cycle
+    (A5b, its training half): ``game/fused_sweep.py`` and the entity and
+    sidecar codecs of the chunk store."""
+    rel = "photon_ml_torch/game/fused_sweep.py"
+    assert (REPO / rel).is_file() and rel in PORT_FILES
+    from photon_ml_torch.data import chunk_store
+    from photon_ml_torch.game import coordinates
+
+    assert chunk_store.ENTITY_CHUNK_CODEC and chunk_store.FUSED_CHUNK_CODEC
+    assert coordinates.StreamedRandomEffectCoordinate.retire_converged
+
+
 def test_port_has_the_lane_kernel_source():
     """The lane kernel has its own source (built by ``_build`` at first
     use); B1's source no longer holds it."""
@@ -135,6 +148,7 @@ def test_fresh_import_leaves_jax_out():
         "import photon_ml_torch.game.projector\n"
         "import photon_ml_torch.game.coordinates\n"
         "import photon_ml_torch.game.coordinate_descent\n"
+        "import photon_ml_torch.game.fused_sweep\n"
         "import photon_ml_torch.estimators.game_transformer\n"
         "import photon_ml_torch.estimators.game_estimator\n"
         "import photon_ml_torch.config\n"

@@ -75,6 +75,7 @@ from photon_ml_torch.reliability import retry as retry_mod
 from photon_ml_torch.reliability.checkpoint import RunCheckpointer
 from photon_ml_torch.reliability.faults import Fault, FaultInjector
 from photon_ml_torch.utils.run_log import RunLogger, read_run_log
+from test_torch_training import jax_c1  # noqa: F401  (the C1 fixture)
 
 CPU = "cpu"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -966,3 +967,107 @@ def test_mid_solve_checkpoint_resumes_across_packages(rng, tmp_path,
     assert counted.calls < 40     # resumed, not solved again
     np.testing.assert_allclose(w, ref, rtol=0, atol=CROSS_ATOL)
     assert glob.glob(str(tmp_path / "solver_*.npz")) == []
+
+
+# -- the streamed random effect's state and the fused cycle across packages ----
+
+
+def _re_dataset(rng, pkg="torch", n=600):
+    ids = rng.integers(0, 40, n)
+    x = rng.normal(size=(n, 3)).astype(np.float32)
+    labels = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    if pkg == "jax":
+        from photon_ml_tpu.game.dataset import GameDataset as D
+    else:
+        D = GameDataset
+    return D(labels=labels, features={"re": x}, entity_ids={"user": ids},
+             feature_dims={"re": 3})
+
+
+def test_streamed_re_runtime_state_roundtrip(rng, tmp_path):
+    """The streamed random effect's retirement state through a CD
+    snapshot: a fresh coordinate restores it, its blocks pass the
+    warm-start identity check (the retired set and the cached scores
+    survive) and its next sweep matches the uninterrupted coordinate's;
+    the same snapshot loads in the JAX package's checkpointer and
+    restores into its streamed coordinate with the same retired set."""
+    from photon_ml_tpu.reliability.checkpoint import RunCheckpointer as JCk
+
+    from photon_ml_torch.game.coordinates import (
+        build_streamed_random_effect_coordinate,
+    )
+
+    ds = _re_dataset(rng)
+    obj = GLMObjective(loss=losses.LOGISTIC,
+                       reg=RegularizationContext.l2(1.0),
+                       norm=NormalizationContext.identity())
+
+    def build():
+        return build_streamed_random_effect_coordinate(
+            "user", ds, "re", obj, spill_dir=str(tmp_path / "spill"),
+            chunk_entities=8, config=OptimizerConfig(max_iters=25),
+            retirement=True, device=CPU)
+
+    offsets = torch.from_numpy(rng.normal(0, 0.1, ds.n).astype(np.float32))
+    c1 = build()
+    blocks1, _ = c1.train(offsets)
+    blocks1, _ = c1.train(offsets, warm_start=blocks1)
+    c1.retire_converged()
+    retired = c1.entities_retired
+    assert retired > 0
+    ck = RunCheckpointer(str(tmp_path / "ck"))
+    ck.save_cd(1, {"user": blocks1}, scores={"user": c1.score(blocks1)},
+               re_state={"user": c1.runtime_state()})
+    state = RunCheckpointer(str(tmp_path / "ck"),
+                            resume=True).load_latest_cd()["re_state"]["user"]
+    c2 = build()
+    blocks2, cached = c2.restore_runtime_state(state)
+    assert c2.entities_retired == retired
+    np.testing.assert_array_equal(c2.score(blocks2).numpy(), cached.numpy())
+    b_next_1, diag1 = c1.train(offsets, warm_start=blocks1)
+    b_next_2, diag2 = c2.train(offsets, warm_start=blocks2)
+    assert diag2["entities_retired"] == diag1["entities_retired"]
+    assert diag2["entities_solved"] == diag1["entities_solved"] \
+        < c1.grouping.n_total_entities
+    for w1, w2 in zip(b_next_1, b_next_2):
+        np.testing.assert_array_equal(w1.numpy(), w2.numpy())
+    jstate = JCk(str(tmp_path / "ck"),
+                 resume=True).load_latest_cd()["re_state"]["user"]
+    assert [np.asarray(a).sum() for a in jstate["active"]] == \
+        [a.sum() for a in state["active"]]
+
+
+@pytest.mark.parametrize("first", ["jax", "torch"])
+def test_fused_resume_across_packages(jax_c1, first, tmp_path):
+    """A fused fit checkpointed for 3 cycles by one package and resumed
+    to 8 by the other (the engine's fingerprint, step scale and
+    retirement state under ``re_state["__cd_fused__"]``) ends where the
+    resuming package's uninterrupted 8-cycle fit ends."""
+    from photon_ml_tpu.config import training_config_from_json as jcfg
+    from photon_ml_tpu.estimators.game_estimator import GameEstimator as JE
+
+    from test_torch_fused_cd import _arrays, _cfg_dict, _dataset
+
+    a = _arrays(np.random.default_rng(5))
+    ck = str(tmp_path / "ck")
+
+    def fit(pkg, iters, **kw):
+        cfg = json.dumps(_cfg_dict(True, iters, tolerance=1e-4, **kw))
+        if pkg == "jax":
+            res = JE(jcfg(cfg)).fit(_dataset(a, "jax"))[0]
+        else:
+            from photon_ml_torch.config import training_config_from_json
+
+            res = GameEstimator(training_config_from_json(
+                cfg[:-1] + ', "device": "cpu"}')).fit(_dataset(a))[0]
+        m = res.model.models
+        return (np.asarray(m["global"].coefficients.means),
+                [np.asarray(b) for b in m["per_u"].coefficient_blocks])
+
+    second = "torch" if first == "jax" else "jax"
+    full = fit(second, 8)
+    fit(first, 3, checkpoint_dir=ck)
+    resumed = fit(second, 8, checkpoint_dir=ck, resume=True)
+    np.testing.assert_allclose(resumed[0], full[0], rtol=0, atol=CROSS_ATOL)
+    for r, f in zip(resumed[1], full[1]):
+        np.testing.assert_allclose(r, f, rtol=0, atol=CROSS_ATOL)

@@ -434,11 +434,13 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="LBFGS/OWL-QN lanes only"):
         coord.train_swept(torch.zeros(50), SweptRegularization.from_grid(
             "L2", [1.0, 0.1]))
-    # The chunked fixed effect is ported (A5a); the streamed random
-    # effect (A5b) and GRR chunks (A7) still raise.
+    # The chunked fixed effect (A5a) and the streamed random effect
+    # (A5b) are ported; a mesh and GRR chunks (A7) still raise.
     assert ChunkedFixedEffectCoordinate.train_swept
-    with pytest.raises(NotImplementedError, match="A5"):
-        build_streamed_random_effect_coordinate()
+    with pytest.raises(NotImplementedError, match="A7"):
+        build_streamed_random_effect_coordinate(
+            "u", None, "re", None, spill_dir="/tmp/s", chunk_entities=4,
+            mesh=object())
     with pytest.raises(NotImplementedError, match="A7"):
         build_chunked_batch(rows, 123, labels, n_chunks=2, layout="grr")
 
