@@ -57,6 +57,7 @@ from photon_ml_torch.optim.streaming import (
     prefetch_stream,
     streaming_lbfgs_solve,
 )
+from test_torch_training import jax_fresh_caches  # noqa: F401  (C5)
 
 CPU = "cpu"
 VALUE_RTOL = 1e-5

@@ -56,7 +56,10 @@ from photon_ml_torch.optim.streaming import (
 from photon_ml_torch.optim.tron import tron_solve
 from photon_ml_torch.optim.variance import VarianceComputationType
 
-from test_torch_training import jax_c1  # noqa: F401  (the C1 fixture)
+from test_torch_training import (  # noqa: F401  (C1, C5)
+    jax_c1,
+    jax_fresh_caches,
+)
 
 CPU = "cpu"
 VALUE_RTOL = 1e-5

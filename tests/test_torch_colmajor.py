@@ -24,7 +24,10 @@ from photon_ml_torch.ops import kernels as tk
 from photon_ml_torch.ops import losses
 from photon_ml_torch.ops.objective import GLMObjective
 from photon_ml_torch.ops.regularization import RegularizationContext
-from test_torch_training import jax_c1  # noqa: F401  (the C1 fixture)
+from test_torch_training import (  # noqa: F401  (C1, C5)
+    jax_c1,
+    jax_fresh_caches,
+)
 
 CPU = "cpu"
 

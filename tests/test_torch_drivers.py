@@ -21,6 +21,7 @@ import torch
 
 from photon_ml_torch.cli import game_training_driver
 from photon_ml_torch.io.model_io import load_game_model
+from test_torch_training import jax_fresh_caches  # noqa: F401  (C5)
 
 HERE = os.path.join(os.path.dirname(__file__), "resources")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -50,7 +50,10 @@ from photon_ml_torch.models.glm import TaskType
 from photon_ml_torch.ops import losses
 from photon_ml_torch.ops.regularization import RegularizationType
 from photon_ml_torch.utils.run_log import RunLogger, read_run_log
-from test_torch_training import jax_c1  # noqa: F401  (the C1 fixture)
+from test_torch_training import (  # noqa: F401  (C1, C5)
+    jax_c1,
+    jax_fresh_caches,
+)
 
 CPU = "cpu"
 PARITY_ATOL = 5e-3

@@ -28,6 +28,7 @@ from photon_ml_torch.data import grr as tgrr
 from photon_ml_torch.kernels import _build
 from photon_ml_torch.ops import grr_kernel as tk
 from photon_ml_torch.ops.crossbar import apply_route_numpy, route_tile
+from test_torch_training import jax_fresh_caches  # noqa: F401  (C5)
 
 RTOL, ATOL = 2e-5, 2e-4
 

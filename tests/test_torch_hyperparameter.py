@@ -31,7 +31,10 @@ from photon_ml_torch.hyperparameter import (
     fit_gp,
 )
 from photon_ml_torch.hyperparameter.kernels import matern52, rbf
-from test_torch_training import jax_c1  # noqa: F401  (the C1 fixture)
+from test_torch_training import (  # noqa: F401  (C1, C5)
+    jax_c1,
+    jax_fresh_caches,
+)
 
 
 def _ref():

@@ -24,6 +24,7 @@ import torch
 
 from photon_ml_torch.kernels import _build
 from photon_ml_torch.ops import kernels as tk
+from test_torch_training import jax_fresh_caches  # noqa: F401  (C5)
 
 RTOL, ATOL = 1e-5, 1e-6
 

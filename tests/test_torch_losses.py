@@ -13,6 +13,7 @@ import torch
 from photon_ml_tpu.ops import losses as jl
 from photon_ml_torch.models.glm import TaskType
 from photon_ml_torch.ops import losses as tl
+from test_torch_training import jax_fresh_caches  # noqa: F401  (C5)
 
 NAMES = ["logistic", "squared", "poisson", "smoothed_hinge"]
 

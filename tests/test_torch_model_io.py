@@ -32,6 +32,7 @@ from photon_ml_torch.io import model_io as tio
 from photon_ml_torch.models.game import FixedEffectModel, RandomEffectModel
 from photon_ml_torch.models.glm import TaskType
 from photon_ml_torch.reliability import checkpoint as tck
+from test_torch_training import jax_fresh_caches  # noqa: F401  (C5)
 
 
 def _jax_model(seed: int = 5):

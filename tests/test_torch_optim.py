@@ -43,7 +43,10 @@ from photon_ml_torch.optim.tron import (
     tron_solve,
     tron_solve_batched,
 )
-from test_torch_training import jax_c1  # noqa: F401  (the C1 fixture)
+from test_torch_training import (  # noqa: F401  (C1, C5)
+    jax_c1,
+    jax_fresh_caches,
+)
 
 CFG = dict(max_iters=200, tolerance=1e-5)
 LOSSES = {"logistic": "LOGISTIC", "squared": "SQUARED", "poisson": "POISSON"}

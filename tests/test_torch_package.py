@@ -180,6 +180,34 @@ def test_fresh_import_leaves_jax_out():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def _runs_reference(path: pathlib.Path) -> bool:
+    """The file imports the JAX package, or a reference test module."""
+    return any(m.split(".")[0] == "photon_ml_tpu"
+               or (m.startswith("test_") and not m.startswith("test_torch_"))
+               for m in _imported_modules(path))
+
+
+def test_port_test_files_clear_jax_caches():
+    """Every port test file that runs the JAX package clears jax's caches
+    when it ends (ROADMAP C5): it imports the module-scoped autouse
+    fixture ``jax_fresh_caches`` of ``tests/test_torch_training.py``."""
+    files = sorted((REPO / "tests").glob("test_torch_*.py"))
+    running = [p for p in files if _runs_reference(p)]
+    assert len(running) >= 18, [p.name for p in running]
+    missing = []
+    for p in running:
+        tree = ast.parse(p.read_text(), filename=str(p))
+        names = {a.asname or a.name for node in tree.body
+                 if isinstance(node, ast.ImportFrom)
+                 and node.module == "test_torch_training"
+                 for a in node.names}
+        defined = {node.name for node in tree.body
+                   if isinstance(node, ast.FunctionDef)}
+        if "jax_fresh_caches" not in names | defined:
+            missing.append(p.name)
+    assert not missing, missing
+
+
 def test_resolve_device():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):

@@ -58,7 +58,10 @@ from photon_ml_torch.ops import losses
 from photon_ml_torch.ops.objective import GLMObjective
 from photon_ml_torch.ops.regularization import RegularizationContext
 from photon_ml_torch.optim.base import OptimizerConfig
-from test_torch_training import jax_c1  # noqa: F401  (the C1 fixture)
+from test_torch_training import (  # noqa: F401  (C1, C5)
+    jax_c1,
+    jax_fresh_caches,
+)
 
 CPU = "cpu"
 COEF_ATOL, SCORE_ATOL, EXACT_ATOL, AUC_ATOL = 1e-3, 2e-3, 1e-5, 1e-3

@@ -75,7 +75,10 @@ from photon_ml_torch.reliability import retry as retry_mod
 from photon_ml_torch.reliability.checkpoint import RunCheckpointer
 from photon_ml_torch.reliability.faults import Fault, FaultInjector
 from photon_ml_torch.utils.run_log import RunLogger, read_run_log
-from test_torch_training import jax_c1  # noqa: F401  (the C1 fixture)
+from test_torch_training import (  # noqa: F401  (C1, C5)
+    jax_c1,
+    jax_fresh_caches,
+)
 
 CPU = "cpu"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

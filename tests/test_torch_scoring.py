@@ -31,7 +31,10 @@ from photon_ml_torch.config import scoring_config_from_json
 from photon_ml_torch.io.avro import read_container
 from photon_ml_torch.io.index_map import load_index_maps
 from test_drivers import _write_jsonl_fixture
-from test_torch_training import jax_c1  # noqa: F401  (the C1 fixture)
+from test_torch_training import (  # noqa: F401  (C1, C5)
+    jax_c1,
+    jax_fresh_caches,
+)
 
 CPU = ["--device", "cpu"]
 

@@ -57,6 +57,7 @@ from photon_ml_torch.serving.batcher import (
 )
 from photon_ml_torch.serving.entity_store import EntityServeStore
 from photon_ml_torch.serving.server import ModelServer
+from test_torch_training import jax_fresh_caches  # noqa: F401  (C5)
 
 D, K, P_USER, P_ITEM = 64, 8, 2, 1
 N_USERS, N_ITEMS, N_ROWS = 40, 25, 48

@@ -51,7 +51,10 @@ from photon_ml_torch.optim.lbfgs import (
     lbfgs_solve_swept,
     owlqn_solve_swept,
 )
-from test_torch_training import jax_c1  # noqa: F401  (the C1 fixture)
+from test_torch_training import (  # noqa: F401  (C1, C5)
+    jax_c1,
+    jax_fresh_caches,
+)
 
 CPU = "cpu"
 LAMS = [10.0, 1.0, 0.1]

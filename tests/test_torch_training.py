@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -66,6 +67,24 @@ def jax_c1(monkeypatch):
                         jax._src.core.trace_state_clean, raising=False)
     monkeypatch.setattr(regularization, "_HALF", regularization._HALF)
     return jax
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_fresh_caches():
+    """Clears jax's caches when the module's tests end (ROADMAP C5).
+
+    A port test that runs the JAX package leaves the programs it traced
+    compiled in the process.  A reference test that runs later on the
+    same worker would then find them warm: its compile budgets would
+    count nothing, and a program that fails to trace alone (C1) would
+    pass.  Every port test file that imports ``photon_ml_tpu`` imports
+    this fixture (``tests/test_torch_package.py`` checks it); module
+    scope suffices because ``--dist loadfile`` runs a file whole on one
+    worker."""
+    yield
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.clear_caches()
 
 
 def _a1a(n, seed=7):
