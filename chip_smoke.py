@@ -196,6 +196,22 @@ raises on failure:
    ``prefetch.load`` halfway through each of (a)'s and (b)'s fits (with
    CD snapshots), then the resume from the snapshot: each ends within its
    fit's gates, its bitwise equality with the uninterrupted fit printed.
+12. streamed scoring: (a) phase 10a's fitted GAME model scores phase
+   10's 900,000 training rows through ``StreamingGameScorer`` (131,072
+   rows a chunk, 7 chunks, spilled to a spill dir, two in host RAM, two
+   prefetched): margins within 1e-5 of the resident
+   ``GameTransformer.transform``'s, the streaming AUC within 1e-9 of the
+   one-shot AUC of the same margins (its exact path), B1 launched at
+   least once a chunk, every chunk file present and the store quiesced;
+   a second scorer on the spilled files spills nothing and gives the
+   same margins to the bit.  Printed: the cold and warm passes' walls,
+   a warm pass's device ms by part (B1, copies), idle share and rows/s;
+   B1 checked and timed at the scorer's chunk.  (b) ``python -m
+   photon_ml_torch.cli.game_scoring_driver --score-chunk-rows 128
+   --spill-dir ...`` in a subprocess on phase 8's validation file and
+   model, to ``.npz`` and ``.avro``: the evaluation, the scores and the
+   Avro records within 1e-6 of phase 8's resident outputs, one chunk
+   file a chunk; then the same run in this process, B1 counted.
 
 The line before the card's and the result's is one JSON object with a
 ``kernels`` list: per kernel its launches on its path (``gather_rowsum``:
@@ -205,11 +221,13 @@ and ``launches_colmajor_fit``; phase 7's ELL GAME fit as
 ``launches_scoring_driver``; phase 10a's streamed fit as
 ``launches_stream_fit``; phase 11's streamed random-effect and fused
 fits as ``launches_re_stream_fit`` and ``launches_fused_fit``, the fused
-pass's chunk as ``fused_chunk_shape``; the GRR kernels: phase 6's GRR fit;
+pass's chunk as ``fused_chunk_shape``; phase 12's streamed scoring pass
+and streamed scoring driver as ``launches_stream_scoring`` and
+``launches_stream_scoring_driver``; the GRR kernels: phase 6's GRR fit;
 ``gather_rowsum_lanes``: phase 9's ELL, transposed-ELL and tuned fits and
 phase 10d's streamed grid, and by shape in ``shapes``),
 the largest kernel-vs-plain difference over all checked shapes
-(``gather_rowsum``: phases 3, 7, 10 and 11), and its times and bound
+(``gather_rowsum``: phases 3, 7, 10, 11 and 12), and its times and bound
 (``gather_rowsum``: at the serving bucket, 64 rows x 32 slots; the GRR
 kernels: L2-cold, summed over the plan levels they run, i.e. one X·w
 plus one Xᵀr, with the warm sums beside; ``gather_rowsum_lanes``: at
@@ -258,7 +276,9 @@ from photon_ml_torch.data.sparse_rows import SparseRows
 from photon_ml_torch.estimators import game_transformer
 from photon_ml_torch.estimators.game_estimator import GameEstimator
 from photon_ml_torch.estimators.game_transformer import GameTransformer
+from photon_ml_torch.estimators.streaming_scorer import StreamingGameScorer
 from photon_ml_torch.evaluation.evaluators import EvaluatorType, auc
+from photon_ml_torch.evaluation.streaming import make_streaming_evaluator
 from photon_ml_torch.game import coordinates as game_coordinates
 from photon_ml_torch.game import fused_sweep as fused_mod
 from photon_ml_torch.game.dataset import EntityGrouping, GameDataset
@@ -429,6 +449,13 @@ FUSED_CKPT_EVERY = 10             # cycles between fused snapshots
 FUSED_CHECK_CHUNKS = 2            # chunks of the card-against-CPU fused fit
 FUSED_TRAJ_RTOL = 1e-5            # its per-cycle (value, alpha)
 FUSED_PARITY_ATOL = 5e-3          # its coefficients (the reference's)
+# Phase 12: the streamed scorer over phase 10's 900,000 rows in 7 chunks;
+# its margins against the resident transform's, its streaming AUC
+# against the one-shot AUC of the same margins (the exact path); the
+# driver's streamed branch on phase 8's fixture in chunks of 128 rows.
+SCORE_MARGIN_ATOL = 1e-5
+SCORE_AUC_ATOL = 1e-9
+SCORE_DRIVER_CHUNK_ROWS = 128
 
 
 # -- the model and its float64 reference -------------------------------------
@@ -2972,6 +2999,7 @@ def phase_stream(ref: dict, device: str, seed: int = 7, n: int = GAME_ROWS,
     a["blocks"] = {name: m.coefficient_blocks for name, m in
                    fit["results"][0].model.models.items()
                    if hasattr(m, "coefficient_blocks")}
+    a["model"] = fit["results"][0].model              # phase 12's
     out["10a"] = {"wall_s": fit["wall_s"], "stages": fit["stages"],
                   "launches": fit["launches"],
                   **_launch_gates("10a", probe, ("value",
@@ -3659,6 +3687,177 @@ def phase_out_of_core(ref_10a: dict, device: str, seed: int = 7,
         del first, again
     out["11c"] = c
     out["failures"] = failures
+    out["train"] = train                              # phase 12's rows
+    return out
+
+
+# -- phase 12: streamed scoring -------------------------------------------------
+
+
+def phase_stream_score(model: GameModel, data: GameDataset, device: str,
+                       chunk_rows: int = STREAM_CHUNK_ROWS,
+                       time_it: bool = True) -> dict:
+    """Phase 12a (module docstring): ``model`` scores ``data`` through
+    ``StreamingGameScorer`` from a spill dir, cold (planning and
+    spilling the chunks) and warm (a new scorer on the spilled files),
+    against the resident ``GameTransformer.transform``."""
+    failures: list = []
+    task = TaskType.LOGISTIC_REGRESSION
+    spill = os.path.join(WORK, "score_spill")
+    labels = torch.from_numpy(data.labels)
+    weights = torch.from_numpy(data.weight_array())
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def scorer():
+        return StreamingGameScorer(
+            model, task, chunk_rows=chunk_rows, spill_dir=spill,
+            host_max_resident=2, prefetch_depth=2, device=device)
+
+    t = time.perf_counter()
+    resident = GameTransformer(model=model, task=task,
+                               device=device).transform(data)
+    out = {"rows": data.n, "chunk_rows": chunk_rows,
+           "resident_s": time.perf_counter() - t}
+
+    cold_scorer = scorer()
+    sync()
+    gather_rowsum.launches = 0
+    t = time.perf_counter()
+    cold = cold_scorer.score(
+        data, evaluators=[make_streaming_evaluator(EvaluatorType.AUC)],
+        keep_margins=True)
+    sync()
+    out["cold_s"] = time.perf_counter() - t
+    out["launches"] = gather_rowsum.launches
+    K = cold["n_chunks"]
+    out.update(n_chunks=K, cold_pass_s=cold["wall_s"], store=cold["store"])
+    out["margin_gap"] = float(np.abs(cold["margins"] - resident).max())
+    one_shot = float(auc(torch.from_numpy(cold["margins"]), labels, weights))
+    out["auc"] = cold["evaluation"]["AUC"]
+    out["auc_gap_one_shot"] = abs(out["auc"] - one_shot)
+    out["resident_auc"] = float(auc(torch.from_numpy(resident), labels,
+                                    weights))
+    if not out["margin_gap"] <= SCORE_MARGIN_ATOL:
+        failures.append(f"12a: margins {out['margin_gap']:.3g} from the "
+                        "resident transform's")
+    if not out["auc_gap_one_shot"] <= SCORE_AUC_ATOL:
+        failures.append(f"12a: streaming AUC {out['auc']!r} vs one-shot "
+                        f"{one_shot!r}")
+    if device != "cpu" and out["launches"] < K:
+        failures.append(f"12a: B1 launched {out['launches']} times for "
+                        f"{K} chunks")
+    if cold["store"]["spills"] != K:
+        failures.append(f"12a: {cold['store']['spills']} of {K} chunks "
+                        "spilled")
+    out.update(_store_gates("12a", [cold_scorer.store], failures))
+
+    # The warm pass: a new scorer reads the spilled chunks.
+    warm_scorer = scorer()
+    gather_rowsum.launches = 0
+    warm = warm_scorer.score(data, keep_margins=True)
+    out["warm_launches"] = gather_rowsum.launches
+    out["warm_store"] = warm["store"]
+    out["warm_bitwise"] = bool(np.array_equal(warm["margins"],
+                                              cold["margins"]))
+    if warm["store"]["spills"] != 0 or not out["warm_bitwise"]:
+        failures.append(f"12a: the warm pass spilled "
+                        f"{warm['store']['spills']} chunks, bitwise "
+                        f"{out['warm_bitwise']}")
+    warm_scorer.store.assert_quiesced()
+    out["warm"] = {"wall_s": warm["wall_s"],
+                   "rows_per_sec": warm["rows_per_sec"]}
+    if time_it:
+        prof = _profile_call(lambda: warm_scorer.score(data), True)
+        prof["rows_per_sec"] = data.n / (prof["wall_ms"] / 1e3)
+        out["warm"]["profile"] = prof
+
+    # B1 at the scorer's chunk, the fitted coefficients as table.
+    chunk = warm_scorer.store.get(0)
+    w = warm_scorer._plan_memo[1][1]["global"]
+    vals = torch.from_numpy(np.array(chunk["global.vals"])).to(device)
+    ids = torch.from_numpy(np.array(chunk["global.cols"])).to(device)
+    scale = max(1.0, float(w.abs().max()) * float(vals.abs().max()))
+    out["kernel_shape"] = check_b1_case(
+        f"score_chunk_{vals.shape[0]}x{vals.shape[1]}", w, vals, ids,
+        ATOL * scale, time_it=time_it)
+    out["kernel_shape"]["launches"] = out["launches"]
+    out["failures"] = failures
+    return out
+
+
+def phase_stream_score_driver(driver: dict, device_args: list,
+                              failures: list) -> dict:
+    """Phase 12b (module docstring): ``python -m
+    photon_ml_torch.cli.game_scoring_driver`` with
+    ``--score-chunk-rows`` and ``--spill-dir`` in a subprocess, on phase
+    8's validation file and model (``driver``: phase 8's result), to
+    ``.npz`` and to ``.avro``, against phase 8's resident outputs; then
+    the ``.npz`` run again in this process with the B1 count set to 0."""
+    from photon_ml_torch.cli import game_scoring_driver
+    from photon_ml_torch.config import load_scoring_config
+    from photon_ml_torch.io.avro import read_container
+
+    spill = os.path.join(WORK, "score_driver_spill")
+    extra = ["--score-chunk-rows", str(SCORE_DRIVER_CHUNK_ROWS),
+             "--spill-dir", spill]
+    out: dict = {"chunk_rows": SCORE_DRIVER_CHUNK_ROWS}
+    paths = {}
+    for ext in ("npz", "avro"):
+        with open(os.path.join(WORK, f"score_{ext}.json")) as f:
+            sc = json.load(f)
+        sc["output_path"] = os.path.join(WORK, f"scores_streamed.{ext}")
+        paths[ext] = os.path.join(WORK, f"score_streamed_{ext}.json")
+        with open(paths[ext], "w") as f:
+            json.dump(sc, f)
+        res, out[f"{ext}_wall_s"] = _run_module(
+            "photon_ml_torch.cli.game_scoring_driver",
+            ["--config", paths[ext], *extra, *device_args])
+        out[f"{ext}_auc"] = res["evaluation"]["AUC"]
+    out["auc_gap"] = max(abs(out[f"{ext}_auc"] - driver["scoring_auc"])
+                         for ext in ("npz", "avro"))
+    got = np.load(os.path.join(WORK, "scores_streamed.npz"))
+    want = np.load(os.path.join(WORK, "scores.npz"))
+    out["npz_max_abs_diff"] = max(
+        float(np.abs(got[k] - want[k]).max()) for k in ("scores",
+                                                        "predictions"))
+    recs = list(read_container(os.path.join(WORK,
+                                            "scores_streamed.avro"))[1])
+    rrecs = list(read_container(os.path.join(WORK, "scores.avro"))[1])
+    out["avro_max_abs_diff"] = float(np.abs(
+        np.asarray([r["predictionScore"] for r in recs])
+        - np.asarray([r["predictionScore"] for r in rrecs])).max())
+    n_chunks = -(-len(rrecs) // SCORE_DRIVER_CHUNK_ROWS)
+    out["rows"], out["n_chunks"] = len(rrecs), n_chunks
+    out["chunk_files"] = len(os.listdir(os.path.join(spill, "chunks")))
+    if not out["auc_gap"] <= SCORING_ATOL:
+        failures.append(f"12b: streamed AUC {out['npz_auc']}, "
+                        f"{out['avro_auc']} vs resident "
+                        f"{driver['scoring_auc']}")
+    if not (out["npz_max_abs_diff"] <= SCORING_ATOL
+            and np.array_equal(got["labels"], want["labels"])):
+        failures.append(f"12b: .npz scores {out['npz_max_abs_diff']:.3g} "
+                        "from the resident branch's")
+    if not (out["avro_max_abs_diff"] <= SCORING_ATOL
+            and [r["uid"] for r in recs] == [r["uid"] for r in rrecs]):
+        failures.append(f"12b: .avro scores {out['avro_max_abs_diff']:.3g}"
+                        " from the resident branch's")
+    if out["chunk_files"] != n_chunks:
+        failures.append(f"12b: {out['chunk_files']} chunk files for "
+                        f"{n_chunks} chunks")
+
+    config = load_scoring_config(paths["npz"])
+    config.score_chunk_rows, config.spill_dir = SCORE_DRIVER_CHUNK_ROWS, spill
+    if device_args:
+        config.device = device_args[-1]
+    gather_rowsum.launches = 0
+    game_scoring_driver.run(config)
+    out["launches"] = gather_rowsum.launches
+    if config.device != "cpu" and out["launches"] < n_chunks:
+        failures.append(f"12b: B1 launched {out['launches']} times for "
+                        f"{n_chunks} chunks")
     return out
 
 
@@ -3846,6 +4045,7 @@ def main() -> int:
         t = time.perf_counter()
         ooc = phase_out_of_core(fit_10a, device="cuda")
         ooc["card"] = card
+        score_rows = ooc.pop("train")
         print(f"phase 11 out-of-core GAME training ("
               f"{time.perf_counter() - t:.1f} s): "
               + json.dumps({"out_of_core": ooc}, default=str))
@@ -3856,6 +4056,24 @@ def main() -> int:
         kernels[0]["fused_chunk_shape"] = [ooc["kernel_shape"]["n"],
                                            ooc["kernel_shape"]["k"]]
         kernels[0]["shapes"].append(ooc["kernel_shape"])
+        kernels[0]["max_abs_err"] = max(
+            sh["max_abs_err"] for sh in kernels[0]["shapes"])
+
+        t = time.perf_counter()
+        score = phase_stream_score(fit_10a.pop("model"), score_rows, "cuda")
+        del score_rows
+        score["12b"] = phase_stream_score_driver(driver, [],
+                                                 score["failures"])
+        score["card"] = card
+        print(f"phase 12 streamed scoring ({time.perf_counter() - t:.1f} "
+              "s): " + json.dumps({"stream_score": score}, default=str))
+        if score["failures"]:
+            raise AssertionError("phase 12: " + "; ".join(
+                score["failures"]))
+        kernels[0]["launches_stream_scoring"] = score["launches"]
+        kernels[0]["launches_stream_scoring_driver"] = score["12b"][
+            "launches"]
+        kernels[0]["shapes"].append(score["kernel_shape"])
         kernels[0]["max_abs_err"] = max(
             sh["max_abs_err"] for sh in kernels[0]["shapes"])
     finally:

@@ -1,14 +1,23 @@
 """GAME scoring driver: saved model + data → scores (+ evaluation).
 
-Counterpart of ``photon_ml_tpu/cli/game_scoring_driver.py``, its
-resident path: load the model, read the data with the training run's
-index maps, ``GameTransformer.transform`` (B1 on the card for the fixed
-effect), write the scores, evaluate against the labels.
+Counterpart of ``photon_ml_tpu/cli/game_scoring_driver.py``: load the
+model, read the data with the training run's index maps, score it,
+write the scores, evaluate against the labels.  Two paths:
+
+- ``score_chunk_rows`` unset: the resident per-coordinate
+  ``GameTransformer.transform`` (B1 on the card for the fixed effect);
+- ``score_chunk_rows`` set: the one-pass streamed scorer
+  (``estimators.streaming_scorer``): fixed-shape chunks, one fused
+  ``run_chunk`` a chunk (B1 on the card), chunks spilled to
+  ``spill_dir`` and prefetched (``host_max_resident``,
+  ``prefetch_depth``), sinks and streaming evaluators fed a chunk at a
+  time; the run log gets a ``stream_stats`` event.
 
 Usage::
 
     python -m photon_ml_torch.cli.game_scoring_driver --config score.json \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--score-chunk-rows R --spill-dir D \\
+        --host-max-resident H --prefetch-depth P]
 
 The output is an ``.npz`` with the raw margins (``scores``), mean-space
 ``predictions`` and the ``labels``, plus ``evaluation.json`` beside it
@@ -17,9 +26,9 @@ writes ``ScoringResultAvro`` records instead; both through the chunked
 sinks of ``io.score_sink`` (the reference writes its resident ``.npz``
 with ``np.savez``; ``np.load`` reads either alike).  The
 run is on the card unless ``--device cpu`` (or ``"device": "cpu"``)
-asks for the CPU; without CUDA it raises.  The streamed pipeline
-(``score_chunk_rows`` and its knobs) is ROADMAP A5b, telemetry A8b and
-the monitor D3: ``ScoringConfig.validate`` raises on them.
+asks for the CPU; without CUDA it raises.  Telemetry (ROADMAP A8b) and
+the monitor (D3) are not ported: ``ScoringConfig.validate`` raises on
+them.
 """
 
 from __future__ import annotations
@@ -118,6 +127,33 @@ def run(config: ScoringConfig, log: RunLogger | None = None) -> dict:
         return _run(config, log)
 
 
+def _run_streamed(config: ScoringConfig, model, task, data,
+                  dev: torch.device, log: RunLogger) -> dict:
+    from photon_ml_torch.data.chunk_store import resolve_spill_dir
+    from photon_ml_torch.estimators.streaming_scorer import (
+        StreamingGameScorer,
+    )
+    from photon_ml_torch.evaluation.streaming import (
+        make_streaming_evaluator,
+    )
+
+    scorer = StreamingGameScorer(
+        model=model, task=task,
+        chunk_rows=config.score_chunk_rows,
+        spill_dir=resolve_spill_dir(config.spill_dir),
+        host_max_resident=config.host_max_resident,
+        prefetch_depth=config.prefetch_depth, device=str(dev))
+    sinks = _make_sinks(config, data.n, data.entity_ids)
+    evaluators = [make_streaming_evaluator(ev)
+                  for ev in config.evaluators]
+    with log.timed("transform_streamed",
+                   chunk_rows=config.score_chunk_rows):
+        result = scorer.score(data, sinks=sinks, evaluators=evaluators)
+    log.event("stream_stats",
+              **{k: v for k, v in result.items() if k != "evaluation"})
+    return result["evaluation"]
+
+
 def _run(config: ScoringConfig, log: RunLogger) -> dict:
     dev = resolve_device(config.device)
     out_dir = os.path.dirname(os.path.abspath(config.output_path))
@@ -126,6 +162,22 @@ def _run(config: ScoringConfig, log: RunLogger) -> dict:
     data = _read_data(config, model, log)
     log.event("dataset", n=data.n)
 
+    if config.score_chunk_rows is not None:
+        evaluation = _run_streamed(config, model, task, data, dev, log)
+    else:
+        evaluation = _run_resident(config, model, task, data, dev, log)
+    if config.evaluators:
+        with open(os.path.join(out_dir, "evaluation.json"), "w") as f:
+            json.dump(evaluation, f, indent=2)
+        log.event("evaluation", **evaluation)
+
+    log.event("done", output=config.output_path)
+    return {"output_path": config.output_path, "n": int(data.n),
+            "evaluation": evaluation}
+
+
+def _run_resident(config: ScoringConfig, model, task, data: GameDataset,
+                  dev: torch.device, log: RunLogger) -> dict:
     transformer = GameTransformer(model=model, task=task, device=str(dev))
     with log.timed("transform"):
         margins = transformer.transform(data)
@@ -154,13 +206,7 @@ def _run(config: ScoringConfig, log: RunLogger) -> dict:
                 scores = predictions
             evaluation[ev.value] = float(evaluate(
                 ev, torch.from_numpy(scores), labels, weights))
-        with open(os.path.join(out_dir, "evaluation.json"), "w") as f:
-            json.dump(evaluation, f, indent=2)
-        log.event("evaluation", **evaluation)
-
-    log.event("done", output=config.output_path)
-    return {"output_path": config.output_path, "n": int(data.n),
-            "evaluation": evaluation}
+    return evaluation
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -171,10 +217,24 @@ def main(argv: list[str] | None = None) -> dict:
     parser.add_argument("--device", default=None,
                         help="override config device: cuda (default), "
                              "cuda:<n> or cpu")
+    parser.add_argument("--score-chunk-rows", type=int, default=None,
+                        help="override: chunk rows of the streamed "
+                             "scorer (set: the streamed path)")
+    parser.add_argument("--spill-dir", default=None,
+                        help="override: disk tier for prepared score "
+                             "chunks (default $PHOTON_ML_TPU_SPILL_DIR)")
+    parser.add_argument("--host-max-resident", type=int, default=None,
+                        help="override: host window of spilled chunks")
+    parser.add_argument("--prefetch-depth", type=int, default=None,
+                        help="override: chunks prefetched ahead (0: "
+                             "synchronous)")
     args = parser.parse_args(argv)
     config = load_scoring_config(args.config)
-    if args.device is not None:
-        config.device = args.device
+    for name in ("device", "score_chunk_rows", "spill_dir",
+                 "host_max_resident", "prefetch_depth"):
+        val = getattr(args, name)
+        if val is not None:
+            setattr(config, name, val)
     result = run(config)      # run() re-validates (the override included)
     # The last line of stdout: the result, as JSON.
     print(json.dumps(result))

@@ -7,11 +7,12 @@ Counterpart of ``photon_ml_tpu/config.py``: ``TrainingConfig`` (with
 (``checkpoint_dir``, ``resume`` and their cadences) and the
 chunk-streamed, disk-spilled fixed effect (``chunk_rows``,
 ``chunk_layout``, ``chunk_max_resident``, ``spill_dir``,
-``host_max_resident``, ``prefetch_depth``) are ported, with the
+``host_max_resident``, ``prefetch_depth``), streamed random effects
+and the fused cycle (``re_chunk_entities``, ``cd_fused``) and streamed
+scoring (``score_chunk_rows`` and its knobs) are ported, with the
 reference's validation.  A training or scoring config's fields of tiers
-the port does not have yet (streamed random effects, the fused cycle
-and streamed scoring: ROADMAP A5b; meshes: A7; telemetry and profiling:
-A8b; the monitor: D3) are accepted in the file but ``validate()``
+the port does not have yet (meshes: ROADMAP A7; telemetry and
+profiling: A8b; the monitor: D3) are accepted in the file but ``validate()``
 raises ``NotImplementedError`` when one is set to anything but its
 default, naming its ROADMAP item.  For serving:
 
@@ -385,8 +386,9 @@ class ScoringConfig:
     evaluators: list[EvaluatorType] = dataclasses.field(default_factory=list)
     # Accepted for config compatibility; has no effect in the port.
     compilation_cache_dir: str | None = None
-    # The streamed scoring pipeline is ROADMAP A5b: these stay at their
-    # defaults (validate() raises otherwise).
+    # Set: the one-pass streamed scorer (estimators.streaming_scorer),
+    # chunks of this many rows, spilled to spill_dir, read through a
+    # window of host_max_resident chunks, prefetch_depth ahead.
     score_chunk_rows: int | None = None
     spill_dir: str | None = None
     host_max_resident: int = 2
@@ -402,8 +404,6 @@ class ScoringConfig:
 
     # (field, default, ROADMAP item) of the tiers not ported yet.
     _NOT_PORTED = (
-        ("score_chunk_rows", None, "A5b"), ("spill_dir", None, "A5b"),
-        ("host_max_resident", 2, "A5b"), ("prefetch_depth", 2, "A5b"),
         ("telemetry", "off", "A8b"), ("monitor", "off", "D3"),
         ("status_port", None, "D3"))
 

@@ -12,8 +12,9 @@ are summed per coordinate (Photon-ML's ``CoordinateDataScores``):
   always takes the host merge-join.
 
 The margins are raw (``transform``); ``transform_mean`` applies the
-task's mean function.  The one-pass streamed scorer
-(``transform_streamed``) is ROADMAP D8.
+task's mean function.  ``transform_streamed`` gives the same margins
+through the one-pass streamed scorer (``estimators.streaming_scorer``),
+with memory bounded by its chunk window.
 """
 
 from __future__ import annotations
@@ -205,6 +206,24 @@ class GameTransformer:
             else:
                 raise TypeError(f"unknown component model {type(comp)}")
         return total.astype(np.float32)
+
+    def transform_streamed(self, dataset: GameDataset,
+                           score_chunk_rows: int = 1 << 20,
+                           spill_dir: str | None = None,
+                           host_max_resident: int = 2,
+                           prefetch_depth: int = 2) -> np.ndarray:
+        """Margins through the one-pass fused chunk pipeline: those of
+        ``transform`` up to float summation order."""
+        from photon_ml_torch.estimators.streaming_scorer import (
+            StreamingGameScorer,
+        )
+
+        scorer = StreamingGameScorer(
+            model=self.model, task=self.task,
+            chunk_rows=score_chunk_rows, spill_dir=spill_dir,
+            host_max_resident=host_max_resident,
+            prefetch_depth=prefetch_depth, device=self.device)
+        return scorer.score(dataset, keep_margins=True)["margins"]
 
     def transform_mean(self, dataset: GameDataset) -> np.ndarray:
         """Mean-space predictions (sigmoid / identity / soft exp)."""

@@ -516,11 +516,12 @@ class StreamedRandomEffectCoordinate(Coordinate):
     score plane stay resident.
 
     Retirement: after a sweep, the entities whose coefficients and
-    offsets both moved less than the solver tolerance are candidates;
+    offsets both moved less than ``retire_tolerance`` (by default the
+    solver tolerance) are candidates;
     the coordinate-descent loop commits them (``retire_converged``) and
     later sweeps pack only the active entities.  A retired entity's
     cached scores stay exact (its x and w are unchanged); it wakes when
-    its offsets drift past the tolerance since its last solve.
+    its offsets drift past that tolerance since its last solve.
     """
 
     name: str
@@ -535,15 +536,18 @@ class StreamedRandomEffectCoordinate(Coordinate):
     n_source_chunks: list[int]       # chunks a bucket
     n_examples: int
     prefetch_depth: int = 2
-    # Retire entities whose coefficients and offsets moved less than the
-    # solver tolerance in a sweep.
+    # Retire entities whose coefficients and offsets moved less than
+    # retire_tolerance in a sweep (None: the solver tolerance).
     retirement: bool = True
+    retire_tolerance: float | None = None
     projection: "object | None" = None
     device: "object" = None          # default CUDA; "cpu" when asked
 
     def __post_init__(self):
         from photon_ml_torch.optim.streaming import ArrayPlacer
 
+        if self.retire_tolerance is None:
+            self.retire_tolerance = float(self.problem.config.tolerance)
         self.device = resolve_device(self.device)
         ne = self.grouping.n_entities
         self._w_host = [np.zeros((e, p), np.float32)
@@ -594,6 +598,11 @@ class StreamedRandomEffectCoordinate(Coordinate):
         ([E_b]; one ``reduceat``)."""
         v = per_example[self.ex_sorted[b]]
         return np.maximum.reduceat(v, self.ent_starts[b][:-1])
+
+    @property
+    def chunk_entities(self) -> int:
+        """The largest bucket's entities a chunk."""
+        return max(self.chunk_ents) if self.chunk_ents else 0
 
     def _specs(self) -> list[tuple[int, np.ndarray]]:
         """This sweep's packed chunks: each bucket's active entities in
@@ -731,7 +740,7 @@ class StreamedRandomEffectCoordinate(Coordinate):
         if warm_start is not None and not self._is_last_train_output(
                 list(warm_start)):
             self._adopt_warm_start(warm_start)
-        rtol = float(self.problem.config.tolerance)
+        rtol = float(self.retire_tolerance)
         woken = 0
         if self._solved_offsets is None:
             self._solved_offsets = off.copy()

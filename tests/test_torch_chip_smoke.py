@@ -228,7 +228,9 @@ def test_game_phase_on_cpu(work):
 
 def test_driver_phase_on_cpu(work):
     """Phase 8: the training driver's golden, then the indexing driver's
-    maps, the scoring driver's AUC and outputs, and the Avro export."""
+    maps, the scoring driver's AUC and outputs, and the Avro export;
+    then phase 12b on them: the scoring driver's streamed branch against
+    its resident outputs."""
     out = cs.phase_driver(["--device", "cpu"])
     assert out["rc"] == 0
     assert abs(out["auc"] - out["golden_auc"]) < cs.DRIVER_AUC_ATOL
@@ -239,6 +241,15 @@ def test_driver_phase_on_cpu(work):
     assert out["scoring_gather_rowsum_launches"] == 0       # plain on CPU
     assert out["export_files"] == ["global.avro", "per_user.avro"]
     assert out["export_max_abs_diff"] == 0.0
+    failures: list = []
+    b = cs.phase_stream_score_driver(out, ["--device", "cpu"], failures)
+    assert failures == []
+    assert b["n_chunks"] == -(-out["scoring_rows"] // 128) >= 2
+    assert b["chunk_files"] == b["n_chunks"]
+    assert b["auc_gap"] <= cs.SCORING_ATOL
+    assert b["npz_max_abs_diff"] <= cs.SCORING_ATOL
+    assert b["avro_max_abs_diff"] <= cs.SCORING_ATOL
+    assert b["launches"] == 0                               # plain on CPU
 
 
 KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
@@ -519,3 +530,28 @@ def test_fused_phase_on_cpu(work):
         c = out["11c"][name]
         assert "InjectedFault" in c["raised"] and c["fired"]
         assert c["resumed_at"][0] > 0 and c["bitwise"]
+
+
+def test_stream_score_phase_on_cpu(work):
+    """Phase 12a at phase 10's small size: a 2-sweep fit's model scores
+    its training rows in 2,048-row chunks from a spill dir, within the
+    margin gate of the resident transform, the streaming AUC equal to
+    the one-shot AUC, every chunk spilled once and the warm pass equal
+    to the bit; B1's plain version checked at the scorer's chunk."""
+    n, d, n_entities = 8000, 2000, 300
+    data = cs.make_game_data(7, n, d=d, n_entities=n_entities)
+    n_train = n - int(n * cs.TRAIN_HOLDOUT)
+    train, valid = data.take(slice(0, n_train)), data.take(slice(n_train, n))
+    model = cs._stream_fit(cs.game_config("ELL", "cpu"), train,
+                           valid)["results"][0].model
+    out = cs.phase_stream_score(model, train, "cpu", chunk_rows=2048,
+                                time_it=False)
+    assert out["failures"] == []
+    assert out["n_chunks"] == 4 and out["chunk_files"] == 4
+    assert out["store"]["spills"] == 4 and out["warm_store"]["spills"] == 0
+    assert out["warm_bitwise"] and out["auc_gap_one_shot"] == 0.0
+    assert out["margin_gap"] <= cs.SCORE_MARGIN_ATOL
+    assert abs(out["auc"] - out["resident_auc"]) < 1e-6
+    assert out["launches"] == out["warm_launches"] == 0     # plain on CPU
+    assert out["kernel_shape"]["shape"] == "score_chunk_2048x30"
+    assert out["kernel_shape"]["max_abs_err"] == 0.0

@@ -488,8 +488,10 @@ def test_chunked_config_validation(jax_c1):
     TrainingConfig(chunk_rows=100, cd_fused=True, **kw).validate()
     from photon_ml_torch.config import ScoringConfig
 
-    for knob, value in (("score_chunk_rows", 4096), ("prefetch_depth", 0)):
-        with pytest.raises(NotImplementedError, match="A5b"):
+    ScoringConfig(input_path="x", model_dir="m", score_chunk_rows=4096,
+                  spill_dir="/tmp/s", prefetch_depth=0).validate()
+    for knob, value in (("monitor", "on"), ("status_port", 0)):
+        with pytest.raises(NotImplementedError, match="D3"):
             ScoringConfig(input_path="x", model_dir="m",
                           **{knob: value}).validate()
     rows = SparseRows.from_rows([(np.array([0, 2], np.int32),

@@ -104,6 +104,20 @@ def test_port_has_the_out_of_core_game_slice():
     assert coordinates.StreamedRandomEffectCoordinate.retire_converged
 
 
+def test_port_has_the_streamed_scoring_slice():
+    """The one-pass streamed scorer with its sinks' writer thread, the
+    streaming evaluators and the chunked readers (A5b.3, D8)."""
+    for rel in ("photon_ml_torch/estimators/streaming_scorer.py",
+                "photon_ml_torch/evaluation/streaming.py",
+                "photon_ml_torch/io/chunked.py"):
+        assert (REPO / rel).is_file() and rel in PORT_FILES, rel
+    from photon_ml_torch.estimators import streaming_scorer
+    from photon_ml_torch.estimators.game_transformer import GameTransformer
+
+    assert streaming_scorer.StreamingGameScorer.score
+    assert GameTransformer.transform_streamed
+
+
 def test_port_has_the_lane_kernel_source():
     """The lane kernel has its own source (built by ``_build`` at first
     use); B1's source no longer holds it."""
@@ -171,6 +185,9 @@ def test_fresh_import_leaves_jax_out():
         "import photon_ml_torch.data.chunk_store\n"
         "import photon_ml_torch.data.chunked_batch\n"
         "import photon_ml_torch.optim.streaming\n"
+        "import photon_ml_torch.estimators.streaming_scorer\n"
+        "import photon_ml_torch.evaluation.streaming\n"
+        "import photon_ml_torch.io.chunked\n"
         f"print(json.dumps(sorted(m for m in sys.modules "
         f"if m.split('.')[0] in {FORBIDDEN!r})))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -206,6 +223,24 @@ def test_port_test_files_clear_jax_caches():
         if "jax_fresh_caches" not in names | defined:
             missing.append(p.name)
     assert not missing, missing
+
+
+def test_port_scorer_test_leaves_reference_compile_budget():
+    """C5 end to end: the port's scorer parity test that runs the JAX
+    package's chunk program at the shapes of the reference's compile
+    budget test, then that test, in one process: both pass."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "PYTEST_ADDOPTS")}
+    env["JAX_PLATFORMS"] = "cpu"
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:xdist",
+         "-p", "no:randomly", "-p", "no:cacheprovider",
+         "tests/test_torch_streaming_scorer.py::"
+         "test_streamed_matches_resident_all_mixes[96]",
+         "tests/test_scoring_stream.py::test_scorer_compile_budget"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-2000:]
+    assert "2 passed" in out.stdout, out.stdout[-2000:]
 
 
 def test_resolve_device():

@@ -320,6 +320,46 @@ def test_retirement_monotone_equivalent_and_woken(rng, tmp_path):
     assert diag["entities_woken"] > 0
 
 
+def test_retire_tolerance_and_chunk_entities_match_jax(jax_c1, rng,
+                                                      tmp_path):
+    """ROADMAP C6: ``retire_tolerance`` defaults to the solver tolerance
+    and, set looser, retires entities the solver tolerance keeps
+    solving, sweep for sweep as in the JAX package; ``chunk_entities``
+    is the largest bucket's chunk in both packages."""
+    import jax.numpy as jnp
+
+    from photon_ml_tpu.game.coordinates import (
+        build_streamed_random_effect_coordinate as jbuild,
+    )
+
+    a = _arrays(rng)
+    base = rng.normal(0, 0.3, len(a["y"])).astype(np.float32)
+    drift = rng.normal(0, 1e-4, len(a["y"])).astype(np.float32)
+    cfg = OptimizerConfig(max_iters=50, tolerance=1e-6)
+    mine = _streamed(_dataset(a), tmp_path / "t", 6, config=cfg)
+    ref = jbuild("u", _dataset(a, "jax"), "re", _jax_objective(),
+                 spill_dir=str(tmp_path / "j"), chunk_entities=6,
+                 config=_jcfg(cfg))
+    assert mine.retire_tolerance == ref.retire_tolerance == \
+        pytest.approx(1e-6)
+    assert mine.chunk_entities == ref.chunk_entities == max(mine.chunk_ents)
+    E = mine.grouping.n_total_entities
+    solved = {}
+    for name, coord, arr in (("torch", mine, torch.from_numpy),
+                             ("jax", ref, jnp.asarray)):
+        coord.retire_tolerance = 1e-2
+        w, got = None, []
+        # Offsets that keep moving by ~1e-4: past the solver tolerance,
+        # inside the looser retirement tolerance.
+        for k in range(4):
+            w, diag = coord.train(arr(base + k * drift), w)
+            got.append(diag["entities_solved"])
+            coord.retire_converged()
+        solved[name] = got + [coord.entities_retired]
+    assert solved["torch"] == solved["jax"]
+    assert solved["torch"][0] == E and solved["torch"][-1] > 0
+
+
 def test_returned_blocks_and_scores_are_not_the_sweep_state(rng,
                                                            tmp_path):
     """The blocks and the score plane a sweep returns are copies: a later

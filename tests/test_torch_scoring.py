@@ -297,12 +297,58 @@ def test_scoring_driver_avro_round_trip(game_models):
     assert list(jrecs) == recs
 
 
+def test_scoring_driver_streamed_matches_resident(game_models):
+    """``--score-chunk-rows`` takes the streamed branch (chunks spilled
+    to ``--spill-dir``, a ``stream_stats`` run-log event): its
+    evaluation and its ``.npz`` and ``.avro`` scores equal the resident
+    branch's within 1e-6, and the JAX package's streamed driver's on the
+    same model within 1e-5."""
+    from photon_ml_torch.utils.run_log import read_run_log
+
+    tmp, train_path, _ = game_models
+    res = _score(tmp, "torch", "torch", train_path, "res.npz")
+    _score(tmp, "torch", "torch", train_path, "res.avro")
+    extra = ["--score-chunk-rows", "128", "--spill-dir",
+             str(tmp / "score_spill"), "--host-max-resident", "1",
+             "--prefetch-depth", "1"]
+    sc = {"input_path": train_path,
+          "model_dir": str(tmp / "out_torch" / "model"),
+          "evaluators": ["AUC", "RMSE", "LOGISTIC_LOSS"]}
+    outs = {}
+    for name, pkg in (("str_ref.npz", "jax"), ("str.npz", "torch"),
+                      ("str.avro", "torch")):
+        _, score_d, dev = _drivers(pkg)
+        cfg = _dump(tmp, f"sc_{name}.json",
+                    {**sc, "output_path": str(tmp / name)})
+        outs[name] = score_d.main(["--config", cfg, *extra, *dev])
+    assert len(os.listdir(tmp / "score_spill" / "chunks")) == 5
+    for k, v in res["evaluation"].items():
+        assert abs(outs["str.npz"]["evaluation"][k] - v) < 1e-6, k
+        assert abs(outs["str_ref.npz"]["evaluation"][k] - v) < 1e-5, k
+    got, want = np.load(str(tmp / "str.npz")), np.load(str(tmp / "res.npz"))
+    for key in ("scores", "predictions"):
+        np.testing.assert_allclose(got[key], want[key], atol=1e-6)
+        np.testing.assert_allclose(
+            got[key], np.load(str(tmp / "str_ref.npz"))[key], atol=1e-5)
+    np.testing.assert_array_equal(got["labels"], want["labels"])
+    recs = list(read_container(str(tmp / "str.avro"))[1])
+    rrecs = list(read_container(str(tmp / "res.avro"))[1])
+    assert [r["uid"] for r in recs] == [r["uid"] for r in rrecs]
+    assert [r["ids"] for r in recs] == [r["ids"] for r in rrecs]
+    np.testing.assert_allclose([r["predictionScore"] for r in recs],
+                               [r["predictionScore"] for r in rrecs],
+                               atol=1e-6)
+    stats = [e for e in read_run_log(str(tmp / "scoring_log.jsonl"))
+             if e["event"] == "stream_stats"]
+    assert stats and stats[-1]["n_chunks"] == 5 and "store" in stats[-1]
+
+
 # -- tests/test_drivers.py:470 ---------------------------------------------------------
 
 
 def test_scoring_config_validation():
-    """The reference's value checks, and the streamed knobs (ROADMAP
-    A5), telemetry (A8b) and the monitor (D3) refused by name."""
+    """The reference's value checks, the streamed knobs accepted, and
+    telemetry (ROADMAP A8b) and the monitor (D3) refused by name."""
     from photon_ml_tpu.config import scoring_config_from_json as jcfg
 
     for parse in (scoring_config_from_json, jcfg):
@@ -316,11 +362,14 @@ def test_scoring_config_validation():
                 "score_chunk_rows": 4096, "spill_dir": "/tmp/s",
                 "prefetch_depth": 0}
     assert jcfg(json.dumps(streamed)).score_chunk_rows == 4096
-    with pytest.raises(NotImplementedError, match="A5"):
-        scoring_config_from_json(json.dumps(streamed))
+    assert scoring_config_from_json(json.dumps(
+        {**streamed, "host_max_resident": 4})).host_max_resident == 4
+    with pytest.raises(NotImplementedError, match="A8b"):
+        scoring_config_from_json(json.dumps({**streamed,
+                                             "telemetry": "trace"}))
     for knob, value, item in (("telemetry", "metrics", "A8b"),
                               ("monitor", "on", "D3"),
-                              ("host_max_resident", 4, "A5")):
+                              ("status_port", 0, "D3")):
         with pytest.raises(NotImplementedError, match=item):
             scoring_config_from_json(json.dumps(
                 {"input_path": "x", "model_dir": "m", knob: value}))
