@@ -8,10 +8,12 @@ both packages, the port on CPU tensors.  Tolerances: objective surfaces
 absolute floor of 1e-5·max|g|); a fit's final loss 1e-5 relative, its
 coefficients 1e-3, its held-out AUC 1e-3.
 
-The reference's L2 evaluations need the ``trace_state_clean`` shim
-(ROADMAP C1): jax 0.9 moved it out of ``jax.core``.  The ``jax_c1``
-fixture installs it with ``monkeypatch`` for one test at a time, so it
-never leaks into the reference's own test files.
+The reference's L2 evaluations need ``jax.core.trace_state_clean``
+(ROADMAP C1): jax 0.9 moved it to ``jax._src.core``.  Importing this
+module puts the alias back for the whole process.  Every xdist worker
+collects this file, so every test of a suite run, the reference's own
+included, runs the reference on the jax it was written for, whatever
+the schedule.
 """
 
 from __future__ import annotations
@@ -52,20 +54,26 @@ RESOURCES = os.path.join(os.path.dirname(__file__), "resources")
 CPU = "cpu"
 
 
-@pytest.fixture
-def jax_c1(monkeypatch):
-    """The JAX package with ``jax.core.trace_state_clean`` restored for
-    this test only (ROADMAP C1).  The reference caches a constant the
-    first time the call succeeds (``regularization._HALF``); it is put
-    back too, so later tests in this worker see the package unchanged."""
+def _restore_trace_state_clean() -> None:
+    """ROADMAP C1: ``photon_ml_tpu/ops/regularization.py`` calls
+    ``jax.core.trace_state_clean()``, which jax 0.9 no longer exports
+    there."""
     import jax
     import jax._src.core
 
-    from photon_ml_tpu.ops import regularization
+    if not hasattr(jax.core, "trace_state_clean"):
+        jax.core.trace_state_clean = jax._src.core.trace_state_clean
 
-    monkeypatch.setattr(jax.core, "trace_state_clean",
-                        jax._src.core.trace_state_clean, raising=False)
-    monkeypatch.setattr(regularization, "_HALF", regularization._HALF)
+
+_restore_trace_state_clean()
+
+
+@pytest.fixture
+def jax_c1():
+    """The JAX package, with ``jax.core.trace_state_clean`` in place
+    (ROADMAP C1; restored when this module is imported)."""
+    import jax
+
     return jax
 
 
@@ -76,11 +84,10 @@ def jax_fresh_caches():
     A port test that runs the JAX package leaves the programs it traced
     compiled in the process.  A reference test that runs later on the
     same worker would then find them warm: its compile budgets would
-    count nothing, and a program that fails to trace alone (C1) would
-    pass.  Every port test file that imports ``photon_ml_tpu`` imports
-    this fixture (``tests/test_torch_package.py`` checks it); module
-    scope suffices because ``--dist loadfile`` runs a file whole on one
-    worker."""
+    count nothing.  Every port test file that imports ``photon_ml_tpu``
+    imports this fixture (``tests/test_torch_package.py`` checks it);
+    module scope suffices because ``--dist loadfile`` runs a file whole
+    on one worker."""
     yield
     jax = sys.modules.get("jax")
     if jax is not None:
