@@ -212,6 +212,33 @@ raises on failure:
    model, to ``.npz`` and ``.avro``: the evaluation, the scores and the
    Avro records within 1e-6 of phase 8's resident outputs, one chunk
    file a chunk; then the same run in this process, B1 counted.
+13. the telemetry tier: (a) phase 10a's streamed fit again (the same
+   data, config and spill files) with telemetry off, in a metrics
+   session and in a trace session: when the off rerun reproduces 10a's
+   coefficients to the bit, both traced fits must too and launch B1 as
+   often as 10a (else phase 10's gates hold, and the output says so);
+   ``telemetry report`` on each log reconciles its spans to ≥ 90 % of
+   the wall clock and its sweep odometer; ``trace.json`` parses, with
+   ``prefetch_load``/``prefetch_place`` on the prefetch thread,
+   ``chunk_compute`` on the main one and a device-memory track; the
+   chunk program's ``device_cost`` bytes equal the analytic count of a
+   chunk (its leaves and w read once, value and gradient written once);
+   the device-memory samples come from ``torch.cuda.memory_stats``; one
+   streamed evaluation makes as many synchronizing CUDA calls (implicit
+   ones and explicit fences, ``analysis.guards``) in a metrics and a
+   trace session as without one, and at least its own fence a chunk.
+   Printed: the three walls, the overlap efficiency, consumer wait,
+   producer stall, load and place, and the chunk program's stream ms
+   from the session's CUDA event pairs (kernels and host dispatch) and
+   kernel-busy ms from the profiler beside its roofline.  (b) Phase 12a's warm scoring
+   pass off and in a metrics session: the same margins to the bit, B1 a
+   chunk, the pass split into load, place and wait.  (c) Phase 10d's
+   streamed λ grid in a metrics session: the lanes' losses against
+   10d's (bitwise, then the lane kernel's launches equal; else phase
+   9's loss gate) and the report's odometer.  (d) The training driver
+   in a subprocess on phase 8's fixture with ``--telemetry trace`` and
+   ``profile_dir`` in its config; ``python -m photon_ml_torch.telemetry
+   report`` on its run log exits 0, and the profiler's trace exists.
 
 The line before the card's and the result's is one JSON object with a
 ``kernels`` list: per kernel its launches on its path (``gather_rowsum``:
@@ -223,9 +250,12 @@ and ``launches_colmajor_fit``; phase 7's ELL GAME fit as
 fits as ``launches_re_stream_fit`` and ``launches_fused_fit``, the fused
 pass's chunk as ``fused_chunk_shape``; phase 12's streamed scoring pass
 and streamed scoring driver as ``launches_stream_scoring`` and
-``launches_stream_scoring_driver``; the GRR kernels: phase 6's GRR fit;
+``launches_stream_scoring_driver``; phase 13's traced fits and traced
+scoring pass as ``launches_telemetry_fits`` and
+``launches_telemetry_scoring``; the GRR kernels: phase 6's GRR fit;
 ``gather_rowsum_lanes``: phase 9's ELL, transposed-ELL and tuned fits and
-phase 10d's streamed grid, and by shape in ``shapes``),
+phase 10d's streamed grid, and by shape in ``shapes``; phase 13c's
+traced grid as ``launches_telemetry_sweep``),
 the largest kernel-vs-plain difference over all checked shapes
 (``gather_rowsum``: phases 3, 7, 10, 11 and 12), and its times and bound
 (``gather_rowsum``: at the serving bucket, 64 rows x 32 slots; the GRR
@@ -314,6 +344,9 @@ from photon_ml_torch.reliability import faults
 from photon_ml_torch.serving.engine import ScoringEngine, dataset_rows
 from photon_ml_torch.serving.server import ModelServer
 from photon_ml_torch.utils.run_log import RunLogger, read_run_log
+from photon_ml_torch import telemetry
+from photon_ml_torch.analysis.guards import no_implicit_transfers
+from photon_ml_torch.telemetry import report as telemetry_report
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "smoke")
@@ -456,6 +489,9 @@ FUSED_PARITY_ATOL = 5e-3          # its coefficients (the reference's)
 SCORE_MARGIN_ATOL = 1e-5
 SCORE_AUC_ATOL = 1e-9
 SCORE_DRIVER_CHUNK_ROWS = 128
+
+# Phase 13: the telemetry report's reconciliation threshold.
+TELEMETRY_RECONCILE_MIN = 0.9
 
 
 # -- the model and its float64 reference -------------------------------------
@@ -3861,6 +3897,384 @@ def phase_stream_score_driver(driver: dict, device_args: list,
     return out
 
 
+# -- phase 13: the telemetry tier ---------------------------------------------
+
+
+def _telemetry_summary(events: list) -> dict:
+    """The last ``telemetry_summary`` of a run log's events."""
+    return [e for e in events if e["event"] == "telemetry_summary"][-1]
+
+
+def _report(log_path: str) -> dict:
+    """The port's ``telemetry report`` of a run log (its printout kept
+    off this run's stdout)."""
+    return telemetry_report.report(log_path,
+                                   threshold=TELEMETRY_RECONCILE_MIN,
+                                   out=io.StringIO())
+
+
+def _report_gates(name: str, rep: dict, failures: list,
+                  traced: bool = False) -> dict:
+    """The report's verdict: the odometer identity and, for a traced
+    run (span events: ``traced``), reconciliation ≥ 0.9."""
+    conv = rep["convergence"] or {}
+    out = {"ok": rep["ok"], "reconciliation": rep["reconciliation"],
+           "odometer_ok": conv.get("ok"),
+           "sweeps": conv.get("sweeps"),
+           "unattributed_sweeps": conv.get("unattributed_sweeps"),
+           "passes_per_cycle": conv.get("passes_per_cycle")}
+    if (not rep["ok"] or conv.get("ok") is False
+            or (traced and rep["reconciliation"] is None)):
+        failures.append(f"{name}: telemetry report not ok "
+                        f"(reconciliation {rep['reconciliation']}, "
+                        f"odometer {conv.get('ok')})")
+    return out
+
+
+def pipeline_split(summary: dict) -> dict:
+    """A run's streamed passes by stage, from its telemetry summary:
+    overlap efficiency, the consumer's wait, the producer's stall, the
+    prefetch thread's load and place spans, and the consumer's
+    ``chunk_compute`` (host clock: the launches and the fences)."""
+    c, spans, d = summary["counters"], summary["spans"], summary["derived"]
+
+    def total(name):
+        return spans.get(name, {}).get("total_s", 0.0)
+
+    return {"overlap_efficiency": d.get("overlap_efficiency"),
+            "pass_s": d.get("pass_span_total_s"),
+            "consumer_wait_s": c.get("prefetch.consumer_wait_s", 0.0),
+            "producer_stall_s": c.get("prefetch.producer_stall_s", 0.0),
+            "load_s": total("prefetch_load"),
+            "place_s": total("prefetch_place"),
+            "chunk_compute_s": total("chunk_compute"),
+            "chunk_drain_s": total("chunk_drain"),
+            "chunks": c.get("prefetch.chunks_consumed", 0)}
+
+
+def program_split(summary: dict, name: str) -> dict:
+    """A captured chunk program: its analytic bytes and flops, its
+    roofline at the card's peak rate, and its stream ms a chunk from the
+    session's CUDA event pairs (None where it ran on the CPU).  A pair
+    starts on a stream the chunk's fence has drained, so its interval
+    holds the host's dispatch of the chunk as well as its kernels: it
+    is no kernel-busy time, and no roofline share is taken from it."""
+    cost = summary.get("device", {}).get("programs", {}).get(name, {})
+    ev = summary["histograms"].get(f"device.event_s.{name}")
+    return {"bytes": cost.get("bytes_accessed"), "flops": cost.get("flops"),
+            "roofline_ms": cost.get("roofline_est_ms"),
+            "peak_source": cost.get("peak_source"),
+            "stream_ms": None if ev is None else ev["mean"] * 1e3,
+            "stream_ms_p50": None if ev is None else ev["p50"] * 1e3,
+            "chunks_timed": 0 if ev is None else ev["count"]}
+
+
+def kernel_busy_split(co, w, program: dict) -> None:
+    """Adds to ``program`` (a ``program_split``) the kernel-busy ms a
+    chunk of one ``value_and_gradient`` of ``co``: the profiler's kernel
+    times of one evaluation (copies left out) over its chunks, and the
+    roofline's share of it.  On the CPU both stay None."""
+    program["kernel_ms"] = program["roofline_share"] = None
+    if w.device.type != "cuda":
+        return
+    by_name = device_kernels_ms(lambda: co.value_and_gradient(w), 2)
+    busy = sum(ms for name, ms in by_name.items()
+               if not name.startswith(("Memcpy", "Memset")))
+    if busy:
+        program["kernel_ms"] = busy / co.batch.n_chunks
+        if program["roofline_ms"]:
+            program["roofline_share"] = (program["roofline_ms"]
+                                         / program["kernel_ms"])
+
+
+def sync_counts(co, w) -> tuple[dict, list]:
+    """Synchronizing CUDA calls of one ``value_and_gradient`` of ``co``
+    (after two warm-up calls), with telemetry off, in a metrics and a
+    trace session, and off again: the implicit ones and the explicit
+    fences (``analysis.guards``); None where the guard is inactive (a
+    CPU run).  Also the guard's distinct messages."""
+    for _ in range(2):
+        co.value_and_gradient(w)
+    out, seen = {}, set()
+    for mode in ("off", "metrics", "trace", "off_again"):
+        session = (telemetry.start(mode, device=w.device)
+                   if mode in ("metrics", "trace") else None)
+        try:
+            with no_implicit_transfers("log", w.device) as log:
+                co.value_and_gradient(w)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        finally:
+            if session is not None:
+                session.close()
+        out[mode] = log.count if log.active else None
+        seen.update(log.messages)
+    # The guard is live: one deliberate read to the host counts.
+    with no_implicit_transfers("log", w.device) as log:
+        float(w.sum())
+    out["probe_read"] = log.count if log.active else None
+    return out, sorted(seen)
+
+
+def _trace_checks(path: str, failures: list) -> dict:
+    """``trace.json`` parses as Chrome trace JSON, with the prefetch
+    thread's ``prefetch_load``/``prefetch_place`` and the main thread's
+    ``chunk_compute``, and a device-memory counter track."""
+    with open(path) as f:
+        doc = json.load(f)
+    evs = doc["traceEvents"]
+    names = {e["tid"]: e["args"]["name"] for e in evs
+             if e["ph"] == "M" and e["name"] == "thread_name"}
+    on = {}
+    for e in evs:
+        if e["ph"] == "X":
+            on.setdefault(e["name"], set()).add(names.get(e["tid"]))
+    out = {"events": len(evs),
+           "prefetch_load": sorted(map(str, on.get("prefetch_load", ()))),
+           "chunk_compute": sorted(map(str, on.get("chunk_compute", ()))),
+           "device_mem_samples": sum(1 for e in evs if e["ph"] == "C"
+                                     and e["name"] == "device.mem_mb")}
+    if (on.get("prefetch_load") != {"photon-chunk-prefetch"}
+            or on.get("prefetch_place") != {"photon-chunk-prefetch"}
+            or on.get("chunk_compute") != {"MainThread"}
+            or not out["device_mem_samples"]):
+        failures.append(f"13a: trace.json spans by thread {out}")
+    return out
+
+
+def phase_telemetry(stream: dict, fit_10a: dict, device: str, seed: int = 7,
+                    n: int = GAME_ROWS, d: int = D,
+                    n_entities: int = N_ENTITIES,
+                    chunk_rows: int = STREAM_CHUNK_ROWS) -> dict:
+    """Phase 13a (module docstring): phase 10a's streamed fit with
+    telemetry off, in metrics and in trace mode, against 10a
+    (``stream``: phase 10's result, ``fit_10a``: its coefficients)."""
+    failures: list = []
+    data = make_game_data(seed, n, d=d, n_entities=n_entities)
+    n_train = n - int(n * TRAIN_HOLDOUT)
+    train, valid = data.take(slice(0, n_train)), data.take(slice(n_train, n))
+    del data
+    spill = os.path.join(WORK, "stream_spill")
+    trace_dir = os.path.join(WORK, "telemetry_trace")
+    out: dict = {"walls": {}, "launches": {}}
+    fits = {}
+    for mode in ("off", "metrics", "trace"):
+        over = {"telemetry": mode}
+        if mode == "trace":
+            over["telemetry_dir"] = trace_dir
+        fit = _stream_fit(stream_config(device, spill, chunk_rows, **over),
+                          train, valid)
+        fits[mode] = fit
+        out["walls"][mode] = fit["wall_s"]
+        out["launches"][mode] = fit["launches"]
+    want_launches = stream["10a"]["launches"]
+    got = {mode: _fit_summary(fit) for mode, fit in fits.items()}
+    out["bitwise_10a"] = {mode: bool(np.array_equal(g["w"], fit_10a["w"]))
+                          for mode, g in got.items()}
+    # 10a is the reference when it reproduces to the bit (the off rerun
+    # shows it); else phase 10's gates hold.
+    exact = out["bitwise_10a"]["off"]
+    out["gates"] = "bitwise" if exact else "phase 10's (10a not bitwise)"
+    for mode in ("metrics", "trace"):
+        if exact:
+            if not out["bitwise_10a"][mode]:
+                failures.append(f"13a {mode}: coefficients differ from "
+                                "10a's")
+            if out["launches"][mode] != want_launches:
+                failures.append(f"13a {mode}: B1 launched "
+                                f"{out['launches'][mode]} times, 10a "
+                                f"{want_launches}")
+        else:
+            out[f"{mode}_vs_10a"] = _stream_gates(f"13a {mode} vs 10a",
+                                                  got[mode], fit_10a,
+                                                  failures)
+        out[f"{mode}_report"] = _report_gates(f"13a {mode}",
+                                              _report(fits[mode]["log"]),
+                                              failures,
+                                              traced=mode == "trace")
+    summary = _telemetry_summary(fits["metrics"]["events"])
+    out["split"] = pipeline_split(summary)
+    out["program"] = program_split(summary, "chunk_vg")
+    out["trace"] = _trace_checks(os.path.join(trace_dir, "trace.json"),
+                                 failures)
+
+    # The chunk program's cost against the analytic count of a chunk.
+    fe = next(o for o in fits["metrics"]["probe"].objectives
+              if o.batch.store is not None)
+    chunk = _chunk_arrays(fe)
+    dim = len(fit_10a["w"])
+    leaves = [getattr(chunk, leaf) for leaf in streaming_mod._LEAVES]
+    want_bytes = (sum(t.numel() * t.element_size() for t in leaves)
+                  + 4 * dim + 4 + 4 * dim)
+    costs = [e for e in fits["metrics"]["events"]
+             if e["event"] == "device_cost" and e["program"] == "chunk_vg"]
+    out["cost_bytes"] = costs[0]["bytes_accessed"] if costs else None
+    out["cost_bytes_analytic"] = want_bytes
+    if out["cost_bytes"] != want_bytes:
+        failures.append(f"13a: chunk_vg device_cost bytes "
+                        f"{out['cost_bytes']} vs analytic {want_bytes}")
+    mems = [e for e in fits["metrics"]["events"]
+            if e["event"] == "device_memory"]
+    sources = {e["source"] for e in mems}
+    out["memory"] = {"samples": len(mems), "sources": sorted(sources),
+                     "peak_bytes": max((e.get("peak_bytes_in_use", 0)
+                                        for e in mems), default=0)}
+    want_source = ("torch.cuda.memory_stats" if device != "cpu"
+                   else "host_rss (CPU device)")
+    if len(mems) < 2 or sources != {want_source}:
+        failures.append(f"13a: device memory series {out['memory']}")
+
+    # One streamed evaluation's synchronizing calls, off and on.
+    co = streaming_mod.ChunkedGLMObjective(
+        fe.objective, fe.batch, max_resident=0, prefetch_depth=2,
+        device=device)
+    w = torch.from_numpy(fit_10a["w"]).to(device)
+    out["syncs"], out["sync_messages"] = sync_counts(co, w)
+    kernel_busy_split(co, w, out["program"])
+    probe = out["syncs"].pop("probe_read")
+    out["sync_probe_read"] = probe
+    # On the card the guard must see the evaluation's own fences (one a
+    # chunk after the first) and the deliberate read.
+    if len(set(out["syncs"].values())) != 1 or (
+            device != "cpu" and (not probe or out["syncs"]["off"]
+                                 < co.batch.n_chunks - 1)):
+        failures.append(f"13a: synchronizing calls of one evaluation "
+                        f"{out['syncs']}")
+    del co, chunk, fe, fits
+    out["failures"] = failures
+    return out
+
+
+def phase_telemetry_score(model: GameModel, data: GameDataset, device: str,
+                          chunk_rows: int = STREAM_CHUNK_ROWS) -> dict:
+    """Phase 13b: phase 12a's warm streamed scoring pass with telemetry
+    off and in a metrics session: the same margins to the bit, B1 a
+    chunk, and the pass split into load, place and wait."""
+    failures: list = []
+    spill = os.path.join(WORK, "score_spill")
+
+    def scorer():
+        return StreamingGameScorer(
+            model, TaskType.LOGISTIC_REGRESSION, chunk_rows=chunk_rows,
+            spill_dir=spill, host_max_resident=2, prefetch_depth=2,
+            device=device)
+
+    off = scorer().score(data, keep_margins=True)
+    log_path = os.path.join(WORK, "telemetry_score.jsonl")
+    gather_rowsum.launches = 0
+    with RunLogger(log_path) as log:
+        session = telemetry.start("metrics", run_logger=log, device=device)
+        try:
+            on = scorer().score(data, keep_margins=True)
+        finally:
+            session.close()
+    out = {"launches": gather_rowsum.launches, "n_chunks": on["n_chunks"],
+           "wall_s": {"off": off["wall_s"], "metrics": on["wall_s"]},
+           "bitwise": bool(np.array_equal(on["margins"], off["margins"])
+                           and np.array_equal(on["predictions"],
+                                              off["predictions"]))}
+    if not out["bitwise"]:
+        failures.append("13b: metrics-mode margins differ from the "
+                        "off pass's")
+    if device != "cpu" and out["launches"] < on["n_chunks"]:
+        failures.append(f"13b: B1 launched {out['launches']} times for "
+                        f"{on['n_chunks']} chunks")
+    summary = _telemetry_summary(read_run_log(log_path))
+    out["split"] = pipeline_split(summary)
+    out["program"] = program_split(summary, "score_chunk")
+    out["report"] = _report_gates("13b", _report(log_path), failures)
+    out["failures"] = failures
+    return out
+
+
+def phase_telemetry_sweep(data: dict, ref_10d: dict, device: str,
+                          chunk_rows: int = STREAM_CHUNK_ROWS) -> dict:
+    """Phase 13c: phase 10d's streamed λ grid in a metrics session: the
+    lanes' losses and the lane kernel's launches against 10d's, and the
+    odometer identity in the report."""
+    failures: list = []
+    train, valid = sweep_data(data)
+    cfg = sweep_config("ELL", device, chunk_rows=chunk_rows,
+                       spill_dir=os.path.join(WORK, "sweep_spill"),
+                       chunk_max_resident=1, host_max_resident=2,
+                       prefetch_depth=2, telemetry="metrics")
+    fit = _stream_fit(cfg, train, valid)
+    swept = [s for s in fit["probe"].solves if s["kind"] == "swept"]
+    order = np.argsort(-np.asarray(SWEEP_LAMS), kind="stable")
+    loss = np.full(len(SWEEP_LAMS), np.nan)
+    if swept:
+        loss[order] = swept[-1]["value"]
+    want = np.asarray(ref_10d["loss"])
+    out = {"wall_s": fit["wall_s"], "lane_launches": fit["lane_launches"],
+           "lane_launches_10d": ref_10d["lane_launches"],
+           "bitwise_10d": bool(np.array_equal(loss, want)),
+           "max_loss_gap_rel": float(np.max(np.abs(loss - want)
+                                            / np.abs(want)))}
+    if out["bitwise_10d"]:
+        if out["lane_launches"] != out["lane_launches_10d"]:
+            failures.append(f"13c: lane kernel launched "
+                            f"{out['lane_launches']} times, 10d "
+                            f"{out['lane_launches_10d']}")
+    elif not out["max_loss_gap_rel"] <= SWEEP_LOSS_RTOL:
+        failures.append(f"13c: lane losses {out['max_loss_gap_rel']:.3g} "
+                        "from 10d's")
+    summary = _telemetry_summary(fit["events"])
+    out["split"] = pipeline_split(summary)
+    out["program"] = program_split(summary, "chunk_vg_swept")
+    out["report"] = _report_gates("13c", _report(fit["log"]), failures)
+    out["failures"] = failures
+    return out
+
+
+def phase_telemetry_driver(device_args: list) -> dict:
+    """Phase 13d: ``python -m photon_ml_torch.cli.game_training_driver
+    --telemetry trace`` in a subprocess on phase 8's config-4 fixture
+    with ``profile_dir`` in the config, then ``python -m
+    photon_ml_torch.telemetry report`` on its run log (exit 0), its
+    ``trace.json`` and the profiler's trace file."""
+    failures: list = []
+    out_dir = os.path.join(WORK, "telemetry_driver")
+    prof = os.path.join(WORK, "telemetry_profile")
+    cfg = driver_config(out_dir)
+    cfg["profile_dir"] = prof
+    cfg_path = os.path.join(WORK, "telemetry_driver.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "photon_ml_torch.cli.game_training_driver",
+         "--config", cfg_path, "--telemetry", "trace", *device_args],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    out = {"driver_rc": proc.returncode,
+           "driver_wall_s": time.perf_counter() - t}
+    if proc.returncode != 0:
+        failures.append(f"13d: the driver exited {proc.returncode}: "
+                        f"{proc.stderr[-2000:]}")
+        out["failures"] = failures
+        return out
+    rep = subprocess.run(
+        [sys.executable, "-m", "photon_ml_torch.telemetry", "report",
+         os.path.join(out_dir, "run_log.jsonl")],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    tail = json.loads(rep.stdout.strip().splitlines()[-1])
+    out.update(report_rc=rep.returncode,
+               reconciliation=tail["reconciliation"],
+               odometer_ok=(tail["convergence"] or {}).get("ok"),
+               trace_json=os.path.exists(os.path.join(out_dir,
+                                                      "trace.json")))
+    prof_file = os.path.join(prof, "fit.pt.trace.json")
+    out["profile_bytes"] = (os.path.getsize(prof_file)
+                            if os.path.exists(prof_file) else 0)
+    if rep.returncode != 0:
+        failures.append(f"13d: telemetry report exited {rep.returncode} "
+                        f"(reconciliation {tail['reconciliation']})")
+    if not out["trace_json"] or not out["profile_bytes"]:
+        failures.append(f"13d: trace.json {out['trace_json']}, profiler "
+                        f"trace {out['profile_bytes']} bytes")
+    out["failures"] = failures
+    return out
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -4027,7 +4441,6 @@ def main() -> int:
         if stream_sweep["failures"]:
             raise AssertionError("phase 10d: " + "; ".join(
                 stream_sweep["failures"]))
-        del sweep
         kernels[0]["launches_stream_fit"] = stream["10a"]["launches"]
         kernels[0]["shapes"].append(stream["kernel_shape"])
         kernels[0]["max_abs_err"] = max(
@@ -4060,8 +4473,8 @@ def main() -> int:
             sh["max_abs_err"] for sh in kernels[0]["shapes"])
 
         t = time.perf_counter()
-        score = phase_stream_score(fit_10a.pop("model"), score_rows, "cuda")
-        del score_rows
+        model_10a = fit_10a.pop("model")
+        score = phase_stream_score(model_10a, score_rows, "cuda")
         score["12b"] = phase_stream_score_driver(driver, [],
                                                  score["failures"])
         score["card"] = card
@@ -4076,6 +4489,26 @@ def main() -> int:
         kernels[0]["shapes"].append(score["kernel_shape"])
         kernels[0]["max_abs_err"] = max(
             sh["max_abs_err"] for sh in kernels[0]["shapes"])
+
+        t = time.perf_counter()
+        tel = {"13a": phase_telemetry(stream, fit_10a, "cuda")}
+        tel["13b"] = phase_telemetry_score(model_10a, score_rows, "cuda")
+        del score_rows, model_10a
+        tel["13c"] = phase_telemetry_sweep(sweep, stream_sweep, "cuda")
+        del sweep
+        tel["13d"] = phase_telemetry_driver([])
+        tel["card"] = card
+        print(f"phase 13 telemetry ({time.perf_counter() - t:.1f} s): "
+              + json.dumps({"telemetry": tel}, default=str))
+        tel_failures = [f for part in ("13a", "13b", "13c", "13d")
+                        for f in tel[part]["failures"]]
+        if tel_failures:
+            raise AssertionError("phase 13: " + "; ".join(tel_failures))
+        kernels[0]["launches_telemetry_fits"] = {
+            mode: tel["13a"]["launches"][mode]
+            for mode in ("metrics", "trace")}
+        kernels[0]["launches_telemetry_scoring"] = tel["13b"]["launches"]
+        lanes["launches_telemetry_sweep"] = tel["13c"]["lane_launches"]
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"total {time.perf_counter() - t_all:.1f} s")

@@ -5,13 +5,16 @@ pass over the records (JSONL or Avro) → deterministic sorted-order JSON
 maps a feature shard and an entity key, the same files the JAX package
 writes (``io.index_map``).  Prebuilt maps let training (``index_dir``)
 and scoring skip the scan and keep train and score indices in agreement.
-Host only: nothing here touches the card.  The reference's telemetry and
-monitor flags are ROADMAP A8b and D3.
+Host only: nothing here touches the card.  ``--telemetry
+metrics|trace`` makes the scan a telemetry session (its summary and
+trace land under the output dir); the reference's monitor flags are
+ROADMAP D3.
 
 Usage::
 
     python -m photon_ml_torch.cli.feature_indexing_driver \\
-        --input data.jsonl --output-dir maps/ [--shards global user_re]
+        --input data.jsonl --output-dir maps/ [--shards global user_re] \\
+        [--telemetry off|metrics|trace]
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import argparse
 import json
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.io.dataset import build_index_maps
 from photon_ml_torch.io.index_map import save_index_maps
 from photon_ml_torch.utils.run_log import RunLogger
@@ -27,9 +31,12 @@ from photon_ml_torch.utils.run_log import RunLogger
 def run(input_path: str, output_dir: str,
         shards: list[str] | None = None,
         entity_keys: list[str] | None = None,
-        log: RunLogger | None = None) -> dict:
+        log: RunLogger | None = None,
+        telemetry_mode: str = "off") -> dict:
     """Build and save the maps; returns their sizes."""
-    with (log or RunLogger()) as log:
+    with (log or RunLogger()) as log, \
+            telemetry.maybe_session(telemetry_mode, output_dir,
+                                    run_logger=log, device="cpu"):  # host work
         with log.timed("build_index_maps", input=input_path):
             feature_maps, entity_maps = build_index_maps(
                 input_path, shards, entity_keys)
@@ -52,8 +59,13 @@ def main(argv: list[str] | None = None) -> dict:
                         help="feature shards to index (default: all)")
     parser.add_argument("--entity-keys", nargs="*", default=None,
                         help="entity id keys to index (default: all)")
+    parser.add_argument("--telemetry", choices=("off", "metrics", "trace"),
+                        default="off",
+                        help="pipeline telemetry for the scan phase "
+                             "(summary and trace land in --output-dir)")
     args = parser.parse_args(argv)
-    sizes = run(args.input, args.output_dir, args.shards, args.entity_keys)
+    sizes = run(args.input, args.output_dir, args.shards, args.entity_keys,
+                telemetry_mode=args.telemetry)
     # The last line of stdout: the maps' sizes, as JSON.
     print(json.dumps(sizes))
     return sizes

@@ -17,7 +17,8 @@ Usage::
 
     python -m photon_ml_torch.cli.game_scoring_driver --config score.json \\
         [--device cuda|cpu] [--score-chunk-rows R --spill-dir D \\
-        --host-max-resident H --prefetch-depth P]
+        --host-max-resident H --prefetch-depth P] \\
+        [--telemetry off|metrics|trace] [--telemetry-dir DIR]
 
 The output is an ``.npz`` with the raw margins (``scores``), mean-space
 ``predictions`` and the ``labels``, plus ``evaluation.json`` beside it
@@ -26,9 +27,12 @@ writes ``ScoringResultAvro`` records instead; both through the chunked
 sinks of ``io.score_sink`` (the reference writes its resident ``.npz``
 with ``np.savez``; ``np.load`` reads either alike).  The
 run is on the card unless ``--device cpu`` (or ``"device": "cpu"``)
-asks for the CPU; without CUDA it raises.  Telemetry (ROADMAP A8b) and
-the monitor (D3) are not ported: ``ScoringConfig.validate`` raises on
-them.
+asks for the CPU; without CUDA it raises.  ``--telemetry
+metrics|trace`` opens a telemetry session sharing the scoring log
+(``python -m photon_ml_torch.telemetry report <out>/scoring_log.jsonl``;
+trace mode also writes ``<telemetry_dir or out>/trace.json``).  The
+monitor (ROADMAP D3) is not ported: ``ScoringConfig.validate`` raises
+on it.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import os
 import numpy as np
 import torch
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.config import ScoringConfig, load_scoring_config
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.estimators.game_transformer import GameTransformer
@@ -122,32 +127,38 @@ def run(config: ScoringConfig, log: RunLogger | None = None) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     with (log or RunLogger(os.path.join(out_dir, "scoring_log.jsonl"),
                            run_info={"driver": "game_scoring",
-                                     "device": config.device},
-                           flush_every_s=DEFAULT_FLUSH_EVERY_S)) as log:
+                                     "device": config.device,
+                                     "telemetry": config.telemetry},
+                           flush_every_s=DEFAULT_FLUSH_EVERY_S)) as log, \
+            telemetry.maybe_session(
+                config.telemetry, config.telemetry_dir or out_dir,
+                run_logger=log, device=config.device):
         return _run(config, log)
 
 
 def _run_streamed(config: ScoringConfig, model, task, data,
                   dev: torch.device, log: RunLogger) -> dict:
-    from photon_ml_torch.data.chunk_store import resolve_spill_dir
-    from photon_ml_torch.estimators.streaming_scorer import (
-        StreamingGameScorer,
-    )
-    from photon_ml_torch.evaluation.streaming import (
-        make_streaming_evaluator,
-    )
-
-    scorer = StreamingGameScorer(
-        model=model, task=task,
-        chunk_rows=config.score_chunk_rows,
-        spill_dir=resolve_spill_dir(config.spill_dir),
-        host_max_resident=config.host_max_resident,
-        prefetch_depth=config.prefetch_depth, device=str(dev))
-    sinks = _make_sinks(config, data.n, data.entity_ids)
-    evaluators = [make_streaming_evaluator(ev)
-                  for ev in config.evaluators]
+    # The phase covers the scorer's imports and set-up too, so a
+    # telemetry report's spans account for them.
     with log.timed("transform_streamed",
                    chunk_rows=config.score_chunk_rows):
+        from photon_ml_torch.data.chunk_store import resolve_spill_dir
+        from photon_ml_torch.estimators.streaming_scorer import (
+            StreamingGameScorer,
+        )
+        from photon_ml_torch.evaluation.streaming import (
+            make_streaming_evaluator,
+        )
+
+        scorer = StreamingGameScorer(
+            model=model, task=task,
+            chunk_rows=config.score_chunk_rows,
+            spill_dir=resolve_spill_dir(config.spill_dir),
+            host_max_resident=config.host_max_resident,
+            prefetch_depth=config.prefetch_depth, device=str(dev))
+        sinks = _make_sinks(config, data.n, data.entity_ids)
+        evaluators = [make_streaming_evaluator(ev)
+                      for ev in config.evaluators]
         result = scorer.score(data, sinks=sinks, evaluators=evaluators)
     log.event("stream_stats",
               **{k: v for k, v in result.items() if k != "evaluation"})
@@ -228,10 +239,19 @@ def main(argv: list[str] | None = None) -> dict:
     parser.add_argument("--prefetch-depth", type=int, default=None,
                         help="override: chunks prefetched ahead (0: "
                              "synchronous)")
+    parser.add_argument("--telemetry", choices=("off", "metrics", "trace"),
+                        default=None,
+                        help="override config telemetry: pipeline "
+                             "spans and metrics into the scoring log "
+                             "(trace also writes trace.json)")
+    parser.add_argument("--telemetry-dir", default=None,
+                        help="override config telemetry_dir (default: "
+                             "the output's dir)")
     args = parser.parse_args(argv)
     config = load_scoring_config(args.config)
     for name in ("device", "score_chunk_rows", "spill_dir",
-                 "host_max_resident", "prefetch_depth"):
+                 "host_max_resident", "prefetch_depth", "telemetry",
+                 "telemetry_dir"):
         val = getattr(args, name)
         if val is not None:
             setattr(config, name, val)

@@ -15,7 +15,8 @@ Usage::
         [--re-chunk-entities N] [--re-retirement on|off] \\
         [--cd-fused on|off] \\
         [--checkpoint-dir D] [--checkpoint-every-sweeps N] \\
-        [--checkpoint-every-solver-iters N] [--resume]
+        [--checkpoint-every-solver-iters N] [--resume] \\
+        [--telemetry off|metrics|trace] [--telemetry-dir DIR]
 
 The run is on the card unless ``--device cpu`` (or ``"device": "cpu"``
 in the config) asks for the CPU; without CUDA it raises.  A chunked fit
@@ -25,10 +26,14 @@ entity chunks (retiring converged entities unless ``--re-retirement
 off``), and ``--cd-fused on`` makes each coordinate-descent cycle one
 store pass over the chunked fixed effect and every random effect; with
 ``--checkpoint-dir`` it snapshots, and ``--resume`` continues from the
-most advanced snapshot, appending to the run log.  The fleet and
-multi-host bootstrap (ROADMAP A7), telemetry and the monitor (ROADMAP
-A8b, D3) are not ported: their config fields must stay at their
-defaults.
+most advanced snapshot, appending to the run log.  ``--telemetry
+metrics|trace`` opens a telemetry session over the whole run, sharing
+the run log (``python -m photon_ml_torch.telemetry report
+<out>/run_log.jsonl`` reads it; trace mode also writes
+``<telemetry_dir or out>/trace.json``), and the config's ``profile_dir``
+runs the fit phase under ``torch.profiler``.  The fleet and multi-host
+bootstrap (ROADMAP A7) and the monitor (ROADMAP D3) are not ported:
+their config fields must stay at their defaults.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import os
 
 import numpy as np
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.config import (
     CoordinateKind,
     TrainingConfig,
@@ -143,13 +149,20 @@ def run(config: TrainingConfig, log: RunLogger | None = None) -> dict:
     os.makedirs(config.output_dir, exist_ok=True)
     # A resumed run appends: the log then holds both runs, each opening
     # with its run_header.
+    # The telemetry session shares the logger, so spans and heartbeats
+    # land in the JSONL the report reads.
     with (log or RunLogger(os.path.join(config.output_dir, "run_log.jsonl"),
                            mode=("a" if config.resume else "w"),
                            header=True,
                            run_info={"driver": "game_training",
                                      "device": config.device,
+                                     "telemetry": config.telemetry,
                                      "resume": config.resume},
-                           flush_every_s=DEFAULT_FLUSH_EVERY_S)) as log:
+                           flush_every_s=DEFAULT_FLUSH_EVERY_S)) as log, \
+            telemetry.maybe_session(
+                config.telemetry,
+                config.telemetry_dir or config.output_dir,
+                run_logger=log, device=config.device):
         return _run(config, log)
 
 
@@ -164,10 +177,11 @@ def _run(config: TrainingConfig, log: RunLogger) -> dict:
             raise ValueError(
                 "hyperparameter tuning needs validation data "
                 "(validation_path or validation_fraction)")
-        with log.timed("fit", mode="tuning", trials=config.tuning.n_trials):
+        with log.timed("fit", profile_dir=config.profile_dir,
+                       mode="tuning", trials=config.tuning.n_trials):
             results = estimator.fit_tuned(train, valid, run_logger=log)
     else:
-        with log.timed("fit"):
+        with log.timed("fit", profile_dir=config.profile_dir):
             results = estimator.fit(train, validation=valid, run_logger=log)
     best = estimator.best(results)
     for i, r in enumerate(results):
@@ -252,6 +266,15 @@ def main(argv: list[str] | None = None) -> dict:
                              "checkpoint_every_solver_iters: streaming-"
                              "solver mid-solve snapshot cadence (0 = "
                              "sweep boundaries only)")
+    parser.add_argument("--telemetry", choices=("off", "metrics", "trace"),
+                        default=None,
+                        help="override config telemetry: pipeline "
+                             "spans and metrics into the run log (trace "
+                             "also writes trace.json); read with "
+                             "python -m photon_ml_torch.telemetry report")
+    parser.add_argument("--telemetry-dir", default=None,
+                        help="override config telemetry_dir (default: "
+                             "the output dir)")
     args = parser.parse_args(argv)
     config = load_training_config(args.config)
     if args.output_dir:
@@ -261,7 +284,8 @@ def main(argv: list[str] | None = None) -> dict:
     for field in ("spill_dir", "host_max_resident", "prefetch_depth",
                   "re_chunk_entities", "checkpoint_dir", "resume",
                   "checkpoint_every_sweeps",
-                  "checkpoint_every_solver_iters"):
+                  "checkpoint_every_solver_iters", "telemetry",
+                  "telemetry_dir"):
         if getattr(args, field) is not None:
             setattr(config, field, getattr(args, field))
     for field in ("re_retirement", "cd_fused"):

@@ -9,12 +9,13 @@ chunk-streamed, disk-spilled fixed effect (``chunk_rows``,
 ``chunk_layout``, ``chunk_max_resident``, ``spill_dir``,
 ``host_max_resident``, ``prefetch_depth``), streamed random effects
 and the fused cycle (``re_chunk_entities``, ``cd_fused``) and streamed
-scoring (``score_chunk_rows`` and its knobs) are ported, with the
-reference's validation.  A training or scoring config's fields of tiers
-the port does not have yet (meshes: ROADMAP A7; telemetry and
-profiling: A8b; the monitor: D3) are accepted in the file but ``validate()``
-raises ``NotImplementedError`` when one is set to anything but its
-default, naming its ROADMAP item.  For serving:
+scoring (``score_chunk_rows`` and its knobs), pipeline telemetry
+(``telemetry``, ``telemetry_dir``) and profiling (``profile_dir``) are
+ported, with the reference's validation.  A training or scoring config's
+fields of tiers the port does not have yet (meshes: ROADMAP A7; the
+monitor: D3) are accepted in the file but ``validate()`` raises
+``NotImplementedError`` when one is set to anything but its default,
+naming its ROADMAP item.  For serving:
 
 - ``telemetry``, ``monitor`` and ``trace`` default to ``"off"``, and
   ``replicas`` to 1; ``validate()`` raises ``NotImplementedError`` when
@@ -210,8 +211,11 @@ class TrainingConfig:
     # cached under build/kernels/ by source hash.
     plan_cache_dir: str | None = None
     compilation_cache_dir: str | None = None
-    profile_dir: str | None = None         # ROADMAP A8b
-    telemetry: str = "off"                 # ROADMAP A8b / D2
+    # The training phase runs under torch.profiler; its Chrome trace
+    # lands here.
+    profile_dir: str | None = None
+    # Pipeline telemetry: off | metrics | trace (telemetry/__init__.py).
+    telemetry: str = "off"
     telemetry_dir: str | None = None
     monitor: str = "off"                   # ROADMAP D3
     monitor_every_s: float = 2.0
@@ -223,7 +227,6 @@ class TrainingConfig:
     # (field, default, ROADMAP item) of the tiers not ported yet.
     _NOT_PORTED = (
         ("n_devices", None, "A7"),
-        ("profile_dir", None, "A8b"), ("telemetry", "off", "A8b"),
         ("monitor", "off", "D3"), ("status_port", None, "D3"),
         ("distributed_init", False, "A7"))
 
@@ -393,7 +396,8 @@ class ScoringConfig:
     spill_dir: str | None = None
     host_max_resident: int = 2
     prefetch_depth: int = 2
-    # Not ported yet: telemetry (ROADMAP A8b), the monitor (ROADMAP D3).
+    # Pipeline telemetry: off | metrics | trace.  Not ported yet: the
+    # monitor (ROADMAP D3).
     telemetry: str = "off"
     telemetry_dir: str | None = None
     monitor: str = "off"
@@ -403,9 +407,7 @@ class ScoringConfig:
     device: str = "cuda"
 
     # (field, default, ROADMAP item) of the tiers not ported yet.
-    _NOT_PORTED = (
-        ("telemetry", "off", "A8b"), ("monitor", "off", "D3"),
-        ("status_port", None, "D3"))
+    _NOT_PORTED = (("monitor", "off", "D3"), ("status_port", None, "D3"))
 
     def validate(self) -> None:
         if self.score_chunk_rows is not None and self.score_chunk_rows <= 0:

@@ -24,8 +24,10 @@ window → card.
 The keys, file names and member layout are the JAX package's, so a
 spill dir built by either package is reused by the other without a
 rebuild.  Counters (``loads``, ``hits``, ``rebuilds``, ``spills``,
-``peak_resident``, ``access_log``) take the place of the reference's
-telemetry counters.
+``peak_resident``, ``access_log``) are the store's own record; with a
+telemetry session the same events count as ``store.*`` (and
+``store.mmap_loads``/``copy_loads``, ``store.bytes_read``,
+``store.bytes_spilled``) and ``reliability.*``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from collections import OrderedDict
 
 import numpy as np
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.cache.plan_cache import atomic_savez
 from photon_ml_torch.reliability import faults as _faults
 from photon_ml_torch.reliability import retry as _retry
@@ -146,6 +149,7 @@ def probe_spill_dir(spill_dir: str | None) -> str | None:
                 "spill dir %r is not writable (%r); DEGRADING to the "
                 "host-resident path — host RSS is no longer bounded by "
                 "the chunk window for this build", spill_dir, e)
+            telemetry.count("reliability.degraded")
         return None
 
 
@@ -561,6 +565,7 @@ class ChunkStore:
             _retry.run_with_retries(_write, f"chunk spill {path}")
         except OSError as e:
             if e.errno == errno.ENOSPC:
+                telemetry.count("reliability.actionable_errors")
                 raise ChunkStoreSpillError(
                     os.path.dirname(self.dir) or self.dir,
                     sum(int(np.asarray(a).nbytes)
@@ -569,6 +574,13 @@ class ChunkStore:
             raise
         with self._lock:
             self.spills += 1
+        telemetry.count("store.spills")
+        if telemetry.active() is not None:
+            try:
+                telemetry.count("store.bytes_spilled",
+                                os.path.getsize(path))
+            except OSError:  # a racing cleanup: the size is advisory
+                pass
         if keep_resident is None:
             keep_resident = i < self.host_max_resident
         if keep_resident:
@@ -584,6 +596,7 @@ class ChunkStore:
                 self.hits += 1
                 self.access_log.append(i)
         if hit is not None:
+            telemetry.count("store.hits")
             if self._window_group is not None:
                 self._window_group.touch(self, i)
             return hit
@@ -596,13 +609,22 @@ class ChunkStore:
         with self._lock:
             self.access_log.append(i)
             self.loads += 1
+        telemetry.count("store.loads")
 
         def _attempt():
             _faults.fire("store.load", path=path, chunk=i)
             try:
                 arrays = _open_npz_mmap(path)
+                telemetry.count("store.mmap_loads")
             except (zipfile.BadZipFile, ValueError, OSError):
                 arrays = dict(np.load(path, allow_pickle=False))
+                telemetry.count("store.copy_loads")
+            if telemetry.active() is not None:
+                try:
+                    telemetry.count("store.bytes_read",
+                                    os.path.getsize(path))
+                except OSError:  # a racing cleanup: advisory size
+                    pass
             meta = json.loads(bytes(np.asarray(arrays["__meta__"]))
                               .decode())
             return self._decode(meta, arrays)
@@ -618,6 +640,7 @@ class ChunkStore:
                            "rebuilding", path, e)
             with self._lock:
                 self.rebuilds += 1
+            telemetry.count("store.rebuilds")
             chunk = self._rebuild(i)
             try:
                 self.put(i, chunk, keep_resident=False)

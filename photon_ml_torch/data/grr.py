@@ -21,21 +21,28 @@ the hand-written CUDA kernels of ``ops.grr_kernel`` on a CUDA device
 (B2 for dense-grid plans, B3 for the others) and their plain versions on
 the CPU.  There is no switch that turns the kernels off.
 
+A direction whose COO residual (the spill that stays on the scatter
+path) exceeds 5 % of its entries is flagged; the flags of one
+``build_grr_pair`` are one warning and one ``grr.spill_flagged_builds``
+telemetry count (``_SpillWarnings``).
+
 Left out of this port (ROADMAP A7): the mesh-sharded builder
-``build_sharded_grr_pairs`` and its padding helpers; the spill-fraction
-warning aggregation (its telemetry counter is ROADMAP A8b).
+``build_sharded_grr_pairs`` and its padding helpers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.ops.grr_kernel import (
     DENSE_B,
@@ -56,6 +63,91 @@ SLOTS = TILE * TILE  # nonzero slots per supertile
 PLANNER_VERSION = 1
 
 DENSE_GRID_MIN_FILL = 0.7
+
+
+class _SpillWarnings:
+    """Aggregates the per-direction spill-fraction warnings: inside a
+    collecting scope (``build_grr_pair``; re-entrant, thread-safe, the
+    direction builds run on a pool) the flagged builds are one summary
+    at scope exit; outside any scope the first flagged build reports at
+    once and later ones within ``_UNSCOPED_WINDOW_S`` join the next
+    summary.  Every summary counts ``grr.spill_flagged_builds``."""
+
+    _THRESHOLD = 0.05          # COO fraction below which no one acts
+    _UNSCOPED_WINDOW_S = 30.0
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._depth = 0
+        self._builds = 0
+        self._flagged: list = []
+        self._last_emit: float | None = None
+
+    def __enter__(self):
+        with self._lock:
+            builds = flagged = None
+            if self._depth == 0:
+                builds, flagged = self._drain()
+            self._depth += 1
+        if flagged:
+            self._emit(builds, flagged)
+        return self
+
+    def __exit__(self, *exc):
+        with self._lock:
+            self._depth -= 1
+            if self._depth:
+                return False
+            builds, flagged = self._drain()
+        if flagged:
+            self._emit(builds, flagged)
+        return False
+
+    def _drain(self) -> tuple[int, list]:
+        builds, flagged = self._builds, self._flagged
+        self._builds, self._flagged = 0, []
+        return builds, flagged
+
+    def _emit(self, builds: int, flagged: list) -> None:
+        telemetry.count("grr.spill_flagged_builds", len(flagged))
+        logger.warning(
+            "GRR spill fraction >%.0f%% on the scatter path in %d of %d "
+            "direction builds (min %.1f%%, max %.1f%%, mean %.1f%%): "
+            "consider a larger cap or a lower hot-column threshold",
+            100 * self._THRESHOLD, len(flagged), builds,
+            100 * min(flagged), 100 * max(flagged),
+            100 * sum(flagged) / len(flagged))
+
+    def note(self, m_coo: int, total: int) -> None:
+        if not total:
+            return
+        frac = m_coo / total
+        with self._lock:
+            self._builds += 1
+            if frac > self._THRESHOLD:
+                self._flagged.append(frac)
+            if self._depth or not self._flagged:
+                return
+            now = time.monotonic()
+            if (self._last_emit is not None
+                    and now - self._last_emit < self._UNSCOPED_WINDOW_S):
+                return               # buffer the burst
+            self._last_emit = now
+            builds, flagged = self._drain()
+        self._emit(builds, flagged)
+
+
+_spill_warnings = _SpillWarnings()
+
+
+def _collect_spill_warnings(fn):
+    """One spill summary over a plan build."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with _spill_warnings:
+            return fn(*args, **kwargs)
+
+    return wrapped
 
 
 def _next_pow2(x: int) -> int:
@@ -426,9 +518,13 @@ def _native_direction(cols, vals_masked, direction, table_len, n_segments,
     if validate and plan["vals"].shape[0]:
         _validate_routes(G2, G3)
     m = int(np.count_nonzero(plan["spill_val"]))
+    total = m + int(np.count_nonzero(plan["vals"]))
     overflow, s_idx, s_seg, s_val = _spill_overflow(
         plan["spill_idx"], plan["spill_seg"], plan["spill_val"], m,
         table_len, n_segments, validate, overflow_threshold)
+    # Only the spill left on the scatter path is flagged (what the
+    # overflow plan absorbed runs on the kernel).
+    _spill_warnings.note(int(np.count_nonzero(s_val)), total)
     VALS, gw_arr = plan["vals"], plan["gw_of_st"]
     ow_arr, first_arr = plan["ow_of_st"], plan["first_of_ow"]
     dg = _maybe_dense_grid(G1, G2, G3, VALS, gw_arr, ow_arr,
@@ -619,6 +715,7 @@ def _build_host_direction(idx, seg, val, table_len, n_segments, cap=None,
     overflow, s_idx, s_seg, s_val = _spill_overflow(
         s_idx, s_seg, s_val, m, table_len, n_segments, validate,
         overflow_threshold, depth=overflow_depth)
+    _spill_warnings.note(int(np.count_nonzero(s_val)), max(idx.size, 1))
     dg = _maybe_dense_grid(G1, G2, G3, VALS, gw_of_st, ow_of_st,
                            n_gw, n_ow, force=dense_grid)
     if dg is not None:
@@ -845,6 +942,7 @@ def _pair_cache_path(cols, vals, dim, cache_dir, config: dict) -> str:
         cache_dir, fp, plan_cache.plan_config_key(**config))
 
 
+@_collect_spill_warnings
 def build_grr_pair(
     cols: np.ndarray,
     vals: np.ndarray,

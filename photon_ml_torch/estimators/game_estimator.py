@@ -37,6 +37,7 @@ import time
 import numpy as np
 import torch
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.config import (
     CoordinateConfig,
     CoordinateKind,
@@ -659,16 +660,19 @@ class GameEstimator:
                 scope = (checkpointer.scope(f"{stage}_s{i + 1}")
                          if checkpointer is not None
                          else contextlib.nullcontext())
-                with scope:
+                with scope, telemetry.span("swept_train", cat="train",
+                                           coordinate=name, lanes=L):
                     W, res = coord.train_swept(offsets, reg, warm_start=W)
                 if validate:
-                    W_now = W[inv]
-                    for j in range(L):
-                        snap = self._swept_lane_model(
-                            coords, name, W_now[j], locked, offsets,
-                            float(lams[j]), with_variances=False)
-                        lane_history[j].append(
-                            self._evaluate(snap, validation))
+                    with telemetry.span("swept_validation", cat="train",
+                                        coordinate=name, lanes=L):
+                        W_now = W[inv]
+                        for j in range(L):
+                            snap = self._swept_lane_model(
+                                coords, name, W_now[j], locked, offsets,
+                                float(lams[j]), with_variances=False)
+                            lane_history[j].append(
+                                self._evaluate(snap, validation))
                 if checkpointer is not None and (
                         (i + 1) == cfg.n_iterations
                         or (i + 1) % checkpointer.every_sweeps == 0):
@@ -832,21 +836,34 @@ class GameEstimator:
             run_logger=None) -> list[FitResult]:
         """Train the λ grid; results in grid order.  An eligible
         fixed-effect grid (``_swept_coordinate_name``) trains as ONE
-        swept solve; other grids fit point by point."""
-        prep = self._prepare(train)
-        grid_points = self._grid_points()
-        name = self._swept_coordinate_name()
-        # cd_fused trains grid points as separate fused fits: the swept
-        # lanes solve coordinate by coordinate.
-        if (len(grid_points) > 1 and name is not None
-                and set(self.config.reg_weight_grid) == {name}
-                and not self.config.cd_fused):
-            return self._fit_grid_swept(train, prep, name, grid_points,
-                                        validation, run_logger)
-        return [self._fit_point(
-                    train, prep, rw, validation, run_logger,
-                    ckpt_tag=f"grid_{gi}" if len(grid_points) > 1 else None)
-                for gi, rw in enumerate(grid_points)]
+        swept solve; other grids fit point by point.
+
+        ``config.telemetry`` opens a session for the fit unless one is
+        active (a driver's); the fit is one ``estimator_fit`` phase span
+        (not ``fit``: a driver's timed phase has that name)."""
+        with telemetry.maybe_session(
+                self.config.telemetry,
+                self.config.telemetry_dir or self.config.output_dir,
+                run_logger=run_logger, device=self.device), \
+                telemetry.span("estimator_fit", cat="phase"):
+            prep = self._prepare(train)
+            # The footprint after placement, before any solve.
+            telemetry.device_memory("datasets_placed")
+            grid_points = self._grid_points()
+            name = self._swept_coordinate_name()
+            # cd_fused trains grid points as separate fused fits: the
+            # swept lanes solve coordinate by coordinate.
+            if (len(grid_points) > 1 and name is not None
+                    and set(self.config.reg_weight_grid) == {name}
+                    and not self.config.cd_fused):
+                return self._fit_grid_swept(train, prep, name,
+                                            grid_points, validation,
+                                            run_logger)
+            return [self._fit_point(
+                        train, prep, rw, validation, run_logger,
+                        ckpt_tag=(f"grid_{gi}" if len(grid_points) > 1
+                                  else None))
+                    for gi, rw in enumerate(grid_points)]
 
     def fit_tuned(self, train: GameDataset, validation: GameDataset,
                   run_logger=None) -> list[FitResult]:
@@ -857,8 +874,12 @@ class GameEstimator:
             raise ValueError("fit_tuned requires config.tuning")
         if not cfg.evaluators:
             raise ValueError("tuning needs at least one evaluator")
-        return self._fit_tuned_inner(train, validation, run_logger,
-                                     cfg.evaluators[0], cfg.tuning)
+        with telemetry.maybe_session(
+                cfg.telemetry, cfg.telemetry_dir or cfg.output_dir,
+                run_logger=run_logger, device=self.device), \
+                telemetry.span("fit_tuned", cat="phase"):
+            return self._fit_tuned_inner(train, validation, run_logger,
+                                         cfg.evaluators[0], cfg.tuning)
 
     def _fit_tuned_inner(self, train, validation, run_logger, ev,
                          tuning) -> list[FitResult]:

@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.data.sparse_rows import SparseRows
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.game.dataset import GameDataset, sorted_key_join
@@ -197,14 +198,19 @@ class GameTransformer:
         """Summed raw scores [n] plus the dataset's offsets."""
         dev = resolve_device(self.device)
         total = dataset.offset_array().astype(np.float64).copy()
-        for name, comp in self.model.models.items():
-            if isinstance(comp, FixedEffectModel):
-                total += _score_fixed(comp, dataset, dev)
-            elif isinstance(comp, RandomEffectModel):
-                ids = dataset.entity_ids[comp.entity_key or name]
-                total += _score_random(comp, ids, dataset, dev)
-            else:
-                raise TypeError(f"unknown component model {type(comp)}")
+        with telemetry.span("transform", cat="score", n=int(dataset.n)):
+            for name, comp in self.model.models.items():
+                # A pass a coordinate: the report shows which dominates.
+                with telemetry.span("score_coordinate", cat="score",
+                                    coordinate=name):
+                    if isinstance(comp, FixedEffectModel):
+                        total += _score_fixed(comp, dataset, dev)
+                    elif isinstance(comp, RandomEffectModel):
+                        ids = dataset.entity_ids[comp.entity_key or name]
+                        total += _score_random(comp, ids, dataset, dev)
+                    else:
+                        raise TypeError(
+                            f"unknown component model {type(comp)}")
         return total.astype(np.float32)
 
     def transform_streamed(self, dataset: GameDataset,

@@ -40,8 +40,11 @@ is placed, so the card's work stays one fused sum.
 
 ``GameTransformer.transform`` stays the per-coordinate resident path;
 this pass gives its margins up to float summation order.  The serving
-engine calls ``run_chunk`` directly.  The reference's telemetry spans,
-counters and monitor progress come with ROADMAP A8b and D3.
+engine calls ``run_chunk`` directly.  With telemetry a pass is one
+``score_pass`` span, each chunk a ``chunk_compute`` span (and a CUDA
+event pair, program ``score_chunk``) and a ``chunk_drain`` span, and the
+writer thread's ``sink_write`` spans, heartbeats and death event land in
+the run log; the monitor's progress is ROADMAP D3.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ import time
 import numpy as np
 import torch
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.data.sparse_rows import SparseRows
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.estimators.game_transformer import (
@@ -72,6 +76,7 @@ from photon_ml_torch.models.game import (
 from photon_ml_torch.models.glm import TaskType
 from photon_ml_torch.ops.kernels import gather_rowsum
 from photon_ml_torch.reliability import faults as _faults
+from photon_ml_torch.telemetry import device as _device
 
 logger = logging.getLogger(__name__)
 
@@ -111,6 +116,18 @@ def run_chunk(specs, mean_fn, tables: dict, chunk: dict
     return m, mean_fn(m)
 
 
+def _score_chunk_cost(chunk: dict, tables: dict, out, device) -> dict:
+    """Analytic cost of ``run_chunk`` on one chunk: the chunk's arrays
+    and the coefficient tables read once, margins and predictions
+    written once; flops: a multiply-add a stored slot of every sparse
+    or dense feature plane (B1 over ``.vals``, the dots over ``.x``)."""
+    flops = sum(2.0 * v.numel() for k, v in chunk.items()
+                if k.endswith((".vals", ".x")))
+    return _device.program_cost(
+        list(chunk.values()) + list(tables.values()),
+        _device.tensor_bytes([out]), flops, device)
+
+
 class _SinkWriter:
     """Writer thread: drains finished host chunks into the sinks, in
     queue order, while the card scores later chunks.  A failed write is
@@ -133,21 +150,44 @@ class _SinkWriter:
         with self._lock:
             return self._error
 
+    def _next_item(self):
+        """The next queued item.  close() always enqueues the sentinel,
+        from the thread that puts, so the wait ends with the pass; with
+        telemetry, heartbeats flow while starved."""
+        t = telemetry.active()
+        start = beat = time.perf_counter()
+        while True:
+            try:
+                return self._q.get(timeout=0.05)
+            except queue.Empty:
+                if t is None:
+                    continue
+                now = time.perf_counter()
+                if now - beat >= t.heartbeat_s:
+                    t.heartbeat("sink-writer", state="queue_empty",
+                                waiting_s=round(now - start, 3))
+                    beat = now
+
     def _run(self) -> None:
         while True:
-            # close() always enqueues the sentinel, from the thread that
-            # puts, so this get ends with the pass.
-            item = self._q.get()
+            item = self._next_item()
             if item is self._SENTINEL:
                 return
             if self._failed() is not None:
                 continue       # drain without writing after a failure
             try:
                 lo, hi, margins, preds, labels, ids = item
-                _faults.fire("sink.write", lo=lo, hi=hi)
-                for s in self._sinks:
-                    s.write(lo, hi, margins, preds, labels, ids=ids)
+                t0 = time.perf_counter()
+                with telemetry.span("sink_write", cat="sink", lo=lo,
+                                    hi=hi):
+                    _faults.fire("sink.write", lo=lo, hi=hi)
+                    for s in self._sinks:
+                        s.write(lo, hi, margins, preds, labels, ids=ids)
+                telemetry.observe("sink.write_s", time.perf_counter() - t0)
             except BaseException as e:
+                # The death event first, then the locked hand-off the
+                # producer reads in put().
+                telemetry.thread_exception("sink-writer", e)
                 with self._lock:
                     self._error = e
                 for s in self._sinks:
@@ -160,6 +200,7 @@ class _SinkWriter:
         err = self._failed()
         if err is not None:
             raise err
+        telemetry.gauge("sink.queue_depth", self._q.qsize())
         self._q.put((lo, hi, margins, preds, labels, ids))
 
     def close(self) -> None:
@@ -448,52 +489,70 @@ class StreamingGameScorer:
             i, host, done = item
             lo = i * R
             hi = min(lo + R, n)
-            if done is not None:
-                done.synchronize()
-            out = host.numpy()
-            m, p = out[0, : hi - lo], out[1, : hi - lo]
-            lab = labels[lo:hi]
-            for ev in evaluators:
-                ev.update(m, p, lab, weights[lo:hi])
-            if writer is not None:
-                writer.put(lo, hi, m, p, lab,
-                           {k: v[lo:hi] for k, v in entity_cols.items()})
-            if keep_margins:
-                margins_out[lo:hi] = m
-                preds_out[lo:hi] = p
+            t_drain = time.perf_counter()
+            with telemetry.span("chunk_drain", cat="score", chunk=i):
+                if done is not None:
+                    done.synchronize()
+                out = host.numpy()
+                m, p = out[0, : hi - lo], out[1, : hi - lo]
+                lab = labels[lo:hi]
+                for ev in evaluators:
+                    ev.update(m, p, lab, weights[lo:hi])
+                if writer is not None:
+                    writer.put(lo, hi, m, p, lab,
+                               {k: v[lo:hi]
+                                for k, v in entity_cols.items()})
+                if keep_margins:
+                    margins_out[lo:hi] = m
+                    preds_out[lo:hi] = p
+            telemetry.observe("score.chunk_drain_s",
+                              time.perf_counter() - t_drain)
 
         t0 = time.perf_counter()
         pending: list = []
         chunks = self._placed_chunks(n_chunks, load, store)
         try:
-            for i, buf in enumerate(chunks):
-                if pending and pending[-1][2] is not None:
-                    # Backpressure: chunk i-1's work ends before chunk i
-                    # dispatches, so about two chunks' buffers are live.
-                    pending[-1][2].synchronize()
-                m, p = run(tables, buf)
-                both = torch.stack((m, p))
-                if cuda:
-                    # One copy back a chunk, into pinned memory.
-                    host = torch.empty(both.shape, dtype=both.dtype,
-                                       pin_memory=True)
-                    host.copy_(both, non_blocking=True)
-                    done = torch.cuda.Event()
-                    done.record()
-                else:
-                    host, done = both, None
-                del buf
-                pending.append((i, host, done))
-                if len(pending) > _INFLIGHT:
-                    drain(pending.pop(0))
-            chunks.close()
-            for item in pending:
-                drain(item)
-            if writer is not None:
-                w, writer = writer, None
-                w.close()
-            for s in sinks:
-                s.close()
+            with telemetry.span("score_pass", cat="score",
+                                chunks=n_chunks):
+                telemetry.count("score.passes")
+                for i, buf in enumerate(chunks):
+                    with telemetry.span("chunk_compute", cat="device"):
+                        if pending and pending[-1][2] is not None:
+                            # Backpressure: chunk i-1's work ends before
+                            # chunk i dispatches, so about two chunks'
+                            # buffers are live.
+                            pending[-1][2].synchronize()
+                        with telemetry.device_timed("score_chunk",
+                                                    self.device):
+                            m, p = run(tables, buf)
+                            both = torch.stack((m, p))
+                        _device.maybe_capture(
+                            "score_chunk",
+                            lambda: _score_chunk_cost(buf, tables, both,
+                                                      self.device),
+                            span="chunk_compute")
+                        if cuda:
+                            # One copy back a chunk, into pinned memory.
+                            host = torch.empty(both.shape,
+                                               dtype=both.dtype,
+                                               pin_memory=True)
+                            host.copy_(both, non_blocking=True)
+                            done = torch.cuda.Event()
+                            done.record()
+                        else:
+                            host, done = both, None
+                    del buf
+                    pending.append((i, host, done))
+                    if len(pending) > _INFLIGHT:
+                        drain(pending.pop(0))
+                chunks.close()
+                for item in pending:
+                    drain(item)
+                if writer is not None:
+                    w, writer = writer, None
+                    w.close()
+                for s in sinks:
+                    s.close()
         except BaseException:
             chunks.close()
             if writer is not None:

@@ -40,9 +40,11 @@ import time
 import numpy as np
 import torch
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.evaluation.evaluators import EvaluatorType
 from photon_ml_torch.game.coordinates import Coordinate
 from photon_ml_torch.reliability import checkpoint as _ckpt
+from photon_ml_torch.telemetry import convergence as _conv
 
 logger = logging.getLogger(__name__)
 
@@ -340,7 +342,11 @@ def run_coordinate_descent(
                 scope = (checkpointer.scope(f"it{it + 1}", name)
                          if checkpointer is not None
                          else contextlib.nullcontext())
-                with scope:
+                # One coordinate's train and score in a sweep is one
+                # block on the timeline.
+                with scope, telemetry.span("cd_coordinate", cat="cd",
+                                           coordinate=name,
+                                           iteration=it + 1):
                     offsets = total - scores[name]
                     w, diag = coord.train(offsets, coefs.get(name))
                     new_scores = coord.score(w)
@@ -355,14 +361,22 @@ def run_coordinate_descent(
                 # Retirement is committed after the new scores are in
                 # the totals: the next sweep packs only active entities.
                 newly_retired = coord.retire_converged()
+                if newly_retired:
+                    telemetry.count("cd.entities_retired", newly_retired)
+                telemetry.count("cd.coordinate_updates")
                 extra_fields = ({} if newly_retired is None
                                 else {"entities_newly_retired":
                                       newly_retired})
                 if "value" in fields:
                     if name in prev_values:
-                        extra_fields["value_delta"] = round(
-                            prev_values[name] - fields["value"], 8)
+                        delta = prev_values[name] - fields["value"]
+                        extra_fields["value_delta"] = round(delta, 8)
+                        telemetry.observe("cd.objective_delta", delta)
                     prev_values[name] = fields["value"]
+                    if (not coord.traces_convergence
+                            and hasattr(diag, "value")
+                            and diag.value.dim() == 0):
+                        _conv.solve_trace("resident", name, diag)
                 logger.info("CD iter %d coordinate %s trained in %.2fs",
                             it + 1, name, elapsed)
                 if run_logger is not None:
@@ -379,6 +393,9 @@ def run_coordinate_descent(
                         re_state=re_states(),
                         extra={**extra(), "partial_iter_diag":
                                _serialize_history([iter_diag])[0]})
+            # A completed cycle: the report's passes-a-cycle divides
+            # the sweep odometer by this.
+            telemetry.count("cd.cycles")
             history.append(iter_diag)
             if validator is not None:
                 _record_validation(validator, coefs, total, it,
@@ -397,7 +414,8 @@ def run_coordinate_descent(
 
 def _record_validation(validator, coefs, total, it, validation_history,
                        run_logger) -> None:
-    metric = _call_validator(validator, coefs, total)
+    with telemetry.span("cd_validation", cat="cd", iteration=it + 1):
+        metric = _call_validator(validator, coefs, total)
     validation_history.append(metric)
     out = ({str(getattr(k, "value", k)): float(v) for k, v in metric.items()}
            if isinstance(metric, dict) else {"metric": float(metric)})
@@ -435,8 +453,12 @@ def _run_fused_cycles(engine, coordinates, update_sequence, n_iterations,
     with _ckpt.session(checkpointer):
         for it in range(start_iteration, n_iterations):
             t0 = time.perf_counter()
-            coefs, scores, total, iter_diag = engine.run_cycle(coefs)
+            with telemetry.span("cd_fused_cycle", cat="cd",
+                                iteration=it + 1):
+                coefs, scores, total, iter_diag = engine.run_cycle(coefs)
             elapsed = time.perf_counter() - t0
+            telemetry.count("cd.cycles")
+            telemetry.count("cd.coordinate_updates", len(trainable))
             history.append(iter_diag)
             fe_diag = iter_diag.get(engine.fe_name, {})
             logger.info("CD fused cycle %d in %.2fs (value %s, alpha %s)",

@@ -38,6 +38,7 @@ import logging
 import numpy as np
 import torch
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.data.batch import Batch, DenseBatch, SparseBatch
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.game.dataset import (
@@ -56,6 +57,8 @@ from photon_ml_torch.ops.objective import (
 from photon_ml_torch.optim.base import OptimizerConfig, OptimizerType
 from photon_ml_torch.optim.lbfgs import lbfgs_solve_swept
 from photon_ml_torch.optim.problem import OptimizationProblem, solve_batched
+from photon_ml_torch.telemetry import convergence as _conv
+from photon_ml_torch.telemetry import device as _device
 
 logger = logging.getLogger(__name__)
 
@@ -93,6 +96,11 @@ class Coordinate:
     """The train/score contract."""
 
     name: str
+
+    # True when the coordinate's solver writes its own convergence
+    # events (the streaming solvers, the streamed random effect): the CD
+    # loop then writes no resident trace for it.
+    traces_convergence = False
 
     def initial_coefficients(self):
         raise NotImplementedError
@@ -214,6 +222,7 @@ class ChunkedFixedEffectCoordinate(Coordinate):
     max_resident: int = 1
     prefetch_depth: int = 2
     device: "object" = None           # default CUDA; "cpu" when asked
+    traces_convergence = True         # the streaming solvers emit live
 
     def __post_init__(self):
         from photon_ml_torch.optim.streaming import ChunkedGLMObjective
@@ -431,6 +440,16 @@ def _re_chunk_train(problem: OptimizationProblem, dev: dict):
     return res.w, scores, dw, res.converged, res.iterations
 
 
+def _re_chunk_cost(dev: dict, outs, device) -> dict:
+    """Analytic cost of ``_re_chunk_train`` on one entity chunk: its
+    placed arrays read once and its outputs written once; flops are one
+    pass of x (the solve repeats it each of its data-dependent
+    iterations, which the report's measured time includes)."""
+    return _device.program_cost(
+        list(dev.values()), _device.tensor_bytes(outs),
+        2.0 * dev["x"].numel(), device)
+
+
 class _Readback:
     """A chunk's solve outputs brought to the host in one copy that does
     not block: a sweep reads chunk j's after chunk j + 1's solve is
@@ -542,6 +561,7 @@ class StreamedRandomEffectCoordinate(Coordinate):
     retire_tolerance: float | None = None
     projection: "object | None" = None
     device: "object" = None          # default CUDA; "cpu" when asked
+    traces_convergence = True        # re_convergence events a sweep
 
     def __post_init__(self):
         from photon_ml_torch.optim.streaming import ArrayPlacer
@@ -773,17 +793,31 @@ class StreamedRandomEffectCoordinate(Coordinate):
             return int(iters.max()) if len(ents) else 0
 
         pending = None
-        for dev, b, ents, ex, rows, cols in self._stream(specs, off):
-            k = len(ents)
-            outs = _re_chunk_train(self.problem, dev)
-            ticket = (_Readback([o[:k] for o in outs]), b, ents, ex, rows,
-                      cols)
+        # One streamed sweep is one re_sweep span (a pass the overlap
+        # efficiency divides the consumer's wait by).
+        with telemetry.span("re_sweep", cat="solver",
+                            coordinate=self.name, chunks=len(specs)):
+            for dev, b, ents, ex, rows, cols in self._stream(specs, off):
+                k = len(ents)
+                program = f"re_chunk_train.b{b}"
+                with telemetry.span("chunk_compute", cat="device",
+                                    bucket=b):
+                    with telemetry.device_timed(program, self.device):
+                        outs = _re_chunk_train(self.problem, dev)
+                    _device.maybe_capture(
+                        program, lambda: _re_chunk_cost(dev, outs,
+                                                        self.device),
+                        span="chunk_compute")
+                    ticket = (_Readback([o[:k] for o in outs]), b, ents,
+                              ex, rows, cols)
+                    if pending is not None:
+                        max_iters = max(max_iters, collect(*pending))
+                pending = ticket
+                self._solved_offsets[ex] = off[ex]
             if pending is not None:
                 max_iters = max(max_iters, collect(*pending))
-            pending = ticket
-            self._solved_offsets[ex] = off[ex]
-        if pending is not None:
-            max_iters = max(max_iters, collect(*pending))
+        telemetry.count("re.sweeps")
+        telemetry.count("re.chunks_streamed", len(specs))
 
         # Retirement candidates: solved, converged, and coefficients and
         # offsets both moved less than the tolerance this sweep.  The CD
@@ -804,6 +838,7 @@ class StreamedRandomEffectCoordinate(Coordinate):
         self._last_w_blocks = list(blocks_out)
         self._cached_scores = self._to_device(self._scores_host)
         n_solved = int(sum(m.sum() for m in solved))
+        telemetry.count("re.entities_solved", n_solved)
         diag = {
             "entities": int(sum(ne)),
             "entities_solved": n_solved,
@@ -814,6 +849,7 @@ class StreamedRandomEffectCoordinate(Coordinate):
             "max_solver_iterations": max_iters,
             "chunks_streamed": len(specs),
         }
+        _conv.re_sweep(self.name, diag)
         return blocks_out, diag
 
     # -- checkpoint state ----------------------------------------------------
@@ -873,6 +909,10 @@ class StreamedRandomEffectCoordinate(Coordinate):
             newly += int(pend.sum())
             self._active[b] &= ~pend
             self._pending[b][:] = False
+        if newly:
+            # The commit's event: re_sweep sees retirement as of sweep
+            # start, so the last sweep's commit shows only here.
+            _conv.re_retirement(self.name, newly, self.entities_retired)
         return newly
 
     # -- score / export / variances -------------------------------------------

@@ -52,8 +52,11 @@ import logging
 import numpy as np
 import torch
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.data.batch import SparseBatch
 from photon_ml_torch.ops.objective import GLMObjective
+from photon_ml_torch.telemetry import convergence as _conv
+from photon_ml_torch.telemetry import device as _device
 
 logger = logging.getLogger(__name__)
 
@@ -127,6 +130,24 @@ def _fused_chunk(loss, w_fe: Tensor, re_tabs, re_actives,
         G.index_add_(0, idx, (gd2[:, None, None] * x[:, :, None]
                               * x[:, None, :]).double())
     return fe_scores, re_scores
+
+
+def _fused_chunk_cost(dev: dict, coefs: list, acc: tuple, names: list,
+                      rows: int, device) -> dict:
+    """Analytic cost of ``_fused_chunk`` on one chunk: its placed arrays
+    and the coefficient tables read once, the statistics and score rows
+    written once; flops: the fixed effect's three sparse products
+    (``X·w``, ``Xᵀd₁``, ``(X∘X)ᵀd₂``) and each random effect's dot,
+    gradient and Gram over its feature plane."""
+    stats = [acc[0], acc[1], acc[2], *acc[3], *acc[4]]
+    out_bytes = (_device.tensor_bytes(stats)
+                 + 4 * rows * (1 + len(names)))
+    flops = 2.0 * 3 * dev["fe.values"].numel()
+    for n in names:
+        x = dev[n + ".x"]
+        flops += 2.0 * x.numel() * (2 + x.shape[-1])
+    return _device.program_cost(list(dev.values()) + list(coefs),
+                                out_bytes, flops, device)
 
 
 def _fe_step(obj: GLMObjective, w: Tensor, g: Tensor, h: Tensor,
@@ -332,21 +353,35 @@ class FusedCycleEngine:
         store = self.sidecar_store
         if store is not None:
             store.begin_read()
+        telemetry.count("solver.sweeps")
         try:
-            for i, dev in self._stream():
-                labels = dev["fe.labels"]
-                batch = SparseBatch(
-                    values=dev["fe.values"], col_ids=dev["fe.col_ids"],
-                    labels=labels, weights=dev["fe.weights"],
-                    offsets=torch.zeros_like(labels), mask=dev["fe.mask"],
-                    dim=self.chunked.dim)
-                fe_s, re_s = _fused_chunk(
-                    self.loss, w_fe, tabs, actives, batch,
-                    [dev[n + ".x"] for n in names],
-                    [dev[n + ".idx"] for n in names], acc)
-                planes[0, i * R:(i + 1) * R] = fe_s
-                for j, s in enumerate(re_s):
-                    planes[1 + j, i * R:(i + 1) * R] = s
+            with telemetry.span("fused_cycle_pass", cat="solver",
+                                chunks=K):
+                for i, dev in self._stream():
+                    labels = dev["fe.labels"]
+                    batch = SparseBatch(
+                        values=dev["fe.values"],
+                        col_ids=dev["fe.col_ids"], labels=labels,
+                        weights=dev["fe.weights"],
+                        offsets=torch.zeros_like(labels),
+                        mask=dev["fe.mask"], dim=self.chunked.dim)
+                    with telemetry.span("chunk_compute", cat="device"):
+                        with telemetry.device_timed("fused_chunk",
+                                                    self.device):
+                            fe_s, re_s = _fused_chunk(
+                                self.loss, w_fe, tabs, actives, batch,
+                                [dev[n + ".x"] for n in names],
+                                [dev[n + ".idx"] for n in names], acc)
+                            planes[0, i * R:(i + 1) * R] = fe_s
+                            for j, s in enumerate(re_s):
+                                planes[1 + j, i * R:(i + 1) * R] = s
+                    _device.maybe_capture(
+                        "fused_chunk",
+                        lambda: _fused_chunk_cost(dev, [w_fe, *tabs,
+                                                        *actives],
+                                                  acc, names, R,
+                                                  self.device),
+                        span="chunk_compute")
         finally:
             if store is not None:
                 store.end_read()
@@ -405,9 +440,11 @@ class FusedCycleEngine:
             device=self.device, dtype=torch.float32)
         tabs = [self._tab_for(r, coefs[r.name]) for r in self.res]
         actives = self._actives()
+        telemetry.count("solver.fused_cycle_sweeps")
         acc, fe_scores, re_scores = self._pass(w_fe, tabs, actives)
         value = self._total_value(acc[0], w_fe, tabs)
         _, _, fe_gnorm = _fe_step(self.objective, w_fe, acc[1], acc[2], 0.0)
+        fe_gnorm = float(fe_gnorm)
         total = fe_scores.copy()
         for s in re_scores:
             total += s
@@ -415,6 +452,9 @@ class FusedCycleEngine:
         for j, r in enumerate(self.res):
             scores[r.name] = self._plane(re_scores[j])
         self.cycles += 1
+        telemetry.count("solver.iterations")
+        _conv.iteration("fused_cd", self.fe_name, self.cycles, value,
+                        fe_gnorm)
         rose = self._rose(value)
         if rose and self.alpha > _MIN_ALPHA and self._accepted is not None:
             # Back to the accepted point with half the step scale; no
@@ -484,6 +524,9 @@ class FusedCycleEngine:
                 retire = solved_mask & (moves[j] < r.tolerance) & quiet
                 newly = int(retire.sum())
                 r.active &= ~retire
+                if newly:
+                    _conv.re_retirement(r.name, newly,
+                                        int((~r.active).sum()))
             r.prev_off = off_r.copy()
             diag[r.name] = {
                 "entities": r.E_total,
@@ -500,18 +543,22 @@ class FusedCycleEngine:
     def score_pass(self, coefs: dict):
         """The final model and its scores from one more pass: the given
         coefficients, or the last accepted point when their joint value
-        rose above it (then one pass more).  Returns (coefficients,
-        scores a coordinate, total)."""
+        rose above it (then one pass more).  Both passes are auxiliary
+        sweeps of the odometer (the second, the port's return to the
+        accepted point, is the pass the JAX package never makes).
+        Returns (coefficients, scores a coordinate, total)."""
         zeros = [torch.zeros(r.E_total + 1, device=self.device)
                  for r in self.res]
         w_fe = torch.as_tensor(coefs[self.fe_name]).to(
             device=self.device, dtype=torch.float32)
         tabs = [self._tab_for(r, coefs[r.name]) for r in self.res]
+        telemetry.count("solver.aux_sweeps")
         acc, fe_scores, re_scores = self._pass(w_fe, tabs, zeros)
         if (self._accepted is not None
                 and self._rose(self._total_value(acc[0], w_fe, tabs))):
             point = self._accepted
             coefs = dict(point["coefs"])
+            telemetry.count("solver.aux_sweeps")
             _, fe_scores, re_scores = self._pass(point["w"], point["tabs"],
                                                  zeros)
         scores = {self.fe_name: self._plane(fe_scores)}

@@ -11,8 +11,8 @@ sinks take finished chunks, so output memory is bounded by one chunk:
   ``ScoringResultAvro`` records with ONE BLOCK A CHUNK, encoded by a
   schema-specific batch encoder straight from the arrays.
 
-The reference's ``telemetry.count`` calls (rows, blocks and bytes
-written) come with the telemetry tier, ROADMAP A8b.
+With a telemetry session the sinks count ``sink.rows_written``, and the
+Avro sink ``sink.avro_blocks`` and ``sink.bytes_written``.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import zipfile
 
 import numpy as np
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.io.avro import MAGIC, SYNC_SIZE, Schema, write_long
 from photon_ml_torch.io.avro_schemas import SCORING_RESULT_SCHEMA
 
@@ -64,6 +65,7 @@ class NpzScoreSink:
             self._failed = True
             raise
         self._written += hi - lo
+        telemetry.count("sink.rows_written", hi - lo)
 
     def close(self) -> None:
         if self._failed or self._written != self.n:
@@ -202,6 +204,9 @@ class AvroScoreSink:
             raise
         self.records_written += count
         self.blocks_written += 1
+        telemetry.count("sink.rows_written", count)
+        telemetry.count("sink.avro_blocks")
+        telemetry.count("sink.bytes_written", len(payload))
 
     def close(self) -> None:
         if self._failed:

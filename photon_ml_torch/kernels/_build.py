@@ -112,6 +112,30 @@ _SIGNATURES = {
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
 
+# Called with a source's name on the building thread after each nvcc
+# build (telemetry's ``kernels.builds`` counter, ``analysis.guards.
+# count_compiles``).
+_BUILD_LISTENERS: list = []
+_LISTENERS_LOCK = threading.Lock()
+
+
+def add_build_listener(fn) -> None:
+    with _LISTENERS_LOCK:
+        _BUILD_LISTENERS.append(fn)
+
+
+def remove_build_listener(fn) -> None:
+    with _LISTENERS_LOCK:
+        if fn in _BUILD_LISTENERS:
+            _BUILD_LISTENERS.remove(fn)
+
+
+def _notify_build(name: str) -> None:
+    with _LISTENERS_LOCK:
+        listeners = list(_BUILD_LISTENERS)
+    for fn in listeners:
+        fn(name)
+
 
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
@@ -157,6 +181,7 @@ def _finish_build(name: str, started) -> None:
                            f"(rc {proc.returncode}):\n{out}")
     print(f"nvcc {name}.cu:\n{out}", file=sys.stderr, end="")
     os.replace(tmp, final)
+    _notify_build(name)
 
 
 def build_all(names=None) -> list[Path]:

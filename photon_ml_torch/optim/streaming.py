@@ -61,6 +61,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.data.batch import SparseBatch
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.ops.objective import GLMObjective
@@ -85,6 +86,8 @@ from photon_ml_torch.optim.tron import (
 )
 from photon_ml_torch.reliability import checkpoint as _ckpt
 from photon_ml_torch.reliability import faults as _faults
+from photon_ml_torch.telemetry import convergence as _conv
+from photon_ml_torch.telemetry import device as _device
 
 logger = logging.getLogger(__name__)
 
@@ -366,15 +369,33 @@ class ChunkPrefetcher:
         self._thread.start()
 
     def _put(self, item) -> bool:
+        """Queue ``item`` unless stopped.  With telemetry, the full-queue
+        stall (the producer is ahead) is counted and heartbeats flow
+        while blocked, so a hung consumer shows as a stalled but live
+        producer."""
+        t = telemetry.active()
+        start = beat = time.perf_counter()
         while not self._stop.is_set():
             try:
                 self._q.put(item, timeout=0.05)
-                return True
             except queue.Full:  # the loop re-checks the stop flag
+                if t is not None:
+                    now = time.perf_counter()
+                    if now - beat >= t.heartbeat_s:
+                        t.heartbeat("prefetch-producer", state="queue_full",
+                                    stalled_s=round(now - start, 3))
+                        beat = now
                 continue
+            if t is not None:
+                stalled = time.perf_counter() - start
+                if stalled > 0.01:   # an actual full-queue wait
+                    t.count("prefetch.producer_stall_s", stalled)
+            return True
         return False
 
     def _run(self, order) -> None:
+        t = telemetry.active()
+        last_beat = time.perf_counter()
         try:
             if self._cuda_index is not None:
                 torch.cuda.set_device(self._cuda_index)
@@ -382,18 +403,32 @@ class ChunkPrefetcher:
                 if self._stop.is_set():
                     return
                 t0 = time.perf_counter()
-                _faults.fire("prefetch.load", chunk=i)
-                host = self._load(i)             # disk -> host
+                with telemetry.span("prefetch_load", cat="prefetch",
+                                    chunk=i):
+                    _faults.fire("prefetch.load", chunk=i)
+                    host = self._load(i)             # disk -> host
                 t1 = time.perf_counter()
-                _faults.fire("prefetch.place", chunk=i)
-                buf = self._place(host)          # host -> card
+                with telemetry.span("prefetch_place", cat="prefetch",
+                                    chunk=i):
+                    _faults.fire("prefetch.place", chunk=i)
+                    buf = self._place(host)          # host -> card
                 self.load_s += t1 - t0
                 self.place_s += time.perf_counter() - t1
+                if t is not None:
+                    t.count("prefetch.chunks_produced")
+                    t.gauge("prefetch.queue_depth", self._q.qsize())
+                    now = time.perf_counter()
+                    if now - last_beat >= t.heartbeat_s:
+                        t.heartbeat("prefetch-producer", chunk=i)
+                        last_beat = now
                 if not self._put((i, host, buf)):
                     return
         except BaseException as e:
-            # The error rides the queue to the consumer: the queue's
-            # lock orders it after every chunk already delivered.
+            # The death event first (the log names the stage even if the
+            # consumer never drains the sentinel), then the error rides
+            # the queue to the consumer: the queue's lock orders it after
+            # every chunk already delivered.
+            telemetry.thread_exception("prefetch-producer", e)
             logger.warning("chunk prefetch thread died: %r", e)
             self._put((self._SENTINEL, e, None))
         finally:
@@ -404,8 +439,12 @@ class ChunkPrefetcher:
         """The next placed chunk; raises the producer's error and asserts
         the order.  A bounded poll: a producer that died without
         delivering raises at once, a wedged one after
-        ``stall_timeout_s``."""
+        ``stall_timeout_s``.  With telemetry the wait is counted
+        (``prefetch.consumer_wait_s``, the numerator of the overlap
+        efficiency) and heartbeats flow while starved."""
+        t = telemetry.active()
         start = time.perf_counter()
+        beat = start
         while True:
             try:
                 i, host, buf = self._q.get(timeout=0.05)
@@ -415,6 +454,7 @@ class ChunkPrefetcher:
                 thread = self._thread
                 if ((thread is None or not thread.is_alive())
                         and self._q.empty()):
+                    telemetry.count("reliability.actionable_errors")
                     raise RuntimeError(
                         f"prefetch producer died without delivering "
                         f"chunk {expect} (thread gone, queue empty, no "
@@ -422,6 +462,8 @@ class ChunkPrefetcher:
                         "thread_exception / heartbeat events for the "
                         "stage that stopped")
                 if now - start > self.stall_timeout_s:
+                    telemetry.count("prefetch.stall_timeouts")
+                    telemetry.count("reliability.actionable_errors")
                     raise TimeoutError(
                         f"prefetch pipeline stalled {now - start:.1f}s "
                         f"waiting for chunk {expect} (stall_timeout_s="
@@ -429,7 +471,16 @@ class ChunkPrefetcher:
                         "tier is wedged — check spill-dir health; the "
                         "producer thread is still alive, so its "
                         "heartbeat events name the stuck stage")
-        self.wait_s += time.perf_counter() - start
+                if t is not None and now - beat >= t.heartbeat_s:
+                    t.heartbeat("prefetch-consumer",
+                                state="queue_empty", expect=expect,
+                                waiting_s=round(now - start, 3))
+                    beat = now
+        waited = time.perf_counter() - start
+        self.wait_s += waited
+        if t is not None:
+            t.count("prefetch.consumer_wait_s", waited)
+            t.count("prefetch.chunks_consumed")
         if i is self._SENTINEL:
             raise host   # the producer's exception, delivered in-band
         if i != expect:
@@ -458,6 +509,7 @@ class ChunkPrefetcher:
                 "prefetch thread did not exit within %.1fs (blocked "
                 "in a chunk load?); abandoning daemon thread",
                 join_timeout_s)
+            telemetry.count("prefetch.abandoned_threads")
         self._thread = None
 
 
@@ -591,29 +643,67 @@ class ChunkedGLMObjective:
                 nxt = self._get(order[pos + 1])
             yield i, _handover(cur)
 
-    def _fenced(self):
-        """Yield placed chunks, fencing chunk i-1's work before chunk i
-        dispatches on the spilled path (the backpressure fence)."""
+    def _fenced(self, pass_span: str, cost=None):
+        """Yield ``(chunk_id, placed chunk)`` for the consumer's work,
+        inside a ``chunk_compute`` span that, on the spilled path, first
+        fences chunk i-1's work (the backpressure fence: the wait is that
+        chunk's compute retiring).  The whole pass is one ``pass_span``.
+
+        ``cost`` = (program name, chunk → ``program_cost``) turns on
+        with telemetry the program's ``device_cost`` capture at its first
+        chunk, its CUDA-event pair around each chunk, and on the spilled
+        path its host ``device.dispatch_s.<name>`` histogram (the
+        capture chunk excluded)."""
         bounded = (self.batch.store is not None
                    and self.device.type == "cuda")
+        timed = (cost is not None and self.batch.store is not None
+                 and telemetry.active() is not None)
+        program = cost[0] if cost is not None else None
         fence = None
-        for cid, cur in self._chunk_stream():
-            if fence is not None:
-                fence.synchronize()
-            yield cid, cur
-            if bounded:
-                fence = torch.cuda.Event()
-                fence.record()
+        first = True
+        with telemetry.span(pass_span, cat="solver",
+                            chunks=self.batch.n_chunks):
+            for cid, cur in self._chunk_stream():
+                t0 = time.perf_counter() if timed else None
+                with telemetry.span("chunk_compute", cat="device"):
+                    if fence is not None:
+                        fence.synchronize()
+                    with telemetry.device_timed(program, self.device):
+                        yield cid, cur
+                    if bounded:
+                        fence = torch.cuda.Event()
+                        fence.record()
+                captured = False
+                if first and cost is not None:
+                    captured = _device.maybe_capture(
+                        program, lambda: cost[1](cur), span="chunk_compute")
+                first = False
+                if timed and not captured:
+                    telemetry.observe("device.dispatch_s." + program,
+                                      time.perf_counter() - t0)
 
-    def _sweep(self, per_chunk, combine):
+    def _sweep(self, per_chunk, combine, cost=None):
         """Stream every chunk through ``per_chunk`` and fold the partials
-        with ``combine``."""
+        with ``combine``: one ``solver.sweeps`` data pass."""
         self.sweeps += 1
+        telemetry.count("solver.sweeps")
         acc = None
-        for _cid, cur in self._fenced():
+        for _cid, cur in self._fenced("sweep", cost):
             out = per_chunk(cur)
             acc = out if acc is None else combine(acc, out)
         return acc
+
+    def _cost(self, inputs, output_bytes: int, products: int,
+              lanes: int = 1):
+        """``cost`` for ``_fenced``: the placed chunk's leaves and
+        ``inputs`` read, ``output_bytes`` written, ``products`` sparse
+        products over its slots for each of ``lanes``."""
+        def make(b):
+            leaves = [getattr(b, leaf) for leaf in _LEAVES]
+            return _device.program_cost(
+                leaves + list(inputs), output_bytes,
+                2.0 * b.values.numel() * products * lanes, self.device)
+        return make
 
     def _w(self, w) -> Tensor:
         return torch.as_tensor(w, dtype=torch.float32).to(self.device)
@@ -623,7 +713,8 @@ class ChunkedGLMObjective:
     def value(self, w) -> Tensor:
         w = self._w(w)
         val = self._sweep(lambda b: self._inner.value(w, b),
-                          lambda a, x: a + x)
+                          lambda a, x: a + x,
+                          cost=("chunk_value", self._cost([w], 4, 1)))
         val = val + self.objective.reg.l2_value(w)
         if self.objective.prior is not None:
             val = val + self.objective.prior.value(w)
@@ -633,7 +724,8 @@ class ChunkedGLMObjective:
         w = self._w(w)
         f, g = self._sweep(
             lambda b: self._inner.value_and_gradient(w, b),
-            lambda a, x: (a[0] + x[0], a[1] + x[1]))
+            lambda a, x: (a[0] + x[0], a[1] + x[1]),
+            cost=("chunk_vg", self._cost([w], 4 + 4 * w.numel(), 2)))
         reg = self.objective.reg
         f = f + reg.l2_value(w)
         g = g + reg.l2_gradient(w)
@@ -645,22 +737,32 @@ class ChunkedGLMObjective:
     def gradient(self, w) -> Tensor:
         return self.value_and_gradient(w)[1]
 
-    def hessian_vector(self, w, v) -> Tensor:
+    def _hessian_vector(self, w, v, cost=None) -> Tensor:
         w, v = self._w(w), self._w(v)
         hv = self._sweep(lambda b: self._inner.hessian_vector(w, v, b),
-                         lambda a, x: a + x)
+                         lambda a, x: a + x,
+                         cost=None if cost is None else
+                         (cost, self._cost([w, v], 4 * v.numel(), 3)))
         hv = hv + self.objective.reg.l2_hessian_vector(v)
         if self.objective.prior is not None:
             hv = hv + self.objective.prior.hessian_vector(v)
         return hv
 
+    def hessian_vector(self, w, v) -> Tensor:
+        """H(w)·v over every chunk: an auxiliary pass
+        (``solver.aux_sweeps``), not a solver evaluation."""
+        telemetry.count("solver.aux_sweeps")
+        return self._hessian_vector(w, v)
+
     def hvp_pass(self, w, v) -> Tensor:
-        """One chunk-accumulated H(w)·v pass for Steihaug CG (the same
-        math as ``hessian_vector``)."""
-        return self.hessian_vector(w, v)
+        """One chunk-accumulated H(w)·v pass for Steihaug CG: the same
+        math as ``hessian_vector``, counted as ``solver.hvp_sweeps``."""
+        telemetry.count("solver.hvp_sweeps")
+        return self._hessian_vector(w, v, cost="chunk_hvp")
 
     def hessian_diagonal(self, w) -> Tensor:
         w = self._w(w)
+        telemetry.count("solver.aux_sweeps")
         hd = self._sweep(lambda b: self._inner.hessian_diagonal(w, b),
                          lambda a, x: a + x)
         hd = hd + self.objective.reg.l2_hessian_diagonal(w)
@@ -685,7 +787,10 @@ class ChunkedGLMObjective:
         """[L, d] lanes → [L] values from one chunk sweep."""
         W = self._w(W)
         val = self._sweep(lambda b: self._inner.value(W, b),
-                          lambda a, x: a + x)
+                          lambda a, x: a + x,
+                          cost=("chunk_value_swept",
+                                self._cost([W], 4 * W.shape[0], 1,
+                                           W.shape[0])))
         val = val + self._lane_reg(W, reg, "l2_value")
         if self.objective.prior is not None:
             val = val + self.objective.prior.value(W)
@@ -699,7 +804,10 @@ class ChunkedGLMObjective:
         W = self._w(W)
         f, g = self._sweep(
             lambda b: self._inner.value_and_gradient(W, b),
-            lambda a, x: (a[0] + x[0], a[1] + x[1]))
+            lambda a, x: (a[0] + x[0], a[1] + x[1]),
+            cost=("chunk_vg_swept",
+                  self._cost([W], 4 * W.shape[0] + 4 * W.numel(), 2,
+                             W.shape[0])))
         f = f + self._lane_reg(W, reg, "l2_value")
         g = g + self._lane_reg(W, reg, "l2_gradient")
         if self.objective.prior is not None:
@@ -711,9 +819,11 @@ class ChunkedGLMObjective:
 
     def _per_example(self, fn) -> np.ndarray:
         """A per-chunk per-example quantity over every chunk → [n] host
-        array, through the same pipelined chunk feed."""
+        array, through the same pipelined chunk feed (one
+        ``solver.per_example_passes`` pass)."""
+        telemetry.count("solver.per_example_passes")
         pending = []
-        for cid, cur in self._fenced():
+        for cid, cur in self._fenced("per_example_pass"):
             lo, hi = self.batch.chunk_slice(cid)
             pending.append(fn(cur)[: hi - lo])
         if not pending:
@@ -872,7 +982,8 @@ def streaming_lbfgs_solve(
     if restored is not None:
         # Re-enter at the snapshot's iteration boundary: point, value,
         # gradient and the (s, y, ρ) memory; the initial evaluation is
-        # not repaid.
+        # not repaid (nor counted: this process never streamed it).
+        telemetry.count("solver.resumed_solves")
         w = _to(restored["w"], dev)
         f = _to(restored["f"], dev)
         g = _to(restored["g"], dev)
@@ -887,6 +998,11 @@ def streaming_lbfgs_solve(
         logger.info("streaming lbfgs '%s': resumed at iteration %d",
                     label, it)
     else:
+        # The sweep odometer: the initial evaluation is the pass this
+        # tick claims; trials, gradient recoveries and auxiliary passes
+        # claim the rest (solver.sweeps == streamed_solves + ls_trials
+        # + grad_recovery_sweeps + aux_sweeps + hvp_sweeps).
+        telemetry.count("solver.streamed_solves")
         f, g = full_value_grad(w)
         pg = pgrad(g, w)
         g0_norm = float(torch.linalg.norm(pg))
@@ -934,6 +1050,7 @@ def streaming_lbfgs_solve(
             if owlqn:
                 w_try = torch.where(torch.sign(w_try) == xi, w_try,
                                     torch.zeros_like(w_try))
+            telemetry.count("solver.ls_trials")
             trials += 1
             if step == 0 or full_value is None:
                 f_try, g_try = full_value_grad(w_try)
@@ -945,6 +1062,7 @@ def streaming_lbfgs_solve(
             alpha *= config.ls_shrink
         if g_try is None and float(f_try) < float(f):
             # An accepted value-only trial: one pass for its gradient.
+            telemetry.count("solver.grad_recovery_sweeps")
             f_try, g_try = full_value_grad(w_try)
         elif g_try is None:
             g_try = g   # stalled: the state is not committed below
@@ -967,13 +1085,17 @@ def streaming_lbfgs_solve(
             loss_converged(f_new, f, config.rel_tolerance))
         stalled = not ls_ok
         it += 1
+        telemetry.count("solver.iterations")
         if config.track_states:
             tracker.record(it, one, f_new, g_norm,
                            step_size=alpha_used if ls_ok else 0.0,
                            ls_trials=float(trials))
+        f_host, g_host = float(f_new), float(g_norm)
+        _conv.iteration(solver_name, label, it, f_host, g_host,
+                        step_size=(alpha_used if ls_ok else 0.0),
+                        ls_trials=trials)
         logger.info("streaming lbfgs iter %d: f=%.6f |pg|=%.3e%s", it,
-                    float(f_new), float(g_norm),
-                    " (stalled)" if stalled else "")
+                    f_host, g_host, " (stalled)" if stalled else "")
         if ls_ok:
             w, f, g, pg = w_new, f_new, g_new, pg_new
         converged = conv or stalled
@@ -990,8 +1112,10 @@ def streaming_lbfgs_solve(
 
     if ck is not None:
         ck.clear_solver(ck_label)   # superseded by the result
-    return _one_lane_result(w, f, torch.linalg.norm(pgrad(g, w)), it,
-                            converged, tracker)
+    result = _one_lane_result(w, f, torch.linalg.norm(pgrad(g, w)), it,
+                              converged, tracker)
+    _conv.solve_trace(solver_name, label, result)
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1033,6 +1157,9 @@ def streaming_tron_solve(
                                      label)
     cg_state = None
     if restored is not None:
+        # The initial evaluation and the preconditioner pass are not
+        # repaid, nor counted.
+        telemetry.count("solver.resumed_solves")
         w = _to(restored["w"], dev)
         f = _to(restored["f"], dev)
         g = _to(restored["g"], dev)
@@ -1053,6 +1180,10 @@ def streaming_tron_solve(
             "streaming tron '%s': resumed at iteration %d%s", label, it,
             f" (mid-CG, step {cg_state[4]})" if cg_state else "")
     else:
+        # The odometer: the initial evaluation is this tick; CG passes
+        # are hvp_sweeps, trial evaluations ls_trials, and the
+        # preconditioner diagonal an aux_sweep.
+        telemetry.count("solver.streamed_solves")
         f, g = value_and_grad(w)
         scale = None
         if hessian_diag is not None:
@@ -1130,6 +1261,8 @@ def streaming_tron_solve(
         predicted = float(0.5 * (torch.dot(p, r) - torch.dot(g_hat, p)))
         step = p if scale is None else scale * p
         w_try = w + step
+        # The trial point's evaluation counts as a line-search trial.
+        telemetry.count("solver.ls_trials")
         f_new, g_new = value_and_grad(w_try)
         f_prev = f
         actual = float(f) - float(f_new)
@@ -1157,13 +1290,18 @@ def streaming_tron_solve(
         stalled = delta <= _DELTA_MIN
         it += 1
         steps += 1
+        telemetry.count("solver.iterations")
         if config.track_states:
             tracker.record(it, one, f, torch.as_tensor(g_norm),
                            step_size=p_norm if accept else 0.0,
                            ls_trials=float(cg_it))
+        f_host = float(f)
+        _conv.iteration(solver_name, label, it, f_host, g_norm,
+                        step_size=(p_norm if accept else 0.0),
+                        ls_trials=cg_it, delta=delta, rho=rho)
         logger.info(
             "streaming tron iter %d: f=%.6f |g|=%.3e delta=%.3e "
-            "rho=%.3f cg=%d%s", it, float(f), g_norm, delta, rho,
+            "rho=%.3f cg=%d%s", it, f_host, g_norm, delta, rho,
             cg_it, "" if accept else " (rejected)")
         converged = conv
         save(None)
@@ -1172,8 +1310,10 @@ def streaming_tron_solve(
 
     if ck is not None:
         ck.clear_solver(ck_label)
-    return _one_lane_result(w, f, torch.linalg.norm(g), it, converged,
-                            tracker)
+    result = _one_lane_result(w, f, torch.linalg.norm(g), it, converged,
+                              tracker)
+    _conv.solve_trace(solver_name, label, result)
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1291,6 +1431,7 @@ def streaming_lbfgs_solve_swept(
                                      "streaming swept lbfgs", label)
     i32 = torch.int32
     if restored is not None:
+        telemetry.count("solver.resumed_solves")
         W = _to(restored["W"], dev)
         F = _to(restored["F"], dev)
         G = _to(restored["G"], dev)
@@ -1310,6 +1451,9 @@ def streaming_lbfgs_solve_swept(
                     "%d (%d/%d lanes done)", label, it,
                     int(done.sum()), L)
     else:
+        # One odometer tick for the initial fused sweep (see
+        # streaming_lbfgs_solve).
+        telemetry.count("solver.streamed_solves")
         F, G = full_vg(W)
         PG = pgrad(G, W)
         g0_norm = torch.linalg.norm(PG, dim=-1)
@@ -1347,6 +1491,7 @@ def streaming_lbfgs_solve_swept(
         # shared value-only sweeps.
         alpha = torch.ones(L, dtype=W.dtype, device=dev)
         W_try = project(W + alpha[:, None] * D)
+        telemetry.count("solver.ls_trials")
         trials = 1
         F1, G1 = full_vg(W_try)
         ok = armijo(W_try, F1)
@@ -1364,6 +1509,7 @@ def streaming_lbfgs_solve_swept(
             W_try = project(W + alpha[:, None] * D)
             # Accepted lanes re-evaluate at their committed point.
             W_eval = torch.where(accepted[:, None], W_acc, W_try)
+            telemetry.count("solver.ls_trials")
             trials += 1
             F_eval = full_val(W_eval)
             ok = armijo(W_eval, F_eval) & ~accepted
@@ -1380,6 +1526,7 @@ def streaming_lbfgs_solve_swept(
         F_new = torch.where(hold, F_acc, F_last)
         need_grad = ~(grad_known | done) & (F_new < F) & active
         if bool(need_grad.any()):
+            telemetry.count("solver.grad_recovery_sweeps")
             F_new, G_new = full_vg(W_new)
         else:
             G_new = G_acc
@@ -1400,6 +1547,7 @@ def streaming_lbfgs_solve_swept(
                 | loss_converged(F_new, F, config.rel_tolerance))
         stalled = ~ls_ok & active
         it += 1
+        telemetry.count("solver.iterations")
         iters = torch.where(active, torch.full_like(iters, it), iters)
         if config.track_states:
             t_vals[:, it] = torch.where(active, F_new, t_vals[:, it])
@@ -1410,8 +1558,14 @@ def streaming_lbfgs_solve_swept(
         finished = active & (conv | stalled)
         converged = converged | finished
         done = done | finished
+        n_done = int(done.sum())
+        if telemetry.active() is not None:
+            _conv.iteration(solver_name, label, it, F, g_norm,
+                            ls_trials=trials,
+                            lanes_active=int(active.sum()),
+                            lanes_done=n_done)
         logger.info("streaming swept lbfgs iter %d: %d/%d lanes done, "
-                    "f_best=%.6f (%d trials)", it, int(done.sum()), L,
+                    "f_best=%.6f (%d trials)", it, n_done, L,
                     float(F.min()), trials)
         if ck is not None:
             ck.maybe_save_solver(ck_label, it, {
@@ -1432,6 +1586,8 @@ def streaming_lbfgs_solve_swept(
         count=(iters + 1 if config.track_states
                else torch.zeros(L, dtype=i32, device=dev)),
         step_sizes=nan, ls_trials=nan.clone())
-    return OptimizationResult(
+    result = OptimizationResult(
         w=W, value=F, grad_norm=torch.linalg.norm(pgrad(G, W), dim=-1),
         iterations=iters, converged=converged, tracker=tracker)
+    _conv.solve_trace(solver_name, label, result)
+    return result

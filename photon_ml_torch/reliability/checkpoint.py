@@ -39,6 +39,7 @@ import threading
 import numpy as np
 import torch
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.utils.checkpoint import _flatten, _NpzView, _unflatten
 
 logger = logging.getLogger(__name__)
@@ -195,6 +196,13 @@ class RunCheckpointer:
                 self._claim_dir()
         atomic_savez(path, {"schema": CHECKPOINT_SCHEMA, **manifest},
                      arrays)
+        telemetry.count("reliability.checkpoints_saved")
+        if telemetry.active() is not None:
+            try:
+                telemetry.count("reliability.checkpoint_bytes",
+                                os.path.getsize(path))
+            except OSError:  # a racing cleanup: the size is advisory
+                pass
         self._event("checkpoint_saved", level=kind, path=path)
 
     def _event(self, kind: str, **fields) -> None:
@@ -353,6 +361,7 @@ class RunCheckpointer:
                 best = st
             break
         if best is not None:
+            telemetry.count("reliability.resumes")
             self._event("checkpoint_resume", iteration=best["iteration"],
                         coord_pos=best["coord_pos"])
         return best
@@ -398,6 +407,7 @@ class RunCheckpointer:
         if manifest.get("label") != label:
             return None
         state = unflatten_tree(manifest["tree"], arrays)
+        telemetry.count("reliability.solver_resumes")
         self._event("checkpoint_solver_resume", label=label,
                     iteration=int(state.get("it", 0)))
         return state

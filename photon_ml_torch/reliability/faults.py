@@ -30,6 +30,8 @@ import signal
 import threading
 import time
 
+from photon_ml_torch import telemetry
+
 logger = logging.getLogger(__name__)
 
 KINDS = ("error", "io_error", "enospc", "slow", "corrupt_file",
@@ -87,6 +89,7 @@ class FaultInjector:
                 continue
             with self._lock:
                 self.fired.append((site, f.kind, n))
+            telemetry.count("reliability.faults_injected")
             logger.info("fault injected: %s/%s at occurrence %d (%s)",
                         site, f.kind, n, ctx or path or "")
             self._apply(f, site, path)

@@ -6,7 +6,10 @@ machine-readable; the same events go to the stdlib logger.  ``event`` is
 thread-safe, the file handle has a lifecycle (``close()``, a context
 manager, an ``atexit`` flush fallback), and a schema-versioned
 ``run_header`` (run id, argv, torch and CUDA versions) opens a fresh
-file.  Telemetry spans and profiling (ROADMAP A8b) are not ported.
+file.  It is the telemetry tier's event channel too: ``timed`` phases
+are ``cat="phase"`` telemetry spans when a session is active, and with
+``profile_dir`` a phase runs under ``torch.profiler`` and leaves its
+Chrome trace there.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ RUN_LOG_SCHEMA = 1
 # Drivers flush at most this often (events of _FLUSH_NOW at once).
 DEFAULT_FLUSH_EVERY_S = 2.0
 
-_FLUSH_NOW = frozenset({"run_header", "phase_start", "phase_end", "done"})
+_FLUSH_NOW = frozenset({"run_header", "thread_exception", "phase_start",
+                        "phase_end", "telemetry_summary", "done"})
 
 
 def _runtime_info() -> dict:
@@ -118,17 +122,36 @@ class RunLogger:
                     self._last_flush = now_m
         logger.info("%s %s", kind, fields)
 
+    def flush(self) -> None:
+        """Force buffered events to disk (for a caller handing the file
+        to a reader)."""
+        with self._lock:
+            if self._f is not None:
+                self._f.flush()
+                self._last_flush = time.monotonic()
+
     @contextlib.contextmanager
-    def timed(self, phase: str, **fields):
-        """Log a phase's start, end and duration."""
+    def timed(self, phase: str, profile_dir: str | None = None, **fields):
+        """Log a phase's start, end and duration.  With an active
+        telemetry session the phase is also a ``cat="phase"`` span.
+        ``profile_dir``: the phase runs under ``torch.profiler`` (the
+        CPU, and CUDA when a card is in use) and its Chrome trace is
+        written to ``<profile_dir>/<phase>.pt.trace.json``."""
+        from photon_ml_torch import telemetry
+
         self.event("phase_start", phase=phase, **fields)
         start = time.monotonic()
+        prof = (_profiler(profile_dir, phase) if profile_dir
+                else contextlib.nullcontext())
         try:
-            yield
+            with telemetry.span(phase, cat="phase"), prof:
+                yield
         finally:
-            self.event("phase_end", phase=phase,
-                       duration_s=round(time.monotonic() - start, 6),
-                       **fields)
+            self.event(
+                "phase_end", phase=phase,
+                duration_s=round(time.monotonic() - start, 6),
+                **({"profile_dir": profile_dir} if profile_dir else {}),
+                **fields)
 
     def close(self) -> None:
         """Flush and release the file handle (idempotent)."""
@@ -145,6 +168,22 @@ class RunLogger:
     def __exit__(self, exc_type, exc, tb) -> bool:
         self.close()
         return False
+
+
+@contextlib.contextmanager
+def _profiler(profile_dir: str, phase: str):
+    """``torch.profiler.profile`` over the block; its Chrome trace goes
+    to ``<profile_dir>/<phase>.pt.trace.json``."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(
+        os.path.join(profile_dir, f"{phase}.pt.trace.json"))
 
 
 def read_run_log(path: str) -> list[dict]:

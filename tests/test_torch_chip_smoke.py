@@ -555,3 +555,59 @@ def test_stream_score_phase_on_cpu(work):
     assert out["launches"] == out["warm_launches"] == 0     # plain on CPU
     assert out["kernel_shape"]["shape"] == "score_chunk_2048x30"
     assert out["kernel_shape"]["max_abs_err"] == 0.0
+
+
+def test_telemetry_phase_on_cpu(train, work):
+    """Phase 13 at phase 10's small size: 10a's streamed fit off, in a
+    metrics and in a trace session, bitwise equal to 10a's with the
+    reports ok and the chunk program's cost the analytic count; 12a's
+    scoring pass off and in a metrics session to the bit; 10d's grid on
+    20,000 rows in a metrics session equal to 10d's lanes; the training
+    driver with ``--telemetry trace`` and ``profile_dir`` in a
+    subprocess, its report exiting 0.  The CPU has no sync guard and no
+    CUDA events: their numbers are None here."""
+    n, d, n_entities = 8000, 2000, 300
+    data = cs.make_game_data(7, n, d=d, n_entities=n_entities)
+    n_train = n - int(n * cs.TRAIN_HOLDOUT)
+    tr, va = data.take(slice(0, n_train)), data.take(slice(n_train, n))
+    fit = cs._stream_fit(cs.stream_config(
+        "cpu", str(work / "stream_spill"), 2048), tr, va)
+    fit_10a = cs._fit_summary(fit)
+    stream = {"10a": {"launches": fit["launches"]}}
+    model = fit["results"][0].model
+    del fit
+    a = cs.phase_telemetry(stream, fit_10a, "cpu", n=n, d=d,
+                           n_entities=n_entities, chunk_rows=2048)
+    assert a["failures"] == []
+    assert a["gates"] == "bitwise"
+    assert all(a["bitwise_10a"].values())
+    assert a["metrics_report"]["ok"] and a["trace_report"]["ok"]
+    assert a["trace_report"]["reconciliation"] >= 0.9
+    assert a["metrics_report"]["odometer_ok"]
+    assert a["split"]["chunks"] > 0 and a["split"]["load_s"] > 0
+    assert a["program"]["stream_ms"] is None       # no CUDA events
+    assert a["program"]["kernel_ms"] is None       # no profiler kernels
+    assert a["cost_bytes"] == a["cost_bytes_analytic"]
+    assert a["trace"]["prefetch_load"] == ["photon-chunk-prefetch"]
+    assert a["syncs"] == dict.fromkeys(("off", "metrics", "trace",
+                                        "off_again"))
+
+    b = cs.phase_telemetry_score(model, tr, "cpu", chunk_rows=2048)
+    assert b["failures"] == [] and b["bitwise"]
+    assert b["n_chunks"] == 4 and b["split"]["chunks"] == 4
+
+    rows = 20_000
+    sweep = {"rows": train["rows"][:rows], "labels": train["labels"][:rows],
+             "test_rows": train["test_rows"],
+             "test_labels": train["test_labels"]}
+    s_tr, s_va = cs.sweep_data(sweep)
+    ref, _ = cs._swept_fit("ELL", s_tr, s_va, "cpu")
+    ref_10d = cs.phase_stream_sweep(sweep, ref, "cpu", chunk_rows=8192,
+                                    time_it=False)
+    c = cs.phase_telemetry_sweep(sweep, ref_10d, "cpu", chunk_rows=8192)
+    assert c["failures"] == [] and c["bitwise_10d"]
+    assert c["report"]["odometer_ok"] and c["report"]["sweeps"] > 0
+
+    dd = cs.phase_telemetry_driver(["--device", "cpu"])
+    assert dd["failures"] == [], dd
+    assert dd["report_rc"] == 0 and dd["profile_bytes"] > 0

@@ -478,10 +478,11 @@ def test_estimator_defaults_to_cuda_and_rejects_unported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             GameEstimator(cfg)
-    # cd_fused trains now (A5b): its place goes to distributed_init.
+    # cd_fused trains now (A5b): its place goes to distributed_init;
+    # telemetry is ported (A8b): its place goes to the monitor (D3).
     for knob, value, item in (("distributed_init", True, "A7"),
                               ("n_devices", 2, "A7"),
-                              ("telemetry", "trace", "A8")):
+                              ("monitor", "on", "D3")):
         with pytest.raises(NotImplementedError, match=item):
             training_config_from_json(json.dumps({**base, knob: value,
                                                   "device": CPU}))

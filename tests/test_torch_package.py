@@ -118,6 +118,27 @@ def test_port_has_the_streamed_scoring_slice():
     assert GameTransformer.transform_streamed
 
 
+def test_port_has_the_telemetry_slice():
+    """The telemetry tier (A8b): the session, its exporters, the report
+    and history CLI, the guards, CUDA-event timing and the synthetic
+    fixtures; the kernel builds bridge into it."""
+    for rel in ("photon_ml_torch/telemetry/__init__.py",
+                "photon_ml_torch/telemetry/__main__.py",
+                "photon_ml_torch/telemetry/export.py",
+                "photon_ml_torch/telemetry/device.py",
+                "photon_ml_torch/telemetry/convergence.py",
+                "photon_ml_torch/telemetry/report.py",
+                "photon_ml_torch/telemetry/history.py",
+                "photon_ml_torch/analysis/guards.py",
+                "photon_ml_torch/utils/timing.py",
+                "photon_ml_torch/utils/synthetic.py"):
+        assert (REPO / rel).is_file() and rel in PORT_FILES, rel
+    from photon_ml_torch.kernels import _build
+    from photon_ml_torch.telemetry import report
+
+    assert _build.add_build_listener and report.reconcile
+
+
 def test_port_has_the_lane_kernel_source():
     """The lane kernel has its own source (built by ``_build`` at first
     use); B1's source no longer holds it."""
@@ -188,6 +209,16 @@ def test_fresh_import_leaves_jax_out():
         "import photon_ml_torch.estimators.streaming_scorer\n"
         "import photon_ml_torch.evaluation.streaming\n"
         "import photon_ml_torch.io.chunked\n"
+        "import photon_ml_torch.telemetry\n"
+        "import photon_ml_torch.telemetry.__main__\n"
+        "import photon_ml_torch.telemetry.export\n"
+        "import photon_ml_torch.telemetry.device\n"
+        "import photon_ml_torch.telemetry.convergence\n"
+        "import photon_ml_torch.telemetry.report\n"
+        "import photon_ml_torch.telemetry.history\n"
+        "import photon_ml_torch.analysis.guards\n"
+        "import photon_ml_torch.utils.timing\n"
+        "import photon_ml_torch.utils.synthetic\n"
         f"print(json.dumps(sorted(m for m in sys.modules "
         f"if m.split('.')[0] in {FORBIDDEN!r})))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -347,8 +347,9 @@ def test_scoring_driver_streamed_matches_resident(game_models):
 
 
 def test_scoring_config_validation():
-    """The reference's value checks, the streamed knobs accepted, and
-    telemetry (ROADMAP A8b) and the monitor (D3) refused by name."""
+    """The reference's value checks, the streamed knobs and telemetry
+    accepted (telemetry validated as the reference validates it), and
+    the monitor (ROADMAP D3) refused by name."""
     from photon_ml_tpu.config import scoring_config_from_json as jcfg
 
     for parse in (scoring_config_from_json, jcfg):
@@ -364,11 +365,13 @@ def test_scoring_config_validation():
     assert jcfg(json.dumps(streamed)).score_chunk_rows == 4096
     assert scoring_config_from_json(json.dumps(
         {**streamed, "host_max_resident": 4})).host_max_resident == 4
-    with pytest.raises(NotImplementedError, match="A8b"):
-        scoring_config_from_json(json.dumps({**streamed,
-                                             "telemetry": "trace"}))
-    for knob, value, item in (("telemetry", "metrics", "A8b"),
-                              ("monitor", "on", "D3"),
+    for mode in ("off", "metrics", "trace"):
+        assert scoring_config_from_json(json.dumps(
+            {**streamed, "telemetry": mode})).telemetry == mode
+    for parse in (scoring_config_from_json, jcfg):
+        with pytest.raises(ValueError, match="telemetry"):
+            parse(json.dumps({**streamed, "telemetry": "verbose"}))
+    for knob, value, item in (("monitor", "on", "D3"),
                               ("status_port", 0, "D3")):
         with pytest.raises(NotImplementedError, match=item):
             scoring_config_from_json(json.dumps(
