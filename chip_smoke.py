@@ -239,6 +239,29 @@ raises on failure:
    in a subprocess on phase 8's fixture with ``--telemetry trace`` and
    ``profile_dir`` in its config; ``python -m photon_ml_torch.telemetry
    report`` on its run log exits 0, and the profiler's trace exists.
+14. the serving tiers (run right after phase 5, on phase 4's model,
+   rows and clients; phases 4 and 5 run with every tier off): the
+   server with telemetry, monitor and tracing off, then with the
+   defaults (all on; every request trace kept, a run log): every answer
+   within 1e-4 of float64 again, B1 launched once a warm-up bucket and
+   once a batch, no kernel build; ``/metrics`` holds
+   ``photon_serve_stage_seconds`` and request, batch and row counters
+   equal to the clients'; ``/status`` holds the monitor's and the
+   tracer's sections; ``python -m photon_ml_torch.telemetry
+   serve-report`` on the log exits 0.  Printed: p50/p99 off and on, the
+   stage table, the p50 and p99 requests split by stage.  Then the
+   tiers' cost at their defaults: 4 rounds of a fresh server with the
+   tiers off and one with ``ServingConfig``'s defaults, the order
+   swapped each round, each run's p50/p99 and the host time a request
+   spends inside the trace, telemetry and monitor hooks.  One batch
+   through ``ScoringEngine.score_batch`` with and without a batch trace
+   makes as many synchronizing CUDA calls (``analysis.guards``), twice,
+   with bitwise margins.  A model whose per-item random effect is
+   projected onto the sparse shard (4 columns an entity) is served with
+   every tier on within 1e-4 of float64.  A ``serve.dispatch`` fault on
+   a fresh server and one client: an ``error`` answers 500 within 30 s
+   with its request id, a ``slow`` one (0.6 s) answers 200, and the
+   monitor latches exactly one ``serve_tail_latency`` alert.
 
 The line before the card's and the result's is one JSON object with a
 ``kernels`` list: per kernel its launches on its path (``gather_rowsum``:
@@ -252,7 +275,8 @@ pass's chunk as ``fused_chunk_shape``; phase 12's streamed scoring pass
 and streamed scoring driver as ``launches_stream_scoring`` and
 ``launches_stream_scoring_driver``; phase 13's traced fits and traced
 scoring pass as ``launches_telemetry_fits`` and
-``launches_telemetry_scoring``; the GRR kernels: phase 6's GRR fit;
+``launches_telemetry_scoring``; phase 14's traced serving run as
+``launches_traced_serving``; the GRR kernels: phase 6's GRR fit;
 ``gather_rowsum_lanes``: phase 9's ELL, transposed-ELL and tuned fits and
 phase 10d's streamed grid, and by shape in ``shapes``; phase 13c's
 traced grid as ``launches_telemetry_sweep``),
@@ -279,6 +303,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import dataclasses
@@ -312,6 +337,7 @@ from photon_ml_torch.evaluation.streaming import make_streaming_evaluator
 from photon_ml_torch.game import coordinates as game_coordinates
 from photon_ml_torch.game import fused_sweep as fused_mod
 from photon_ml_torch.game.dataset import EntityGrouping, GameDataset
+from photon_ml_torch.game.projector import SubspaceProjection
 from photon_ml_torch.io.model_io import load_game_model, save_game_model
 from photon_ml_torch.kernels import _build
 from photon_ml_torch.models import (
@@ -342,10 +368,14 @@ from photon_ml_torch.optim import streaming as streaming_mod
 from photon_ml_torch.optim.problem import OptimizationProblem
 from photon_ml_torch.reliability import faults
 from photon_ml_torch.serving.engine import ScoringEngine, dataset_rows
+from photon_ml_torch.serving import tracing
 from photon_ml_torch.serving.server import ModelServer
 from photon_ml_torch.utils.run_log import RunLogger, read_run_log
 from photon_ml_torch import telemetry
-from photon_ml_torch.analysis.guards import no_implicit_transfers
+from photon_ml_torch.analysis.guards import (
+    count_compiles,
+    no_implicit_transfers,
+)
 from photon_ml_torch.telemetry import report as telemetry_report
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -959,18 +989,29 @@ def _check_answer(out: dict, ref_m, ref_p) -> float:
     return err
 
 
-def serving_config(model_dir: str, spill_dir: str, device: str
-                   ) -> ServingConfig:
+def serving_config(model_dir: str, spill_dir: str, device: str,
+                   tiers: str = "off") -> ServingConfig:
+    """Phase 4's server.  ``tiers="off"`` turns telemetry, the monitor
+    and request tracing off (phases 4 and 5, comparable with PRs 1–7);
+    ``"defaults"`` keeps ``ServingConfig``'s (all three on); ``"on"``
+    also keeps every request trace (``trace_sample_every`` 1) and
+    evaluates the monitor's rules every 50 ms."""
+    kw = {"off": {"telemetry": "off", "monitor": "off", "trace": "off"},
+          "defaults": {},
+          "on": {"trace_sample_every": 1, "monitor_every_s": 0.05}}[tiers]
     return ServingConfig(model_dir=model_dir, port=0, batch_rows=BATCH_ROWS,
                          ell_row_capacity=ELL_CAP, spill_dir=spill_dir,
-                         hot_swap_poll_s=0.0, device=device)
+                         hot_swap_poll_s=0.0, device=device, **kw)
 
 
-def phase_serving(cfg: ServingConfig, rows: list, ref_m, ref_p) -> dict:
+def phase_serving(cfg: ServingConfig, rows: list, ref_m, ref_p,
+                  run_logger=None, probe=None) -> dict:
     """In-process server; ``CLIENTS`` threads each send ``REQUESTS``
-    requests of ``ROWS`` rows over HTTP."""
+    requests of ``ROWS`` rows over HTTP.  ``probe(server)`` runs after
+    the clients and before the server stops; its result is ``probe``."""
     t0 = time.perf_counter()
-    srv = ModelServer(cfg)
+    srv = ModelServer(cfg, run_logger=run_logger)
+    probed = None
     try:
         srv.start()
         ready_s = time.perf_counter() - t0
@@ -1005,6 +1046,8 @@ def phase_serving(cfg: ServingConfig, rows: list, ref_m, ref_p) -> dict:
         if errors:
             raise errors[0]
         status = srv.serving_status()
+        if probe is not None:
+            probed = probe(srv)
     finally:
         srv.stop()
     if len(results) != CLIENTS * REQUESTS:
@@ -1029,6 +1072,7 @@ def phase_serving(cfg: ServingConfig, rows: list, ref_m, ref_p) -> dict:
         "batch_fill": status["batcher"]["batch_fill"],
         "warmed_buckets": len(status["model"]["buckets"]),
         "device": status["model"]["device"],
+        **({"probe": probed} if probe is not None else {}),
     }
 
 
@@ -1137,6 +1181,511 @@ def phase_cli(cfg: ServingConfig, rows: list, ref_m, ref_p) -> dict:
     return {"ready_s": ready_s, "rc": rc,
             "max_abs_err": _check_answer(answer, ref_m, ref_p),
             "rows": last["serving"]["batcher"]["rows"]}
+
+
+# -- phase 14: the serving tiers (run after phase 5) -------------------------
+
+# A faulted batch must be answered (500) within this many seconds.
+FAULT_ANSWER_S = 30.0
+# Fast requests before the slow dispatch (the tail rule needs 20), this
+# far apart: the stall must not cut the monitor's rolling throughput
+# below a quarter of its median, which the throughput rule would flag.
+FAULT_WARM_REQUESTS = 21
+FAULT_PACE_S = 0.1
+# The slow dispatch's delay: above the monitor's 0.5 s p99 threshold.
+FAULT_SLOW_S = 0.6
+# Projected random effect (D7): subspace columns an entity.
+PROJ_COLS = 4
+# Rounds of the tiers' cost run: a server with the tiers off and one at
+# their defaults a round, in the order off/defaults, defaults/off, ...
+TIER_COST_ROUNDS = 4
+
+
+def _http(port: int, route: str, data: bytes | None = None,
+          headers: dict | None = None, timeout: float = 60.0):
+    """(code, headers, body text) of one request; HTTP errors answered."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{route}",
+                                 data=data, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read().decode()
+
+
+def prom_values(text: str) -> tuple[dict, dict]:
+    """Prometheus text → ({family: type}, {series: value})."""
+    families, values = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split()
+            families[name] = kind
+        elif line and not line.startswith("#"):
+            series, value = line.rsplit(" ", 1)
+            values[series] = float(value)
+    return families, values
+
+
+def _tier_probe(expect_requests: int):
+    """The probe of the tiers-on run: waits (deadline 10 s) until the
+    tracer has finished every request (a trace finishes after its reply
+    is sent), then reads ``/metrics`` and ``/status``."""
+    def probe(srv) -> dict:
+        deadline = time.monotonic() + 10.0
+        while True:
+            status = json.loads(_http(srv.port, "/status")[2])
+            done = status["serving"].get("tracing", {}).get("requests", 0)
+            if done >= expect_requests or time.monotonic() > deadline:
+                break
+            time.sleep(0.02)
+        families, values = prom_values(_http(srv.port, "/metrics")[2])
+        return {"status": status, "families": families, "values": values}
+    return probe
+
+
+@contextlib.contextmanager
+def hook_timer():
+    """Host time spent inside the serving tiers' hooks while the block
+    runs, on every thread: the trace calls (the context, request and
+    batch traces, their stamps), telemetry's counters and the monitor's
+    progress.  A call is timed at its outermost hook only (a trace's
+    finish feeds telemetry's histograms inside its own time), on the
+    wall clock and on its thread's CPU clock: the wall time also holds
+    the waits for the interpreter lock while other threads run, the CPU
+    time is the hooks' own work.  Yields ``{"trace" | "telemetry" |
+    "monitor": [wall s, cpu s, calls]}``."""
+    from photon_ml_torch.telemetry import monitor as _mon
+
+    sites = {"trace": [(tracing, n) for n in (
+                 "from_headers", "set_context", "active", "begin",
+                 "take_attached", "finish", "clear")]
+             + [(tracing.TraceRecorder, "begin_batch"),
+                (tracing.TraceRecorder, "finish_batch"),
+                (tracing.RequestTrace, "stamp"),
+                (tracing.BatchTrace, "stamp")],
+             "telemetry": [(telemetry, n)
+                           for n in ("count", "gauge", "observe")],
+             "monitor": [(_mon, "progress")]}
+    acc = {group: [0.0, 0.0, 0] for group in sites}
+    depth = threading.local()
+    lock = threading.Lock()
+
+    def timed(group, fn):
+        def hook(*a, **kw):
+            outer = not getattr(depth, "n", 0)
+            depth.n = getattr(depth, "n", 0) + 1
+            t, c = time.perf_counter(), time.thread_time()
+            try:
+                return fn(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t
+                dc = time.thread_time() - c
+                depth.n -= 1
+                if outer:
+                    with lock:
+                        acc[group][0] += dt
+                        acc[group][1] += dc
+                        acc[group][2] += 1
+        return hook
+
+    saved = [(owner, name, owner.__dict__[name])
+             for group in sites for owner, name in sites[group]]
+    try:
+        for group in sites:
+            for owner, name in sites[group]:
+                setattr(owner, name, timed(group, getattr(owner, name)))
+        yield acc
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def tier_cost(model_dir: str, spill_dir: str, rows: list, ref_m, ref_p,
+              device: str) -> dict:
+    """The tiers' cost at their defaults: phase 4's clients on a fresh
+    server a run, with the tiers off and with ``ServingConfig``'s
+    defaults (telemetry ``metrics``, monitor ``on``, trace ``on``; its
+    run log a file, as the CLI's ``log_path``), in the order off,
+    defaults, defaults, off, ... over ``TIER_COST_ROUNDS`` rounds.  Each
+    run's p50/p99 and the host µs a request spends in the hooks
+    (``hook_timer``: wall and CPU); each mode's medians."""
+    runs: dict = {"off": [], "defaults": []}
+    for i in range(TIER_COST_ROUNDS):
+        for mode in (("off", "defaults") if i % 2 == 0
+                     else ("defaults", "off")):
+            log = (RunLogger(os.path.join(WORK, f"serve_cost_{i}.jsonl"),
+                             run_info={"driver": "chip_smoke tier cost"})
+                   if mode == "defaults" else None)
+            try:
+                with hook_timer() as hooks:
+                    r = phase_serving(serving_config(
+                        model_dir, spill_dir, device, tiers=mode),
+                        rows, ref_m, ref_p, run_logger=log)
+            finally:
+                if log is not None:
+                    log.close()
+            us = {clock: {g: v[i] * 1e6 / r["requests"]
+                          for g, v in hooks.items()}
+                  for i, clock in enumerate(("wall", "cpu"))}
+            runs[mode].append({
+                "p50_ms": r["p50_ms"], "p99_ms": r["p99_ms"],
+                "hooks_us": {clock: {**v, "total": sum(v.values())}
+                             for clock, v in us.items()},
+                "hook_calls": sum(v[2] for v in hooks.values())
+                / r["requests"]})
+    median = {mode: {
+        "p50_ms": float(np.median([run["p50_ms"] for run in rs])),
+        "p99_ms": float(np.median([run["p99_ms"] for run in rs])),
+        **{f"hooks_{clock}_us": float(np.median(
+            [run["hooks_us"][clock]["total"] for run in rs]))
+           for clock in ("wall", "cpu")}}
+        for mode, rs in runs.items()}
+    return {"rounds": TIER_COST_ROUNDS, "runs": runs, "median": median}
+
+
+def _percentile_row(recs: list, q: float) -> dict:
+    """The kept request at quantile ``q`` of ``total_ms`` (nearest rank)."""
+    recs = sorted(recs, key=lambda r: r["total_ms"])
+    return recs[min(len(recs) - 1, int(round(q * (len(recs) - 1))))]
+
+
+def request_split(log_path: str) -> dict:
+    """The p50 and p99 requests of a trace log, each split into its own
+    stages, its batch's stages and the rest (network, handler and
+    dispatcher scheduling): ms."""
+    events = read_run_log(log_path)
+    recs = [e for e in events if e["event"] == "request_trace"
+            and e.get("status") == 200]
+    batches = {e["batch"]: e for e in events if e["event"] == "batch_trace"}
+    out = {}
+    for label, q in (("p50", 0.50), ("p99", 0.99)):
+        r = _percentile_row(recs, q)
+        parts = dict(r["stages_ms"])
+        for k, v in batches.get(r.get("batch"), {}).get("stages_ms",
+                                                        {}).items():
+            parts[k] = parts.get(k, 0.0) + v
+        parts["other"] = round(r["total_ms"] - sum(parts.values()), 3)
+        out[label] = {"total_ms": r["total_ms"], "stages_ms": parts}
+    return out
+
+
+def run_serve_report(log_path: str) -> tuple[int, dict]:
+    """``python -m photon_ml_torch.telemetry serve-report`` in a
+    subprocess → (rc, its JSON last line)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    proc = subprocess.run(
+        [sys.executable, "-m", "photon_ml_torch.telemetry", "serve-report",
+         log_path], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    return proc.returncode, (json.loads(lines[-1]) if lines else {})
+
+
+def sync_split(cfg: ServingConfig, rows: list) -> dict:
+    """One served batch through ``ScoringEngine.score_batch`` with and
+    without a batch trace: the synchronizing CUDA calls of each
+    (``analysis.guards``; None on the CPU), and the margins to the bit."""
+    model, task = load_game_model(cfg.model_dir)
+    engine = ScoringEngine(
+        model, task, ell_row_capacity=cfg.ell_row_capacity,
+        spill_dir=cfg.spill_dir, entity_chunk=cfg.entity_chunk,
+        host_max_resident=cfg.host_max_resident, device=cfg.device)
+    engine.warm(cfg.buckets())
+    parsed = engine.parse_rows(rows)
+    bucket = min(b for b in cfg.buckets() if b >= len(parsed))
+    out = {}
+    margins = {}
+    with count_compiles() as builds:
+        for label in ("off", "on", "off_again", "on_again"):
+            trace = (tracing.BatchTrace("sync", bucket, len(parsed), 1)
+                     if label.startswith("on") else None)
+            with no_implicit_transfers("log", device=cfg.device) as log:
+                m, _p, _d = engine.score_batch(parsed, bucket, trace=trace)
+            out[label] = log.count if log.active else None
+            margins[label] = m
+            if trace is not None:
+                out[f"{label}_stages"] = sorted(trace.stages)
+    engine.close()
+    out["builds"] = builds.count
+    out["bitwise"] = all(np.array_equal(margins["off"], m)
+                         for m in margins.values())
+    return out
+
+
+def make_projected_model(seed: int, d: int = D,
+                         n_entities: int = N_ENTITIES):
+    """Phase 4's model with the per-item random effect projected onto
+    the sparse ``global`` shard (D7): ``PROJ_COLS`` distinct columns of
+    [0, d) an entity, one in 4 slots padded with -1."""
+    model, host = make_model(seed, d=d, n_entities=n_entities)
+    rng = np.random.default_rng(seed + 1)
+    _shard, key, grouping, _blocks = host["re"]["per_item"]
+    fids, blocks = [], []
+    for n in grouping.n_entities:
+        # Distinct columns: positive gaps summing below d, wrapped.
+        gaps = 1 + rng.integers(0, d // (2 * PROJ_COLS), (n, PROJ_COLS))
+        f = ((rng.integers(0, d, (n, 1)) + np.cumsum(gaps, axis=1)) % d
+             ).astype(np.int32)
+        f[rng.random(f.shape) < 0.25] = -1
+        fids.append(f)
+        blocks.append(rng.normal(0, 0.3, (n, PROJ_COLS)).astype(np.float32))
+    models = dict(model.models)
+    models["per_item"] = RandomEffectModel(
+        [torch.from_numpy(b) for b in blocks], grouping, "global",
+        entity_key=key,
+        projection=SubspaceProjection(feature_ids=fids, global_dim=d))
+    host["proj"] = (key, grouping, fids, blocks)
+    del host["re"]["per_item"]
+    return GameModel(models), host
+
+
+def make_projected_rows(rng, host, n: int, d: int = D) -> list[dict]:
+    """Phase 4's rows without the ``item`` shard, each carrying its
+    item's valid subspace columns among its ``NNZ`` non-zeros."""
+    key, g, fids, _blocks = host["proj"]
+    rows = make_rows(rng, {"re": {"per_user": host["re"]["per_user"],
+                                  "per_item": (None, key, g, None)}},
+                     n, d=d)
+    for r in rows:
+        del r["features"]["item"]
+        j = int(np.searchsorted(g.entity_ids, r["ids"][key]))
+        if j < len(g.entity_ids) and g.entity_ids[j] == r["ids"][key]:
+            sub = fids[g.entity_bucket[j]][g.entity_slot[j]]
+            sub = [int(c) for c in sub if c >= 0]
+            rest = [cv for cv in r["features"]["global"]
+                    if cv[0] not in sub]
+            r["features"]["global"] = (
+                [[c, float(rng.random())] for c in sub]
+                + rest[: NNZ - len(sub)])
+    return rows
+
+
+def projected_reference(host, rows) -> tuple[np.ndarray, np.ndarray]:
+    """float64 margins of the projected model: phase 4's reference for
+    the fixed effect and the per-user effect, plus each row's item
+    subspace columns times their coefficients."""
+    m, _ = reference(host, rows)
+    key, g, fids, blocks = host["proj"]
+    for i, r in enumerate(rows):
+        j = int(np.searchsorted(g.entity_ids, r["ids"][key]))
+        if j >= len(g.entity_ids) or g.entity_ids[j] != r["ids"][key]:
+            continue
+        b, slot = g.entity_bucket[j], g.entity_slot[j]
+        coef = {int(c): float(w) for c, w in zip(fids[b][slot],
+                                                 blocks[b][slot]) if c >= 0}
+        m[i] += sum(v * coef.get(int(c), 0.0)
+                    for c, v in r["features"]["global"])
+    return m, 1.0 / (1.0 + np.exp(-m))
+
+
+def phase_projected(device: str, seed: int = 11, d: int = D,
+                    n_entities: int = N_ENTITIES, n_rows: int = 64
+                    ) -> dict:
+    """D7: the projected model served with every tier on, sequential
+    8-row requests, every margin against ``projected_reference``."""
+    model, host = make_projected_model(seed, d=d, n_entities=n_entities)
+    model_dir = os.path.join(WORK, "model_projected")
+    save_game_model(model, TaskType.LOGISTIC_REGRESSION, model_dir)
+    rng = np.random.default_rng(seed + 2)
+    rows = make_projected_rows(rng, host, n_rows, d=d)
+    ref_m, ref_p = projected_reference(host, rows)
+    cfg = serving_config(model_dir, os.path.join(WORK, "spill_projected"),
+                         device, tiers="on")
+    srv = ModelServer(cfg).start()
+    err = 0.0
+    try:
+        coords = srv.serving_status()["model"]["coordinates"]
+        for lo in range(0, n_rows, ROWS):
+            err = max(err, _check_answer(_post(srv.port, rows[lo: lo + ROWS]),
+                                         ref_m[lo: lo + ROWS],
+                                         ref_p[lo: lo + ROWS]))
+    finally:
+        srv.stop()
+    without, _ = reference({"w": host["w"], "re": {
+        "per_user": host["re"]["per_user"]}}, rows)
+    return {"rows": n_rows, "max_abs_err": err,
+            "coordinates": coords,
+            "projected_term_max": float(np.abs(ref_m - without).max())}
+
+
+def phase_fault(cfg: ServingConfig, rows: list, ref_m, ref_p,
+                thresholds: dict | None = None) -> dict:
+    """A ``serve.dispatch`` fault on a server with every tier on, one
+    sequential client: ``FAULT_WARM_REQUESTS`` requests
+    ``FAULT_PACE_S`` apart, then an
+    ``error`` fault (that batch answers 500 within ``FAULT_ANSWER_S``
+    with its request id) and a ``slow`` one of ``FAULT_SLOW_S`` (the
+    next batch answers 200, late), then requests until the monitor
+    shows an alert and three more: the alerts it latched.  One client
+    gains nothing from coalescing, so the batch deadline is 0 (with it,
+    on a small model the deadline alone is most of a request and latches
+    ``serve_queue_wait``).  ``thresholds``: a monitor with these alert
+    thresholds, started here for the server to adopt (the CPU rehearsal
+    turns off the rules whose inputs swing with the host's load); None:
+    the server's own monitor, with the reference's thresholds."""
+    from photon_ml_torch.telemetry import monitor as _mon
+
+    mon = (None if thresholds is None else
+           _mon.start(every_s=cfg.monitor_every_s, thresholds=thresholds))
+    srv = None
+    piece = rows[:ROWS]
+    body = json.dumps({"rows": piece}).encode()
+    out = {}
+
+    def alerts() -> list:
+        if mon is not None:
+            return mon.status()["alerts"]
+        return json.loads(_http(srv.port, "/status")[2])["alerts"]
+
+    try:
+        srv = ModelServer(dataclasses.replace(cfg, batch_deadline_ms=0.0)
+                          ).start()
+        for _ in range(FAULT_WARM_REQUESTS):
+            _check_answer(_post(srv.port, piece), ref_m[:ROWS],
+                          ref_p[:ROWS])
+            time.sleep(FAULT_PACE_S)
+        inj = faults.FaultInjector([
+            faults.Fault(site="serve.dispatch", kind="error", at=0),
+            faults.Fault(site="serve.dispatch", kind="slow", at=1,
+                         delay_s=FAULT_SLOW_S)])
+        with faults.injected(inj):
+            t = time.perf_counter()
+            code, hdrs, text = _http(srv.port, "/v1/score", data=body,
+                                     headers={"X-Photon-Request-Id":
+                                              "fault-1"},
+                                     timeout=FAULT_ANSWER_S)
+            out["error_answer"] = {
+                "code": code, "s": time.perf_counter() - t,
+                "request_id": hdrs.get("X-Photon-Request-Id"),
+                "error": json.loads(text).get("error")}
+            t = time.perf_counter()
+            _check_answer(_post(srv.port, piece), ref_m[:ROWS],
+                          ref_p[:ROWS])
+            out["slow_answer_s"] = time.perf_counter() - t
+        out["fired"] = [list(f) for f in inj.fired]
+        deadline = time.monotonic() + 30.0
+        while not alerts() and time.monotonic() < deadline:
+            time.sleep(0.06)
+            _post(srv.port, piece)
+        for _ in range(3):
+            time.sleep(0.06)
+            _post(srv.port, piece)
+        out["alerts"] = alerts()
+    finally:
+        if srv is not None:
+            srv.stop()
+        if mon is not None:
+            mon.close()
+    return out
+
+
+def phase_tiers(model_dir: str, spill_dir: str, rows: list, ref_m, ref_p,
+                device: str, proj: dict | None = None,
+                fault_thresholds: dict | None = None) -> dict:
+    """Phase 14: phase 4's model and clients with every tier off, then
+    on (a run log, every trace kept); ``/metrics``, ``/status``,
+    ``serve-report`` on the log, the p50/p99 requests split by stage;
+    the tiers' cost at their defaults (``tier_cost``);
+    one batch's synchronizing calls with tracing off and on; the
+    projected model (``proj``: ``phase_projected``'s arguments); the
+    ``serve.dispatch`` fault (``phase_fault``, with
+    ``fault_thresholds``)."""
+    failures: list = []
+    n_req = CLIENTS * REQUESTS
+    cfg_off = serving_config(model_dir, spill_dir, device)
+    cfg_on = serving_config(model_dir, spill_dir, device, tiers="on")
+    out = {"off": phase_serving(cfg_off, rows, ref_m, ref_p)}
+    log_path = os.path.join(WORK, "serve_tiers.jsonl")
+    log = RunLogger(log_path, run_info={"driver": "chip_smoke phase 14"})
+    gather_rowsum.launches = 0
+    try:
+        with count_compiles() as builds:
+            on = phase_serving(cfg_on, rows, ref_m, ref_p, run_logger=log,
+                               probe=_tier_probe(n_req))
+    finally:
+        log.close()
+    out["launches"] = gather_rowsum.launches
+    out["builds"] = builds.count
+    probe = on.pop("probe")
+    out["on"] = on
+    if device == "cuda" and out["launches"] != (on["warmed_buckets"]
+                                                + on["batches"]):
+        failures.append(f"B1 launched {out['launches']} times for "
+                        f"{on['warmed_buckets']} warm-up and "
+                        f"{on['batches']} served batches")
+    if out["builds"]:
+        failures.append(f"{out['builds']} kernel build(s) while serving")
+    fam, val = probe["families"], probe["values"]
+    out["metrics"] = {k: val.get(k) for k in (
+        "photon_serve_requests_total", "photon_serve_batches_total",
+        "photon_serve_batch_rows_total", "photon_serve_shed_total")}
+    out["metrics"]["stage_family"] = fam.get("photon_serve_stage_seconds")
+    want = {"photon_serve_requests_total": n_req,
+            "photon_serve_batches_total": on["batches"],
+            "photon_serve_batch_rows_total": on["rows"]}
+    for k, v in want.items():
+        if val.get(k) != v:
+            failures.append(f"/metrics {k} = {val.get(k)}, not {v}")
+    if fam.get("photon_serve_stage_seconds") != "summary":
+        failures.append("/metrics has no photon_serve_stage_seconds")
+    st = probe["status"]
+    out["status"] = {"keys": sorted(st),
+                     "tracing": st["serving"].get("tracing"),
+                     "stages": st["serving"].get("stages"),
+                     "alerts": st.get("alerts")}
+    for k in ("alerts", "stages", "phase"):
+        if k not in st:
+            failures.append(f"/status has no monitor section '{k}'")
+    for k in ("tracing", "stages"):
+        if k not in st["serving"]:
+            failures.append(f"/status serving has no '{k}'")
+    if (st["serving"].get("tracing") or {}).get("requests") != n_req:
+        failures.append(f"tracer finished "
+                        f"{(st['serving'].get('tracing') or {}).get('requests')}"
+                        f" of {n_req} requests")
+    rc, rep = run_serve_report(log_path)
+    out["serve_report"] = {"rc": rc, "stages": rep.get("stages"),
+                           "tail_requests": rep.get("tail_requests"),
+                           "dominant_counts": rep.get("dominant_counts"),
+                           "dominant_stage": rep.get("dominant_stage")}
+    if rc != 0:
+        failures.append(f"serve-report exited {rc}")
+    out["split"] = request_split(log_path)
+    out["latency_ms"] = {"off": {"p50": out["off"]["p50_ms"],
+                                 "p99": out["off"]["p99_ms"]},
+                         "on": {"p50": on["p50_ms"], "p99": on["p99_ms"]}}
+    out["cost"] = tier_cost(model_dir, spill_dir, rows, ref_m, ref_p,
+                            device)
+    out["sync"] = sync_split(cfg_off, rows[:ROWS])
+    if out["sync"]["on"] != out["sync"]["off"] or \
+            out["sync"]["on_again"] != out["sync"]["off_again"]:
+        failures.append(f"synchronizing calls with tracing on "
+                        f"{out['sync']['on']} != off {out['sync']['off']}")
+    if not out["sync"]["bitwise"] or out["sync"]["builds"]:
+        failures.append("a traced batch changed the margins or built a "
+                        "kernel")
+    if out["sync"]["on_stages"] != ["assemble", "d2h", "dispatch",
+                                    "store_lookup"]:
+        failures.append(f"batch stages {out['sync']['on_stages']}")
+    if proj is not None:
+        out["projected"] = phase_projected(device, **proj)
+        if out["projected"]["coordinates"].get("per_item") != \
+                "re_projected":
+            failures.append("the projected effect is not re_projected")
+    out["fault"] = phase_fault(cfg_on, rows, ref_m, ref_p,
+                               thresholds=fault_thresholds)
+    ans = out["fault"]["error_answer"]
+    if ans["code"] != 500 or ans["s"] > FAULT_ANSWER_S or \
+            ans["request_id"] != "fault-1":
+        failures.append(f"dispatch fault answered {ans}")
+    rules = [(a["rule"], a.get("stage")) for a in out["fault"]["alerts"]]
+    if rules != [("serve_tail_latency", "serve")]:
+        failures.append(f"the fault latched {rules}, not one "
+                        "serve_tail_latency alert")
+    out["failures"] = failures
+    return out
 
 
 # -- phase 6 (built before phase 3): data, the GRR plan, its levels ----------
@@ -4349,6 +4898,17 @@ def main() -> int:
         cli_m, cli_p = reference(host, cli_rows)
         cli = phase_cli(cfg, cli_rows, cli_m, cli_p)
         print("phase 5 cli: " + json.dumps({"cli": cli}))
+
+        t = time.perf_counter()
+        tiers = phase_tiers(model_dir, os.path.join(WORK, "spill"), rows,
+                            ref_m, ref_p, "cuda", proj={})
+        tiers["card"] = card
+        print(f"phase 14 serving tiers ({time.perf_counter() - t:.1f} s): "
+              + json.dumps({"tiers": tiers}, default=str))
+        if tiers["failures"]:
+            raise AssertionError("phase 14: " + "; ".join(
+                tiers["failures"]))
+        kernels[0]["launches_traced_serving"] = tiers["launches"]
 
         t = time.perf_counter()
         training = phase_training(train)

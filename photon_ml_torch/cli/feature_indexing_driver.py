@@ -7,14 +7,15 @@ writes (``io.index_map``).  Prebuilt maps let training (``index_dir``)
 and scoring skip the scan and keep train and score indices in agreement.
 Host only: nothing here touches the card.  ``--telemetry
 metrics|trace`` makes the scan a telemetry session (its summary and
-trace land under the output dir); the reference's monitor flags are
-ROADMAP D3.
+trace land under the output dir); ``--monitor on`` and ``--status-port
+P`` open the live monitor over it, as the other drivers do.
 
 Usage::
 
     python -m photon_ml_torch.cli.feature_indexing_driver \\
         --input data.jsonl --output-dir maps/ [--shards global user_re] \\
-        [--telemetry off|metrics|trace]
+        [--telemetry off|metrics|trace] [--monitor on|off] \\
+        [--status-port P]
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import json
 from photon_ml_torch import telemetry
 from photon_ml_torch.io.dataset import build_index_maps
 from photon_ml_torch.io.index_map import save_index_maps
+from photon_ml_torch.telemetry import monitor as _mon
 from photon_ml_torch.utils.run_log import RunLogger
 
 
@@ -32,11 +34,14 @@ def run(input_path: str, output_dir: str,
         shards: list[str] | None = None,
         entity_keys: list[str] | None = None,
         log: RunLogger | None = None,
-        telemetry_mode: str = "off") -> dict:
+        telemetry_mode: str = "off", monitor: str = "off",
+        status_port: int | None = None) -> dict:
     """Build and save the maps; returns their sizes."""
     with (log or RunLogger()) as log, \
             telemetry.maybe_session(telemetry_mode, output_dir,
-                                    run_logger=log, device="cpu"):  # host work
+                                    run_logger=log, device="cpu"), \
+            _mon.maybe_monitor(monitor == "on", run_logger=log,
+                               status_port=status_port):  # host work
         with log.timed("build_index_maps", input=input_path):
             feature_maps, entity_maps = build_index_maps(
                 input_path, shards, entity_keys)
@@ -63,9 +68,17 @@ def main(argv: list[str] | None = None) -> dict:
                         default="off",
                         help="pipeline telemetry for the scan phase "
                              "(summary and trace land in --output-dir)")
+    parser.add_argument("--monitor", choices=("off", "on"), default="off",
+                        help="live progress snapshots and online alerts "
+                             "in the run log")
+    parser.add_argument("--status-port", type=int, default=None,
+                        help="serve GET /status and /metrics on 127.0.0.1 "
+                             "at this port (0 = ephemeral); implies "
+                             "--monitor on")
     args = parser.parse_args(argv)
     sizes = run(args.input, args.output_dir, args.shards, args.entity_keys,
-                telemetry_mode=args.telemetry)
+                telemetry_mode=args.telemetry, monitor=args.monitor,
+                status_port=args.status_port)
     # The last line of stdout: the maps' sizes, as JSON.
     print(json.dumps(sizes))
     return sizes

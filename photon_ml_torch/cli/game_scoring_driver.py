@@ -18,7 +18,8 @@ Usage::
     python -m photon_ml_torch.cli.game_scoring_driver --config score.json \\
         [--device cuda|cpu] [--score-chunk-rows R --spill-dir D \\
         --host-max-resident H --prefetch-depth P] \\
-        [--telemetry off|metrics|trace] [--telemetry-dir DIR]
+        [--telemetry off|metrics|trace] [--telemetry-dir DIR] \\
+        [--monitor on|off] [--monitor-every-s S] [--status-port P]
 
 The output is an ``.npz`` with the raw margins (``scores``), mean-space
 ``predictions`` and the ``labels``, plus ``evaluation.json`` beside it
@@ -30,9 +31,10 @@ run is on the card unless ``--device cpu`` (or ``"device": "cpu"``)
 asks for the CPU; without CUDA it raises.  ``--telemetry
 metrics|trace`` opens a telemetry session sharing the scoring log
 (``python -m photon_ml_torch.telemetry report <out>/scoring_log.jsonl``;
-trace mode also writes ``<telemetry_dir or out>/trace.json``).  The
-monitor (ROADMAP D3) is not ported: ``ScoringConfig.validate`` raises
-on it.
+trace mode also writes ``<telemetry_dir or out>/trace.json``).
+``--monitor on`` (or ``--status-port P``, which implies it) opens the
+live monitor over the run: the streamed scorer's ``score`` progress in
+rows, alerts, and ``GET /status`` / ``/metrics`` on the port.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import numpy as np
 import torch
 
 from photon_ml_torch import telemetry
+from photon_ml_torch.telemetry import monitor as _mon
 from photon_ml_torch.config import ScoringConfig, load_scoring_config
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.estimators.game_transformer import GameTransformer
@@ -132,7 +135,11 @@ def run(config: ScoringConfig, log: RunLogger | None = None) -> dict:
                            flush_every_s=DEFAULT_FLUSH_EVERY_S)) as log, \
             telemetry.maybe_session(
                 config.telemetry, config.telemetry_dir or out_dir,
-                run_logger=log, device=config.device):
+                run_logger=log, device=config.device), \
+            _mon.maybe_monitor(
+                config.monitor == "on", run_logger=log,
+                status_port=config.status_port,
+                every_s=config.monitor_every_s):
         return _run(config, log)
 
 
@@ -247,11 +254,26 @@ def main(argv: list[str] | None = None) -> dict:
     parser.add_argument("--telemetry-dir", default=None,
                         help="override config telemetry_dir (default: "
                              "the output's dir)")
+    parser.add_argument("--monitor", choices=("off", "on"), default=None,
+                        help="override config monitor: live progress/ETA "
+                             "and online alerts in the scoring log; follow "
+                             "with python -m photon_ml_torch.telemetry "
+                             "watch <scoring_log.jsonl>")
+    parser.add_argument("--monitor-every-s", type=float, default=None,
+                        dest="monitor_every_s",
+                        help="override config monitor_every_s: snapshot "
+                             "and alert cadence in seconds")
+    parser.add_argument("--status-port", type=int, default=None,
+                        dest="status_port",
+                        help="serve GET /status and /metrics on 127.0.0.1 "
+                             "at this port (0 = ephemeral); implies "
+                             "--monitor on")
     args = parser.parse_args(argv)
     config = load_scoring_config(args.config)
     for name in ("device", "score_chunk_rows", "spill_dir",
                  "host_max_resident", "prefetch_depth", "telemetry",
-                 "telemetry_dir"):
+                 "telemetry_dir", "monitor", "monitor_every_s",
+                 "status_port"):
         val = getattr(args, name)
         if val is not None:
             setattr(config, name, val)

@@ -16,7 +16,8 @@ Usage::
         [--cd-fused on|off] \\
         [--checkpoint-dir D] [--checkpoint-every-sweeps N] \\
         [--checkpoint-every-solver-iters N] [--resume] \\
-        [--telemetry off|metrics|trace] [--telemetry-dir DIR]
+        [--telemetry off|metrics|trace] [--telemetry-dir DIR] \\
+        [--monitor on|off] [--monitor-every-s S] [--status-port P]
 
 The run is on the card unless ``--device cpu`` (or ``"device": "cpu"``
 in the config) asks for the CPU; without CUDA it raises.  A chunked fit
@@ -31,9 +32,13 @@ metrics|trace`` opens a telemetry session over the whole run, sharing
 the run log (``python -m photon_ml_torch.telemetry report
 <out>/run_log.jsonl`` reads it; trace mode also writes
 ``<telemetry_dir or out>/trace.json``), and the config's ``profile_dir``
-runs the fit phase under ``torch.profiler``.  The fleet and multi-host
-bootstrap (ROADMAP A7) and the monitor (ROADMAP D3) are not ported:
-their config fields must stay at their defaults.
+runs the fit phase under ``torch.profiler``.  ``--monitor on`` opens
+the live monitor over the whole pipeline: progress, ETA and alert
+events in the run log (``python -m photon_ml_torch.telemetry watch
+<out>/run_log.jsonl`` follows it); ``--status-port P`` (which implies
+it) serves ``GET /status`` and ``/metrics`` on 127.0.0.1.  The fleet
+and multi-host bootstrap (ROADMAP A7) are not ported: their config
+fields must stay at their defaults.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import os
 import numpy as np
 
 from photon_ml_torch import telemetry
+from photon_ml_torch.telemetry import monitor as _mon
 from photon_ml_torch.config import (
     CoordinateKind,
     TrainingConfig,
@@ -162,7 +168,13 @@ def run(config: TrainingConfig, log: RunLogger | None = None) -> dict:
             telemetry.maybe_session(
                 config.telemetry,
                 config.telemetry_dir or config.output_dir,
-                run_logger=log, device=config.device):
+                run_logger=log, device=config.device), \
+            _mon.maybe_monitor(
+                config.monitor == "on", run_logger=log,
+                status_port=config.status_port,
+                every_s=config.monitor_every_s):
+        # The monitor spans the whole pipeline (the data phases too);
+        # the estimator's own maybe_monitor then adds nothing.
         return _run(config, log)
 
 
@@ -275,6 +287,20 @@ def main(argv: list[str] | None = None) -> dict:
     parser.add_argument("--telemetry-dir", default=None,
                         help="override config telemetry_dir (default: "
                              "the output dir)")
+    parser.add_argument("--monitor", choices=("off", "on"), default=None,
+                        help="override config monitor: live progress/ETA "
+                             "snapshots and online alerts in the run log; "
+                             "follow with python -m "
+                             "photon_ml_torch.telemetry watch "
+                             "<run_log.jsonl>")
+    parser.add_argument("--monitor-every-s", type=float, default=None,
+                        help="override config monitor_every_s: snapshot "
+                             "and alert cadence in seconds")
+    parser.add_argument("--status-port", type=int, default=None,
+                        help="serve GET /status (JSON) and /metrics "
+                             "(Prometheus text) on 127.0.0.1 at this port "
+                             "(0 = ephemeral, logged as a status_server "
+                             "event); implies --monitor on")
     args = parser.parse_args(argv)
     config = load_training_config(args.config)
     if args.output_dir:
@@ -285,7 +311,8 @@ def main(argv: list[str] | None = None) -> dict:
                   "re_chunk_entities", "checkpoint_dir", "resume",
                   "checkpoint_every_sweeps",
                   "checkpoint_every_solver_iters", "telemetry",
-                  "telemetry_dir"):
+                  "telemetry_dir", "monitor", "monitor_every_s",
+                  "status_port"):
         if getattr(args, field) is not None:
             setattr(config, field, getattr(args, field))
     for field in ("re_retirement", "cd_fused"):

@@ -10,16 +10,18 @@ chunk-streamed, disk-spilled fixed effect (``chunk_rows``,
 ``host_max_resident``, ``prefetch_depth``), streamed random effects
 and the fused cycle (``re_chunk_entities``, ``cd_fused``) and streamed
 scoring (``score_chunk_rows`` and its knobs), pipeline telemetry
-(``telemetry``, ``telemetry_dir``) and profiling (``profile_dir``) are
-ported, with the reference's validation.  A training or scoring config's
-fields of tiers the port does not have yet (meshes: ROADMAP A7; the
-monitor: D3) are accepted in the file but ``validate()`` raises
-``NotImplementedError`` when one is set to anything but its default,
-naming its ROADMAP item.  For serving:
+(``telemetry``, ``telemetry_dir``), profiling (``profile_dir``) and the
+live monitor (``monitor``, ``monitor_every_s``, ``status_port``) are
+ported, with the reference's validation.  A training config's fields of
+tiers the port does not have yet (meshes: ROADMAP A7) are accepted in
+the file but ``validate()`` raises ``NotImplementedError`` when one is
+set to anything but its default, naming its ROADMAP item.  For
+serving:
 
-- ``telemetry``, ``monitor`` and ``trace`` default to ``"off"``, and
-  ``replicas`` to 1; ``validate()`` raises ``NotImplementedError`` when
-  a config turns one of them on (ROADMAP D2–D5).
+- ``telemetry``, ``monitor`` and ``trace`` have the reference's
+  defaults (``"metrics"``, ``"on"``, ``"on"``); ``replicas`` > 1 (the
+  supervised fleet, ROADMAP D5) makes ``validate()`` raise
+  ``NotImplementedError``.
 - ``compilation_cache_dir`` is accepted and has no effect: the port has
   no compiled programs to cache (its CUDA kernels are cached under
   ``build/kernels/`` by source hash).
@@ -38,6 +40,18 @@ from photon_ml_torch.models.glm import TaskType
 from photon_ml_torch.ops.regularization import RegularizationType
 from photon_ml_torch.optim.base import OptimizerType
 from photon_ml_torch.optim.variance import VarianceComputationType
+
+
+def _validate_monitor(cfg) -> None:
+    """The live-monitoring knobs every run config carries."""
+    if cfg.monitor not in ("off", "on"):
+        raise ValueError("monitor must be off|on")
+    if cfg.monitor_every_s <= 0:
+        raise ValueError("monitor_every_s must be positive")
+    if cfg.status_port is not None and not (
+            0 <= cfg.status_port <= 65535):
+        raise ValueError("status_port must be in [0, 65535] "
+                         "(0 = ephemeral)")
 
 
 def _validate_device(device: str) -> None:
@@ -217,7 +231,9 @@ class TrainingConfig:
     # Pipeline telemetry: off | metrics | trace (telemetry/__init__.py).
     telemetry: str = "off"
     telemetry_dir: str | None = None
-    monitor: str = "off"                   # ROADMAP D3
+    # Live monitor: progress/ETA/alert events; status_port serves
+    # /status and /metrics (0 = ephemeral) and implies the monitor.
+    monitor: str = "off"
     monitor_every_s: float = 2.0
     status_port: int | None = None
     distributed_init: bool = False         # ROADMAP A7
@@ -226,9 +242,7 @@ class TrainingConfig:
 
     # (field, default, ROADMAP item) of the tiers not ported yet.
     _NOT_PORTED = (
-        ("n_devices", None, "A7"),
-        ("monitor", "off", "D3"), ("status_port", None, "D3"),
-        ("distributed_init", False, "A7"))
+        ("n_devices", None, "A7"), ("distributed_init", False, "A7"))
 
     def validate(self) -> None:
         names = [c.name for c in self.coordinates]
@@ -266,8 +280,7 @@ class TrainingConfig:
             raise ValueError("sparse_layout must be AUTO|GRR|COLMAJOR|ELL")
         if self.telemetry not in ("off", "metrics", "trace"):
             raise ValueError("telemetry must be off|metrics|trace")
-        if self.monitor not in ("off", "on"):
-            raise ValueError("monitor must be off|on")
+        _validate_monitor(self)
         self._validate_chunked()
         for name, grid in self.reg_weight_grid.items():
             if name not in names:
@@ -396,8 +409,8 @@ class ScoringConfig:
     spill_dir: str | None = None
     host_max_resident: int = 2
     prefetch_depth: int = 2
-    # Pipeline telemetry: off | metrics | trace.  Not ported yet: the
-    # monitor (ROADMAP D3).
+    # Pipeline telemetry: off | metrics | trace; the live monitor as in
+    # TrainingConfig.
     telemetry: str = "off"
     telemetry_dir: str | None = None
     monitor: str = "off"
@@ -406,16 +419,12 @@ class ScoringConfig:
     # Where scoring runs: "cuda" (default) or "cpu".
     device: str = "cuda"
 
-    # (field, default, ROADMAP item) of the tiers not ported yet.
-    _NOT_PORTED = (("monitor", "off", "D3"), ("status_port", None, "D3"))
-
     def validate(self) -> None:
         if self.score_chunk_rows is not None and self.score_chunk_rows <= 0:
             raise ValueError("score_chunk_rows must be positive")
         if self.telemetry not in ("off", "metrics", "trace"):
             raise ValueError("telemetry must be off|metrics|trace")
-        if self.monitor not in ("off", "on"):
-            raise ValueError("monitor must be off|on")
+        _validate_monitor(self)
         if self.host_max_resident < 1:
             raise ValueError("host_max_resident must be >= 1")
         if self.prefetch_depth < 0:
@@ -425,12 +434,6 @@ class ScoringConfig:
                 "spill_dir requires streamed scoring (score_chunk_rows):"
                 " only score chunks spill to the disk tier")
         _validate_device(self.device)
-        for knob, default, item in self._NOT_PORTED:
-            if getattr(self, knob) != default:
-                raise NotImplementedError(
-                    f"{knob}={getattr(self, knob)!r} is not ported to "
-                    f"photon_ml_torch yet (ROADMAP {item}); leave it at "
-                    f"its default")
 
 
 @dataclasses.dataclass
@@ -466,12 +469,14 @@ class ServingConfig:
     hot_swap_poll_s: float = 2.0
     # Accepted for config compatibility; has no effect in the port.
     compilation_cache_dir: str | None = None
-    # Not ported yet: must stay "off" (validate() raises otherwise).
-    telemetry: str = "off"
-    monitor: str = "off"
+    # Telemetry (the registry behind /metrics) and the live monitor
+    # (progress, alert rules, /status): both on by default, as in the
+    # reference.  /status and /metrics ride the serving port.
+    telemetry: str = "metrics"
+    monitor: str = "on"
     monitor_every_s: float = 2.0
-    status_port: int | None = None
-    log_path: str | None = None      # run-log JSONL (default: none)
+    status_port: int | None = None   # unused: /status rides the port
+    log_path: str | None = None      # run-log JSONL (default: the logger)
     # The supervised fleet is not ported yet: replicas must be 1.
     replicas: int = 1
     probe_every_s: float = 0.5
@@ -485,8 +490,12 @@ class ServingConfig:
     replica_ready_timeout_s: float = 300.0
     # Per-connection socket timeout on the HTTP core.
     http_timeout_s: float = 30.0
-    # Request tracing is not ported yet: must stay "off".
-    trace: str = "off"
+    # Request tracing (serving.tracing): per-request stage marks, the
+    # shared batch trace and tail sampling.  A request slower than
+    # trace_threshold_ms is kept ("tail"), and every
+    # trace_sample_every-th one regardless ("floor"; 0 = none);
+    # trace_buffer kept traces stay in memory for /status.
+    trace: str = "on"
     trace_threshold_ms: float = 50.0
     trace_sample_every: int = 100
     trace_buffer: int = 512
@@ -529,22 +538,23 @@ class ServingConfig:
         _validate_device(self.device)
         if self.telemetry not in ("off", "metrics", "trace"):
             raise ValueError("telemetry must be off|metrics|trace")
-        if self.monitor not in ("off", "on"):
-            raise ValueError("monitor must be off|on")
+        _validate_monitor(self)
         if self.trace not in ("on", "off"):
             raise ValueError("trace must be on|off")
+        if self.trace_threshold_ms < 0:
+            raise ValueError("trace_threshold_ms must be >= 0")
+        if self.trace_sample_every < 0:
+            raise ValueError(
+                "trace_sample_every must be >= 0 (0 = no floor)")
+        if self.trace_buffer < 1:
+            raise ValueError("trace_buffer must be >= 1")
         if self.replicas < 1:
             raise ValueError("replicas must be >= 1")
-        for knob, on, item in (
-                ("telemetry", self.telemetry != "off", "D2"),
-                ("monitor", self.monitor != "off", "D3"),
-                ("trace", self.trace != "off", "D4"),
-                ("replicas", self.replicas > 1, "D5")):
-            if on:
-                raise NotImplementedError(
-                    f"{knob}={getattr(self, knob)!r} is not ported to "
-                    f"photon_ml_torch yet (ROADMAP {item}); set it to its "
-                    "default")
+        if self.replicas > 1:
+            raise NotImplementedError(
+                f"replicas={self.replicas!r}: the supervised replica "
+                "fleet is not ported to photon_ml_torch yet (ROADMAP D5); "
+                "run one server")
 
     def buckets(self) -> list[int]:
         """The closed micro-batch shape set, smallest first."""

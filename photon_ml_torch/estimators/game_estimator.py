@@ -87,6 +87,7 @@ from photon_ml_torch.optim.base import OptimizerConfig, OptimizerType
 from photon_ml_torch.optim.problem import OptimizationProblem
 from photon_ml_torch.optim.variance import VarianceComputationType
 from photon_ml_torch.reliability import checkpoint as _ckpt
+from photon_ml_torch.telemetry import monitor as _mon
 
 logger = logging.getLogger(__name__)
 
@@ -663,6 +664,12 @@ class GameEstimator:
                 with scope, telemetry.span("swept_train", cat="train",
                                            coordinate=name, lanes=L):
                     W, res = coord.train_swept(offsets, reg, warm_start=W)
+                # The swept grid bypasses the CD loop, so it reports its
+                # own sweeps (the lane count read only when monitored).
+                if _mon.active() is not None:
+                    _mon.progress("swept", i + 1, cfg.n_iterations,
+                                  unit="sweeps", coordinate=name, lanes=L,
+                                  lanes_done=int(res.converged.sum()))
                 if validate:
                     with telemetry.span("swept_validation", cat="train",
                                         coordinate=name, lanes=L):
@@ -838,13 +845,18 @@ class GameEstimator:
         fixed-effect grid (``_swept_coordinate_name``) trains as ONE
         swept solve; other grids fit point by point.
 
-        ``config.telemetry`` opens a session for the fit unless one is
-        active (a driver's); the fit is one ``estimator_fit`` phase span
-        (not ``fit``: a driver's timed phase has that name)."""
+        ``config.telemetry`` opens a session and ``config.monitor`` (or
+        ``status_port``) a live monitor for the fit unless one is active
+        (a driver's); the fit is one ``estimator_fit`` phase span (not
+        ``fit``: a driver's timed phase has that name)."""
         with telemetry.maybe_session(
                 self.config.telemetry,
                 self.config.telemetry_dir or self.config.output_dir,
                 run_logger=run_logger, device=self.device), \
+                _mon.maybe_monitor(
+                    self.config.monitor == "on", run_logger=run_logger,
+                    status_port=self.config.status_port,
+                    every_s=self.config.monitor_every_s), \
                 telemetry.span("estimator_fit", cat="phase"):
             prep = self._prepare(train)
             # The footprint after placement, before any solve.
@@ -877,6 +889,10 @@ class GameEstimator:
         with telemetry.maybe_session(
                 cfg.telemetry, cfg.telemetry_dir or cfg.output_dir,
                 run_logger=run_logger, device=self.device), \
+                _mon.maybe_monitor(
+                    cfg.monitor == "on", run_logger=run_logger,
+                    status_port=cfg.status_port,
+                    every_s=cfg.monitor_every_s), \
                 telemetry.span("fit_tuned", cat="phase"):
             return self._fit_tuned_inner(train, validation, run_logger,
                                          cfg.evaluators[0], cfg.tuning)

@@ -44,7 +44,8 @@ engine calls ``run_chunk`` directly.  With telemetry a pass is one
 ``score_pass`` span, each chunk a ``chunk_compute`` span (and a CUDA
 event pair, program ``score_chunk``) and a ``chunk_drain`` span, and the
 writer thread's ``sink_write`` spans, heartbeats and death event land in
-the run log; the monitor's progress is ROADMAP D3.
+the run log; each chunk reports the live monitor's ``score`` progress in
+rows.
 """
 
 from __future__ import annotations
@@ -77,6 +78,7 @@ from photon_ml_torch.models.glm import TaskType
 from photon_ml_torch.ops.kernels import gather_rowsum
 from photon_ml_torch.reliability import faults as _faults
 from photon_ml_torch.telemetry import device as _device
+from photon_ml_torch.telemetry import monitor as _mon
 
 logger = logging.getLogger(__name__)
 
@@ -543,6 +545,9 @@ class StreamingGameScorer:
                             host, done = both, None
                     del buf
                     pending.append((i, host, done))
+                    # In rows, so the monitor's rolling rate is rows/s.
+                    _mon.progress("score", min((i + 1) * R, n), n,
+                                  unit="rows")
                     if len(pending) > _INFLIGHT:
                         drain(pending.pop(0))
                 chunks.close()

@@ -45,6 +45,7 @@ from photon_ml_torch.evaluation.evaluators import EvaluatorType
 from photon_ml_torch.game.coordinates import Coordinate
 from photon_ml_torch.reliability import checkpoint as _ckpt
 from photon_ml_torch.telemetry import convergence as _conv
+from photon_ml_torch.telemetry import monitor as _mon
 
 logger = logging.getLogger(__name__)
 
@@ -363,6 +364,12 @@ def run_coordinate_descent(
                 newly_retired = coord.retire_converged()
                 if newly_retired:
                     telemetry.count("cd.entities_retired", newly_retired)
+                # Coordinate updates done against the descent's plan:
+                # the live monitor's top-level ETA.
+                _mon.progress("cd", it * len(update_sequence) + pos + 1,
+                              n_iterations * len(update_sequence),
+                              unit="updates", iteration=it + 1,
+                              coordinate=name)
                 telemetry.count("cd.coordinate_updates")
                 extra_fields = ({} if newly_retired is None
                                 else {"entities_newly_retired":
@@ -460,6 +467,10 @@ def _run_fused_cycles(engine, coordinates, update_sequence, n_iterations,
             telemetry.count("cd.cycles")
             telemetry.count("cd.coordinate_updates", len(trainable))
             history.append(iter_diag)
+            # Cycle progress (the engine reports its chunks as
+            # ``train.cd_fused``).
+            _mon.progress("cd", it + 1, n_iterations, unit="cycles",
+                          iteration=it + 1)
             fe_diag = iter_diag.get(engine.fe_name, {})
             logger.info("CD fused cycle %d in %.2fs (value %s, alpha %s)",
                         it + 1, elapsed, fe_diag.get("value"),

@@ -59,6 +59,7 @@ from photon_ml_torch.optim.lbfgs import lbfgs_solve_swept
 from photon_ml_torch.optim.problem import OptimizationProblem, solve_batched
 from photon_ml_torch.telemetry import convergence as _conv
 from photon_ml_torch.telemetry import device as _device
+from photon_ml_torch.telemetry import monitor as _mon
 
 logger = logging.getLogger(__name__)
 
@@ -797,7 +798,8 @@ class StreamedRandomEffectCoordinate(Coordinate):
         # efficiency divides the consumer's wait by).
         with telemetry.span("re_sweep", cat="solver",
                             coordinate=self.name, chunks=len(specs)):
-            for dev, b, ents, ex, rows, cols in self._stream(specs, off):
+            for ci, (dev, b, ents, ex, rows, cols) in enumerate(
+                    self._stream(specs, off)):
                 k = len(ents)
                 program = f"re_chunk_train.b{b}"
                 with telemetry.span("chunk_compute", cat="device",
@@ -814,6 +816,9 @@ class StreamedRandomEffectCoordinate(Coordinate):
                         max_iters = max(max_iters, collect(*pending))
                 pending = ticket
                 self._solved_offsets[ex] = off[ex]
+                # Entity chunks against the sweep's (within-sweep ETA).
+                _mon.progress(f"re.{self.name}", ci + 1, len(specs),
+                              unit="chunks")
             if pending is not None:
                 max_iters = max(max_iters, collect(*pending))
         telemetry.count("re.sweeps")

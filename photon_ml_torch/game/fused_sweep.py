@@ -57,6 +57,7 @@ from photon_ml_torch.data.batch import SparseBatch
 from photon_ml_torch.ops.objective import GLMObjective
 from photon_ml_torch.telemetry import convergence as _conv
 from photon_ml_torch.telemetry import device as _device
+from photon_ml_torch.telemetry import monitor as _mon
 
 logger = logging.getLogger(__name__)
 
@@ -357,7 +358,7 @@ class FusedCycleEngine:
         try:
             with telemetry.span("fused_cycle_pass", cat="solver",
                                 chunks=K):
-                for i, dev in self._stream():
+                for si, (i, dev) in enumerate(self._stream()):
                     labels = dev["fe.labels"]
                     batch = SparseBatch(
                         values=dev["fe.values"],
@@ -382,6 +383,8 @@ class FusedCycleEngine:
                                                   acc, names, R,
                                                   self.device),
                         span="chunk_compute")
+                    _mon.progress("train.cd_fused", si + 1, K,
+                                  unit="chunks", cycle=self.cycles + 1)
         finally:
             if store is not None:
                 store.end_read()

@@ -5,9 +5,9 @@ trains a model with the proposed configuration (typically a full
 ``GameEstimator`` fit) and reports its validation metric back to the
 search.  ``run_batched(restored=...)`` resumes a checkpointed search:
 it replays the restored rounds' proposals so the strategy's random
-stream continues where the interrupted run left it.  The reference's
-live progress (``monitor.progress``) is ROADMAP D3; the trials land in
-the run log as there.
+stream continues where the interrupted run left it.  Each trial (or round) reports the live
+monitor's ``tuner`` progress, and the trials land in the run log, as
+there.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from photon_ml_torch.hyperparameter.search import (
     RandomSearch,
     SearchSpace,
 )
+from photon_ml_torch.telemetry import monitor as _mon
 
 
 class TunerMode(str, enum.Enum):
@@ -67,6 +68,8 @@ class HyperparameterTuner:
             if run_logger is not None:
                 run_logger.event("tuning_trial", trial=t, config=config,
                                  metric=float(metric))
+            _mon.progress("tuner", len(trials), n_trials, unit="trials",
+                          metric=float(metric))
         return trials
 
     def run_batched(self, evaluate_batch_fn, n_trials: int,
@@ -121,6 +124,7 @@ class HyperparameterTuner:
                     run_logger.event(
                         "tuning_trial", trial=len(trials) - 1,
                         config=config, metric=float(metric))
+            _mon.progress("tuner", len(trials), n_trials, unit="trials")
         return trials
 
     def best(self, trials: list[TrialResult]) -> TrialResult:

@@ -88,6 +88,7 @@ from photon_ml_torch.reliability import checkpoint as _ckpt
 from photon_ml_torch.reliability import faults as _faults
 from photon_ml_torch.telemetry import convergence as _conv
 from photon_ml_torch.telemetry import device as _device
+from photon_ml_torch.telemetry import monitor as _mon
 
 logger = logging.getLogger(__name__)
 
@@ -659,11 +660,14 @@ class ChunkedGLMObjective:
         timed = (cost is not None and self.batch.store is not None
                  and telemetry.active() is not None)
         program = cost[0] if cost is not None else None
+        # The monitor's stage: chunks against the pass's count.
+        stage = "train.sweep" if pass_span == "sweep" else "train.pass"
+        steps = self.batch.n_chunks
         fence = None
         first = True
         with telemetry.span(pass_span, cat="solver",
                             chunks=self.batch.n_chunks):
-            for cid, cur in self._chunk_stream():
+            for ci, (cid, cur) in enumerate(self._chunk_stream()):
                 t0 = time.perf_counter() if timed else None
                 with telemetry.span("chunk_compute", cat="device"):
                     if fence is not None:
@@ -673,6 +677,7 @@ class ChunkedGLMObjective:
                     if bounded:
                         fence = torch.cuda.Event()
                         fence.record()
+                _mon.progress(stage, ci + 1, steps, unit="chunks")
                 captured = False
                 if first and cost is not None:
                     captured = _device.maybe_capture(
@@ -1094,6 +1099,11 @@ def streaming_lbfgs_solve(
         _conv.iteration(solver_name, label, it, f_host, g_host,
                         step_size=(alpha_used if ls_ok else 0.0),
                         ls_trials=trials)
+        # The iteration against the budget and the loss the monitor's
+        # divergence rules watch.
+        _mon.progress("solver" + (f".{label}" if label else ""),
+                      it, config.max_iters, unit="iters",
+                      loss=f_host, grad_norm=g_host)
         logger.info("streaming lbfgs iter %d: f=%.6f |pg|=%.3e%s", it,
                     f_host, g_host, " (stalled)" if stalled else "")
         if ls_ok:
@@ -1299,6 +1309,9 @@ def streaming_tron_solve(
         _conv.iteration(solver_name, label, it, f_host, g_norm,
                         step_size=(p_norm if accept else 0.0),
                         ls_trials=cg_it, delta=delta, rho=rho)
+        _mon.progress("train.tron" + (f".{label}" if label else ""),
+                      it, config.max_iters, unit="iters",
+                      loss=f_host, grad_norm=g_norm)
         logger.info(
             "streaming tron iter %d: f=%.6f |g|=%.3e delta=%.3e "
             "rho=%.3f cg=%d%s", it, f_host, g_norm, delta, rho,
@@ -1564,9 +1577,13 @@ def streaming_lbfgs_solve_swept(
                             ls_trials=trials,
                             lanes_active=int(active.sum()),
                             lanes_done=n_done)
+        f_best = float(F.min())
+        _mon.progress("solver" + (f".{label}" if label else ""),
+                      it, config.max_iters, unit="iters",
+                      loss=f_best, lanes_done=n_done, lanes=L)
         logger.info("streaming swept lbfgs iter %d: %d/%d lanes done, "
-                    "f_best=%.6f (%d trials)", it, n_done, L,
-                    float(F.min()), trials)
+                    "f_best=%.6f (%d trials)", it, n_done, L, f_best,
+                    trials)
         if ck is not None:
             ck.maybe_save_solver(ck_label, it, {
                 "fp": fp,

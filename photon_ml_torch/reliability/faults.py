@@ -13,6 +13,17 @@ seams the port fires:
 - ``prefetch.load`` / ``prefetch.place``: on the prefetch thread,
   around the disk read and the host-to-device copy.
 
+The serving fault matrix adds the request path's seams:
+
+- ``serve.store_load``: in ``EntityServeStore`` per chunk read attempt
+  on the scoring path (a slow store, transient or persistent I/O
+  errors: retries, then fixed-effect-only degradation);
+- ``serve.dispatch``: in ``ScoringEngine.score_batch`` before the batch
+  is placed on the device (a failing or wedged dispatch: an answered
+  error for the whole batch, never a hang);
+- ``serve.manifest_load``: in ``ModelServer._load_engine`` with the
+  manifest's path (a corrupt or torn swap keeps the previous model).
+
 A ``FaultInjector`` holds ``Fault`` specs, each targeting a site's Nth
 occurrence (per-site counters under one lock); ``seeded_plan`` draws
 the occurrences from a seed.  With no injector installed a seam is one

@@ -8,8 +8,15 @@ last stdout line is one JSON object with the final serving status and
 the exit code.  ``--info-file`` writes ``{"port", "pid", "url"}`` as
 soon as the socket binds (atomic tmp + replace), so a supervisor can
 find an ephemeral port and poll ``/healthz`` for warming → ready.
-With ``log_path`` in the config, lifecycle events are appended there as
-JSON lines.
+
+The config's ``telemetry``, ``monitor`` and ``trace`` keys select the
+tiers, with the reference's defaults: telemetry ``metrics`` (the
+registry behind ``GET /metrics``), monitor ``on`` (progress, alert
+rules and ``GET /status``) and trace ``on`` (request traces, the input
+of ``python -m photon_ml_torch.telemetry serve-report``).  Their events
+go to the run log at the config's ``log_path`` (JSONL; without one, to
+the stdlib logger).  ``replicas`` > 1 (the supervised fleet) is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -19,28 +26,9 @@ import json
 import os
 import signal
 import sys
-import threading
-import time
 
 from photon_ml_torch.config import load_serving_config
-
-
-class _JsonlLog:
-    """Append-only JSONL event log (``{"t", "event", ...}`` per line)."""
-
-    def __init__(self, path: str):
-        self._lock = threading.Lock()
-        self._f = open(path, "a")
-
-    def event(self, kind: str, **fields) -> None:
-        line = json.dumps({"t": time.time(), "event": kind, **fields})
-        with self._lock:
-            self._f.write(line + "\n")
-            self._f.flush()
-
-    def close(self) -> None:
-        with self._lock:
-            self._f.close()
+from photon_ml_torch.utils.run_log import DEFAULT_FLUSH_EVERY_S, RunLogger
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -80,7 +68,11 @@ def main(argv: list[str] | None = None) -> int:
 
     from photon_ml_torch.serving.server import ModelServer
 
-    log = _JsonlLog(config.log_path) if config.log_path else None
+    log = RunLogger(config.log_path,
+                    run_info={"driver": "serving",
+                              "model_dir": config.model_dir,
+                              "replicas": config.replicas},
+                    flush_every_s=DEFAULT_FLUSH_EVERY_S)
     server = ModelServer(config, run_logger=log)
     if args.info_file:
         info = {"port": server.port, "pid": os.getpid(),
@@ -105,8 +97,7 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         status = server.serving_status()
         server.stop()
-        if log is not None:
-            log.close()
+        log.close()
         print(json.dumps({"serving": status, "rc": rc}))
     return rc
 

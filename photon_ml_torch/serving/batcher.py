@@ -1,7 +1,7 @@
 """Deadline-based micro-batcher: concurrent requests → fused batches.
 
-Counterpart of ``photon_ml_tpu/serving/batcher.py`` without its
-telemetry and tracing hooks.  Concurrent requests COALESCE: the
+Counterpart of ``photon_ml_tpu/serving/batcher.py``.  Concurrent
+requests COALESCE: the
 dispatcher thread collects queued requests until the largest bucket
 fills or the oldest request has waited ``deadline_s``, then scores them
 as ONE padded call.  Batches pad to the closed ``buckets`` set; a
@@ -17,6 +17,17 @@ spending device time.
 
 Hot swap: the batcher holds no model state — each batch resolves the
 current engine through ``engine_fn``, so a swap lands between batches.
+
+Instrumentation: the ``serve.*`` counters (``requests``, ``batches``,
+``batch_rows``, ``shed`` and ``shed_<cause>``), the ``serve.queue_depth``
+gauge and the ``serve.request_s``, ``serve.batch_s`` and
+``serve.batch_fill`` histograms go to the telemetry session; a failed
+batch is a ``thread_exception`` event; each batch reports
+``monitor.progress("serve", rows)``, where the monitor evaluates its
+alert rules.  With request tracing on, each dispatch is one
+``BatchTrace`` and each request slot's ``queue_wait`` is taken against
+the dispatch moment.  Every hook is one global read when its tier is
+off.
 """
 
 from __future__ import annotations
@@ -28,6 +39,10 @@ import threading
 import time
 
 import numpy as np
+
+from photon_ml_torch import telemetry
+from photon_ml_torch.serving import tracing
+from photon_ml_torch.telemetry import monitor as _mon
 
 logger = logging.getLogger(__name__)
 
@@ -62,7 +77,8 @@ class _Slot:
     """One request piece's result hand-off (condition-guarded)."""
 
     __slots__ = ("rows", "n", "deadline", "_cv", "_done", "result",
-                 "error", "version", "degraded")
+                 "error", "version", "degraded", "t_enq", "queue_wait",
+                 "batch")
 
     def __init__(self, rows, n: int, deadline: float = math.inf):
         self.rows = rows
@@ -74,6 +90,9 @@ class _Slot:
         self.error: BaseException | None = None
         self.version: str | None = None
         self.degraded = False
+        self.t_enq = time.perf_counter()   # queue-wait basis (tracing)
+        self.queue_wait: float | None = None
+        self.batch: str | None = None      # linked BatchTrace id
 
     def finish(self, result=None, error=None, version=None,
                degraded: bool = False) -> None:
@@ -140,12 +159,26 @@ class MicroBatcher:
             (self._queued_rows + extra_rows) / self.max_rows)
         return batches_ahead * self._service_ewma_s
 
-    def submit(self, parsed_rows: list, timeout_s: float = 30.0):
+    def _shed(self, cause: str) -> None:
+        with self._lock:
+            self.shed += 1
+        telemetry.count("serve.shed")
+        telemetry.count(f"serve.shed_{cause}")
+
+    def submit(self, parsed_rows: list, timeout_s: float = 30.0,
+               trace=None, t_admit: float | None = None):
         """Block until scored → (margins [n], preds [n], version,
-        degraded).  Called from HTTP handler threads."""
+        degraded).  Called from HTTP handler threads.
+
+        ``trace``: the request's ``RequestTrace``.  ``admission`` (from
+        ``t_admit``, the route's entry clock, so the parse counts) and
+        ``queue_wait`` stamp onto it, and the batch it waited on links
+        it to that batch's trace."""
+        t0 = time.perf_counter()
         deadline = self._clock() + timeout_s
         slots = []
         shed_exc: Exception | None = None
+        shed_cause = None
         with self._lock:
             if self._closing:
                 raise ServerClosing("server is draining")
@@ -157,6 +190,7 @@ class MicroBatcher:
                     f"request deadline budget {timeout_s:g}s; retry "
                     "after backoff or raise capacity",
                     retry_after_s=max(1.0, est - timeout_s))
+                shed_cause = "overload"
             else:
                 for lo in range(0, len(parsed_rows), self.max_rows):
                     piece = parsed_rows[lo: lo + self.max_rows]
@@ -166,13 +200,22 @@ class MicroBatcher:
                             f"request queue full ({self.max_queue}); "
                             "shed load or raise max_queue",
                             retry_after_s=max(1.0, est or 1.0))
+                        shed_cause = "saturated"
                         break
                     slot = _Slot(piece, len(piece), deadline=deadline)
                     self._q.put(slot)
                     self._queued_rows += len(piece)
                     slots.append(slot)
+        if trace is not None:
+            trace.stamp("admission", time.perf_counter()
+                        - (t_admit if t_admit is not None else t0))
         if shed_exc is not None:
+            if trace is not None:
+                trace.shed = shed_cause
+            telemetry.count("serve.shed")
+            telemetry.count(f"serve.shed_{shed_cause}")
             raise shed_exc
+        telemetry.gauge("serve.queue_depth", self._q.qsize())
         margins, preds, version = [], [], None
         degraded = False
         for slot in slots:
@@ -180,6 +223,19 @@ class MicroBatcher:
             degraded = degraded or deg
             margins.append(m)
             preds.append(p)
+        if trace is not None:
+            # A request split over several batches links the one it
+            # waited on longest, so the stamp and the link agree.
+            slowest = max(
+                (s for s in slots if s.queue_wait is not None),
+                key=lambda s: s.queue_wait, default=None)
+            if slowest is not None:
+                trace.stamp("queue_wait", slowest.queue_wait)
+                trace.batch = slowest.batch
+            elif slots:
+                trace.batch = slots[-1].batch
+        telemetry.count("serve.requests")
+        telemetry.observe("serve.request_s", time.perf_counter() - t0)
         return (np.concatenate(margins), np.concatenate(preds), version,
                 degraded)
 
@@ -202,8 +258,7 @@ class MicroBatcher:
     def _expired(self, slot) -> bool:
         if self._clock() <= slot.deadline:
             return False
-        with self._lock:
-            self.shed += 1
+        self._shed("deadline")
         slot.finish(error=DeadlineExceeded(
             "request deadline passed while queued (server overloaded); "
             "retry after backoff"))
@@ -246,10 +301,23 @@ class MicroBatcher:
     def _dispatch(self, batch: list, total: int) -> None:
         t0 = time.perf_counter()
         bucket = self._bucket_for(total)
+        rec = tracing.active()
+        bt = None
+        if rec is not None:
+            bt = rec.begin_batch(bucket, total, len(batch))
+            for slot in batch:
+                slot.queue_wait = t0 - slot.t_enq
+                slot.batch = bt.batch_id
         try:
             engine = self._engine_fn()   # the hot-swap seam
             rows = [r for slot in batch for r in slot.rows]
-            margins, preds, degraded = engine.score_batch(rows, bucket)
+            margins, preds, degraded = engine.score_batch(rows, bucket,
+                                                          trace=bt)
+            if bt is not None:
+                # Registered before any member slot wakes: a handler
+                # thread finishing its request looks the batch up at once.
+                rec.finish_batch(bt)
+                bt = None
             lo = 0
             for slot in batch:
                 hi = lo + slot.n
@@ -260,8 +328,12 @@ class MicroBatcher:
         except BaseException as e:
             logger.exception("serve batcher: batch of %d row(s) failed",
                              total)
+            telemetry.thread_exception("serve-batcher", e)
+            if bt is not None:
+                rec.finish_batch(bt)   # failed members still link it
             for slot in batch:
                 slot.finish(error=e)
+            return
         finally:
             dt = time.perf_counter() - t0
             with self._lock:
@@ -272,6 +344,13 @@ class MicroBatcher:
                     is None else ((1 - _SERVICE_EWMA)
                                   * self._service_ewma_s
                                   + _SERVICE_EWMA * dt)
+        telemetry.count("serve.batches")
+        telemetry.count("serve.batch_rows", total)
+        telemetry.observe("serve.batch_fill", total / bucket)
+        telemetry.observe("serve.batch_s", time.perf_counter() - t0)
+        telemetry.gauge("serve.queue_depth", self._q.qsize())
+        _mon.progress("serve", self.rows, unit="rows",
+                      batches=self.batches)
 
     # -- stats / lifecycle ---------------------------------------------------
 

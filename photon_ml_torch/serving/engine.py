@@ -15,8 +15,19 @@ MODEL alone and builds each micro-batch's chunk from parsed request rows:
   mmap'd ``EntityServeStore`` into a per-batch MINI-table ``[R+1, p]``:
   row i serves request-row i and row R is the zero row shared by unseen
   entities and padding, so the device never holds the [E, p] table.
+- **Projected random effects** score on the host per batch (the
+  transformer's pre-sorted merge-join table) and fold into ``base``
+  before the call, exactly as the reference does.
 
-Projected random effects are not served yet (``NotImplementedError``).
+``score_batch`` fires the ``serve.dispatch`` fault seam before the batch
+is placed.  Given a batch trace it stamps ``store_lookup`` (the entity
+stores' reads), ``assemble`` (the rest of the host staging),
+``dispatch`` (the copies to the card and the kernels' launch, which
+return before the kernels finish) and ``d2h`` (the one blocking copy
+back), with no synchronization between them: on CUDA the kernels'
+device time lands in ``d2h``, so ``dispatch`` is not kernel time.
+Without a trace it takes no timestamp.
+
 ``BadRequest`` marks client errors; the HTTP layer answers 400.
 """
 
@@ -28,7 +39,13 @@ import time
 import numpy as np
 import torch
 
+from photon_ml_torch import telemetry
+from photon_ml_torch.data.sparse_rows import SparseRows
 from photon_ml_torch.device import resolve_device
+from photon_ml_torch.estimators.game_transformer import (
+    _projected_score_table,
+    _score_projected_rows,
+)
 from photon_ml_torch.estimators.streaming_scorer import _CoordSpec, run_chunk
 from photon_ml_torch.models.game import (
     FixedEffectModel,
@@ -36,6 +53,7 @@ from photon_ml_torch.models.game import (
     RandomEffectModel,
 )
 from photon_ml_torch.models.glm import TaskType
+from photon_ml_torch.reliability import faults
 from photon_ml_torch.serving.entity_store import EntityServeStore
 
 logger = logging.getLogger(__name__)
@@ -117,6 +135,8 @@ class ScoringEngine:
         self._fixed_sparse: list[tuple[str, str]] = []  # (coord, shard)
         self._fixed_dense: list[tuple[str, str]] = []
         self._re: list[tuple[str, str, str, EntityServeStore]] = []
+        self._proj: list[tuple[str, RandomEffectModel, tuple, str, str]] \
+            = []
         dense_shards = set(dense_feature_shards)
 
         def declare(shard: str, form: str, dim: int) -> None:
@@ -150,13 +170,15 @@ class ScoringEngine:
                     self._fixed_sparse.append((name, comp.feature_shard))
                 tables[name + ".base"] = base
             elif isinstance(comp, RandomEffectModel):
-                if comp.projection is not None:
-                    raise NotImplementedError(
-                        f"random effect '{name}' is projected; serving "
-                        "projected random effects is not ported yet "
-                        "(ROADMAP D7)")
                 key = comp.entity_key or name
                 self._entity_keys.append(key)
+                if comp.projection is not None:
+                    declare(comp.feature_shard, "sparse",
+                            comp.projection.global_dim)
+                    self._proj.append((name, comp,
+                                       _projected_score_table(comp),
+                                       comp.feature_shard, key))
+                    continue
                 store = EntityServeStore.build(
                     name, comp, spill_dir, entity_chunk=entity_chunk,
                     host_max_resident=host_max_resident)
@@ -228,10 +250,13 @@ class ScoringEngine:
         return [ParsedRow(0.0, dict(sparse), dict(dense), dict(ids))
                 for _ in range(n)]
 
-    def _build_chunk(self, rows: list[ParsedRow], R: int
+    def _build_chunk(self, rows: list[ParsedRow], R: int,
+                     timings: dict | None = None
                      ) -> tuple[dict, dict, np.ndarray]:
         """(chunk arrays, per-batch tables, degraded [n] bool) for
-        ``rows`` padded to ``R``, all host numpy."""
+        ``rows`` padded to ``R``, all host numpy.  ``timings``
+        accumulates the entity-store reads' seconds under
+        ``"store_lookup"``."""
         n = len(rows)
         k = self.ell_row_capacity
         base = np.zeros(R, np.float32)
@@ -261,7 +286,13 @@ class ScoringEngine:
         degraded = np.zeros(n, bool)
         for name, shard, key, store in self._re:
             ids = np.fromiter((r.ids[key] for r in rows), np.int64, n)
-            w_rows, _hit, deg = store.lookup(ids)
+            if timings is None:
+                w_rows, _hit, deg = store.lookup(ids)
+            else:
+                t_l = time.perf_counter()
+                w_rows, _hit, deg = store.lookup(ids)
+                timings["store_lookup"] = (timings.get("store_lookup", 0.0)
+                                           + time.perf_counter() - t_l)
             degraded |= deg
             # Mini-table: row i serves request-row i; row R is the zero
             # row for unseen entities and padding.
@@ -272,18 +303,45 @@ class ScoringEngine:
             chunk[name + ".x"] = staged[shard]
             chunk[name + ".idx"] = idx
             batch_tables[name] = mt
+        for _name, comp, table, shard, key in self._proj:
+            cols = [r.sparse[shard][0] for r in rows]
+            vals = [r.sparse[shard][1] for r in rows]
+            indptr = np.zeros(n + 1, np.int64)
+            np.cumsum([len(c) for c in cols], out=indptr[1:])
+            srows = SparseRows.from_flat(
+                indptr,
+                np.concatenate(cols).astype(np.int64) if n
+                else np.zeros(0, np.int64),
+                np.concatenate(vals).astype(np.float32) if n
+                else np.zeros(0, np.float32))
+            ids = np.fromiter((r.ids[key] for r in rows), np.int64, n)
+            base[:n] += _score_projected_rows(
+                comp, table, comp.grouping.join_ids(ids), srows)
         chunk["base"] = base
         return chunk, batch_tables, degraded
 
-    def score_batch(self, rows: list[ParsedRow], bucket: int
+    def score_batch(self, rows: list[ParsedRow], bucket: int, trace=None
                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Score ``rows`` padded to ``bucket`` → (margins [n],
         predictions [n], degraded [n] bool) as host numpy: one copy of
-        the batch to the device, one ``run_chunk``, one copy back."""
+        the batch to the device, one ``run_chunk``, one copy back.
+        ``trace``: the batch's ``BatchTrace`` (stages in the module
+        docstring); None takes no timestamp."""
         n = len(rows)
         if n > bucket:
             raise ValueError(f"{n} rows > bucket {bucket}")
-        chunk, batch_tables, degraded = self._build_chunk(rows, bucket)
+        timings = None if trace is None else {}
+        t_a = 0.0 if trace is None else time.perf_counter()
+        chunk, batch_tables, degraded = self._build_chunk(rows, bucket,
+                                                          timings)
+        if trace is not None:
+            lookup_s = timings.get("store_lookup", 0.0)
+            trace.stamp("store_lookup", lookup_s)
+            trace.stamp("assemble", time.perf_counter() - t_a - lookup_s)
+        # A failing or wedged dispatch answers the whole batch with an
+        # error (the batcher's 500), never a hang.
+        faults.fire("serve.dispatch", bucket=bucket)
+        t_d = 0.0 if trace is None else time.perf_counter()
         dev = self.device
         buf = {k: torch.from_numpy(v).to(dev) for k, v in chunk.items()}
         tables = self._tables
@@ -291,7 +349,12 @@ class ScoringEngine:
             tables = {**tables, **{k: torch.from_numpy(v).to(dev)
                                    for k, v in batch_tables.items()}}
         m, p = run_chunk(self.specs, self._mean, tables, buf)
+        if trace is not None:
+            t_h = time.perf_counter()
+            trace.stamp("dispatch", t_h - t_d)
         mp = torch.stack([m[:n], p[:n]]).cpu().numpy()
+        if trace is not None:
+            trace.stamp("d2h", time.perf_counter() - t_h)
         return mp[0], mp[1], degraded
 
     def warm(self, buckets: list[int]) -> dict:
@@ -302,6 +365,7 @@ class ScoringEngine:
             self.score_batch(self._zero_rows(1), b)
             self.warmed_buckets.append(int(b))
         warm_s = time.perf_counter() - t0
+        telemetry.observe("serve.warm_s", warm_s)
         logger.info("scoring engine warmed %d bucket(s) %s in %.2fs on %s",
                     len(self.warmed_buckets), self.warmed_buckets, warm_s,
                     self.device)
@@ -314,7 +378,8 @@ class ScoringEngine:
         return {
             "version": self.version,
             "device": str(self.device),
-            "coordinates": {s.name: s.kind for s in self.specs},
+            "coordinates": {s.name: s.kind for s in self.specs}
+            | {name: "re_projected" for name, *_ in self._proj},
             "shards": {s: {"form": f, "dim": d}
                        for s, (f, d) in self._shards.items()},
             "entity_keys": list(self._entity_keys),

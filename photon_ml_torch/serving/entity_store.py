@@ -11,7 +11,10 @@ Unseen entities come back as zero rows with ``hit=False``, so they score
 exactly the fixed effect.  A chunk that cannot be read (after bounded
 retries of transient errors) is served as zeros too, with the rows
 marked ``degraded``: the request is answered fixed-effect-only instead
-of failing.  Without a writable spill dir the store holds one resident
+of failing.  Each chunk read fires the ``serve.store_load`` fault seam
+inside its retried attempt; retries, give-ups, unseen-entity rows and
+degraded chunks count ``serve.store_retries``, ``serve.store_gave_up``,
+``serve.entity_misses`` and ``serve.store_degraded``.  Without a writable spill dir the store holds one resident
 [E, p] table.
 """
 
@@ -22,6 +25,7 @@ import os
 
 import numpy as np
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.cache.plan_cache import atomic_savez
 from photon_ml_torch.data.chunk_store import (
     ChunkStore,
@@ -33,6 +37,7 @@ from photon_ml_torch.data.chunk_store import (
 )
 from photon_ml_torch.game.dataset import sorted_id_join
 from photon_ml_torch.models.game import RandomEffectModel
+from photon_ml_torch.reliability import faults
 from photon_ml_torch.reliability.retry import run_with_retries
 
 logger = logging.getLogger(__name__)
@@ -141,9 +146,17 @@ class EntityServeStore:
         return cls(name, ids_view, dim, C, store, None)
 
     def _chunk_rows(self, c: int):
+        """One chunk's coefficient table, through the fault seam and the
+        bounded retries (transient OSErrors retry; anything else goes to
+        the caller's fallback)."""
+        def attempt():
+            faults.fire("serve.store_load", chunk=c, store=self.name)
+            return self._store.get(c)["w"]
+
         return run_with_retries(
-            lambda: self._store.get(c)["w"],
-            label=f"serve store '{self.name}' chunk {c}")
+            attempt, label=f"serve store '{self.name}' chunk {c}",
+            retry_counter="serve.store_retries",
+            gave_up_counter="serve.store_gave_up")
 
     def lookup(self, query_ids: np.ndarray
                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -156,7 +169,10 @@ class EntityServeStore:
         out = np.zeros((m, self.dim), np.float32)
         degraded = np.zeros(m, bool)
         self.lookups += m
-        self.misses += int(m - hit.sum())
+        n_miss = int(m - hit.sum())
+        if n_miss:
+            self.misses += n_miss
+            telemetry.count("serve.entity_misses", n_miss)
         if self._table is not None:
             out[hit] = self._table[g[hit]]
             return out, hit, degraded
@@ -171,6 +187,7 @@ class EntityServeStore:
                 # would have served; the store stays up.
                 degraded[rows_out[sel]] = True
                 self.degraded_lookups += int(sel.sum())
+                telemetry.count("serve.store_degraded")
                 logger.warning(
                     "entity serve store '%s': chunk %d unreadable "
                     "(%r); serving fixed-effect-only for %d row(s)",

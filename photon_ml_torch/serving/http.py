@@ -1,8 +1,9 @@
 """Threaded HTTP core: route table + readiness semantics.
 
-Counterpart of ``photon_ml_tpu/serving/http.py`` without request
-tracing.  Every endpoint answers ``GET /healthz`` (and ``/``) from one
-state machine:
+Counterpart of ``photon_ml_tpu/serving/http.py``: one core serves both
+the model server's request path (``/v1/score``) and the monitor's
+observer routes (``/status``, ``/metrics``).  Every endpoint answers
+``GET /healthz`` (and ``/``) from one state machine:
 
 - ``warming`` → 503: up, not serviceable yet (model load, warm-up);
 - ``ready`` → 200;
@@ -11,7 +12,17 @@ state machine:
 Each connection gets a socket timeout, so a stalled client is dropped
 instead of pinning a handler thread, and request bodies are bounded by
 ``max_body``.  Route errors may carry response headers
-(``HttpError(..., headers={"Retry-After": "1"})``).  Stdlib only.
+(``HttpError(..., headers={"Retry-After": "1"})``).
+
+Request identity: every dispatch adopts (or mints) a trace context from
+``X-Photon-Trace`` / ``X-Photon-Request-Id`` and echoes both headers on
+EVERY response (404s, 413s, 500s and 503 sheds included).  Routes read
+the context through ``tracing.context()``; a route that began a
+``RequestTrace`` leaves it attached, and the core stamps the response
+write and finishes the trace after the bytes go out.
+
+Stdlib only (``telemetry.monitor`` imports this module; ``tracing`` is
+stdlib-only at import time for the same reason).
 """
 
 from __future__ import annotations
@@ -21,6 +32,9 @@ import json
 import logging
 import socket
 import threading
+import time
+
+from photon_ml_torch.serving import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -94,18 +108,46 @@ class _Handler(http.server.BaseHTTPRequestHandler):
     def _send(self, code: int, body: str, ctype: str,
               headers: dict | None = None) -> None:
         data = body.encode()
+        t0 = time.perf_counter()
         self.send_response(code)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
         for k, v in (headers or {}).items():
             self.send_header(k, str(v))
+        # Every response, sheds and errors included, carries the trace
+        # identity.
+        for k, v in (getattr(self, "_trace_hdrs", None) or {}).items():
+            self.send_header(k, str(v))
         self.end_headers()
         self.wfile.write(data)
+        self._sent = (code, time.perf_counter() - t0)
 
     def _send_json(self, code: int, obj) -> None:
         self._send(code, json.dumps(obj), "application/json")
 
     def _dispatch(self, method: str) -> None:
+        ctx = tracing.from_headers(self.headers)
+        tracing.set_context(ctx)
+        self._trace_hdrs = {
+            tracing.REQUEST_ID_HEADER: ctx.trace_id,
+            tracing.TRACE_HEADER: ctx.header_value(),
+        }
+        self._sent = None
+        try:
+            self._dispatch_routed(method)
+        finally:
+            # A route that began a RequestTrace left it attached: its
+            # write stage is the send just made, and the finish covers
+            # every outcome (200s, sheds, 500s).
+            rt = tracing.take_attached()
+            if rt is not None:
+                sent = self._sent
+                if sent is not None:
+                    rt.stamp("write", sent[1])
+                tracing.finish(rt, status=sent[0] if sent else None)
+            tracing.clear()
+
+    def _dispatch_routed(self, method: str) -> None:
         ep = self.endpoint
         path = self.path.split("?", 1)[0]
         if path in ("/", "/healthz"):

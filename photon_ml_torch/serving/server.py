@@ -1,7 +1,6 @@
 """ModelServer: the persistent online scoring process.
 
-Counterpart of ``photon_ml_tpu/serving/server.py`` without telemetry,
-monitor, tracing and ``/metrics`` (ROADMAP D1–D4).  Lifecycle:
+Counterpart of ``photon_ml_tpu/serving/server.py``.  Lifecycle:
 
 1. **Bind first**: the HTTP endpoint is up at construction, answering
    ``/healthz`` 503 ``warming``.
@@ -10,11 +9,19 @@ monitor, tracing and ``/metrics`` (ROADMAP D1–D4).  Lifecycle:
    configured device.
 3. **Warm** every micro-batch bucket, then flip to ready.
 4. **Serve** ``POST /v1/score`` → parse → micro-batch → one fused call;
-   ``GET /status`` reports state, model and batcher.
+   ``GET /status`` reports state, model, batcher, the monitor's status,
+   the tracer's snapshot and the per-stage latency table, and
+   ``GET /metrics`` the Prometheus text of the telemetry registry.
 5. **Hot swap**: a watcher polls the manifest signature; a newly
    published manifest is loaded and warmed off the request path, then
    swapped in between batches.  A corrupt manifest keeps the previous
    good model and counts a swap failure.
+
+The tiers follow the config (``telemetry``, ``monitor``, ``trace``; the
+reference's defaults turn all three on): the server starts each one
+that no caller has started already and closes the ones it started.
+``_load_engine`` fires the ``serve.manifest_load`` fault seam with the
+manifest's path.
 """
 
 from __future__ import annotations
@@ -25,8 +32,11 @@ import os
 import threading
 import time
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.config import ServingConfig
 from photon_ml_torch.io.model_io import load_game_model, model_manifest_path
+from photon_ml_torch.reliability import faults
+from photon_ml_torch.serving import tracing
 from photon_ml_torch.serving.batcher import (
     DeadlineExceeded,
     MicroBatcher,
@@ -91,6 +101,9 @@ class ModelServer:
         # stop()'s own idempotency latch.
         self._stop_evt = threading.Event()
         self._stopped = False
+        self._monitor = None
+        self._telemetry = None
+        self._tracer = None
         self.swaps = 0
         self.swap_failures = 0
         self.last_swap_error: str | None = None
@@ -104,9 +117,23 @@ class ModelServer:
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> "ModelServer":
+        from photon_ml_torch.telemetry import monitor as _mon
+
         cfg = self.config
         logger.info("model server bound on http://%s:%d (warming)",
                     cfg.host, self.port)
+        if cfg.telemetry != "off" and telemetry.active() is None:
+            self._telemetry = telemetry.start(
+                cfg.telemetry, run_logger=self._log, device=cfg.device)
+        if cfg.monitor == "on" and _mon.active() is None:
+            self._monitor = _mon.start(
+                run_logger=self._log, every_s=cfg.monitor_every_s)
+        if cfg.trace == "on" and tracing.active() is None:
+            self._tracer = tracing.start(
+                role="replica",
+                threshold_s=cfg.trace_threshold_ms / 1e3,
+                sample_every=cfg.trace_sample_every,
+                cap=cfg.trace_buffer, run_logger=self._log)
         try:
             engine = self._load_engine()
             engine.warm(cfg.buckets())
@@ -121,6 +148,8 @@ class ModelServer:
             self.readiness.set(STOPPING, reason="startup failed")
             raise
         self.readiness.set(READY)
+        if self._monitor is not None:
+            self._monitor.mark_ready()
         self._event("serving_ready", port=self.port,
                     model_version=engine.version, buckets=cfg.buckets(),
                     device=str(engine.device))
@@ -155,6 +184,9 @@ class ModelServer:
             engine, self._engine = self._engine, None
         if engine is not None:
             engine.close()
+        for session in (self._tracer, self._monitor, self._telemetry):
+            if session is not None:
+                session.close()
         self._event("serving_stopped", swaps=self.swaps,
                     swap_failures=self.swap_failures)
 
@@ -173,13 +205,18 @@ class ModelServer:
                 f"{cfg.model_dir!r}")
         version = f"{sig[1]:x}-{sig[2]:x}"
         t0 = time.perf_counter()
-        model, task = load_game_model(cfg.model_dir)
-        engine = ScoringEngine(
-            model, task, version=version,
-            ell_row_capacity=cfg.ell_row_capacity,
-            dense_feature_shards=tuple(cfg.dense_feature_shards),
-            spill_dir=cfg.spill_dir, entity_chunk=cfg.entity_chunk,
-            host_max_resident=cfg.host_max_resident, device=cfg.device)
+        # corrupt_file/delete_file faults hit the real manifest, so the
+        # keep-the-previous-model path is injectable.
+        faults.fire("serve.manifest_load", path=sig[0])
+        with telemetry.span("serve_model_load", cat="serve"):
+            model, task = load_game_model(cfg.model_dir)
+            engine = ScoringEngine(
+                model, task, version=version,
+                ell_row_capacity=cfg.ell_row_capacity,
+                dense_feature_shards=tuple(cfg.dense_feature_shards),
+                spill_dir=cfg.spill_dir, entity_chunk=cfg.entity_chunk,
+                host_max_resident=cfg.host_max_resident,
+                device=cfg.device)
         logger.info("loaded model %s from %s in %.2fs", version,
                     cfg.model_dir, time.perf_counter() - t0)
         return engine
@@ -211,6 +248,7 @@ class ModelServer:
                     self._engine_sig = sig
                     self.swaps += 1
                     self.last_swap_error = None
+                telemetry.count("serve.swaps")
                 # The single dispatcher thread means at most one batch
                 # still runs on the old engine; retiring drops only its
                 # entity-store windows.
@@ -226,6 +264,7 @@ class ModelServer:
                     self.swap_failures += 1
                     self.last_swap_error = f"{type(e).__name__}: {e}"
                     self._engine_sig = sig
+                telemetry.count("serve.swap_failures")
                 self._event("serving_swap_failed",
                             error=self.last_swap_error)
                 logger.warning("hot swap failed (%s); keeping model %s",
@@ -238,9 +277,14 @@ class ModelServer:
         return {
             ("POST", "/v1/score"): self._route_score,
             ("GET", "/status"): self._route_status,
+            ("GET", "/metrics"): self._route_metrics,
         }
 
     def _route_score(self, body: bytes):
+        # The request trace begins here; the HTTP core finishes it after
+        # the response write, sheds and errors included.
+        t0 = time.perf_counter()
+        rt = tracing.begin()
         if self.readiness.state != READY:
             state, reason = self.readiness.snapshot()
             raise HttpError(503, error=f"server is {state}",
@@ -259,27 +303,40 @@ class ModelServer:
             raise HttpError(400, error=str(e))
         try:
             margins, preds, version, degraded = self._batcher.submit(
-                parsed, timeout_s=self.config.request_timeout_s)
+                parsed, timeout_s=self.config.request_timeout_s,
+                trace=rt, t_admit=t0)
         except ServerSaturated as e:
             raise HttpError(429, error=str(e), headers={
                 "Retry-After": f"{e.retry_after_s:.0f}"})
         except (ServerOverloaded, DeadlineExceeded) as e:
+            if rt is not None and rt.shed is None:
+                rt.shed = "deadline"
             raise HttpError(503, error=str(e), headers={
                 "Retry-After": f"{e.retry_after_s:.0f}"})
         except (ServerClosing, TimeoutError) as e:
             raise HttpError(503, error=str(e))
+        if degraded:
+            telemetry.count("serve.degraded_responses")
+        t_ser = 0.0 if rt is None else time.perf_counter()
         out = {"margins": [float(v) for v in margins],
                "predictions": [float(v) for v in preds],
                "model_version": version,
                "n": int(len(margins)),
                **({"degraded": True} if degraded else {})}
-        return 200, json.dumps(out), "application/json"
+        payload = json.dumps(out)
+        if rt is not None:
+            rt.stamp("serialize", time.perf_counter() - t_ser)
+            rt.rows = int(len(margins))
+            rt.degraded = bool(degraded)
+        return 200, payload, "application/json"
 
     def serving_status(self) -> dict:
         with self._lock:
             engine = self._engine
             swaps, failures = self.swaps, self.swap_failures
             last_err = self.last_swap_error
+        rec = tracing.active()
+        stages = tracing.stage_summary()
         return {
             "state": self.readiness.state,
             "uptime_s": round(time.monotonic() - self.t0, 1),
@@ -289,9 +346,19 @@ class ModelServer:
             "swaps": swaps,
             "swap_failures": failures,
             **({"last_swap_error": last_err} if last_err else {}),
+            **({"tracing": rec.snapshot()} if rec is not None else {}),
+            **({"stages": stages} if stages else {}),
             "peak_rss_mb": _peak_rss_mb(),
         }
 
     def _route_status(self, body: bytes):
-        return 200, json.dumps({"serving": self.serving_status()}), \
-            "application/json"
+        st = {"serving": self.serving_status()}
+        if self._monitor is not None:
+            st.update(self._monitor.status())
+        return 200, json.dumps(st), "application/json"
+
+    def _route_metrics(self, body: bytes):
+        from photon_ml_torch.telemetry.monitor import prometheus_text
+
+        return 200, prometheus_text(self._monitor), \
+            "text/plain; version=0.0.4"

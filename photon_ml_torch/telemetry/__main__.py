@@ -1,4 +1,5 @@
-"""Telemetry CLI: ``python -m photon_ml_torch.telemetry <report|history>``.
+"""Telemetry CLI: ``python -m photon_ml_torch.telemetry
+<report|history|watch|serve-report>``.
 
 Counterpart of ``photon_ml_tpu/telemetry/__main__.py``.
 
@@ -13,9 +14,20 @@ metric trajectories gated against a rolling baseline (see
 ``telemetry.history``); exit code 1 on a regression or on a round with a
 nonzero rc not waived by ``--known-bad``.
 
-``watch`` (the live monitor, ROADMAP D3), ``serve-report`` (request
-tracing, D4) and ``fleet-report`` (multi-host, A7) are not ported: they
-exit with an error naming their item.
+``watch <log>`` follows a live run log: phase, per-stage progress and
+ETA, loss trajectory, serve stages, reliability counters and alerts,
+until the run logs ``done`` (or ``--once`` for one snapshot); exit code
+1 when the log holds a ``thread_exception`` (see ``telemetry.watch``).
+
+``serve-report <logs...>`` joins serving run logs' request traces by
+trace id into the stage-latency decomposition (p50/p99 a stage, tail
+attribution, retry cost), optionally with a Perfetto flow trace
+(``--trace-out``); exit code 1 when no trace record is found or the
+cross-process join falls below ``--join-threshold`` (see
+``telemetry.serve_report``).
+
+``fleet-report`` (multi-host training, ROADMAP A7) is not ported: it
+exits with an error naming its item.
 
 Every subcommand prints one JSON object as its last stdout line.
 """
@@ -25,6 +37,8 @@ from __future__ import annotations
 import argparse
 import sys
 
+from photon_ml_torch.telemetry import serve_report as serve_report_mod
+from photon_ml_torch.telemetry import watch as watch_mod
 from photon_ml_torch.telemetry.history import (
     DEFAULT_TOLERANCE,
     DEFAULT_WINDOW,
@@ -34,8 +48,6 @@ from photon_ml_torch.telemetry.history import (
 from photon_ml_torch.telemetry.report import report
 
 _NOT_PORTED = {
-    "watch": "the live monitor (ROADMAP D3)",
-    "serve-report": "request tracing (ROADMAP D4)",
     "fleet-report": "the multi-host fleet (ROADMAP A7)",
 }
 
@@ -68,6 +80,39 @@ def main(argv=None) -> int:
                     metavar="ROUND=REASON",
                     help="waive an acknowledged bad round; the reason is "
                          "required and echoed. Repeatable.")
+    wp = sub.add_parser(
+        "watch", help="follow a live run_log.jsonl: phase, per-stage "
+                      "progress/ETA, loss trajectory, alerts; exits "
+                      "when the run logs its done event")
+    wp.add_argument("log", help="path to a (possibly still-being-"
+                                "written) run_log.jsonl")
+    wp.add_argument("--once", action="store_true",
+                    help="print one snapshot and exit (the JSON last "
+                         "line is the snapshot)")
+    wp.add_argument("--interval", type=float,
+                    default=watch_mod.DEFAULT_INTERVAL_S,
+                    help="refresh cadence in seconds (default "
+                         f"{watch_mod.DEFAULT_INTERVAL_S})")
+    wp.add_argument("--max-wait-s", type=float, default=None,
+                    help="stop following after this many seconds "
+                         "without a done event")
+    sp = sub.add_parser(
+        "serve-report",
+        help="join request traces by trace id into a stage-latency "
+             "decomposition (p50/p99 per stage, retry cost, dominant "
+             "stage per tail request)")
+    sp.add_argument("logs", nargs="+",
+                    help="serving run logs (a frontend's and each "
+                         "replica's; one server's log also works, the "
+                         "join check is then N/A)")
+    sp.add_argument("--join-threshold", type=float,
+                    default=serve_report_mod.DEFAULT_JOIN_THRESHOLD,
+                    help="minimum share of replica tail requests that "
+                         "must match a frontend trace (default "
+                         f"{serve_report_mod.DEFAULT_JOIN_THRESHOLD})")
+    sp.add_argument("--trace-out", default=None,
+                    help="also write a Perfetto-loadable Chrome trace "
+                         "with cross-process flow events here")
     for cmd, what in _NOT_PORTED.items():
         sp = sub.add_parser(cmd, help=f"not ported: {what}")
         sp.add_argument("rest", nargs="*")
@@ -75,6 +120,16 @@ def main(argv=None) -> int:
     if args.cmd in _NOT_PORTED:
         p.error(f"'{args.cmd}' is {_NOT_PORTED[args.cmd]}, not ported to "
                 "photon_ml_torch yet")
+    if args.cmd == "serve-report":
+        result = serve_report_mod.run_serve_report(
+            args.logs, join_threshold=args.join_threshold,
+            trace_out=args.trace_out)
+        return 0 if result["ok"] else 1
+    if args.cmd == "watch":
+        snap = watch_mod.watch(args.log, once=args.once,
+                               interval_s=args.interval,
+                               max_wait_s=args.max_wait_s)
+        return 0 if not snap["thread_exceptions"] else 1
     if args.cmd == "history":
         try:
             waivers = parse_known_bad(args.known_bad)

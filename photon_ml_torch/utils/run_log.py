@@ -32,8 +32,14 @@ RUN_LOG_SCHEMA = 1
 # Drivers flush at most this often (events of _FLUSH_NOW at once).
 DEFAULT_FLUSH_EVERY_S = 2.0
 
-_FLUSH_NOW = frozenset({"run_header", "thread_exception", "phase_start",
-                        "phase_end", "telemetry_summary", "done"})
+# Events a live reader (``telemetry watch``) or a post-mortem must not
+# find missing are flushed at once; ``progress`` is already throttled at
+# the monitor.
+_FLUSH_NOW = frozenset({
+    "run_header", "alert", "thread_exception", "progress",
+    "phase_start", "phase_end", "telemetry_summary", "monitor_summary",
+    "status_server", "done",
+})
 
 
 def _runtime_info() -> dict:
@@ -138,8 +144,11 @@ class RunLogger:
         CPU, and CUDA when a card is in use) and its Chrome trace is
         written to ``<profile_dir>/<phase>.pt.trace.json``."""
         from photon_ml_torch import telemetry
+        from photon_ml_torch.telemetry import monitor as _monitor
 
         self.event("phase_start", phase=phase, **fields)
+        # The live monitor's /status "phase" is the innermost open phase.
+        _monitor.phase_begin(phase)
         start = time.monotonic()
         prof = (_profiler(profile_dir, phase) if profile_dir
                 else contextlib.nullcontext())
@@ -147,6 +156,7 @@ class RunLogger:
             with telemetry.span(phase, cat="phase"), prof:
                 yield
         finally:
+            _monitor.phase_end(phase)
             self.event(
                 "phase_end", phase=phase,
                 duration_s=round(time.monotonic() - start, 6),

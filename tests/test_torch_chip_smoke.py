@@ -611,3 +611,50 @@ def test_telemetry_phase_on_cpu(train, work):
     dd = cs.phase_telemetry_driver(["--device", "cpu"])
     assert dd["failures"] == [], dd
     assert dd["report_rc"] == 0 and dd["profile_bytes"] > 0
+
+
+def test_tiers_phase_on_cpu(work):
+    """Phase 14 at a small size (2,000 columns, 500 entities a random
+    effect): every gate but the card-only launch count and sync counts
+    (None here) holds, the projected model's answers within 1e-4 of
+    float64, and the dispatch fault latches one tail-latency alert."""
+    model, host = cs.make_model(seed=0, d=2000, n_entities=500)
+    model_dir = str(work / "model")
+    cs.save_game_model(model, cs.TaskType.LOGISTIC_REGRESSION, model_dir)
+    rows = cs.make_rows(np.random.default_rng(2), host,
+                        cs.CLIENTS * cs.REQUESTS * cs.ROWS, d=2000)
+    ref_m, ref_p = cs.reference(host, rows)
+    # This model's requests take milliseconds on the CPU, so queue wait
+    # and throughput swing with the host's load: the fault's monitor
+    # keeps only the rule under test (the card runs the defaults).
+    out = cs.phase_tiers(model_dir, str(work / "spill"), rows, ref_m, ref_p,
+                         "cpu", proj={"d": 2000, "n_entities": 500,
+                                      "n_rows": 32},
+                         fault_thresholds={"queue_wait_fraction": 1e9,
+                                           "collapse_fraction": 0.0})
+    assert out["failures"] == [], out["failures"]
+    assert out["launches"] == 0 and out["builds"] == 0
+    assert out["sync"]["on"] is None and out["sync"]["bitwise"]
+    assert out["metrics"]["photon_serve_requests_total"] == \
+        cs.CLIENTS * cs.REQUESTS
+    assert out["serve_report"]["rc"] == 0
+    assert out["serve_report"]["tail_requests"] >= 0
+    assert set(out["split"]["p99"]["stages_ms"]) >= {
+        "admission", "queue_wait", "assemble", "store_lookup", "dispatch",
+        "d2h", "serialize", "write", "other"}
+    assert out["projected"]["max_abs_err"] <= cs.SERVE_ATOL
+    assert out["projected"]["projected_term_max"] > 0.01
+    assert out["fault"]["fired"][0][:2] == ["serve.dispatch", "error"]
+    # The cost run: with the tiers off only the request context is
+    # minted, at their defaults every hook runs.
+    cost = out["cost"]
+    for off, on in zip(cost["runs"]["off"], cost["runs"]["defaults"],
+                       strict=True):
+        assert on["hook_calls"] > off["hook_calls"] > 0
+        for clock in ("wall", "cpu"):
+            assert on["hooks_us"][clock]["trace"] > 0
+            assert on["hooks_us"][clock]["monitor"] > 0
+    assert len(cost["runs"]["off"]) == cs.TIER_COST_ROUNDS
+    for clock in ("wall", "cpu"):
+        assert cost["median"]["defaults"][f"hooks_{clock}_us"] > \
+            cost["median"]["off"][f"hooks_{clock}_us"]

@@ -490,8 +490,13 @@ def test_chunked_config_validation(jax_c1):
 
     ScoringConfig(input_path="x", model_dir="m", score_chunk_rows=4096,
                   spill_dir="/tmp/s", prefetch_depth=0).validate()
+    # The live monitor is ported: its knobs validate as the reference's.
     for knob, value in (("monitor", "on"), ("status_port", 0)):
-        with pytest.raises(NotImplementedError, match="D3"):
+        ScoringConfig(input_path="x", model_dir="m",
+                      **{knob: value}).validate()
+    for knob, value in (("monitor", "maybe"), ("status_port", 70000),
+                        ("monitor_every_s", 0.0)):
+        with pytest.raises(ValueError, match=knob):
             ScoringConfig(input_path="x", model_dir="m",
                           **{knob: value}).validate()
     rows = SparseRows.from_rows([(np.array([0, 2], np.int32),

@@ -479,13 +479,15 @@ def test_estimator_defaults_to_cuda_and_rejects_unported():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             GameEstimator(cfg)
     # cd_fused trains now (A5b): its place goes to distributed_init;
-    # telemetry is ported (A8b): its place goes to the monitor (D3).
+    # telemetry (A8b) and the monitor (D3) are ported and validate.
     for knob, value, item in (("distributed_init", True, "A7"),
-                              ("n_devices", 2, "A7"),
-                              ("monitor", "on", "D3")):
+                              ("n_devices", 2, "A7")):
         with pytest.raises(NotImplementedError, match=item):
             training_config_from_json(json.dumps({**base, knob: value,
                                                   "device": CPU}))
+    for knob, value in (("monitor", "on"), ("status_port", 0)):
+        assert getattr(training_config_from_json(json.dumps(
+            {**base, knob: value, "device": CPU})), knob) == value
     one = _config(update_sequence=["global"],
                   reg_weight_grid={"global": [0.1, 1.0]}, device=CPU)
     one["coordinates"] = one["coordinates"][:1]

@@ -16,7 +16,8 @@ machine:
 
 There, one streamed evaluation of a spilled objective makes as many
 synchronizing CUDA calls with telemetry on (metrics and trace) as with
-it off, and its coefficients after a short fit are bitwise the same.
+it off, and its coefficients after a short fit are bitwise the same; one
+served batch makes as many with a request trace as without.
 """
 
 from __future__ import annotations
@@ -242,3 +243,30 @@ def test_measure_times_between_cuda_events():
     s = measure(lambda a: a @ a, x, iters=5)
     assert 0 < s < 1.0
     device_fence(x)
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_served_batch_syncs_equal_with_tracing(tmp_path, device):
+    """One served batch of a small GAME model through
+    ``ScoringEngine.score_batch`` with and without a batch trace
+    (``chip_smoke.sync_split``): the same synchronizing calls (on the
+    card; the guard is a no-op on the CPU), no kernel build, margins to
+    the bit, and the four batch stages stamped."""
+    import chip_smoke as cs
+
+    if device == "cuda":
+        _card()
+    model, host = cs.make_model(seed=0, d=2000, n_entities=500)
+    model_dir = str(tmp_path / "model")
+    cs.save_game_model(model, cs.TaskType.LOGISTIC_REGRESSION, model_dir)
+    rows = cs.make_rows(np.random.default_rng(2), host, cs.ROWS, d=2000)
+    out = cs.sync_split(cs.serving_config(model_dir, str(tmp_path / "spill"),
+                                          device), rows)
+    assert out["on"] == out["off"] and out["on_again"] == out["off_again"]
+    assert (out["on"] is None) == (device == "cpu")
+    if device == "cuda":
+        assert out["on"] >= 1                    # the copy back at least
+    assert out["bitwise"] and out["builds"] == 0
+    assert out["on_stages"] == ["assemble", "d2h", "dispatch",
+                                "store_lookup"]

@@ -216,6 +216,10 @@ def test_fresh_import_leaves_jax_out():
         "import photon_ml_torch.telemetry.convergence\n"
         "import photon_ml_torch.telemetry.report\n"
         "import photon_ml_torch.telemetry.history\n"
+        "import photon_ml_torch.telemetry.monitor\n"
+        "import photon_ml_torch.telemetry.watch\n"
+        "import photon_ml_torch.telemetry.serve_report\n"
+        "import photon_ml_torch.serving.tracing\n"
         "import photon_ml_torch.analysis.guards\n"
         "import photon_ml_torch.utils.timing\n"
         "import photon_ml_torch.utils.synthetic\n"

@@ -349,7 +349,7 @@ def test_scoring_driver_streamed_matches_resident(game_models):
 def test_scoring_config_validation():
     """The reference's value checks, the streamed knobs and telemetry
     accepted (telemetry validated as the reference validates it), and
-    the monitor (ROADMAP D3) refused by name."""
+    the monitor's knobs validated as the reference validates them."""
     from photon_ml_tpu.config import scoring_config_from_json as jcfg
 
     for parse in (scoring_config_from_json, jcfg):
@@ -371,11 +371,17 @@ def test_scoring_config_validation():
     for parse in (scoring_config_from_json, jcfg):
         with pytest.raises(ValueError, match="telemetry"):
             parse(json.dumps({**streamed, "telemetry": "verbose"}))
-    for knob, value, item in (("monitor", "on", "D3"),
-                              ("status_port", 0, "D3")):
-        with pytest.raises(NotImplementedError, match=item):
-            scoring_config_from_json(json.dumps(
-                {"input_path": "x", "model_dir": "m", knob: value}))
+    for knob, value in (("monitor", "on"), ("status_port", 0)):
+        for parse in (scoring_config_from_json, jcfg):
+            assert getattr(parse(json.dumps(
+                {"input_path": "x", "model_dir": "m", knob: value})),
+                knob) == value
+    for knob, value in (("monitor", "maybe"), ("status_port", 70000),
+                        ("monitor_every_s", 0.0)):
+        for parse in (scoring_config_from_json, jcfg):
+            with pytest.raises(ValueError, match=knob):
+                parse(json.dumps(
+                    {"input_path": "x", "model_dir": "m", knob: value}))
     cfg = scoring_config_from_json(json.dumps(
         {"input_path": "x", "model_dir": "m", "device": "cpu",
          "evaluators": ["AUC"]}))

@@ -390,18 +390,53 @@ def test_bad_requests_match_jax(engines, case):
         te.parse_rows(bad)
 
 
-def test_projected_random_effect_not_served_yet():
+def _projected_model(seed: int = 5) -> JGame:
+    """``_jax_model`` with the per-item effect projected onto the sparse
+    "global" shard: 3 subspace columns an entity, some padded with -1."""
     jm = _jax_model()
+    rng = np.random.default_rng(seed)
     g = jm["per_item"].grouping
+    fids, blocks = [], []
+    for ne in g.n_entities:
+        f = np.stack([rng.choice(D, 3, replace=False)
+                      for _ in range(ne)]).astype(np.int32)
+        f[rng.random(f.shape) < 0.2] = -1
+        fids.append(f)
+        blocks.append(jnp.asarray(rng.normal(0, 0.5, (ne, 3))
+                                  .astype(np.float32)))
     jm.models["per_item"] = JRandom(
-        coefficient_blocks=jm["per_item"].coefficient_blocks, grouping=g,
-        feature_shard="global", entity_key="itemId",
-        projection=JProj(feature_ids=[np.zeros((ne, 1), np.int32)
-                                      for ne in g.n_entities],
-                         global_dim=D))
+        coefficient_blocks=blocks, grouping=g, feature_shard="global",
+        entity_key="itemId",
+        projection=JProj(feature_ids=fids, global_dim=D))
+    return jm
+
+
+def _projected_requests(jm, n: int = N_ROWS) -> list[dict]:
+    rows = _requests(jm, n=n)
+    for r in rows:
+        del r["features"]["item"]
+    return rows
+
+
+@pytest.mark.parametrize("bucket", [4, 8])
+def test_engine_projected_random_effect_matches_jax(bucket):
+    """A projected random effect folds into ``base`` on the host, as in
+    the JAX engine: the port's margins within 1e-5 of the JAX engine's,
+    and the per-item coordinate described as ``re_projected``."""
+    jm = _projected_model()
     tm, task = _port(jm)
-    with pytest.raises(NotImplementedError, match="ROADMAP D7"):
-        teng.ScoringEngine(tm, task, device="cpu")
+    rows = _projected_requests(jm)
+    je = jeng.ScoringEngine(jm, JTask.LOGISTIC_REGRESSION,
+                            ell_row_capacity=K)
+    te = teng.ScoringEngine(tm, task, ell_row_capacity=K, device="cpu")
+    assert te.describe()["coordinates"] == je.describe()["coordinates"]
+    assert te.describe()["coordinates"]["per_item"] == "re_projected"
+    for lo in range(0, len(rows), bucket):
+        piece = rows[lo: lo + bucket - (lo // bucket) % 2]
+        mj, pj, _ = je.score_batch(je.parse_rows(piece), bucket)
+        mt, pt, _ = te.score_batch(te.parse_rows(piece), bucket)
+        np.testing.assert_allclose(mt, mj, rtol=0, atol=ATOL)
+        np.testing.assert_allclose(pt, pj, rtol=0, atol=ATOL)
 
 
 def test_engine_defaults_to_cuda():
@@ -448,7 +483,7 @@ class _FakeEngine:
         self.delay_s = delay_s
         self._lock = threading.Lock()
 
-    def score_batch(self, rows, bucket):
+    def score_batch(self, rows, bucket, trace=None):
         with self._lock:
             self.calls.append((len(rows), bucket))
         if self.fail:
@@ -531,9 +566,9 @@ def test_batcher_expires_queued_requests_past_deadline():
     gate = threading.Event()
 
     class _Blocking(_FakeEngine):
-        def score_batch(self, rows, bucket):
+        def score_batch(self, rows, bucket, trace=None):
             gate.wait(10.0)
-            return super().score_batch(rows, bucket)
+            return super().score_batch(rows, bucket, trace)
 
     batcher = MicroBatcher(_Blocking, [1], deadline_s=0.0,
                            clock=lambda: now[0])
@@ -575,15 +610,39 @@ def test_serving_config_keys_match_jax_plus_device():
     cfg = ServingConfig(model_dir="m")
     cfg.validate()
     assert (cfg.telemetry, cfg.monitor, cfg.trace, cfg.replicas,
-            cfg.device) == ("off", "off", "off", 1, "cuda")
+            cfg.device) == ("metrics", "on", "on", 1, "cuda")
     assert cfg.buckets() == [1, 2, 4, 8, 16, 32, 64]
 
 
+def test_serving_config_defaults_equal_jax():
+    """Every field the packages share defaults to the same value."""
+    jc, tc = JServingConfig(model_dir="m"), ServingConfig(model_dir="m")
+    for f in dataclasses.fields(JServingConfig):
+        assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+
+
+@pytest.mark.parametrize("kw", [
+    {"telemetry": "trace"}, {"telemetry": "off", "monitor": "off",
+                             "trace": "off"},
+    {"monitor": "on", "status_port": 0, "monitor_every_s": 0.5},
+    {"trace": "on", "trace_threshold_ms": 0.0, "trace_sample_every": 0,
+     "trace_buffer": 1},
+])
+def test_serving_config_tiers_validate(kw):
+    """The tiers validate in both packages alike."""
+    ServingConfig(model_dir="m", **kw).validate()
+    JServingConfig(model_dir="m", **kw).validate()
+
+
 @pytest.mark.parametrize("kw,exc,match", [
-    ({"telemetry": "metrics"}, NotImplementedError, "D2"),
-    ({"monitor": "on"}, NotImplementedError, "D3"),
-    ({"trace": "on"}, NotImplementedError, "D4"),
     ({"replicas": 2}, NotImplementedError, "D5"),
+    ({"monitor": "maybe"}, ValueError, "monitor"),
+    ({"monitor_every_s": 0}, ValueError, "monitor_every_s"),
+    ({"status_port": 70000}, ValueError, "status_port"),
+    ({"trace": "sometimes"}, ValueError, "trace"),
+    ({"trace_threshold_ms": -1}, ValueError, "trace_threshold_ms"),
+    ({"trace_sample_every": -1}, ValueError, "trace_sample_every"),
+    ({"trace_buffer": 0}, ValueError, "trace_buffer"),
     ({"telemetry": "loud"}, ValueError, "telemetry"),
     ({"device": "tpu"}, ValueError, "device"),
     ({"batch_rows": 8, "batch_buckets": [4, 2, 8]}, ValueError,
@@ -664,9 +723,8 @@ def test_server_healthz_warming_then_ready(tmp_path):
         assert code == 200 and json.loads(body)["state"] == "ready"
         code, body = _get(srv.port, "/")
         assert code == 200 and json.loads(body)["ok"] is True
-        with pytest.raises(urllib.error.HTTPError) as err:
-            _get(srv.port, "/metrics")
-        assert err.value.code == 404
+        code, body = _get(srv.port, "/metrics")
+        assert code == 200 and "photon_serve_warm_s" in body
     finally:
         srv.stop()
     assert srv.readiness.state == "stopping"
@@ -853,3 +911,250 @@ def test_cli_serves_and_exits_cleanly_on_sigterm(tmp_path):
     assert proc.returncode == 0, stderr
     last = json.loads(stdout.strip().splitlines()[-1])
     assert last["rc"] == 0 and last["serving"]["batcher"]["rows"] == 3
+
+
+# ---------------------------------------------------------------------------
+# the serving tiers (telemetry, monitor, tracing) and the fault matrix,
+# both packages' servers side by side
+# ---------------------------------------------------------------------------
+
+
+def _jserve_cfg(mdir, tmp_path, **kw):
+    kw.pop("device", None)
+    kw.setdefault("batch_rows", 8)
+    kw.setdefault("batch_deadline_ms", 1.0)
+    kw.setdefault("ell_row_capacity", K)
+    kw.setdefault("spill_dir", str(tmp_path / "spill_jax"))
+    kw.setdefault("entity_chunk", 4)
+    kw.setdefault("hot_swap_poll_s", 0.0)
+    return JServingConfig(model_dir=mdir, port=0, **kw)
+
+
+def _server(pkg, mdir, tmp_path, run_logger=None, **kw):
+    """A started-later ``ModelServer`` of ``pkg`` ("jax" or "port")."""
+    if pkg == "port":
+        return ModelServer(_serve_cfg(mdir, tmp_path, **kw),
+                           run_logger=run_logger)
+    from photon_ml_tpu.serving.server import ModelServer as JServer
+
+    return JServer(_jserve_cfg(mdir, tmp_path, **kw),
+                   run_logger=run_logger)
+
+
+def _faults(pkg):
+    if pkg == "port":
+        from photon_ml_torch.reliability import faults
+    else:
+        from photon_ml_tpu.reliability import faults
+    return faults
+
+
+def _post_each(port, rows, size=4):
+    """Requests of ``size`` rows, one after another → (margins, preds)."""
+    outs = [_post_score(port, rows[lo: lo + size])
+            for lo in range(0, len(rows), size)]
+    return (np.concatenate([o["margins"] for o in outs]),
+            np.concatenate([o["predictions"] for o in outs]))
+
+
+def test_server_tiers_on_match_jax_and_tiers_off_bitwise(tmp_path):
+    """With every tier on (the defaults), the port's served scores are
+    bitwise its own with every tier off, and within 1e-5 of the JAX
+    server's with every tier on."""
+    jm = _jax_model()
+    mdir = str(tmp_path / "model")
+    jio.save_game_model(jm, JTask.LOGISTIC_REGRESSION, mdir)
+    rows = _requests(jm)
+    got = {}
+    for name, pkg, kw in (
+            ("jax_on", "jax", {}),
+            ("port_on", "port", {}),
+            ("port_off", "port", {"telemetry": "off", "monitor": "off",
+                                  "trace": "off"})):
+        srv = _server(pkg, mdir, tmp_path, **kw).start()
+        try:
+            got[name] = _post_each(srv.port, rows)
+            st = json.loads(_get(srv.port, "/status")[1])
+        finally:
+            srv.stop()
+        assert ("tracing" in st["serving"]) == (name != "port_off")
+        assert ("alerts" in st) == (name != "port_off")
+    for i in range(2):
+        np.testing.assert_array_equal(got["port_on"][i], got["port_off"][i])
+        np.testing.assert_allclose(got["port_on"][i], got["jax_on"][i],
+                                   rtol=0, atol=ATOL)
+
+
+def test_server_projected_random_effect_matches_jax(tmp_path):
+    """A model with a projected random effect, saved by the JAX package,
+    is served by the port's server (every tier on) within 1e-5 of the
+    JAX engine, and the projected term moves the margins."""
+    jm = _projected_model()
+    mdir = str(tmp_path / "model")
+    jio.save_game_model(jm, JTask.LOGISTIC_REGRESSION, mdir)
+    rows = _projected_requests(jm)
+    mj, pj = _jax_scores(jm, rows)
+    without = _jax_model()
+    del without.models["per_item"]
+    m_wo, _ = _jax_scores(without, [{**r, "ids": {"userId": r["ids"]
+                                                  ["userId"]}}
+                                    for r in rows])
+    srv = ModelServer(_serve_cfg(mdir, tmp_path)).start()
+    try:
+        mt, pt = _post_each(srv.port, rows)
+        st = json.loads(_get(srv.port, "/status")[1])["serving"]
+    finally:
+        srv.stop()
+    assert st["model"]["coordinates"]["per_item"] == "re_projected"
+    np.testing.assert_allclose(mt, mj, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(pt, pj, rtol=0, atol=ATOL)
+    assert np.abs(mt - m_wo).max() > 0.05
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_fault_slow_store_load_only_slows(tmp_path, pkg):
+    """A slow ``serve.store_load`` is latency, not failure: the same
+    scores, no row degraded."""
+    jm = _jax_model()
+    mdir = str(tmp_path / "model")
+    jio.save_game_model(jm, JTask.LOGISTIC_REGRESSION, mdir)
+    rows = _requests(jm, n=8)
+    faults = _faults(pkg)
+    srv = _server(pkg, mdir, tmp_path, monitor="off", trace="off").start()
+    try:
+        clean = _post_score(srv.port, rows)
+        srv._current_engine().close()          # empty the chunk windows
+        inj = faults.FaultInjector([faults.Fault(
+            site="serve.store_load", kind="slow", at=0, count=4,
+            delay_s=0.02)])
+        with faults.injected(inj):
+            slow = _post_score(srv.port, rows)
+    finally:
+        srv.stop()
+    assert [f[1] for f in inj.fired] == ["slow"] * 4
+    assert "degraded" not in slow
+    assert slow["margins"] == clean["margins"]
+    np.testing.assert_allclose(slow["margins"], _jax_scores(jm, rows)[0],
+                               rtol=0, atol=ATOL)
+
+
+def _failing_store_counts(pkg, tmp_path) -> dict:
+    jm = _jax_model()
+    mdir = str(tmp_path / pkg / "model")
+    jio.save_game_model(jm, JTask.LOGISTIC_REGRESSION, mdir)
+    rows = _requests(jm, n=4)
+    unseen = json.loads(json.dumps(rows))
+    for i, r in enumerate(unseen):
+        r["ids"] = {"userId": 2 * 10 ** 9 + i, "itemId": -10 ** 9 - i}
+    faults = _faults(pkg)
+    srv = _server(pkg, mdir, tmp_path / pkg, monitor="off",
+                  trace="off").start()
+    try:
+        ref = _post_score(srv.port, unseen)
+        srv._current_engine().close()
+        inj = faults.FaultInjector([faults.Fault(
+            site="serve.store_load", kind="io_error", at=0, count=999)])
+        with faults.injected(inj):
+            out = _post_score(srv.port, rows)
+        tel = srv._telemetry
+        counts = {k: tel.counter(k) for k in (
+            "serve.store_retries", "serve.store_gave_up",
+            "serve.store_degraded", "serve.degraded_responses",
+            "serve.requests", "serve.batches")}
+    finally:
+        srv.stop()
+    return {"out": out, "ref": ref, "counts": counts,
+            "fired": len(inj.fired)}
+
+
+def test_fault_failing_store_load_degrades_after_retries(tmp_path):
+    """A persistently failing ``serve.store_load`` retries, gives up and
+    degrades: 200 with ``degraded``, every row scored as one of unseen
+    entities (the fixed-effect-only fallback), and the same retry,
+    give-up and degradation counts in both packages."""
+    j = _failing_store_counts("jax", tmp_path)
+    t = _failing_store_counts("port", tmp_path)
+    assert t["out"]["degraded"] is True and j["out"]["degraded"] is True
+    assert t["counts"] == j["counts"] and t["fired"] == j["fired"]
+    assert t["counts"]["serve.store_gave_up"] >= 1
+    assert t["counts"]["serve.store_retries"] == \
+        2 * t["counts"]["serve.store_gave_up"]
+    np.testing.assert_allclose(t["out"]["margins"], t["ref"]["margins"],
+                               rtol=0, atol=ATOL)
+    np.testing.assert_allclose(t["out"]["margins"], j["out"]["margins"],
+                               rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_fault_dispatch_answers_500_then_200(tmp_path, pkg):
+    """A failing ``serve.dispatch`` answers the batch 500 within a
+    deadline, never a hang, with the trace headers; the next batch
+    answers 200."""
+    jm = _jax_model()
+    mdir = str(tmp_path / "model")
+    jio.save_game_model(jm, JTask.LOGISTIC_REGRESSION, mdir)
+    rows = _requests(jm, n=2)
+    faults = _faults(pkg)
+    srv = _server(pkg, mdir, tmp_path).start()
+    try:
+        inj = faults.FaultInjector([faults.Fault(
+            site="serve.dispatch", kind="error", at=0, count=1)])
+        t0 = time.monotonic()
+        with faults.injected(inj):
+            with pytest.raises(urllib.error.HTTPError) as err:
+                _post_score(srv.port, rows)
+        assert time.monotonic() - t0 < 10.0
+        assert err.value.code == 500
+        assert err.value.headers["X-Photon-Request-Id"]
+        assert "injected fault" in json.loads(err.value.read())["error"]
+        out = _post_score(srv.port, rows)
+        np.testing.assert_allclose(out["margins"], _jax_scores(jm, rows)[0],
+                                   rtol=0, atol=ATOL)
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_fault_manifest_load_keeps_previous_model(tmp_path, pkg):
+    """A ``serve.manifest_load`` fault that corrupts the published
+    manifest fails the swap: the previous model keeps serving, and a
+    clean publish then swaps."""
+    jm1, jm2 = _jax_model(scale=1.0), _jax_model(scale=-0.5)
+    mdir = str(tmp_path / "model")
+    jio.save_game_model(jm1, JTask.LOGISTIC_REGRESSION, mdir)
+    rows = _requests(jm1, n=4)
+    faults = _faults(pkg)
+    srv = _server(pkg, mdir, tmp_path, monitor="off", trace="off",
+                  hot_swap_poll_s=0.05).start()
+    try:
+        v1 = _post_score(srv.port, rows)["model_version"]
+        inj = faults.FaultInjector([faults.Fault(
+            site="serve.manifest_load", kind="corrupt_file", at=0,
+            count=1)])
+        with faults.injected(inj):
+            time.sleep(0.05)
+            jio.save_game_model(jm2, JTask.LOGISTIC_REGRESSION, mdir)
+            deadline = time.time() + 20.0
+            while srv.swap_failures == 0 and time.time() < deadline:
+                time.sleep(0.05)
+        assert srv.swap_failures >= 1 and srv.swaps == 0
+        assert inj.fired == [("serve.manifest_load", "corrupt_file", 0)]
+        out = _post_score(srv.port, rows)
+        assert out["model_version"] == v1
+        np.testing.assert_allclose(out["margins"], _jax_scores(jm1, rows)[0],
+                                   rtol=0, atol=ATOL)
+        time.sleep(0.05)
+        jio.save_game_model(jm2, JTask.LOGISTIC_REGRESSION, mdir)
+        deadline = time.time() + 20.0
+        while srv.swaps == 0 and time.time() < deadline:
+            time.sleep(0.05)
+        assert srv.swaps == 1
+        np.testing.assert_allclose(_post_score(srv.port, rows)["margins"],
+                                   _jax_scores(jm2, rows)[0], rtol=0,
+                                   atol=ATOL)
+        # The corrupted manifest is a new signature too: one more failed
+        # load may land before the clean publish.
+        assert srv._telemetry.counter("serve.swap_failures") == \
+            srv.swap_failures
+    finally:
+        srv.stop()
