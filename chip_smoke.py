@@ -262,6 +262,33 @@ raises on failure:
    a fresh server and one client: an ``error`` answers 500 within 30 s
    with its request id, a ``slow`` one (0.6 s) answers 200, and the
    monitor latches exactly one ``serve_tail_latency`` alert.
+15. the supervised replica fleet (run after phase 14, on a copy of
+   phase 4's model dir and phase 4's rows and clients): ``python -m
+   photon_ml_torch.serving --replicas 2 --fleet-dir ...`` in a
+   subprocess at the serving defaults (telemetry, monitor and tracing
+   on), two replica processes on the one card behind one frontend:
+   every answer through the frontend within 1e-4 of float64 with no
+   failed request; each replica (its pid from the frontend's
+   ``/status``) scoring on CUDA by its own ``/status`` and holding the
+   card's ``/dev/nvidia*`` files open, the frontend's process none
+   (``nvidia-smi``'s compute processes are printed beside: in a
+   container whose pid namespace it does not share it lists each as pid
+   1); each replica's requests and its own ``/metrics`` batch counter
+   above zero (its B1 launches live in its own process: phase 14 gates
+   one a batch).  One replica is SIGKILLed under sustained traffic: no request
+   fails (the frontend's one retry), the fleet is back to 2 ready within
+   ``replica_ready_timeout_s``, ``fleet.replica_restarts`` is counted
+   and the monitor latches ``replica_restarts``.  A second model (seed
+   1, the same widths) is published: the replicas are recycled one at a
+   time, ``/status`` never shows fewer than 1 ready, no request fails,
+   and afterwards every answer is within 1e-4 of the new model's float64
+   reference; a corrupt publish then aborts the swap and the answers
+   stay on the second model.  ``python -m photon_ml_torch.telemetry
+   serve-report`` over the frontend's and the replicas' run logs exits
+   0 with its join check.  Printed: p50/p99 through the frontend beside
+   phase 14's, the frontend's ``route``/``forward``/``retry`` ms, each
+   replica's cold start, the restart after the kill, the swap's
+   duration and each replica's card memory.
 
 The line before the card's and the result's is one JSON object with a
 ``kernels`` list: per kernel its launches on its path (``gather_rowsum``:
@@ -276,7 +303,9 @@ and streamed scoring driver as ``launches_stream_scoring`` and
 ``launches_stream_scoring_driver``; phase 13's traced fits and traced
 scoring pass as ``launches_telemetry_fits`` and
 ``launches_telemetry_scoring``; phase 14's traced serving run as
-``launches_traced_serving``; the GRR kernels: phase 6's GRR fit;
+``launches_traced_serving`` and phase 15's replicas' batches (one B1
+launch each, in each replica's process) as ``fleet_batches``; the GRR
+kernels: phase 6's GRR fit;
 ``gather_rowsum_lanes``: phase 9's ELL, transposed-ELL and tuned fits and
 phase 10d's streamed grid, and by shape in ``shapes``; phase 13c's
 traced grid as ``launches_telemetry_sweep``),
@@ -1369,15 +1398,15 @@ def request_split(log_path: str) -> dict:
     return out
 
 
-def run_serve_report(log_path: str) -> tuple[int, dict]:
-    """``python -m photon_ml_torch.telemetry serve-report`` in a
-    subprocess → (rc, its JSON last line)."""
+def run_serve_report(*log_paths: str) -> tuple[int, dict]:
+    """``python -m photon_ml_torch.telemetry serve-report`` over
+    ``log_paths`` in a subprocess → (rc, its JSON last line)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     proc = subprocess.run(
         [sys.executable, "-m", "photon_ml_torch.telemetry", "serve-report",
-         log_path], cwd=REPO, env=env, capture_output=True, text=True,
+         *log_paths], cwd=REPO, env=env, capture_output=True, text=True,
         timeout=300)
     lines = proc.stdout.strip().splitlines()
     return proc.returncode, (json.loads(lines[-1]) if lines else {})
@@ -1684,6 +1713,447 @@ def phase_tiers(model_dir: str, spill_dir: str, rows: list, ref_m, ref_p,
     if rules != [("serve_tail_latency", "serve")]:
         failures.append(f"the fault latched {rules}, not one "
                         "serve_tail_latency alert")
+    out["failures"] = failures
+    return out
+
+
+# -- phase 15: the supervised replica fleet (run after phase 14) -------------
+
+FLEET_REPLICAS = 2
+# The fleet's breaker opens after this many failed starts (the default is
+# 5), so the corrupt publish aborts its swap after two, not five.
+FLEET_BREAKER_THRESHOLD = 2
+# Traffic kept up this long once the fleet is whole again.
+FLEET_SETTLE_S = 1.0
+
+
+def fleet_config(model_dir: str, spill_dir: str, device: str,
+                 log_path: str) -> ServingConfig:
+    """Phase 15's fleet: phase 4's server at ``ServingConfig``'s serving
+    defaults (telemetry ``metrics``, monitor ``on``, trace ``on``), two
+    replicas, the frontend's run log at ``log_path``."""
+    return dataclasses.replace(
+        serving_config(model_dir, spill_dir, device, tiers="defaults"),
+        replicas=FLEET_REPLICAS, log_path=log_path,
+        breaker_threshold=FLEET_BREAKER_THRESHOLD)
+
+
+class FleetCli:
+    """``python -m photon_ml_torch.serving --replicas N --fleet-dir ...``
+    in a subprocess: the frontend and supervisor process."""
+
+    def __init__(self, cfg: ServingConfig, fleet_dir: str,
+                 root: str = REPO):
+        os.makedirs(fleet_dir, exist_ok=True)
+        self.fleet_dir = fleet_dir
+        cfg_path = os.path.join(fleet_dir, "fleet.json")
+        with open(cfg_path, "w") as f:
+            f.write(config_to_json(cfg))
+        self.info = os.path.join(fleet_dir, "fleet.info")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+        self._out = open(os.path.join(fleet_dir, "fleet.out"), "w+")
+        self._err = open(os.path.join(fleet_dir, "fleet.err"), "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "photon_ml_torch.serving", "--config",
+             cfg_path, "--replicas", str(cfg.replicas), "--fleet-dir",
+             fleet_dir, "--info-file", self.info],
+            cwd=root, env=env, stdout=self._out, stderr=self._err,
+            text=True)
+        self.port = None
+
+    def _alive(self) -> None:
+        if self.proc.poll() is not None:
+            self._err.seek(0)
+            raise RuntimeError(f"fleet exited rc {self.proc.returncode}:\n"
+                               f"{self._err.read()[-4000:]}")
+
+    def status(self) -> dict:
+        self._alive()
+        return json.loads(_http(self.port, "/status")[2])
+
+    def wait(self, pred, timeout_s: float, what: str,
+             every_s: float = 0.1) -> dict:
+        """Poll ``/status`` until ``pred(status)``; the last status."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            if self.port is None:
+                self._alive()
+                if os.path.exists(self.info):
+                    with open(self.info) as f:
+                        self.port = json.load(f)["port"]
+            if self.port is not None:
+                try:
+                    st = self.status()
+                    if pred(st):
+                        return st
+                except (OSError, ValueError):
+                    pass
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"fleet: {what} not within {timeout_s} s")
+            time.sleep(every_s)
+
+    def stop(self) -> dict:
+        """SIGTERM; rc and the JSON last line."""
+        try:
+            if self.proc.poll() is None:
+                self.proc.send_signal(signal.SIGTERM)
+            rc = self.proc.wait(timeout=120)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self._out.seek(0)
+            lines = self._out.read().strip().splitlines()
+            self._out.close()
+            self._err.close()
+        return {"rc": rc, "last": json.loads(lines[-1]) if lines else None}
+
+
+def fleet_traffic(port: int, rows: list, refs: list, stop=None,
+                  clients: int = CLIENTS) -> dict:
+    """``clients`` threads of ``ROWS``-row requests through the frontend:
+    ``REQUESTS`` each over distinct rows (phase 4's clients) or, with a
+    ``stop`` event, cycling over the rows until it is set.  Every answer
+    is held against each reference of ``refs`` ([(margins, predictions)])
+    and must be within ``SERVE_ATOL`` of one; ``matched`` counts the
+    answers each reference took."""
+    latencies: list = []
+    errors: list = []
+    matched = [0] * len(refs)
+    worst = [0.0]
+    lock = threading.Lock()
+    n_blocks = len(rows) // ROWS
+
+    def client(c: int) -> None:
+        k = 0
+        while (k < REQUESTS) if stop is None else not stop.is_set():
+            lo = ((c * REQUESTS + k) % n_blocks) * ROWS
+            k += 1
+            try:
+                t = time.perf_counter()
+                out = _post(port, rows[lo: lo + ROWS])
+                dt = time.perf_counter() - t
+                errs = []
+                for ref_m, ref_p in refs:
+                    try:
+                        errs.append(_check_answer(
+                            out, ref_m[lo: lo + ROWS], ref_p[lo: lo + ROWS]))
+                    except AssertionError:
+                        errs.append(None)
+                ok = [i for i, e in enumerate(errs) if e is not None]
+                with lock:
+                    latencies.append(dt)
+                    if not ok:
+                        errors.append(f"rows {lo}: no reference within "
+                                      f"{SERVE_ATOL:g}")
+                    else:
+                        matched[ok[0]] += 1
+                        worst[0] = max(worst[0], errs[ok[0]])
+            except Exception as e:   # noqa: BLE001 - counted as a failure
+                with lock:
+                    errors.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    if stop is None:
+        for t in threads:
+            t.join(timeout=300)
+    return {"threads": threads, "latencies": latencies, "errors": errors,
+            "matched": matched, "max_abs_err": worst}
+
+
+def _traffic_result(traffic: dict) -> dict:
+    for t in traffic["threads"]:
+        t.join(timeout=300)
+    if any(t.is_alive() for t in traffic["threads"]):
+        traffic["errors"].append("a client did not finish in 300 s")
+    lat = np.asarray(traffic["latencies"]) * 1e3
+    return {"requests": len(lat), "failed": len(traffic["errors"]),
+            "errors": traffic["errors"][:5],
+            "matched": traffic["matched"],
+            "max_abs_err": traffic["max_abs_err"][0],
+            "p50_ms": float(np.percentile(lat, 50)) if len(lat) else None,
+            "p99_ms": float(np.percentile(lat, 99)) if len(lat) else None}
+
+
+def compute_apps() -> list:
+    """[pid, used memory] of each of the card's compute processes, as
+    nvidia-smi lists them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    apps = []
+    for line in out.stdout.strip().splitlines():
+        pid, mem = (x.strip() for x in line.split(",", 1))
+        apps.append([int(pid), mem])
+    return apps
+
+
+def opens_nvidia_device(pid: int) -> bool:
+    """Whether process ``pid`` holds a ``/dev/nvidia*`` file open (a CUDA
+    context does)."""
+    fd_dir = f"/proc/{pid}/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            if os.readlink(os.path.join(fd_dir, fd)).startswith(
+                    "/dev/nvidia"):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def _publish_corrupt(model_dir: str) -> None:
+    """A torn publish: garbage put in place of the manifest atomically."""
+    from photon_ml_torch.io.model_io import model_manifest_path
+
+    path = model_manifest_path(model_dir)
+    with open(path + ".tmp", "wb") as f:
+        f.write(b"torn copy, not a zip")
+    os.replace(path + ".tmp", path)
+
+
+def phase_fleet(model_dir: str, spill_dir: str, rows: list, ref_m, ref_p,
+                device: str, next_model, next_ref) -> dict:
+    """Phase 15: ``python -m photon_ml_torch.serving --replicas 2`` in a
+    subprocess, serving a copy of phase 4's model (``model_dir``) at the
+    serving defaults; phase 4's clients through the frontend; each
+    replica scoring on the card and holding its device files, the
+    frontend's process not; each replica's batches; one replica SIGKILLed under traffic (no failed
+    request, restarted, ``replica_restarts`` latched); ``next_model``
+    published and rolled in (never fewer than 1 ready, then every answer
+    within 1e-4 of ``next_ref``); a corrupt publish aborted (answers stay
+    on ``next_ref``); ``serve-report`` over the three run logs."""
+    failures: list = []
+    out: dict = {}
+    fdir = os.path.join(WORK, "fleet")
+    mdir = os.path.join(fdir, "model")
+    shutil.copytree(model_dir, mdir)
+    log_path = os.path.join(fdir, "frontend.jsonl")
+    cfg = fleet_config(mdir, spill_dir, device, log_path)
+    fleet = FleetCli(cfg, os.path.join(fdir, "run"))
+    ref1, ref2 = (ref_m, ref_p), next_ref
+    stopped = None
+    try:
+        # Cold start: each replica's time from the CLI's spawn to ready.
+        first_ready: dict = {}
+
+        def whole(st):
+            for r in st["fleet"]["replicas"]:
+                if r["state"] == "ready" and r["idx"] not in first_ready:
+                    first_ready[r["idx"]] = time.perf_counter() - fleet.t0
+            return st["fleet"]["ready"] == cfg.replicas
+
+        st = fleet.wait(whole, cfg.replica_ready_timeout_s, "all ready")
+        out["cold_start_s"] = [first_ready[i] for i in sorted(first_ready)]
+        frontend_pid = fleet.proc.pid
+
+        # (a) phase 4's clients through the frontend.
+        out["serving"] = _traffic_result(fleet_traffic(fleet.port, rows,
+                                                       [ref1]))
+        if out["serving"]["failed"]:
+            failures.append(f"serving: {out['serving']['errors']}")
+        st = fleet.status()
+        reps = st["fleet"]["replicas"]
+        out["replicas"] = []
+        for r in reps:
+            rport = int(r["url"].rsplit(":", 1)[1])
+            _, values = prom_values(_http(rport, "/metrics")[2])
+            engine = json.loads(_http(rport, "/status")[2])["serving"][
+                "model"]["device"]
+            out["replicas"].append({
+                "idx": r["idx"], "pid": r["pid"], "served": r["served"],
+                "batches": values.get("photon_serve_batches_total"),
+                "device": engine})
+            if not r["served"] or not values.get(
+                    "photon_serve_batches_total"):
+                failures.append(f"replica {r['idx']} served {r['served']} "
+                                "requests, "
+                                f"{values.get('photon_serve_batches_total')}"
+                                " batches")
+            if engine != device:
+                failures.append(f"replica {r['idx']} scores on {engine}")
+        out["fleet_batches"] = [r["batches"] for r in out["replicas"]]
+        out["frontend_pid"] = frontend_pid
+        if device == "cuda":
+            # nvidia-smi's pids are its own namespace's: where they are
+            # not this one's (in a container it may list each as pid 1)
+            # they cannot name a replica, so a process's hold on the
+            # card is read from its open /dev/nvidia* files.
+            apps = compute_apps()
+            out["card_apps"] = apps
+            pids = [pid for pid, _mem in apps]
+            out["nvidia_fd"] = {"replicas": [opens_nvidia_device(r["pid"])
+                                             for r in reps],
+                                "frontend": opens_nvidia_device(
+                                    frontend_pid)}
+            out["replica_pids_listed"] = [r["pid"] in pids for r in reps]
+            for r, held in zip(reps, out["nvidia_fd"]["replicas"]):
+                if not held:
+                    failures.append(f"replica {r['idx']} (pid {r['pid']}) "
+                                    "holds no CUDA device")
+            if out["nvidia_fd"]["frontend"] or frontend_pid in pids:
+                failures.append("the frontend holds a CUDA device")
+            if not apps:
+                failures.append("nvidia-smi lists no compute process")
+
+        # (b) SIGKILL one replica under sustained traffic.
+        stop = threading.Event()
+        traffic = fleet_traffic(fleet.port, rows, [ref1], stop=stop)
+        time.sleep(FLEET_SETTLE_S)
+        victim = reps[0]
+        t_kill = time.perf_counter()
+        os.kill(victim["pid"], signal.SIGKILL)
+        st = fleet.wait(lambda s: s["fleet"]["restarts"] >= 1
+                        and s["fleet"]["ready"] == cfg.replicas,
+                        cfg.replica_ready_timeout_s, "the restart")
+        restart_wall = time.perf_counter() - t_kill
+        restart = st["fleet"]
+        # The monitor evaluates its rules at the frontend's progress
+        # cadence, so the traffic runs on until the alert latches.
+        st = fleet.wait(lambda s: any(a["rule"] == "replica_restarts"
+                                      for a in s.get("alerts", ())),
+                        10 * cfg.monitor_every_s + 5.0,
+                        "the replica_restarts alert")
+        time.sleep(FLEET_SETTLE_S)
+        stop.set()
+        out["kill"] = {**_traffic_result(traffic), "victim": victim["idx"],
+                       "restart_wall_s": restart_wall,
+                       "last_restart_s": restart["last_restart_s"],
+                       "alerts": [a["rule"] for a in st["alerts"]]}
+        if out["kill"]["failed"]:
+            failures.append(f"kill: {out['kill']['errors']}")
+        st = fleet.status()
+        out["kill"]["retries"] = st["frontend"]["retries"]
+        _, values = prom_values(_http(fleet.port, "/metrics")[2])
+        out["kill"]["replica_restarts"] = values.get(
+            "photon_fleet_replica_restarts_total")
+        if not (out["kill"]["replica_restarts"] or 0) >= 1:
+            failures.append("fleet.replica_restarts is not counted")
+
+        # (c) the rolling swap onto next_model.
+        stop = threading.Event()
+        traffic = fleet_traffic(fleet.port, rows, [ref1, ref2], stop=stop)
+        min_ready = [cfg.replicas]
+        t_pub = time.perf_counter()
+        save_game_model(next_model, TaskType.LOGISTIC_REGRESSION, mdir)
+
+        def swapped(s):
+            min_ready[0] = min(min_ready[0], s["fleet"]["ready"])
+            return s["fleet"]["swaps"] >= 1
+
+        st = fleet.wait(swapped, 2 * cfg.replica_ready_timeout_s,
+                        "the rolling swap", every_s=0.02)
+        swap_s = time.perf_counter() - t_pub
+        stop.set()
+        out["swap"] = {**_traffic_result(traffic), "swap_s": swap_s,
+                       "min_ready": min_ready[0],
+                       "swap_aborts": st["fleet"]["swap_aborts"]}
+        if out["swap"]["failed"] or min_ready[0] < 1:
+            failures.append(f"swap: min ready {min_ready[0]}, "
+                            f"{out['swap']['errors']}")
+        out["after_swap"] = _traffic_result(fleet_traffic(fleet.port, rows,
+                                                          [ref2]))
+        if out["after_swap"]["failed"]:
+            failures.append(f"after the swap: {out['after_swap']['errors']}")
+
+        # (d) a corrupt publish: the swap aborts, answers stay on model 2.
+        stop = threading.Event()
+        traffic = fleet_traffic(fleet.port, rows, [ref2], stop=stop)
+        t_pub = time.perf_counter()
+        _publish_corrupt(mdir)
+        st = fleet.wait(lambda s: s["fleet"]["swap_aborts"] >= 1,
+                        2 * cfg.replica_ready_timeout_s, "the swap abort")
+        abort_s = time.perf_counter() - t_pub
+        stop.set()
+        out["corrupt"] = {**_traffic_result(traffic), "abort_s": abort_s,
+                          "last_swap_error": st["fleet"].get(
+                              "last_swap_error"),
+                          "states": [r["state"]
+                                     for r in st["fleet"]["replicas"]]}
+        if out["corrupt"]["failed"]:
+            failures.append(f"corrupt publish: {out['corrupt']['errors']}")
+        out["after_abort"] = _traffic_result(fleet_traffic(fleet.port, rows,
+                                                           [ref2]))
+        if out["after_abort"]["failed"]:
+            failures.append("after the abort: "
+                            f"{out['after_abort']['errors']}")
+        st = fleet.status()
+        out["frontend"] = st["frontend"]
+        out["fleet"] = {k: v for k, v in st["fleet"].items()
+                        if k != "replicas"}
+    finally:
+        stopped = fleet.stop()
+    out["stop"] = {"rc": stopped["rc"],
+                   "state": (stopped["last"] or {}).get("serving", {}).get(
+                       "state")}
+    if stopped["rc"] != 0:
+        failures.append(f"the fleet CLI exited {stopped['rc']}")
+    logs = [log_path] + sorted(glob.glob(os.path.join(fdir, "run",
+                                                      "replica_*.jsonl")))
+    rc, rep = run_serve_report(*logs)
+    out["serve_report"] = {
+        "rc": rc, "logs": [os.path.basename(p) for p in logs],
+        **{k: rep.get(k) for k in (
+            "frontend_requests", "replica_requests", "tail_requests",
+            "joined", "join_fraction", "retried_requests", "retry_cost_ms",
+            "dominant_stage")},
+        "stages": {k: v for k, v in (rep.get("stages") or {}).items()
+                   if k in tracing.FRONTEND_STAGES}}
+    if rc != 0:
+        failures.append(f"serve-report exited {rc}")
+    out["failures"] = failures
+    return out
+
+
+def fleet_cold_build(model_dir: str, spill_dir: str, rows: list, ref_m,
+                     ref_p, device: str) -> dict:
+    """Two replicas that start at the same moment with no kernel built:
+    the fleet CLI run from a copy of ``photon_ml_torch`` (no
+    ``build/kernels`` beside it), so each replica builds B1 at its
+    warm-up, racing to a temporary file of its own and an
+    ``os.replace``.  Both must come up and answer phase 4's clients
+    within 1e-4, leaving one library and no temporary file."""
+    failures: list = []
+    root = os.path.join(WORK, "cold")
+    shutil.copytree(os.path.join(REPO, "photon_ml_torch"),
+                    os.path.join(root, "photon_ml_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    cfg = fleet_config(model_dir, spill_dir, device,
+                       os.path.join(root, "frontend.jsonl"))
+    run_dir = os.path.join(root, "run")
+    fleet = FleetCli(cfg, run_dir, root=root)
+    try:
+        fleet.wait(lambda s: s["fleet"]["ready"] == cfg.replicas,
+                   cfg.replica_ready_timeout_s, "all ready")
+        ready_s = time.perf_counter() - fleet.t0
+        serving = _traffic_result(fleet_traffic(fleet.port, rows,
+                                                [(ref_m, ref_p)]))
+    finally:
+        stopped = fleet.stop()
+    build = os.path.join(root, "build", "kernels")
+    files = sorted(os.listdir(build)) if os.path.isdir(build) else []
+    built = 0
+    for path in glob.glob(os.path.join(run_dir, "replica_*.err")):
+        with open(path) as f:
+            built += "nvcc gather_rowsum.cu" in f.read()
+    out = {"ready_s": ready_s, "serving": serving, "files": files,
+           "replicas_that_built": built, "rc": stopped["rc"]}
+    if serving["failed"] or stopped["rc"] != 0:
+        failures.append(f"cold fleet: {serving['errors']}, "
+                        f"rc {stopped['rc']}")
+    libs = [f for f in files
+            if f.startswith("gather_rowsum-") and ".tmp." not in f]
+    if device == "cuda" and (libs != files or len(libs) != 1
+                             or built < 1):
+        failures.append(f"cold build left {files}; {built} replica(s) "
+                        "built B1")
     out["failures"] = failures
     return out
 
@@ -4909,6 +5379,21 @@ def main() -> int:
             raise AssertionError("phase 14: " + "; ".join(
                 tiers["failures"]))
         kernels[0]["launches_traced_serving"] = tiers["launches"]
+
+        t = time.perf_counter()
+        model2, host2 = make_model(seed=1)
+        fleet = phase_fleet(model_dir, os.path.join(WORK, "spill"), rows,
+                            ref_m, ref_p, "cuda", model2,
+                            reference(host2, rows))
+        del model2, host2
+        fleet["card"] = card
+        fleet["phase_14_latency_ms"] = tiers["latency_ms"]
+        print(f"phase 15 fleet ({time.perf_counter() - t:.1f} s): "
+              + json.dumps({"fleet": fleet}, default=str))
+        if fleet["failures"]:
+            raise AssertionError("phase 15: " + "; ".join(
+                fleet["failures"]))
+        kernels[0]["fleet_batches"] = fleet["fleet_batches"]
 
         t = time.perf_counter()
         training = phase_training(train)

@@ -477,7 +477,10 @@ class ServingConfig:
     monitor_every_s: float = 2.0
     status_port: int | None = None   # unused: /status rides the port
     log_path: str | None = None      # run-log JSONL (default: the logger)
-    # The supervised fleet is not ported yet: replicas must be 1.
+    # The supervised fleet (serving.fleet): replicas > 1 runs N replica
+    # servers behind one frontend; the fields below drive its
+    # supervisor (probe cadence, wedge threshold, restart backoff, the
+    # circuit breaker and the replica warm-up budget).
     replicas: int = 1
     probe_every_s: float = 0.5
     probe_timeout_s: float = 2.0
@@ -550,11 +553,25 @@ class ServingConfig:
             raise ValueError("trace_buffer must be >= 1")
         if self.replicas < 1:
             raise ValueError("replicas must be >= 1")
-        if self.replicas > 1:
-            raise NotImplementedError(
-                f"replicas={self.replicas!r}: the supervised replica "
-                "fleet is not ported to photon_ml_torch yet (ROADMAP D5); "
-                "run one server")
+        if self.probe_every_s <= 0:
+            raise ValueError("probe_every_s must be positive")
+        if self.probe_timeout_s <= 0:
+            raise ValueError("probe_timeout_s must be positive")
+        if self.unhealthy_after < 1:
+            raise ValueError("unhealthy_after must be >= 1")
+        if self.restart_backoff_s < 0:
+            raise ValueError("restart_backoff_s must be >= 0")
+        if self.restart_backoff_max_s < self.restart_backoff_s:
+            raise ValueError(
+                "restart_backoff_max_s must be >= restart_backoff_s")
+        if self.breaker_threshold < 1:
+            raise ValueError("breaker_threshold must be >= 1")
+        if self.breaker_window_s <= 0:
+            raise ValueError("breaker_window_s must be positive")
+        if self.breaker_reset_s <= 0:
+            raise ValueError("breaker_reset_s must be positive")
+        if self.replica_ready_timeout_s <= 0:
+            raise ValueError("replica_ready_timeout_s must be positive")
 
     def buckets(self) -> list[int]:
         """The closed micro-batch shape set, smallest first."""

@@ -23,6 +23,9 @@ The serving fault matrix adds the request path's seams:
   error for the whole batch, never a hang);
 - ``serve.manifest_load``: in ``ModelServer._load_engine`` with the
   manifest's path (a corrupt or torn swap keeps the previous model).
+- ``serve.replica_healthz``: in the fleet supervisor's probe of each
+  replica's ``/healthz`` (a flaky or wedged probe: the unhealthy-replica
+  restart policy).
 
 A ``FaultInjector`` holds ``Fault`` specs, each targeting a site's Nth
 occurrence (per-site counters under one lock); ``seeded_plan`` draws

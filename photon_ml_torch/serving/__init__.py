@@ -13,6 +13,26 @@
 - ``serving.server``: ``ModelServer`` — load, warm, serve, hot swap,
   ``/status`` and ``/metrics``; run it with
   ``python -m photon_ml_torch.serving --config serve.json``.
-
-Not ported yet: the replica fleet and its frontend (ROADMAP D5).
+- ``serving.fleet`` / ``serving.frontend``: the supervised fleet — N
+  replica ``ModelServer`` subprocesses (probed, restarted with backoff
+  and a circuit breaker, rolled one at a time on a new manifest) behind
+  one health-routed frontend (least-outstanding routing, one retry,
+  shedding, the fleet's ``/status``); ``replicas > 1`` runs it from the
+  same CLI.
 """
+
+# No eager submodule imports: ``telemetry.monitor`` imports the HTTP
+# core from ``serving.http``, and an eager ``server`` import here would
+# close an import cycle through the telemetry package.
+
+
+def __getattr__(name: str):
+    if name == "ModelServer":
+        from photon_ml_torch.serving.server import ModelServer
+
+        return ModelServer
+    if name == "FleetServer":
+        from photon_ml_torch.serving.fleet import FleetServer
+
+        return FleetServer
+    raise AttributeError(name)

@@ -15,8 +15,15 @@ registry behind ``GET /metrics``), monitor ``on`` (progress, alert
 rules and ``GET /status``) and trace ``on`` (request traces, the input
 of ``python -m photon_ml_torch.telemetry serve-report``).  Their events
 go to the run log at the config's ``log_path`` (JSONL; without one, to
-the stdlib logger).  ``replicas`` > 1 (the supervised fleet) is not
-ported yet and raises.
+the stdlib logger).
+
+With ``replicas`` > 1 (config or ``--replicas``) the process runs the
+supervised fleet instead: N replica server subprocesses, each on the
+config's ``device``, behind one health-routed frontend on the
+configured port.  Replicas take ephemeral ports, are restarted on an
+exit or a wedge with backoff and a circuit breaker, and a newly
+published manifest rolls through them one at a time.  ``--fleet-dir``
+holds the replicas' configs, run logs, output and info files.
 """
 
 from __future__ import annotations
@@ -48,10 +55,11 @@ def main(argv: list[str] | None = None) -> int:
                    dest="hot_swap_poll_s",
                    help="override config hot_swap_poll_s (0 = off)")
     p.add_argument("--replicas", type=int, default=None,
-                   help="override config replicas (only 1 is supported "
-                        "so far)")
+                   help="override config replicas (>1 = supervised "
+                        "fleet behind one frontend)")
     p.add_argument("--fleet-dir", default=None,
-                   help="fleet workdir (unused while replicas is 1)")
+                   help="fleet workdir (replica configs, logs and info "
+                        "files; default: a temporary dir)")
     p.add_argument("--device", default=None,
                    help="override config device: cuda (default) or cpu")
     p.add_argument("--info-file", default=None,
@@ -66,14 +74,20 @@ def main(argv: list[str] | None = None) -> int:
             setattr(config, name, val)
     config.validate()
 
-    from photon_ml_torch.serving.server import ModelServer
-
     log = RunLogger(config.log_path,
                     run_info={"driver": "serving",
                               "model_dir": config.model_dir,
                               "replicas": config.replicas},
                     flush_every_s=DEFAULT_FLUSH_EVERY_S)
-    server = ModelServer(config, run_logger=log)
+    if config.replicas > 1:
+        from photon_ml_torch.serving.fleet import FleetServer
+
+        server = FleetServer(config, run_logger=log,
+                             workdir=args.fleet_dir)
+    else:
+        from photon_ml_torch.serving.server import ModelServer
+
+        server = ModelServer(config, run_logger=log)
     if args.info_file:
         info = {"port": server.port, "pid": os.getpid(),
                 "url": f"http://{config.host}:{server.port}"}

@@ -180,7 +180,13 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                 return
         headers = None
         try:
-            code, payload, ctype = route(body)
+            # (code, payload, ctype), or with response headers (the
+            # fleet frontend forwards a replica's Retry-After)
+            # (code, payload, ctype, headers).
+            result = route(body)
+            code, payload, ctype = result[:3]
+            if len(result) == 4:
+                headers = result[3]
         except HttpError as e:
             code, payload, ctype = e.code, json.dumps(e.body), \
                 "application/json"
@@ -206,7 +212,7 @@ class HttpEndpoint:
     the bound port is in ``.port``), serves after ``start()``.
 
     ``routes``: ``{(method, path): fn(body: bytes) -> (code, payload,
-    content_type)}``; ``/healthz`` is built in.
+    content_type[, headers])}``; ``/healthz`` is built in.
     """
 
     def __init__(self, routes: dict, readiness: Readiness | None = None,

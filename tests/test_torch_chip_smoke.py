@@ -21,6 +21,8 @@ the size, as phase 6's AUC gate is), so that gate is expected to report.
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -658,3 +660,42 @@ def test_tiers_phase_on_cpu(work):
     for clock in ("wall", "cpu"):
         assert cost["median"]["defaults"][f"hooks_{clock}_us"] > \
             cost["median"]["off"][f"hooks_{clock}_us"]
+
+
+def test_fleet_phase_on_cpu(work):
+    """Phase 15 at a small size (2,000 columns, 500 entities a random
+    effect): the fleet CLI with two replicas on the CPU, every gate but
+    the card-only nvidia-smi one, and a result that is one JSON object."""
+    model, host = cs.make_model(seed=0, d=2000, n_entities=500)
+    model_dir = str(work / "model")
+    cs.save_game_model(model, cs.TaskType.LOGISTIC_REGRESSION, model_dir)
+    rows = cs.make_rows(np.random.default_rng(2), host,
+                        cs.CLIENTS * cs.REQUESTS * cs.ROWS, d=2000)
+    ref_m, ref_p = cs.reference(host, rows)
+    model2, host2 = cs.make_model(seed=1, d=2000, n_entities=500)
+    out = cs.phase_fleet(model_dir, str(work / "spill"), rows, ref_m, ref_p,
+                         "cpu", model2, cs.reference(host2, rows))
+    assert out["failures"] == [], out["failures"]
+    json.loads(json.dumps(out))
+    assert len(out["cold_start_s"]) == cs.FLEET_REPLICAS
+    assert out["serving"]["requests"] == cs.CLIENTS * cs.REQUESTS
+    assert out["serving"]["max_abs_err"] <= cs.SERVE_ATOL
+    assert len(out["fleet_batches"]) == cs.FLEET_REPLICAS
+    assert all(b > 0 for b in out["fleet_batches"])
+    assert out["frontend_pid"] not in [r["pid"] for r in out["replicas"]]
+    assert [r["device"] for r in out["replicas"]] == ["cpu"] * 2
+    assert "card_apps" not in out                  # nvidia-smi: card only
+    assert out["kill"]["failed"] == 0 and out["kill"]["requests"] > 0
+    assert out["kill"]["replica_restarts"] >= 1
+    assert "replica_restarts" in out["kill"]["alerts"]
+    assert out["swap"]["min_ready"] >= 1 and out["swap"]["swap_aborts"] == 0
+    assert out["after_swap"]["matched"] == [cs.CLIENTS * cs.REQUESTS]
+    assert out["corrupt"]["failed"] == 0
+    assert "failed to come up" in out["corrupt"]["last_swap_error"]
+    assert out["after_abort"]["matched"] == [cs.CLIENTS * cs.REQUESTS]
+    assert out["fleet"]["swaps"] == 1 and out["fleet"]["swap_aborts"] == 1
+    assert out["frontend"]["failed"] == 0
+    assert out["stop"]["rc"] == 0
+    assert out["serve_report"]["rc"] == 0
+    assert len(out["serve_report"]["logs"]) == 1 + cs.FLEET_REPLICAS
+    assert set(out["serve_report"]["stages"]) >= {"route", "forward"}

@@ -139,6 +139,22 @@ def test_port_has_the_telemetry_slice():
     assert _build.add_build_listener and report.reconcile
 
 
+def test_port_has_the_fleet_slice():
+    """The supervised replica fleet and its frontend (D5), behind the
+    serving CLI's ``--replicas``."""
+    for rel in ("photon_ml_torch/serving/fleet.py",
+                "photon_ml_torch/serving/frontend.py",
+                "examples/chip_phase15.py"):
+        assert (REPO / rel).is_file(), rel
+    for rel in ("photon_ml_torch/serving/fleet.py",
+                "photon_ml_torch/serving/frontend.py"):
+        assert rel in PORT_FILES, rel
+    import photon_ml_torch.serving as serving
+    from photon_ml_torch.serving.fleet import FleetServer
+
+    assert serving.FleetServer is FleetServer
+
+
 def test_port_has_the_lane_kernel_source():
     """The lane kernel has its own source (built by ``_build`` at first
     use); B1's source no longer holds it."""
@@ -220,6 +236,8 @@ def test_fresh_import_leaves_jax_out():
         "import photon_ml_torch.telemetry.watch\n"
         "import photon_ml_torch.telemetry.serve_report\n"
         "import photon_ml_torch.serving.tracing\n"
+        "import photon_ml_torch.serving.fleet\n"
+        "import photon_ml_torch.serving.frontend\n"
         "import photon_ml_torch.analysis.guards\n"
         "import photon_ml_torch.utils.timing\n"
         "import photon_ml_torch.utils.synthetic\n"

@@ -627,15 +627,47 @@ def test_serving_config_defaults_equal_jax():
     {"monitor": "on", "status_port": 0, "monitor_every_s": 0.5},
     {"trace": "on", "trace_threshold_ms": 0.0, "trace_sample_every": 0,
      "trace_buffer": 1},
+    {"replicas": 2},
+    {"replicas": 3, "restart_backoff_s": 0.0, "restart_backoff_max_s": 0.0,
+     "breaker_threshold": 1},
 ])
 def test_serving_config_tiers_validate(kw):
-    """The tiers validate in both packages alike."""
+    """The tiers and the fleet validate in both packages alike."""
     ServingConfig(model_dir="m", **kw).validate()
     JServingConfig(model_dir="m", **kw).validate()
 
 
+# Each fleet field at a value the reference rejects.
+_FLEET_BAD = [
+    ("probe_every_s", {"probe_every_s": 0}),
+    ("probe_timeout_s", {"probe_timeout_s": -1.0}),
+    ("unhealthy_after", {"unhealthy_after": 0}),
+    ("restart_backoff_s", {"restart_backoff_s": -0.5}),
+    ("restart_backoff_max_s", {"restart_backoff_s": 2.0,
+                               "restart_backoff_max_s": 1.0}),
+    ("breaker_threshold", {"breaker_threshold": 0}),
+    ("breaker_window_s", {"breaker_window_s": 0}),
+    ("breaker_reset_s", {"breaker_reset_s": -1}),
+    ("replica_ready_timeout_s", {"replica_ready_timeout_s": 0}),
+]
+
+
+@pytest.mark.parametrize("field,kw", _FLEET_BAD,
+                         ids=[f for f, _ in _FLEET_BAD])
+def test_serving_config_fleet_checks_match_jax(field, kw):
+    """The supervisor's knobs: both packages reject the same value with
+    the same message (with replicas=2, where they drive the fleet)."""
+    msgs = []
+    for cls in (JServingConfig, ServingConfig):
+        with pytest.raises(ValueError) as err:
+            cls(model_dir="m", replicas=2, **kw).validate()
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
+    assert msgs[1].startswith(field)
+
+
 @pytest.mark.parametrize("kw,exc,match", [
-    ({"replicas": 2}, NotImplementedError, "D5"),
+    ({"replicas": 0}, ValueError, "replicas"),
     ({"monitor": "maybe"}, ValueError, "monitor"),
     ({"monitor_every_s": 0}, ValueError, "monitor_every_s"),
     ({"status_port": 70000}, ValueError, "status_port"),
