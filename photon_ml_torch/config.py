@@ -32,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import json
+import os
 from typing import Any
 
 from photon_ml_torch.data.normalization import NormalizationType
@@ -40,6 +41,46 @@ from photon_ml_torch.models.glm import TaskType
 from photon_ml_torch.ops.regularization import RegularizationType
 from photon_ml_torch.optim.base import OptimizerType
 from photon_ml_torch.optim.variance import VarianceComputationType
+
+
+# ---------------------------------------------------------------------------
+# Sanctioned environment fallbacks: every environment knob the port reads
+# is registered here with its meaning and read through ``read_env``.  The
+# names are the JAX package's (a variable set for one package acts on the
+# other alike); only those the port honours are registered.
+# ---------------------------------------------------------------------------
+
+SANCTIONED_ENV = {
+    "PHOTON_ML_TPU_PLAN_CACHE": (
+        "default on-disk GRR plan cache dir (data.grr cache_dir=None)"),
+    "PHOTON_ML_TPU_SPILL_DIR": (
+        "default chunk-store spill dir (data.chunk_store"
+        ".resolve_spill_dir)"),
+    "PHOTON_ML_TPU_NATIVE": (
+        "'0' forces the numpy ETL fallbacks (native bindings disabled)"),
+    "PHOTON_ML_TPU_GRR": (
+        "'0' sends GrrDirection.contract to the plain contraction off the "
+        "GRR kernels"),
+    "PHOTON_FLEET_NUM_HOSTS": (
+        "local-fleet host count (parallel.fleet tcp transport)"),
+    "PHOTON_FLEET_HOST_ID": "local-fleet host id (parallel.fleet)",
+    "PHOTON_FLEET_COORDINATOR": (
+        "local-fleet reduce coordinator host:port (parallel.fleet)"),
+}
+
+
+def read_env(name: str, default: str | None = None) -> str | None:
+    """The one sanctioned ``os.environ`` read.
+
+    Raises ``KeyError`` for an unregistered name: adding an environment
+    knob means registering it in ``SANCTIONED_ENV`` (with its meaning),
+    so the registry is a complete inventory of the port's environment
+    surface."""
+    if name not in SANCTIONED_ENV:
+        raise KeyError(
+            f"env var {name!r} is not in config.SANCTIONED_ENV; "
+            "register it (with a description) before reading it")
+    return os.environ.get(name, default)
 
 
 def _validate_monitor(cfg) -> None:

@@ -81,7 +81,9 @@ def resolve_spill_dir(spill_dir: str | None) -> str | None:
     environment."""
     if spill_dir is not None:
         return spill_dir
-    return os.environ.get(SPILL_DIR_ENV) or None
+    from photon_ml_torch.config import read_env
+
+    return read_env(SPILL_DIR_ENV) or None
 
 
 class ChunkStoreSpillError(RuntimeError):

@@ -19,7 +19,8 @@ input to the same arrays and share plan-cache files.  The plan types
 hold torch tensors on an explicit device (``to``); ``contract`` runs
 the hand-written CUDA kernels of ``ops.grr_kernel`` on a CUDA device
 (B2 for dense-grid plans, B3 for the others) and their plain versions on
-the CPU.  There is no switch that turns the kernels off.
+the CPU.  ``$PHOTON_ML_TPU_GRR=0`` (the JAX package's explicit opt-out)
+sends ``contract`` to the plain versions on any device.
 
 A direction whose COO residual (the spill that stays on the scatter
 path) exceeds 5 % of its entries is flagged; the flags of one
@@ -48,6 +49,8 @@ from photon_ml_torch.ops.grr_kernel import (
     DENSE_B,
     grr_contract,
     grr_contract_dense,
+    grr_contract_dense_reference,
+    grr_contract_reference,
 )
 
 Tensor = torch.Tensor
@@ -239,21 +242,37 @@ class GrrDirection:
                       else self.overflow.to(device)))
 
     def contract(self, table: Tensor) -> Tensor:
-        """``out[s] = Σ val_e · table[idx_e]`` — [n_segments]."""
+        """``out[s] = Σ val_e · table[idx_e]`` — [n_segments].
+
+        ``$PHOTON_ML_TPU_GRR=0`` is the JAX package's explicit opt-out
+        of the GRR kernels: the plain contraction runs instead, on any
+        device."""
+        from photon_ml_torch.config import read_env
+
         table = table.to(torch.float32)
         pad = self.n_gw * WIN - self.table_len
         # Window rows ARE table sub-tiles: no transpose.
         table_t = torch.nn.functional.pad(table, (0, pad)).view(
             self.n_gw, TILE, TILE)
+        use_kernel = read_env("PHOTON_ML_TPU_GRR") != "0"
         if self.dense_grid:
-            out2d = grr_contract_dense(
-                table_t, self.g1, self.g2, self.g3, self.vals,
-                self.gw_of_st, n_ow_p=self.n_ow_padded, cap=self.cap)
-        else:
+            if use_kernel:
+                out2d = grr_contract_dense(
+                    table_t, self.g1, self.g2, self.g3, self.vals,
+                    self.gw_of_st, n_ow_p=self.n_ow_padded, cap=self.cap)
+            else:
+                out2d = grr_contract_dense_reference(
+                    table_t, self.g1, self.g2, self.g3, self.vals,
+                    n_ow_p=self.n_ow_padded, cap=self.cap)
+        elif use_kernel:
             out2d = grr_contract(
                 table_t, self.g1, self.g2, self.g3, self.vals,
                 self.gw_of_st, self.ow_of_st, self.first_of_ow,
                 n_ow=self.n_ow, cap=self.cap)
+        else:
+            out2d = grr_contract_reference(
+                table_t, self.g1, self.g2, self.g3, self.vals,
+                self.gw_of_st, self.ow_of_st, n_ow=self.n_ow, cap=self.cap)
         out = out2d.reshape(-1)[: self.n_segments]
         if self.overflow is not None:
             out = out + self.overflow.contract(table)
@@ -933,6 +952,17 @@ _PLAN_OPTION_NAMES = ("cap", "hot_threshold", "max_hot", "max_hot_bytes",
                       "col_range_split")
 
 
+# The environment default of the plan cache (``build_grr_pair``'s
+# ``cache_dir=None``), shared with the JAX package.
+PLAN_CACHE_ENV = "PHOTON_ML_TPU_PLAN_CACHE"
+
+
+def _resolve_cache_dir(cache_dir: str | None) -> str | None:
+    from photon_ml_torch.config import read_env
+
+    return cache_dir or read_env(PLAN_CACHE_ENV) or None
+
+
 def _pair_cache_path(cols, vals, dim, cache_dir, config: dict) -> str:
     from photon_ml_torch.cache import plan_cache
 
@@ -940,6 +970,22 @@ def _pair_cache_path(cols, vals, dim, cache_dir, config: dict) -> str:
         np.asarray(cols), np.asarray(vals, np.float32), dim)
     return plan_cache.plan_cache_path(
         cache_dir, fp, plan_cache.plan_config_key(**config))
+
+
+def pair_cache_path_for(cols, vals, dim, cache_dir: str,
+                        **overrides) -> str:
+    """The cache-file path ``build_grr_pair(cols, vals, dim,
+    **overrides)`` would read and write; the option defaults come from
+    ``build_grr_pair``'s own signature."""
+    import inspect
+
+    sig = inspect.signature(build_grr_pair)
+    config = {n: sig.parameters[n].default for n in _PLAN_OPTION_NAMES}
+    unknown = set(overrides) - set(config)
+    if unknown:
+        raise TypeError(f"unknown plan options: {sorted(unknown)}")
+    config.update(overrides)
+    return _pair_cache_path(cols, vals, dim, cache_dir, config)
 
 
 @_collect_spill_warnings
@@ -967,8 +1013,9 @@ def build_grr_pair(
     dense side; ``mid_threshold`` (default 16 per row window) routes
     mid-hot columns to ``col_mid``; ``col_range_split`` (default: on from
     one row window) splits the row direction into per-capacity column
-    ranges.  ``cache_dir`` enables the on-disk plan cache shared with the
-    JAX package (a hit replaces the host build with one load).  Phase
+    ranges.  ``cache_dir`` (default ``$PHOTON_ML_TPU_PLAN_CACHE``)
+    enables the on-disk plan cache shared with the JAX package (a hit
+    replaces the host build with one load).  Phase
     timings land in ``last_build_phases``."""
     global last_build_phases
     dev = resolve_device(device)
@@ -978,6 +1025,7 @@ def build_grr_pair(
     phases: dict = {}
     t_all = time.perf_counter()
 
+    cache_dir = _resolve_cache_dir(cache_dir)
     cache_path = None
     if cache_dir is not None:
         from photon_ml_torch.cache import plan_cache

@@ -138,6 +138,8 @@ def _notify_build(name: str) -> None:
 
 
 def _nvcc() -> str:
+    # Toolchain discovery, not a configuration knob: this read stays
+    # outside ``config.SANCTIONED_ENV``.
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
         return os.path.join(home, "bin", "nvcc")
