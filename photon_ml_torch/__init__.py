@@ -32,4 +32,6 @@ Every entry point runs on the GPU unless the caller passes
 
 from photon_ml_torch.device import resolve_device
 
+__version__ = "0.1.0"
+
 __all__ = ["resolve_device"]

@@ -66,6 +66,10 @@ class DenseBatch:
     def dim(self) -> int:
         return self.x.shape[-1]
 
+    @property
+    def n_padded(self) -> int:
+        return self.x.shape[-2]
+
     def margins(self, w: Tensor) -> Tensor:
         return self.x_dot(w) + self.offsets
 
@@ -94,6 +98,10 @@ class SparseBatch:
     dim: int
     grr: "GrrPair | None" = None
     colmajor: "ColMajorSlice | None" = None
+
+    @property
+    def n_padded(self) -> int:
+        return self.values.shape[-2]
 
     def margins(self, w: Tensor) -> Tensor:
         """Σ_k values[i,k]·w[col_ids[i,k]] + offset ([L, n] for W [L, d])."""

@@ -333,6 +333,10 @@ class GrrRangeSplit:
     table_len: int
     n_segments: int
 
+    @property
+    def n_spill(self) -> int:
+        return sum(p.n_spill for p in self.parts)
+
     def to(self, device) -> "GrrRangeSplit":
         return dataclasses.replace(
             self, parts=tuple(p.to(device) for p in self.parts))
@@ -384,6 +388,14 @@ class GrrPair:
     x_hot: Tensor           # [n_rows, H] f32
     mid_ids: "Tensor | None" = None           # [M] i32
     col_mid: "GrrDirection | None" = None     # segments = mid cols
+
+    @property
+    def n_rows(self) -> int:
+        return self.row_dir.n_segments
+
+    @property
+    def dim(self) -> int:
+        return self.col_dir.n_segments
 
     def to(self, device) -> "GrrPair":
         device = torch.device(device)

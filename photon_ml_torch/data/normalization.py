@@ -45,6 +45,12 @@ class NormalizationContext:
         """Normalized-space coefficients → the vector to dot raw x with."""
         return w if self.factors is None else w * self.factors
 
+    def raw_to_model(self, w_raw: Tensor) -> Tensor:
+        """Inverse of ``model_to_raw`` (warm-starting from a saved
+        raw-space model; the intercept's margin-correction fold is
+        undone by the caller, which knows the intercept index)."""
+        return w_raw if self.factors is None else w_raw / self.factors
+
     def margin_correction(self, w: Tensor) -> Tensor:
         """Scalar subtracted from every margin: dot(shifts ⊙ factors, w)
         (one a lane for W [L, d])."""

@@ -29,6 +29,10 @@ class FeatureStatistics:
     max_abs: Tensor    # [dim]
     num_nonzeros: Tensor  # [dim]
 
+    @property
+    def dim(self) -> int:
+        return self.mean.shape[-1]
+
 
 def compute_statistics(batch: Batch) -> FeatureStatistics:
     """Masked reductions → FeatureStatistics.  Sparse batches are not

@@ -190,6 +190,11 @@ class FixedEffectCoordinate(Coordinate):
     def score(self, coefficients: Tensor) -> Tensor:
         return self.batch.x_dot(coefficients)
 
+    def as_model(self, coefficients: Tensor) -> FixedEffectModel:
+        return FixedEffectModel(
+            coefficients=Coefficients(means=coefficients),
+            feature_shard=self.name)
+
     def compute_variances(self, coefficients: Tensor, offsets: Tensor,
                           variance_type) -> Tensor | None:
         """Coefficient variances at the optimum over the training view."""

@@ -26,6 +26,22 @@ class SubspaceProjection:
     feature_ids: list[np.ndarray]
     global_dim: int
 
+    def local_dim(self, bucket: int) -> int:
+        return self.feature_ids[bucket].shape[1]
+
+    def project_back(self, bucket: int, w_local) -> list[
+            tuple[np.ndarray, np.ndarray]]:
+        """[E_b, p_b] local coefficients → per-entity sparse global rows
+        (col_ids, values): the model-export direction."""
+        fids = self.feature_ids[bucket]
+        w_local = np.asarray(w_local.cpu() if hasattr(w_local, "cpu")
+                             else w_local)
+        out = []
+        for e in range(fids.shape[0]):
+            valid = fids[e] >= 0
+            out.append((fids[e][valid], w_local[e][valid]))
+        return out
+
 
 def build_subspace_projection(
     grouping: EntityGrouping,

@@ -17,3 +17,15 @@ class Coefficients:
 
     means: torch.Tensor
     variances: torch.Tensor | None = None
+
+    @staticmethod
+    def zeros(dim: int, dtype=torch.float32, device=None) -> "Coefficients":
+        return Coefficients(means=torch.zeros((dim,), dtype=dtype,
+                                              device=device))
+
+    @property
+    def dim(self) -> int:
+        return self.means.shape[-1]
+
+    def norm(self) -> torch.Tensor:
+        return torch.linalg.vector_norm(self.means, dim=-1)

@@ -30,6 +30,10 @@ class FixedEffectModel:
     feature_shard: str = "global"
     intercept: bool = False
 
+    @property
+    def dim(self) -> int:
+        return self.coefficients.dim
+
 
 @dataclasses.dataclass
 class RandomEffectModel:
@@ -98,3 +102,10 @@ class GameModel:
 
     def __getitem__(self, name: str):
         return self.models[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.models
+
+    @property
+    def coordinate_names(self) -> list[str]:
+        return list(self.models.keys())

@@ -39,3 +39,8 @@ class GeneralizedLinearModel:
     def compute_score(self, batch) -> torch.Tensor:
         """Margins x·w + offset, on the batch's device."""
         return batch.margins(self.coefficients.means)
+
+    def compute_mean(self, batch) -> torch.Tensor:
+        """Mean-space prediction: link(margin), sigmoid / identity /
+        exp."""
+        return self.task.loss.mean(self.compute_score(batch))

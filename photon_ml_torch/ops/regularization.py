@@ -107,6 +107,11 @@ class RegularizationContext:
     def l2_hessian_diagonal(self, w: Tensor) -> Tensor:
         return self._l2_column() * self._masked(torch.ones_like(w))
 
+    # -- non-smooth (L1) part: optimizer-facing ------------------------------
+
+    def l1_value(self, w: Tensor) -> Tensor:
+        return self.l1_weight * self._masked(w).abs().sum()
+
 
 @dataclasses.dataclass(frozen=True)
 class SweptRegularization:
