@@ -289,6 +289,37 @@ raises on failure:
    phase 14's, the frontend's ``route``/``forward``/``retry`` ms, each
    replica's cold start, the restart after the kill, the swap's
    duration and each replica's card memory.
+16. the multi-host training fleet over tcp (run after phase 13): a
+   ``parallel.fleet.ReduceCoordinator`` in this process (stall timeout
+   120 s: a torn fleet ends in one ``FleetBarrierError``) and two host
+   processes on the card, each with the ``PHOTON_FLEET_*`` trio, phase
+   10a's data remade from its seed, a metrics session and its run log
+   under ``host_NNN/``.  (a) Phase 10a's streamed fit, snapshots every
+   solver iteration: host 0 streams chunks 0-3, host 1 chunks 4-6 and a
+   sentinel step; the hosts' coefficients bitwise equal, phase 10's
+   gates against 10a, each host's B1 launches one an owned chunk in
+   every streamed pass of its fixed effect (none on a sentinel), its
+   reduce count equal to the other's and the coordinator's, and
+   ``python -m photon_ml_torch.telemetry fleet-report`` on the two logs
+   exits 0; then a value-and-gradient partial's reduce timed between
+   two reducers of this process.  (b) The same fleet with host 1
+   SIGKILLed at a ``fleet.reduce`` three quarters into sweep 2's
+   fixed-effect solve; host 0 holds the barrier, host 1 alone restarts
+   with ``resume=True`` against the same coordinator: the coordinator
+   answered replays, host 1's log holds two segments and
+   ``fleet.seq_restored``, both hosts end bitwise at (a)'s coefficients,
+   fleet-report exits 0.  (c) Phase 11b's fused cycle (60 cycles) on the
+   two hosts: bitwise across them, AUC within 1e-3 of 11b's, B1 once an
+   owned chunk of every pass.  (d) ``python -m
+   photon_ml_torch.cli.game_training_driver`` twice, one process a
+   host, on phase 10c's chunked config-4 fixture with ``--telemetry
+   metrics``: ``host_000/`` and ``host_001/`` output trees with the
+   fleet's ``run_info``, bitwise-equal models within phase 8's
+   coefficient tolerance of 10c's uninterrupted run, fleet-report rc 0.
+   Printed: the fleet's fit walls beside 10a's, each host's barrier wait
+   and its share of the pass time, ms a reduce, each host's peak
+   allocated card memory, the kill-to-rejoin time, the fused pass's
+   reduced statistics' bytes a step and its cycle ms beside 11b's.
 
 The line before the card's and the result's is one JSON object with a
 ``kernels`` list: per kernel its launches on its path (``gather_rowsum``:
@@ -303,8 +334,10 @@ and streamed scoring driver as ``launches_stream_scoring`` and
 ``launches_stream_scoring_driver``; phase 13's traced fits and traced
 scoring pass as ``launches_telemetry_fits`` and
 ``launches_telemetry_scoring``; phase 14's traced serving run as
-``launches_traced_serving`` and phase 15's replicas' batches (one B1
-launch each, in each replica's process) as ``fleet_batches``; the GRR
+``launches_traced_serving``, phase 15's replicas' batches (one B1
+launch each, in each replica's process) as ``fleet_batches`` and phase
+16's fleet fit and fleet fused fit, one count a host process, as
+``launches_fleet_fit`` and ``launches_fleet_fused``; the GRR
 kernels: phase 6's GRR fit;
 ``gather_rowsum_lanes``: phase 9's ELL, transposed-ELL and tuned fits and
 phase 10d's streamed grid, and by shape in ``shapes``; phase 13c's
@@ -551,6 +584,16 @@ SCORE_DRIVER_CHUNK_ROWS = 128
 
 # Phase 13: the telemetry report's reconciliation threshold.
 TELEMETRY_RECONCILE_MIN = 0.9
+# Phase 16: the multi-host training fleet over tcp, two host processes
+# on the one card and a ReduceCoordinator in this process.  Every
+# barrier wait is bounded by the coordinator's stall timeout (a torn
+# fleet ends in one FleetBarrierError), every host process by
+# FLEET_HOST_TIMEOUT_S.
+FLEET_HOSTS = 2
+FLEET_STALL_S = 120.0
+FLEET_HOST_TIMEOUT_S = 300.0
+FLEET_CKPT_EVERY = 1              # solver iterations between snapshots
+FLEET_REDUCE_ROUNDS = 50          # the reduce timing's rounds
 
 
 # -- the model and its float64 reference -------------------------------------
@@ -3789,6 +3832,7 @@ class _StreamProbe:
                     out = old(obj, *a, **kw)
                     probe.calls.append({
                         "kind": kind, "chunks": obj.batch.n_chunks,
+                        "owned": len(obj.batch.owned_chunk_ids),
                         "b1": gather_rowsum.launches - b1,
                         "lanes": gather_rowsum_lanes.launches - lanes})
                     return out
@@ -3799,10 +3843,12 @@ class _StreamProbe:
             def make(old):
                 def train(coord, *a, **kw):
                     before = probe._loads()
+                    reduces = probe._reduces()
                     t = time.perf_counter()
                     w, res = old(coord, *a, **kw)
                     probe.solves.append({
                         "kind": kind, "loads": (before, probe._loads()),
+                        "reduces": (reduces, probe._reduces()),
                         "solve_s": time.perf_counter() - t,
                         "value": res.value.detach().cpu().numpy(),
                         "iterations": np.asarray(
@@ -3832,6 +3878,10 @@ class _StreamProbe:
 
     def _loads(self) -> int:
         return (self.injector.occurrences("prefetch.load")
+                if self.injector is not None else 0)
+
+    def _reduces(self) -> int:
+        return (self.injector.occurrences("fleet.reduce")
                 if self.injector is not None else 0)
 
     def __exit__(self, *exc):
@@ -4145,6 +4195,19 @@ def phase_stream(ref: dict, device: str, seed: int = 7, n: int = GAME_ROWS,
     return out
 
 
+def stream_driver_config(out_dir: str) -> dict:
+    """Phase 8's config-4 run with its fixed effect chunked
+    (``STREAM_DRIVER_CHUNK_ROWS``) and every solve run to its iteration
+    budget: phases 10c and 16d."""
+    cfg = driver_config(out_dir)
+    cfg["chunk_rows"] = STREAM_DRIVER_CHUNK_ROWS
+    cfg["n_iterations"] = GAME_SWEEPS
+    for c in cfg["coordinates"]:
+        c["optimizer"].update(max_iters=STREAM_DRIVER_ITERS,
+                              tolerance=1e-12)
+    return cfg
+
+
 def phase_stream_driver(device_args: list, failures: list) -> dict:
     """Phase 8's config-4 fixture through ``python -m
     photon_ml_torch.cli.game_training_driver`` with its fixed effect
@@ -4155,12 +4218,7 @@ def phase_stream_driver(device_args: list, failures: list) -> dict:
     8's coefficient tolerance."""
     from photon_ml_torch.cli import game_training_driver
 
-    cfg = driver_config(os.path.join(WORK, "stream_driver_killed"))
-    cfg["chunk_rows"] = STREAM_DRIVER_CHUNK_ROWS
-    cfg["n_iterations"] = GAME_SWEEPS
-    for c in cfg["coordinates"]:
-        c["optimizer"].update(max_iters=STREAM_DRIVER_ITERS,
-                              tolerance=1e-12)
+    cfg = stream_driver_config(os.path.join(WORK, "stream_driver_killed"))
     cfg_path = os.path.join(WORK, "stream_driver.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
@@ -4341,6 +4399,7 @@ class _OocProbe:
                 probe.passes.append({
                     "b1": gather_rowsum.launches - b1,
                     "chunks": eng.chunked.n_chunks,
+                    "owned": len(eng.chunked.owned_chunk_ids),
                     "fe_reads": after[0] - reads[0],
                     "sidecar_reads": after[1] - reads[1],
                     "bytes": eng._placer.placed_bytes - placed})
@@ -5294,6 +5353,638 @@ def phase_telemetry_driver(device_args: list) -> dict:
     return out
 
 
+# -- phase 16: the multi-host training fleet over tcp -------------------------
+
+# The host processes' entry: this module's ``fleet_host`` on a spec file.
+_FLEET_HOST_CMD = ("import sys; sys.path.insert(0, sys.argv[2]); "
+                   "import chip_smoke; sys.exit(chip_smoke.fleet_host("
+                   "sys.argv[1]))")
+
+
+def fleet_host(spec_path: str) -> int:
+    """One host of phase 16's training fleet, in a process of its own
+    with the ``PHOTON_FLEET_*`` trio in its environment: phase 10a's
+    config-5 data remade from its seed, then a streamed (``kind``
+    ``"stream"``) or fused (``"fused"``) fit on the spec's device in a
+    metrics session, its run log (with the fleet's ``run_info``) under
+    its ``host_NNN/``, an optional ``fleet.reduce`` kill fault.  Writes
+    its coefficients to ``coefs.npz`` there and prints one ``RESULT``
+    JSON line: the B1 launches of its process and of each streamed
+    evaluation or fused pass with its owned chunks, its reduce sequence,
+    barrier wait, walls, AUC and peak allocated card memory."""
+    from photon_ml_torch.parallel import fleet
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    ctx = fleet.initialize_from_env()
+    if ctx is None or not ctx.is_fleet:
+        raise RuntimeError("fleet_host: no fleet context (set the "
+                           "PHOTON_FLEET_* variables)")
+    device = spec["device"]
+    out_dir = fleet.host_dir(spec["out"], ctx)
+    os.makedirs(out_dir, exist_ok=True)
+    t = time.perf_counter()
+    data = make_game_data(spec["seed"], spec["n"], d=spec["d"],
+                          n_entities=spec["n_entities"])
+    n_train = spec["n"] - int(spec["n"] * TRAIN_HOLDOUT)
+    train = data.take(slice(0, n_train))
+    valid = data.take(slice(n_train, spec["n"]))
+    del data
+    data_s = time.perf_counter() - t
+    over = dict(telemetry="metrics", telemetry_dir=out_dir,
+                resume=bool(spec.get("resume")))
+    if spec.get("ckpt"):
+        over.update(checkpoint_dir=spec["ckpt"],
+                    checkpoint_every_solver_iters=FLEET_CKPT_EVERY)
+    if spec["kind"] == "fused":
+        over.update(cd_fused=True, n_iterations=spec["cycles"],
+                    validate_per_iteration=False)
+    cfg = stream_config(device, spec["spill"], spec["chunk_rows"], **over)
+    plan = ([faults.Fault(site="fleet.reduce", kind="kill",
+                          at=int(spec["kill_at"]))]
+            if spec.get("kill_at") is not None else [])
+    injector = faults.FaultInjector(plan)
+    run_info = {"driver": "chip_smoke.fleet_host", "device": device,
+                "telemetry": "metrics", "resume": over["resume"],
+                "fleet_host": ctx.host_id, "fleet_hosts": ctx.n_hosts,
+                "fleet_transport": ctx.transport}
+    cuda = device != "cpu"
+    gather_rowsum.launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with RunLogger(os.path.join(out_dir, "run_log.jsonl"),
+                   mode="a" if over["resume"] else "w", header=True,
+                   run_info=run_info) as log, \
+            _StreamProbe(injector) as sprobe, _OocProbe() as oprobe, \
+            faults.injected(injector):
+        t = time.perf_counter()
+        results = GameEstimator(cfg).fit(train, valid, run_logger=log)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    res = results[0]
+    models = res.model.models
+    arrays = {"global": models["global"].coefficients.means.cpu().numpy()}
+    for name, m in models.items():
+        if hasattr(m, "coefficient_blocks"):
+            for b, blk in enumerate(m.coefficient_blocks):
+                arrays[f"{name}.{b}"] = blk.cpu().numpy()
+    np.savez(os.path.join(out_dir, "coefs.npz"), **arrays)
+    red = fleet.reducer()
+    out = {
+        "host": ctx.host_id, "kind": spec["kind"],
+        "owned": _fe_owned(sprobe, oprobe),
+        "data_s": data_s, "wall_s": wall,
+        "auc": float(res.evaluations[EvaluatorType.AUC]),
+        "seq": red.seq, "barrier_wait_s": red.barrier_wait_s,
+        "launches": gather_rowsum.launches,
+        "evaluations": [{"kind": c["kind"], "owned": c["owned"],
+                         "b1": c["b1"]} for c in sprobe.calls],
+        "solve_reduces": [s["reduces"] for s in sprobe.solves
+                          if s["kind"] == "single"],
+        "passes": [{"owned": p["owned"], "b1": p["b1"]}
+                   for p in oprobe.passes],
+        "peak_allocated_bytes": (torch.cuda.max_memory_allocated()
+                                 if cuda else None),
+        "jax_loaded": any(m == "jax" or m.startswith(("jax.",
+                                                      "photon_ml_tpu"))
+                          for m in sys.modules),
+    }
+    if spec["kind"] == "stream":
+        out["fe_value"] = float(res.descent.history[-1]["global"]["value"])
+    if oprobe.engines:
+        eng = oprobe.engines[-1]
+        out["stats_bytes_a_step"] = 8 * (1 + 2 * eng.chunked.dim + sum(
+            (r.E_total + 1) * r.p_max * (1 + r.p_max) for r in eng.res))
+        out["rejections"] = eng.rejections
+    print("RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def _fe_owned(sprobe, oprobe) -> list:
+    """The fixed effect's owned chunk ids of a host's fit."""
+    objs = [o for o in sprobe.objectives if o.batch.store is not None]
+    if objs:
+        return objs[-1].batch.owned_chunk_ids
+    if oprobe.engines:
+        return oprobe.engines[-1].chunked.owned_chunk_ids
+    return []
+
+
+def _fleet_env(coord, host: int) -> dict:
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PHOTON_FLEET_")}
+    env.update({"PHOTON_FLEET_NUM_HOSTS": str(coord.n_hosts),
+                "PHOTON_FLEET_HOST_ID": str(host),
+                "PHOTON_FLEET_COORDINATOR": coord.address})
+    return env
+
+
+def _spawn_fleet(argv: list, coord, host: int, tag: str
+                 ) -> subprocess.Popen:
+    """A phase-16 host process (``argv`` after the interpreter) with the
+    fleet trio; its output goes to files (a pipe could fill while
+    another host is awaited)."""
+    base = os.path.join(WORK, f"fleet_{tag}_{host}")
+    with open(base + ".out", "w") as out, open(base + ".err", "w") as err:
+        return subprocess.Popen([sys.executable, *argv], cwd=REPO,
+                                env=_fleet_env(coord, host), stdout=out,
+                                stderr=err)
+
+
+def _spawn_fleet_host(spec: dict, coord, host: int, tag: str
+                      ) -> subprocess.Popen:
+    path = os.path.join(WORK, f"fleet_{tag}_{host}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return _spawn_fleet(["-c", _FLEET_HOST_CMD, path, REPO], coord, host,
+                        tag)
+
+
+def _fleet_wait(procs: dict, failures: list, name: str,
+                need_result: bool = True) -> dict:
+    """Wait for every ``{label: (proc, out_base)}`` within
+    ``FLEET_HOST_TIMEOUT_S``; a host that times out is killed.  Returns
+    each label's rc and RESULT (None without one); a nonzero rc fails
+    the part, and so does a missing RESULT where ``need_result``."""
+    deadline = time.monotonic() + FLEET_HOST_TIMEOUT_S
+    out = {}
+    for label, (proc, base) in procs.items():
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for p, _ in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            failures.append(f"{name}: {label} still running after "
+                            f"{FLEET_HOST_TIMEOUT_S:g} s")
+        with open(base + ".out") as f:
+            lines = [ln for ln in f.read().splitlines()
+                     if ln.startswith("RESULT ")]
+        result = json.loads(lines[-1][len("RESULT "):]) if lines else None
+        out[label] = {"rc": proc.returncode, "result": result}
+        if proc.returncode != 0:
+            with open(base + ".err") as f:
+                tail = f.read()[-1500:]
+            failures.append(f"{name}: {label} exited {proc.returncode}: "
+                            f"{tail}")
+        elif need_result and result is None:
+            failures.append(f"{name}: {label} exited 0 without a RESULT")
+    return out
+
+
+def _fleet_report(paths: list) -> tuple[int, dict]:
+    """``python -m photon_ml_torch.telemetry fleet-report`` in a
+    subprocess: its exit code and JSON last line."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "photon_ml_torch.telemetry", "fleet-report",
+         *paths], cwd=REPO, capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    try:
+        result = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        result = {"stderr": proc.stderr[-1500:]}
+    return proc.returncode, result
+
+
+def _host_coefs(out_base: str, host: int) -> dict:
+    with np.load(os.path.join(out_base, f"host_{host:03d}",
+                              "coefs.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _coefs_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
+                                        for k in a)
+
+
+def _report_rows(rep: dict) -> list:
+    return [{k: r.get(k) for k in ("host", "segments", "reduces",
+                                   "final_seq", "chunks_streamed",
+                                   "barrier_wait_s",
+                                   "barrier_wait_fraction", "seq_restored",
+                                   "sweeps")}
+            for r in rep.get("hosts", [])]
+
+
+def _gate_report(name: str, rc: int, rep: dict, rows: list,
+                 failures: list) -> None:
+    """fleet-report's exit code is 0 and no host waited at the barrier
+    longer than its passes took (a share above 1 means a reduction was
+    timed outside its pass span)."""
+    if rc != 0:
+        failures.append(f"{name}: fleet-report rc {rc}: {rep}")
+    over = [r["barrier_wait_fraction"] for r in rows
+            if (r.get("barrier_wait_fraction") or 0.0) > 1.0]
+    if over:
+        failures.append(f"{name}: barrier_wait_fraction {over} above 1")
+
+
+def fleet_reduce_ms(device: str, rounds: int = FLEET_REDUCE_ROUNDS,
+                    n: int = D + 1) -> dict:
+    """ms a reduce of a value-and-gradient partial (a scalar and n
+    float32s) between two reducers on threads of this process through a
+    coordinator: the copy down, the tcp round trip through the
+    coordinator's sum, the copy up."""
+    from photon_ml_torch.parallel import fleet
+
+    coord = fleet.ReduceCoordinator(2, stall_timeout_s=FLEET_STALL_S)
+    reds = [fleet.FleetReducer(fleet.FleetContext(
+        h, 2, "tcp", coord.address), stall_timeout_s=FLEET_STALL_S)
+        for h in range(2)]
+    dev = torch.device(device)
+    parts = [(torch.ones((), device=dev), torch.full((n,), float(h + 1),
+                                                     device=dev))
+             for h in range(2)]
+    walls = [0.0, 0.0]
+    errors: list = []
+
+    def run(h):
+        try:
+            reds[h].reduce(parts[h])             # connect, warm up
+            t = time.perf_counter()
+            for _ in range(rounds):
+                tot = reds[h].reduce(parts[h])
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            walls[h] = time.perf_counter() - t
+            if float(tot[1][0]) != 3.0:
+                errors.append(f"host {h}: total {float(tot[1][0])}")
+        except BaseException as e:       # reported by the caller
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(h,)) for h in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=FLEET_STALL_S)
+    for r in reds:
+        r.close()
+    coord.close()
+    return {"rounds": rounds, "floats": n + 1, "bytes": 4 * (n + 1),
+            "ms": max(walls) / rounds * 1e3, "errors": errors}
+
+
+def _fleet_stream_spec(device: str, out: str, spill: str, n: int, d: int,
+                       n_entities: int, chunk_rows: int, **over) -> dict:
+    return {"kind": "stream", "device": device, "seed": 7, "n": n, "d": d,
+            "n_entities": n_entities, "chunk_rows": chunk_rows,
+            "out": out, "spill": spill, **over}
+
+
+def _b1_gates(name: str, runs: dict, device: str, key: str,
+              failures: list) -> dict:
+    """Each host's B1 launches in its fixed effect's streamed passes
+    (``key``: ``evaluations`` or ``passes``): one a real chunk it owns,
+    none on a sentinel step."""
+    out = {}
+    for label, run in runs.items():
+        r = run["result"]
+        if r is None:
+            continue
+        recs = r[key]
+        owned = len(r["owned"])
+        out[label] = {"owned": owned, "passes": len(recs),
+                      "b1": sum(x["b1"] for x in recs),
+                      "process_launches": r["launches"]}
+        if not recs:
+            failures.append(f"{name}: {label} made no streamed pass")
+        if device != "cpu" and any(x["b1"] != owned or x["owned"] != owned
+                                   for x in recs):
+            failures.append(f"{name}: {label}'s passes launched B1 "
+                            f"{sorted({x['b1'] for x in recs})} times, "
+                            f"not its {owned} owned chunks")
+    return out
+
+
+def fleet_references(device: str, n: int = GAME_ROWS, d: int = D,
+                     n_entities: int = N_ENTITIES,
+                     chunk_rows: int = STREAM_CHUNK_ROWS,
+                     cycles: int = FUSED_CYCLES) -> tuple:
+    """Phase 16's single-process references when it runs alone: phase
+    10a's streamed fit, phase 11b's fused fit (both on 10a's data and
+    chunks) and phase 10c's uninterrupted driver run, as ``main()``
+    hands them over from phases 10 and 11."""
+    from photon_ml_torch.cli import game_training_driver
+
+    data = make_game_data(7, n, d=d, n_entities=n_entities)
+    n_train = n - int(n * TRAIN_HOLDOUT)
+    train, valid = data.take(slice(0, n_train)), data.take(slice(n_train, n))
+    del data
+    spill = os.path.join(WORK, "fleet_ref_spill")
+    fit = _stream_fit(stream_config(device, spill, chunk_rows), train, valid)
+    ref_10a = dict(_fit_summary(fit), wall_s=fit["wall_s"])
+    del fit
+    fused = _ooc_fit(stream_config(device, spill, chunk_rows, cd_fused=True,
+                                   n_iterations=cycles,
+                                   validate_per_iteration=False),
+                     train, valid)
+    cyc = [e["duration_s"] * 1e3 for e in fused["events"]
+           if e["event"] == "cd_fused_cycle"]
+    ref_11b = {"auc": _ooc_summary(fused)["auc"],
+               "cycle_ms": float(np.median(cyc)) if cyc else None}
+    del fused, train, valid
+    out_dir = os.path.join(WORK, "fleet_ref_driver")
+    cfg = stream_driver_config(out_dir)
+    cfg_path = os.path.join(WORK, "fleet_ref_driver.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        game_training_driver.main([
+            "--config", cfg_path, "--spill-dir",
+            os.path.join(WORK, "fleet_ref_driver_spill"),
+            *(["--device", "cpu"] if device == "cpu" else [])])
+    return ref_10a, ref_11b, out_dir
+
+
+def phase_fleet_training(ref_10a: dict, ref_11b: dict, ref_10c_dir: str,
+                         device: str, n: int = GAME_ROWS, d: int = D,
+                         n_entities: int = N_ENTITIES,
+                         chunk_rows: int = STREAM_CHUNK_ROWS,
+                         cycles: int = FUSED_CYCLES,
+                         time_it: bool = True) -> dict:
+    """Phase 16 (module docstring): phase 10a's streamed fit, its
+    killed-host replay and phase 11b's fused fit as two-host fleets, and
+    the training driver as a fleet on phase 10c's fixture.  ``ref_10a``:
+    10a's AUC, final loss and coefficients; ``ref_11b``: 11b's AUC and
+    cycle ms; ``ref_10c_dir``: 10c's uninterrupted run's output dir."""
+    from photon_ml_torch.parallel import fleet
+
+    failures: list = []
+    out: dict = {"hosts": FLEET_HOSTS, "stall_timeout_s": FLEET_STALL_S}
+    spill = os.path.join(WORK, "fleet_spill")
+    dims = dict(n=n, d=d, n_entities=n_entities, chunk_rows=chunk_rows)
+    pick = ("global", "per_user.0", "per_item.0")
+
+    # 16a: phase 10a's streamed fit on two hosts, snapshots every solver
+    # iteration (16b's reference).
+    base_a = os.path.join(WORK, "fleet_a")
+    spec = _fleet_stream_spec(device, base_a, spill,
+                              ckpt=os.path.join(WORK, "fleet_a_ck"), **dims)
+    coord = fleet.ReduceCoordinator(FLEET_HOSTS,
+                                    stall_timeout_s=FLEET_STALL_S)
+    t = time.perf_counter()
+    try:
+        runs = _fleet_wait({f"host {h}": (
+            _spawn_fleet_host(spec, coord, h, "a"),
+            os.path.join(WORK, f"fleet_a_{h}"))
+            for h in range(FLEET_HOSTS)}, failures, "16a")
+    finally:
+        coord.close()
+    a = {"wall_s": time.perf_counter() - t, "reduces": coord.reduces}
+    res = [runs[f"host {h}"]["result"] for h in range(FLEET_HOSTS)]
+    if all(r is not None for r in res):
+        coefs = [_host_coefs(base_a, h) for h in range(FLEET_HOSTS)]
+        a.update(
+            owned=[r["owned"] for r in res],
+            host_wall_s=[r["wall_s"] for r in res],
+            data_s=[r["data_s"] for r in res],
+            seq=[r["seq"] for r in res],
+            barrier_wait_s=[r["barrier_wait_s"] for r in res],
+            peak_allocated_gb=[(r["peak_allocated_bytes"] or 0) / 1e9
+                               for r in res],
+            bitwise=all(_coefs_equal(coefs[0], c) for c in coefs[1:]),
+            launches=[r["launches"] for r in res],
+            b1=_b1_gates("16a", runs, device, "evaluations", failures),
+            ref_10a_wall_s=ref_10a.get("wall_s"))
+        a["vs_10a"] = _stream_gates(
+            "16a vs 10a", {"auc": res[0]["auc"],
+                           "fe_value": res[0]["fe_value"],
+                           "w": coefs[0]["global"]}, ref_10a, failures)
+        a["reduce_ms_mean"] = [1e3 * r["barrier_wait_s"] / max(r["seq"], 1)
+                               for r in res]
+        if not a["bitwise"]:
+            failures.append("16a: the hosts' coefficients differ")
+        if len(set(a["seq"])) != 1 or a["seq"][0] != coord.reduces:
+            failures.append(f"16a: reduce sequences {a['seq']}, "
+                            f"coordinator {coord.reduces}")
+        if any(r["jax_loaded"] for r in res):
+            failures.append("16a: a host process loaded jax")
+        rc, rep = _fleet_report([os.path.join(base_a, f"host_{h:03d}",
+                                              "run_log.jsonl")
+                                 for h in range(FLEET_HOSTS)])
+        a["fleet_report"] = {"rc": rc, "ok": rep.get("ok"),
+                             "barrier_agreement":
+                                 rep.get("barrier_agreement"),
+                             "odometer_agreement":
+                                 rep.get("odometer_agreement"),
+                             "rows": _report_rows(rep)}
+        psums = [row["reduces"] for row in a["fleet_report"]["rows"]]
+        _gate_report("16a", rc, rep, a["fleet_report"]["rows"], failures)
+        if not rep.get("barrier_agreement") \
+                or not rep.get("odometer_agreement"):
+            failures.append(f"16a: fleet-report agreement: {rep}")
+        if len(set(psums)) != 1 or psums[0] != coord.reduces:
+            failures.append(f"16a: fleet.psums {psums}, coordinator "
+                            f"{coord.reduces}")
+        a["pass_share"] = [row["barrier_wait_fraction"]
+                           for row in a["fleet_report"]["rows"]]
+    out["16a"] = a
+    if failures:
+        out["failures"] = failures
+        return out
+    a["reduce"] = fleet_reduce_ms(device, rounds=FLEET_REDUCE_ROUNDS
+                                  if time_it else 5)
+    if a["reduce"]["errors"]:
+        failures.append(f"16a reduce timing: {a['reduce']['errors']}")
+
+    # 16b: host 1 killed at a reduce past its first snapshots; host 0
+    # never restarted; host 1 alone resumes against the same coordinator.
+    base_b = os.path.join(WORK, "fleet_b")
+    # Three quarters into sweep 2's fixed-effect solve: past sweep 1's
+    # snapshot and that solve's first ones.
+    lo, hi = res[1]["solve_reduces"][1]
+    kill_at = lo + 3 * (hi - lo) // 4
+    spec_b = dict(spec, out=base_b, ckpt=os.path.join(WORK, "fleet_b_ck"))
+    coord = fleet.ReduceCoordinator(FLEET_HOSTS,
+                                    stall_timeout_s=FLEET_STALL_S)
+    b: dict = {"kill_at": kill_at}
+    rejoin: dict = {}
+    try:
+        survivor = _spawn_fleet_host(spec_b, coord, 0, "b")
+        victim = _spawn_fleet_host(dict(spec_b, kill_at=kill_at), coord, 1,
+                                   "b")
+        try:
+            victim.wait(timeout=FLEET_HOST_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            victim.kill()
+            victim.wait()
+        t_kill = time.perf_counter()
+        b["victim_rc"] = victim.returncode
+        b["reduces_at_kill"] = at_kill = coord.reduces
+        b["survivor_alive_at_kill"] = survivor.poll() is None
+        stop = threading.Event()
+
+        def watch():
+            while not stop.is_set():
+                if coord.reduces > at_kill:
+                    rejoin["t"] = time.perf_counter()
+                    return
+                time.sleep(0.005)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        restarted = _spawn_fleet_host(dict(spec_b, resume=True), coord, 1,
+                                      "b_resumed")
+        runs = _fleet_wait({
+            "host 0": (survivor, os.path.join(WORK, "fleet_b_0")),
+            "host 1 resumed": (restarted,
+                               os.path.join(WORK, "fleet_b_resumed_1"))},
+            failures, "16b")
+        stop.set()
+        watcher.join(timeout=5)
+    finally:
+        coord.close()
+    b.update(replays=coord.replays, reduces=coord.reduces,
+             rejoin_s=(rejoin["t"] - t_kill) if "t" in rejoin else None)
+    if b["victim_rc"] != -signal.SIGKILL:
+        failures.append(f"16b: the victim exited {b['victim_rc']}, not "
+                        "SIGKILL")
+    if not b["survivor_alive_at_kill"]:
+        failures.append("16b: host 0 died with the victim")
+    if not coord.replays > 0:
+        failures.append("16b: the resumed host replayed nothing")
+    if all(r["result"] is not None for r in runs.values()):
+        got = [_host_coefs(base_b, h) for h in range(FLEET_HOSTS)]
+        b["bitwise_to_16a"] = [_coefs_equal(g, coefs[0]) for g in got]
+        b["max_abs_dw_vs_16a"] = [float(np.abs(g["global"]
+                                               - coefs[0]["global"]).max())
+                                  for g in got]
+        b["seq"] = [r["result"]["seq"] for r in runs.values()]
+        if not all(b["bitwise_to_16a"]):
+            failures.append(f"16b: coefficients not bitwise 16a's "
+                            f"(max |Δw| {b['max_abs_dw_vs_16a']})")
+        rc, rep = _fleet_report([os.path.join(base_b, f"host_{h:03d}",
+                                              "run_log.jsonl")
+                                 for h in range(FLEET_HOSTS)])
+        rows = _report_rows(rep)
+        b["fleet_report"] = {"rc": rc, "ok": rep.get("ok"),
+                             "restarted_hosts": rep.get("restarted_hosts"),
+                             "rows": rows}
+        _gate_report("16b", rc, rep, rows, failures)
+        if rep.get("restarted_hosts") != [1]:
+            failures.append(f"16b: fleet-report restarted "
+                            f"{rep.get('restarted_hosts')}")
+        if not (len(rows) == 2 and rows[1]["segments"] == 2
+                and rows[1]["seq_restored"] > 0):
+            failures.append(f"16b: host 1's log holds no restored "
+                            f"sequence: {rows}")
+    out["16b"] = b
+
+    # 16c: phase 11b's fused cycle over 10a's chunks on two hosts.
+    base_c = os.path.join(WORK, "fleet_c")
+    spec_c = dict(spec, kind="fused", out=base_c, ckpt=None, cycles=cycles)
+    coord = fleet.ReduceCoordinator(FLEET_HOSTS,
+                                    stall_timeout_s=FLEET_STALL_S)
+    t = time.perf_counter()
+    try:
+        runs = _fleet_wait({f"host {h}": (
+            _spawn_fleet_host(spec_c, coord, h, "c"),
+            os.path.join(WORK, f"fleet_c_{h}"))
+            for h in range(FLEET_HOSTS)}, failures, "16c")
+    finally:
+        coord.close()
+    c = {"cycles": cycles, "wall_s": time.perf_counter() - t,
+         "reduces": coord.reduces, "ref_11b_auc": ref_11b["auc"],
+         "ref_11b_cycle_ms": ref_11b.get("cycle_ms")}
+    res = [runs[f"host {h}"]["result"] for h in range(FLEET_HOSTS)]
+    if all(r is not None for r in res):
+        got = [_host_coefs(base_c, h) for h in range(FLEET_HOSTS)]
+        logs = [os.path.join(base_c, f"host_{h:03d}", "run_log.jsonl")
+                for h in range(FLEET_HOSTS)]
+        cyc = [[e["duration_s"] * 1e3 for e in _read_log(p)
+                if e["event"] == "cd_fused_cycle"] for p in logs]
+        c.update(bitwise=all(_coefs_equal(got[0], g) for g in got[1:]),
+                 auc=res[0]["auc"], auc_gap=abs(res[0]["auc"]
+                                                - ref_11b["auc"]),
+                 seq=[r["seq"] for r in res],
+                 host_wall_s=[r["wall_s"] for r in res],
+                 barrier_wait_s=[r["barrier_wait_s"] for r in res],
+                 rejections=[r.get("rejections") for r in res],
+                 stats_bytes_a_step=res[0].get("stats_bytes_a_step"),
+                 cycle_ms_median=[float(np.median(x)) if x else None
+                                  for x in cyc],
+                 launches=[r["launches"] for r in res],
+                 b1=_b1_gates("16c", runs, device, "passes", failures))
+        if not c["bitwise"]:
+            failures.append("16c: the hosts' coefficients differ")
+        if not c["auc_gap"] <= STREAM_AUC_ATOL:
+            failures.append(f"16c: AUC {c['auc']:.5f} vs 11b "
+                            f"{ref_11b['auc']:.5f}")
+        rc, rep = _fleet_report(logs)
+        c["fleet_report"] = {"rc": rc, "ok": rep.get("ok"),
+                             "rows": _report_rows(rep)}
+        _gate_report("16c", rc, rep, c["fleet_report"]["rows"], failures)
+    out["16c"] = c
+
+    # 16d: the training driver, one process a host, on 10c's fixture.
+    cfg = stream_driver_config(os.path.join(WORK, "fleet_driver"))
+    cfg_path = os.path.join(WORK, "fleet_driver.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    args = ["--config", cfg_path, "--spill-dir",
+            os.path.join(WORK, "fleet_driver_spill"), "--telemetry",
+            "metrics", *(["--device", "cpu"] if device == "cpu" else [])]
+    coord = fleet.ReduceCoordinator(FLEET_HOSTS,
+                                    stall_timeout_s=FLEET_STALL_S)
+    t = time.perf_counter()
+    try:
+        runs = _fleet_wait({f"host {h}": (
+            _spawn_fleet(["-m", "photon_ml_torch.cli.game_training_driver",
+                          *args], coord, h, "d"),
+            os.path.join(WORK, f"fleet_d_{h}"))
+            for h in range(FLEET_HOSTS)}, failures, "16d",
+            need_result=False)
+    finally:
+        coord.close()
+    dd: dict = {"wall_s": time.perf_counter() - t, "reduces": coord.reduces}
+    trees = [os.path.join(cfg["output_dir"], f"host_{h:03d}")
+             for h in range(FLEET_HOSTS)]
+    if all(r["rc"] == 0 for r in runs.values()):
+        info = []
+        for h, tree in enumerate(trees):
+            header = next((e for e in _read_log(os.path.join(
+                tree, "run_log.jsonl")) if e["event"] == "run_header"), {})
+            info.append({k: header.get(k) for k in (
+                "fleet_host", "fleet_hosts", "fleet_transport")})
+        dd["run_info"] = info
+        if info != [{"fleet_host": h, "fleet_hosts": FLEET_HOSTS,
+                     "fleet_transport": "tcp"} for h in range(FLEET_HOSTS)]:
+            failures.append(f"16d: run_info fleet fields {info}")
+        models = [load_game_model(os.path.join(tree, "model"))[0]
+                  for tree in trees]
+        want, _ = load_game_model(os.path.join(ref_10c_dir, "model"))
+        arrays = []
+        for m in models:
+            arr = {"global": m.models["global"].coefficients.means.numpy()}
+            for name, sub in m.models.items():
+                if hasattr(sub, "coefficient_blocks"):
+                    for i, blk in enumerate(sub.coefficient_blocks):
+                        arr[f"{name}.{i}"] = blk.numpy()
+            arrays.append(arr)
+        w_want = want.models["global"].coefficients.means.numpy()
+        dd["bitwise"] = all(_coefs_equal(arrays[0], x) for x in arrays[1:])
+        dd["max_abs_dw_vs_10c"] = float(np.abs(arrays[0]["global"]
+                                               - w_want).max())
+        if not dd["bitwise"]:
+            failures.append("16d: the hosts' saved models differ")
+        if not np.allclose(arrays[0]["global"], w_want,
+                           rtol=DRIVER_COEF_TOL, atol=DRIVER_COEF_TOL):
+            failures.append(f"16d: the fleet model differs by "
+                            f"{dd['max_abs_dw_vs_10c']:g} from 10c's")
+        rc, rep = _fleet_report([os.path.join(tree, "run_log.jsonl")
+                                 for tree in trees])
+        dd["fleet_report"] = {"rc": rc, "ok": rep.get("ok"),
+                              "rows": _report_rows(rep)}
+        _gate_report("16d", rc, rep, dd["fleet_report"]["rows"], failures)
+    elif not any("16d" in f for f in failures):
+        failures.append("16d: a driver host failed")
+    out["16d"] = dd
+    out["failures"] = failures
+    return out
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -5554,6 +6245,24 @@ def main() -> int:
             for mode in ("metrics", "trace")}
         kernels[0]["launches_telemetry_scoring"] = tel["13b"]["launches"]
         lanes["launches_telemetry_sweep"] = tel["13c"]["lane_launches"]
+
+        t = time.perf_counter()
+        torch.cuda.empty_cache()
+        ref_10a = dict(fit_10a, wall_s=stream["10a"]["wall_s"])
+        ref_11b = {"auc": ooc["11b"]["auc"],
+                   "cycle_ms": float(np.median(ooc["11b"]["cycle_ms"]))}
+        fleet_training = phase_fleet_training(
+            ref_10a, ref_11b, os.path.join(WORK, "stream_driver_full"),
+            "cuda")
+        fleet_training["card"] = card
+        print(f"phase 16 training fleet ({time.perf_counter() - t:.1f} s): "
+              + json.dumps({"fleet_training": fleet_training}, default=str))
+        if fleet_training["failures"]:
+            raise AssertionError("phase 16: " + "; ".join(
+                fleet_training["failures"]))
+        kernels[0]["launches_fleet_fit"] = fleet_training["16a"]["launches"]
+        kernels[0]["launches_fleet_fused"] = fleet_training["16c"][
+            "launches"]
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"total {time.perf_counter() - t_all:.1f} s")

@@ -3,7 +3,8 @@
 Counterpart of ``photon_ml_tpu/cache/plan_cache.py``, in the same file
 format and with the same keys, so a plan written by either package loads
 in the other (the sharded builder's list-of-plans files come with it,
-ROADMAP A7).  A compiled plan (``GrrPair`` / ``GrrDirection`` /
+ROADMAP A7b).  ``data.grr.build_grr_pair`` resolves ``cache_dir=None``
+through ``$PHOTON_ML_TPU_PLAN_CACHE``.  A compiled plan (``GrrPair`` / ``GrrDirection`` /
 ``GrrRangeSplit``) is a pure function of the ELL arrays, the table width
 and the plan-affecting build options; its cache key is a content
 fingerprint of (cols, vals, dim) × a config key × the planner version.

@@ -36,9 +36,18 @@ runs the fit phase under ``torch.profiler``.  ``--monitor on`` opens
 the live monitor over the whole pipeline: progress, ETA and alert
 events in the run log (``python -m photon_ml_torch.telemetry watch
 <out>/run_log.jsonl`` follows it); ``--status-port P`` (which implies
-it) serves ``GET /status`` and ``/metrics`` on 127.0.0.1.  The fleet
-and multi-host bootstrap (ROADMAP A7) are not ported: their config
-fields must stay at their defaults.
+it) serves ``GET /status`` and ``/metrics`` on 127.0.0.1.
+
+Launched as one host of a multi-host training fleet (the
+``PHOTON_FLEET_NUM_HOSTS`` / ``PHOTON_FLEET_HOST_ID`` /
+``PHOTON_FLEET_COORDINATOR`` trio, with a ``parallel.fleet``
+``ReduceCoordinator`` run by the launcher), the run streams only its
+host's chunk shard, reduces every chunk step over tcp, and writes its
+outputs under ``host_NNN/`` of the output dir; its run log's
+``run_info`` carries ``fleet_host``, ``fleet_hosts`` and
+``fleet_transport``.  ``distributed_init`` and ``n_devices`` (the
+meshes and the psum transport, ROADMAP A7b) are not ported: those
+config fields must stay at their defaults.
 """
 
 from __future__ import annotations
@@ -152,6 +161,16 @@ def _save_result(result: FitResult, estimator: GameEstimator,
 def run(config: TrainingConfig, log: RunLogger | None = None) -> dict:
     """The whole training pipeline; returns the written summary."""
     config.validate()
+    # A host of a multi-host fleet (the PHOTON_FLEET_* trio) joins it
+    # and writes its own output tree (run log, summary, model,
+    # telemetry) under host_NNN/; `telemetry fleet-report` joins the
+    # hosts' logs.
+    from photon_ml_torch.parallel import fleet
+
+    fctx = fleet.initialize_from_env()
+    in_fleet = fctx is not None and fctx.is_fleet
+    if in_fleet:
+        config.output_dir = fleet.host_dir(config.output_dir, fctx)
     os.makedirs(config.output_dir, exist_ok=True)
     # A resumed run appends: the log then holds both runs, each opening
     # with its run_header.
@@ -163,7 +182,11 @@ def run(config: TrainingConfig, log: RunLogger | None = None) -> dict:
                            run_info={"driver": "game_training",
                                      "device": config.device,
                                      "telemetry": config.telemetry,
-                                     "resume": config.resume},
+                                     "resume": config.resume,
+                                     **({"fleet_host": fctx.host_id,
+                                         "fleet_hosts": fctx.n_hosts,
+                                         "fleet_transport": fctx.transport}
+                                        if in_fleet else {})},
                            flush_every_s=DEFAULT_FLUSH_EVERY_S)) as log, \
             telemetry.maybe_session(
                 config.telemetry,

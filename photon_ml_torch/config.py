@@ -13,15 +13,15 @@ scoring (``score_chunk_rows`` and its knobs), pipeline telemetry
 (``telemetry``, ``telemetry_dir``), profiling (``profile_dir``) and the
 live monitor (``monitor``, ``monitor_every_s``, ``status_port``) are
 ported, with the reference's validation.  A training config's fields of
-tiers the port does not have yet (meshes: ROADMAP A7) are accepted in
+tiers the port does not have yet (meshes: ROADMAP A7b) are accepted in
 the file but ``validate()`` raises ``NotImplementedError`` when one is
 set to anything but its default, naming its ROADMAP item.  For
 serving:
 
 - ``telemetry``, ``monitor`` and ``trace`` have the reference's
-  defaults (``"metrics"``, ``"on"``, ``"on"``); ``replicas`` > 1 (the
-  supervised fleet, ROADMAP D5) makes ``validate()`` raise
-  ``NotImplementedError``.
+  defaults (``"metrics"``, ``"on"``, ``"on"``); ``replicas`` > 1 runs
+  the supervised replica fleet (``serving.fleet``), under the
+  reference's fleet checks.
 - ``compilation_cache_dir`` is accepted and has no effect: the port has
   no compiled programs to cache (its CUDA kernels are cached under
   ``build/kernels/`` by source hash).
@@ -42,7 +42,6 @@ from photon_ml_torch.ops.regularization import RegularizationType
 from photon_ml_torch.optim.base import OptimizerType
 from photon_ml_torch.optim.variance import VarianceComputationType
 
-
 # ---------------------------------------------------------------------------
 # Sanctioned environment fallbacks: every environment knob the port reads
 # is registered here with its meaning and read through ``read_env``.  The
@@ -56,11 +55,6 @@ SANCTIONED_ENV = {
     "PHOTON_ML_TPU_SPILL_DIR": (
         "default chunk-store spill dir (data.chunk_store"
         ".resolve_spill_dir)"),
-    "PHOTON_ML_TPU_NATIVE": (
-        "'0' forces the numpy ETL fallbacks (native bindings disabled)"),
-    "PHOTON_ML_TPU_GRR": (
-        "'0' sends GrrDirection.contract to the plain contraction off the "
-        "GRR kernels"),
     "PHOTON_FLEET_NUM_HOSTS": (
         "local-fleet host count (parallel.fleet tcp transport)"),
     "PHOTON_FLEET_HOST_ID": "local-fleet host id (parallel.fleet)",
@@ -240,11 +234,11 @@ class TrainingConfig:
     # Sparse fixed-effect layout: AUTO is plain ELL here (as in the JAX
     # package off the TPU); GRR and COLMAJOR select the others.
     sparse_layout: str = "AUTO"
-    n_devices: int | None = None           # ROADMAP A7
+    n_devices: int | None = None           # ROADMAP A7b
     # The chunk-streamed fixed effect (data.chunked_batch): sparse fixed
     # effects become ceil(n/chunk_rows) congruent chunks streamed to the
     # card every evaluation; chunk_layout AUTO is ELL here (GRR chunks
-    # are ROADMAP A7); chunk_max_resident placed chunks stay on the
+    # are ROADMAP A7b); chunk_max_resident placed chunks stay on the
     # card.  spill_dir (default $PHOTON_ML_TPU_SPILL_DIR) spills the
     # chunks to disk, host_max_resident decoded chunks stay in host RAM
     # and prefetch_depth chunks are prefetched disk → host → card ahead
@@ -277,13 +271,13 @@ class TrainingConfig:
     monitor: str = "off"
     monitor_every_s: float = 2.0
     status_port: int | None = None
-    distributed_init: bool = False         # ROADMAP A7
+    distributed_init: bool = False         # ROADMAP A7b
     # Where training runs: "cuda" (default) or "cpu".
     device: str = "cuda"
 
     # (field, default, ROADMAP item) of the tiers not ported yet.
     _NOT_PORTED = (
-        ("n_devices", None, "A7"), ("distributed_init", False, "A7"))
+        ("n_devices", None, "A7b"), ("distributed_init", False, "A7b"))
 
     def validate(self) -> None:
         names = [c.name for c in self.coordinates]

@@ -21,9 +21,15 @@ Three tiers:
    overlays the current window, so ``set_offsets`` is an O(n) host
    write and spilled files stay valid across sweeps and runs.
 
+In a training fleet (``parallel.fleet``) a host builds, spills and
+streams only its contiguous chunk shard, under its own ``host_NNN``
+spill subdirectory; chunk ids stay global, so offsets and checkpoints
+keep the full grid, and ``chunk_schedule`` pads the shard with
+``EMPTY_CHUNK`` sentinels to the fleet's common step count.
+
 The port builds ELL chunks.  GRR chunks (``layout="grr"``) need the
 sharded plan builder and a ``mesh`` the multi-device tier: both raise
-``NotImplementedError`` naming ROADMAP A7.
+``NotImplementedError`` naming ROADMAP A7b.
 """
 
 from __future__ import annotations
@@ -57,10 +63,31 @@ class ChunkedBatch:
     store: object | None = None  # data.chunk_store.ChunkStore | None
     # Spilled mode: offsets over the padded chunk grid.
     offsets_host: np.ndarray | None = None
+    # Fleet mode: the contiguous chunk shard this host owns, and its
+    # sentinel-padded schedule (one length on every host).  None: a
+    # single-host run, every chunk.
+    local_chunk_ids: list | None = None
+    schedule: list | None = None
 
     @property
     def n_chunks(self) -> int:
         return len(self.chunks)
+
+    @property
+    def owned_chunk_ids(self) -> list:
+        """Chunk ids this host streams (all of them outside a fleet)."""
+        if self.local_chunk_ids is None:
+            return list(range(self.n_chunks))
+        return list(self.local_chunk_ids)
+
+    @property
+    def chunk_schedule(self) -> list:
+        """This host's chunk visit order: its owned chunks, then
+        ``fleet.EMPTY_CHUNK`` sentinels up to the fleet's common step
+        count (a single host: every chunk)."""
+        if self.schedule is None:
+            return list(range(self.n_chunks))
+        return list(self.schedule)
 
     def chunk_slice(self, i: int) -> tuple[int, int]:
         """Real-example range [lo, hi) of chunk i."""
@@ -90,7 +117,7 @@ class ChunkedBatch:
                 self.n_chunks * self.chunk_rows, np.float32)
             self.offsets_host[: self.n] = offsets
             return
-        for i in range(self.n_chunks):
+        for i in self.owned_chunk_ids:
             lo, hi = self.chunk_slice(i)
             pad = np.zeros(self.chunk_rows, np.float32)
             pad[: hi - lo] = offsets[lo:hi]
@@ -137,18 +164,21 @@ def build_chunked_batch(
     exists for the same key is reused (warm ETL), and a missing or
     corrupt one is rebuilt from ``rows`` when it is read.  An unwritable
     spill dir degrades to the resident build with one warning.
-    ``cache_dir`` is the GRR plan cache's, unused by ELL chunks.
+    ``cache_dir`` is the GRR plan cache's, unused by ELL chunks.  Under
+    an active fleet context only the host's shard is built and spilled,
+    in ``host_dir(spill_dir)``.
     """
     from photon_ml_torch.data.sparse_rows import SparseRows
+    from photon_ml_torch.parallel import fleet as _fleet
 
-    del cache_dir  # GRR chunks only (ROADMAP A7)
+    del cache_dir  # GRR chunks only (ROADMAP A7b)
     if mesh is not None:
         raise NotImplementedError(
-            "chunks x mesh shards are not ported yet (ROADMAP A7)")
+            "chunks x mesh shards are not ported yet (ROADMAP A7b)")
     if layout == "grr":
         raise NotImplementedError(
             "GRR chunk layouts need the sharded plan builder, not ported "
-            "yet (ROADMAP A7); use layout='ell'")
+            "yet (ROADMAP A7b); use layout='ell'")
     if layout != "ell":
         raise ValueError(f"unknown chunk layout {layout!r} "
                          "(supported: 'grr', 'ell')")
@@ -160,6 +190,17 @@ def build_chunked_batch(
     if n_chunks is not None:
         chunk_rows = -(-n // n_chunks)
     n_chunks = -(-n // chunk_rows)
+
+    # Fleet mode: this host builds, spills and streams only its shard.
+    fctx = _fleet.active()
+    local_ids = schedule = None
+    if fctx is not None and fctx.is_fleet:
+        local_ids, schedule = _fleet.shard_chunk_ids(
+            n_chunks, fctx.host_id, fctx.n_hosts)
+    owned = list(range(n_chunks)) if local_ids is None else local_ids
+    shard = ("" if local_ids is None else
+             f", host {fctx.host_id}/{fctx.n_hosts} shard {len(owned)} "
+             "chunks")
 
     weights = np.ones(n, np.float32) if weights is None else np.asarray(
         weights, np.float32)
@@ -190,14 +231,18 @@ def build_chunked_batch(
     if spill_dir is not None:
         from photon_ml_torch.data.chunk_store import probe_spill_dir
 
-        spill_dir = probe_spill_dir(spill_dir)
+        # Fleet hosts never share chunk files (nor window accounting).
+        spill_dir = probe_spill_dir(_fleet.host_dir(spill_dir, fctx))
 
     if spill_dir is None:
-        chunks = [build_chunk(i) for i in range(n_chunks)]
-        logger.info("chunked batch: n=%d -> %d chunks x %d rows (%s)", n,
-                    n_chunks, chunk_rows, layout)
+        owned_set = set(owned)
+        chunks = [build_chunk(i) if i in owned_set else None
+                  for i in range(n_chunks)]
+        logger.info("chunked batch: n=%d -> %d chunks x %d rows (%s)%s", n,
+                    n_chunks, chunk_rows, layout, shard)
         return ChunkedBatch(chunks=chunks, dim=dim, n=n,
-                            chunk_rows=chunk_rows, layout=layout)
+                            chunk_rows=chunk_rows, layout=layout,
+                            local_chunk_ids=local_ids, schedule=schedule)
 
     from photon_ml_torch.data.chunk_store import (
         ChunkStore,
@@ -210,7 +255,7 @@ def build_chunked_batch(
     store = ChunkStore(spill_dir, key, n_chunks,
                        host_max_resident=host_max_resident,
                        rebuild=lambda i: build_chunk(i, zero_offsets=True))
-    missing = [i for i in range(n_chunks) if not store.has(i)]
+    missing = [i for i in owned if not store.has(i)]
     # One chunk in flight at a time: the build's peak RSS is the window
     # plus one chunk.
     for i in missing:
@@ -221,9 +266,10 @@ def build_chunked_batch(
     offsets_host[:n] = offsets
     logger.info(
         "chunked batch: n=%d -> %d chunks x %d rows (%s), spilled to %s "
-        "(%d built, %d reused; host window %d)", n, n_chunks, chunk_rows,
-        layout, spill_dir, len(missing), n_chunks - len(missing),
-        store.host_max_resident)
+        "(%d built, %d reused; host window %d)%s", n, n_chunks, chunk_rows,
+        layout, spill_dir, len(missing), len(owned) - len(missing),
+        store.host_max_resident, shard)
     return ChunkedBatch(chunks=[None] * n_chunks, dim=dim, n=n,
                         chunk_rows=chunk_rows, layout=layout, store=store,
-                        offsets_host=offsets_host)
+                        offsets_host=offsets_host,
+                        local_chunk_ids=local_ids, schedule=schedule)

@@ -19,15 +19,14 @@ input to the same arrays and share plan-cache files.  The plan types
 hold torch tensors on an explicit device (``to``); ``contract`` runs
 the hand-written CUDA kernels of ``ops.grr_kernel`` on a CUDA device
 (B2 for dense-grid plans, B3 for the others) and their plain versions on
-the CPU.  ``$PHOTON_ML_TPU_GRR=0`` (the JAX package's explicit opt-out)
-sends ``contract`` to the plain versions on any device.
+the CPU.  There is no switch that turns the kernels off.
 
 A direction whose COO residual (the spill that stays on the scatter
 path) exceeds 5 % of its entries is flagged; the flags of one
 ``build_grr_pair`` are one warning and one ``grr.spill_flagged_builds``
 telemetry count (``_SpillWarnings``).
 
-Left out of this port (ROADMAP A7): the mesh-sharded builder
+Left out of this port (ROADMAP A7b): the mesh-sharded builder
 ``build_sharded_grr_pairs`` and its padding helpers.
 """
 
@@ -49,8 +48,6 @@ from photon_ml_torch.ops.grr_kernel import (
     DENSE_B,
     grr_contract,
     grr_contract_dense,
-    grr_contract_dense_reference,
-    grr_contract_reference,
 )
 
 Tensor = torch.Tensor
@@ -242,37 +239,21 @@ class GrrDirection:
                       else self.overflow.to(device)))
 
     def contract(self, table: Tensor) -> Tensor:
-        """``out[s] = Σ val_e · table[idx_e]`` — [n_segments].
-
-        ``$PHOTON_ML_TPU_GRR=0`` is the JAX package's explicit opt-out
-        of the GRR kernels: the plain contraction runs instead, on any
-        device."""
-        from photon_ml_torch.config import read_env
-
+        """``out[s] = Σ val_e · table[idx_e]`` — [n_segments]."""
         table = table.to(torch.float32)
         pad = self.n_gw * WIN - self.table_len
         # Window rows ARE table sub-tiles: no transpose.
         table_t = torch.nn.functional.pad(table, (0, pad)).view(
             self.n_gw, TILE, TILE)
-        use_kernel = read_env("PHOTON_ML_TPU_GRR") != "0"
         if self.dense_grid:
-            if use_kernel:
-                out2d = grr_contract_dense(
-                    table_t, self.g1, self.g2, self.g3, self.vals,
-                    self.gw_of_st, n_ow_p=self.n_ow_padded, cap=self.cap)
-            else:
-                out2d = grr_contract_dense_reference(
-                    table_t, self.g1, self.g2, self.g3, self.vals,
-                    n_ow_p=self.n_ow_padded, cap=self.cap)
-        elif use_kernel:
+            out2d = grr_contract_dense(
+                table_t, self.g1, self.g2, self.g3, self.vals,
+                self.gw_of_st, n_ow_p=self.n_ow_padded, cap=self.cap)
+        else:
             out2d = grr_contract(
                 table_t, self.g1, self.g2, self.g3, self.vals,
                 self.gw_of_st, self.ow_of_st, self.first_of_ow,
                 n_ow=self.n_ow, cap=self.cap)
-        else:
-            out2d = grr_contract_reference(
-                table_t, self.g1, self.g2, self.g3, self.vals,
-                self.gw_of_st, self.ow_of_st, n_ow=self.n_ow, cap=self.cap)
         out = out2d.reshape(-1)[: self.n_segments]
         if self.overflow is not None:
             out = out + self.overflow.contract(table)

@@ -23,7 +23,7 @@ every evaluation.  With ``re_chunk_entities`` each random effect is a
 ``cd_fused`` a fit is one ``game.fused_sweep`` pass a cycle over the
 chunked fixed effect and every random effect.  With ``checkpoint_dir``
 the coordinate descent, the swept fit's lanes and the tuner's rounds
-snapshot, and ``resume`` restores them.  A mesh is ROADMAP A7.
+snapshot, and ``resume`` restores them.  A mesh is ROADMAP A7b.
 """
 
 from __future__ import annotations
@@ -763,9 +763,16 @@ class GameEstimator:
 
     def _checkpointer(self, ckpt_dir: str | None, run_logger):
         """A ``RunCheckpointer`` for ``ckpt_dir`` with the config's
-        cadence, or None when checkpointing is off."""
+        cadence, or None when checkpointing is off.  Under an active
+        fleet context the directory is sharded per host (``host_NNN/``):
+        each host snapshots its own replicated solver state and its
+        reduce sequence, so a killed host resumes from its own snapshots
+        without its peers restarting."""
         if not ckpt_dir:
             return None
+        from photon_ml_torch.parallel import fleet
+
+        ckpt_dir = fleet.host_dir(ckpt_dir, fleet.active())
         cfg = self.config
         return _ckpt.RunCheckpointer(
             ckpt_dir, every_sweeps=cfg.checkpoint_every_sweeps,

@@ -43,6 +43,7 @@ import torch
 from photon_ml_torch import telemetry
 from photon_ml_torch.evaluation.evaluators import EvaluatorType
 from photon_ml_torch.game.coordinates import Coordinate
+from photon_ml_torch.parallel import fleet as _fleet
 from photon_ml_torch.reliability import checkpoint as _ckpt
 from photon_ml_torch.telemetry import convergence as _conv
 from photon_ml_torch.telemetry import monitor as _mon
@@ -253,6 +254,9 @@ def run_coordinate_descent(
                     initial_coefficients[name] = _on_device(
                         value, _coord_device(coordinates[name]))
             restored_extra = loaded["extra"]
+            # A fleet host replays its reduce sequence from this
+            # boundary (answered from the coordinator's cache).
+            _fleet.restore_seq(restored_extra.get("fleet_seq"))
             if fused_engine is None:
                 # The fused loop composes margins from coefficients and
                 # never reads these planes back.
@@ -324,7 +328,7 @@ def run_coordinate_descent(
                 "validation_history": _serialize_validation(
                     validation_history),
                 "prev_values": dict(prev_values),
-                "fleet_seq": -1}
+                "fleet_seq": _fleet.seq()}
 
     # Re-entering a partial sweep: the coordinates it skips trained
     # before the interruption, and their diagnostics ride in the
@@ -455,7 +459,7 @@ def _run_fused_cycles(engine, coordinates, update_sequence, n_iterations,
         return {"history": _serialize_history(history),
                 "validation_history": _serialize_validation(
                     validation_history),
-                "fleet_seq": -1}
+                "fleet_seq": _fleet.seq()}
 
     with _ckpt.session(checkpointer):
         for it in range(start_iteration, n_iterations):

@@ -26,7 +26,7 @@ coordinates.
 
 ``train_swept`` trains a whole λ grid as one lane-batched solve over
 the shared batch (``optim.lbfgs.lbfgs_solve_swept``, or its streamed
-counterpart).  The mesh variants are ROADMAP A7 and raise
+counterpart).  The mesh variants are ROADMAP A7b and raise
 ``NotImplementedError``.
 """
 
@@ -69,7 +69,7 @@ Tensor = torch.Tensor
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "mesh-sharded coordinates are not ported yet (ROADMAP A7)")
+            "mesh-sharded coordinates are not ported yet (ROADMAP A7b)")
 
 
 def _apply_training_view(batch: Batch, offsets: Tensor, train_idx,
@@ -134,7 +134,7 @@ class FixedEffectCoordinate(Coordinate):
     # ``train_weights``; score every row.
     train_idx: Tensor | None = None
     train_weights: Tensor | None = None
-    distributed: None = None         # mesh objective: ROADMAP A7
+    distributed: None = None         # mesh objective: ROADMAP A7b
 
     def __post_init__(self):
         _no_mesh(self.distributed)

@@ -41,6 +41,13 @@ evaluation of every coordinate; here a cycle is one pass:
 Per-coordinate score planes come out of each pass (validation,
 retirement bookkeeping and the coordinate-descent result), at the
 cycle-start coefficients.
+
+In a training fleet (``parallel.fleet``) a host streams only its chunk
+shard and builds and spills only its sidecars (under its per-host spill
+dir).  Each schedule step's statistics are summed across the hosts
+before they are added (a sentinel step contributes zeros) and the score
+planes once at the end of the pass, so every host takes the same steps
+from the same totals, and the safeguard's decisions agree.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ import torch
 from photon_ml_torch import telemetry
 from photon_ml_torch.data.batch import SparseBatch
 from photon_ml_torch.ops.objective import GLMObjective
+from photon_ml_torch.parallel import fleet as _fleet
 from photon_ml_torch.telemetry import convergence as _conv
 from photon_ml_torch.telemetry import device as _device
 from photon_ml_torch.telemetry import monitor as _mon
@@ -84,6 +92,15 @@ def _zero_stats(dim: int, shapes: list[tuple[int, int]], device) -> tuple:
             torch.zeros(dim, **z),
             tuple(torch.zeros((e1, p), **z) for e1, p in shapes),
             tuple(torch.zeros((e1, p, p), **z) for e1, p in shapes))
+
+
+def _acc_add(acc: tuple, x: tuple) -> None:
+    """``acc += x`` in place over the ``_zero_stats`` structure."""
+    for a, b in zip(acc[:3], x[:3]):
+        a += b
+    for part in (3, 4):
+        for a, b in zip(acc[part], x[part]):
+            a += b
 
 
 def _fused_chunk(loss, w_fe: Tensor, re_tabs, re_actives,
@@ -311,16 +328,19 @@ class FusedCycleEngine:
         return leaves
 
     def _stream(self):
-        """``(i, placed tensors)`` in chunk order through the prefetch
-        pipeline, with chunk i-1's work fenced before chunk i dispatches
-        on a spilled store (the queued work holds one chunk's buffers)."""
+        """``(i, placed tensors)`` in this host's schedule order through
+        the prefetch pipeline, with chunk i-1's work fenced before chunk
+        i dispatches on a spilled store (the queued work holds one
+        chunk's buffers).  A fleet sentinel step yields ``(EMPTY_CHUNK,
+        None)``: nothing is placed or fenced for it."""
         from photon_ml_torch.optim.streaming import (
             ArrayPlacer,
             prefetch_stream,
         )
 
-        inner = prefetch_stream(self._load, self._placer.place,
-                                range(self.chunked.n_chunks),
+        sched = self.chunked.chunk_schedule
+        real = [i for i in sched if i >= 0]
+        inner = prefetch_stream(self._load, self._placer.place, real,
                                 self.prefetch_depth,
                                 store=self.chunked.store,
                                 device=self.device)
@@ -328,7 +348,11 @@ class FusedCycleEngine:
                   and self.device.type == "cuda")
         fence = None
         try:
-            for i, placed in inner:
+            for i in sched:
+                if i < 0:
+                    yield i, None
+                    continue
+                _, placed = next(inner)
                 if fence is not None:
                     fence.synchronize()
                 yield i, ArrayPlacer.handover(placed)
@@ -343,14 +367,20 @@ class FusedCycleEngine:
     def _pass(self, w_fe: Tensor, tabs: list[Tensor],
               actives: list[Tensor]):
         """One streamed pass: the accumulated statistics and the host
-        score planes of every coordinate, at the given coefficients."""
+        score planes of every coordinate, at the given coefficients.  In
+        a fleet each step's statistics are summed across the hosts
+        before they join the accumulators, and the planes once at the
+        end (examples are disjoint across hosts: the sum is the
+        concatenation)."""
         K, R = self.chunked.n_chunks, self.chunked.chunk_rows
         names = [r.name for r in self.res]
-        acc = _zero_stats(self.chunked.dim,
-                          [(r.E_total + 1, r.p_max) for r in self.res],
-                          self.device)
-        planes = torch.empty((1 + len(self.res), K * R),
-                             dtype=torch.float32, device=self.device)
+        fred = _fleet.reducer()
+        shapes = [(r.E_total + 1, r.p_max) for r in self.res]
+        acc = _zero_stats(self.chunked.dim, shapes, self.device)
+        planes = (torch.empty if fred is None else torch.zeros)(
+            (1 + len(self.res), K * R), dtype=torch.float32,
+            device=self.device)
+        steps = len(self.chunked.chunk_schedule)
         store = self.sidecar_store
         if store is not None:
             store.begin_read()
@@ -359,6 +389,15 @@ class FusedCycleEngine:
             with telemetry.span("fused_cycle_pass", cat="solver",
                                 chunks=K):
                 for si, (i, dev) in enumerate(self._stream()):
+                    if i < 0:     # a sentinel: zeros to the barrier
+                        _acc_add(acc, fred.reduce(_zero_stats(
+                            self.chunked.dim, shapes, self.device)))
+                        _mon.progress("train.cd_fused", si + 1, steps,
+                                      unit="chunks", cycle=self.cycles + 1)
+                        continue
+                    into = (acc if fred is None else
+                            _zero_stats(self.chunked.dim, shapes,
+                                        self.device))
                     labels = dev["fe.labels"]
                     batch = SparseBatch(
                         values=dev["fe.values"],
@@ -372,7 +411,7 @@ class FusedCycleEngine:
                             fe_s, re_s = _fused_chunk(
                                 self.loss, w_fe, tabs, actives, batch,
                                 [dev[n + ".x"] for n in names],
-                                [dev[n + ".idx"] for n in names], acc)
+                                [dev[n + ".idx"] for n in names], into)
                             planes[0, i * R:(i + 1) * R] = fe_s
                             for j, s in enumerate(re_s):
                                 planes[1 + j, i * R:(i + 1) * R] = s
@@ -383,13 +422,20 @@ class FusedCycleEngine:
                                                   acc, names, R,
                                                   self.device),
                         span="chunk_compute")
-                    _mon.progress("train.cd_fused", si + 1, K,
+                    if fred is not None:
+                        _acc_add(acc, fred.reduce(into))
+                        telemetry.count("fleet.chunks_streamed")
+                    _mon.progress("train.cd_fused", si + 1, steps,
                                   unit="chunks", cycle=self.cycles + 1)
+                host = planes[:, : self.n].cpu().numpy()
+                fe_scores, re_scores = host[0], list(host[1:])
+                if fred is not None:
+                    fe_scores, re_scores = fred.reduce((fe_scores,
+                                                        re_scores))
         finally:
             if store is not None:
                 store.end_read()
-        host = planes[:, : self.n].cpu().numpy()
-        return acc, host[0], list(host[1:])
+        return acc, fe_scores, list(re_scores)
 
     def _total_value(self, data_value: Tensor, w_fe: Tensor,
                      tabs: list[Tensor]) -> float:
@@ -615,7 +661,9 @@ class FusedCycleEngine:
             "prev_value": (None if self.prev_value is None
                            else float(self.prev_value)),
             "cycles": int(self.cycles),
-            "fleet_seq": -1,
+            # A killed fleet host restores it and replays its reduce
+            # sequence through the coordinator's cache.
+            "fleet_seq": _fleet.seq(),
             "accepted": accepted,
             "rejections": int(self.rejections),
             "re": {r.name: {
@@ -644,6 +692,7 @@ class FusedCycleEngine:
         self.prev_value = None if pv is None else float(pv)
         self.cycles = int(state.get("cycles", 0))
         self.rejections = int(state.get("rejections", 0))
+        _fleet.restore_seq(state.get("fleet_seq"))
         acc = state.get("accepted")
         self._accepted = None
         if acc is not None:
@@ -850,6 +899,9 @@ def build_fused_cycle_engine(
             out[name + ".idx"] = idx
         return out
 
+    # A fleet host builds and spills the sidecars of its shard only,
+    # under its per-host spill dir.
+    owned = chunked.owned_chunk_ids
     sidecar_store = None
     sidecar_resident = None
     if res and spill_dir is not None:
@@ -861,6 +913,7 @@ def build_fused_cycle_engine(
             release_free_heap,
         )
 
+        spill_dir = _fleet.host_dir(spill_dir, _fleet.active())
         if probe_spill_dir(spill_dir) is not None:
             key_arrays = []
             for name in sorted(side_planes):
@@ -872,17 +925,19 @@ def build_fused_cycle_engine(
                 spill_dir, key, K, host_max_resident=host_max_resident,
                 rebuild=build_sidecar, codec=FUSED_CHUNK_CODEC,
                 window_group=window_group)
-            missing = [i for i in range(K) if not sidecar_store.has(i)]
+            missing = [i for i in owned if not sidecar_store.has(i)]
             for i in missing:
                 sidecar_store.put(i, build_sidecar(i))
             side_planes.clear()    # the window is the only residency now
             if missing:
                 release_free_heap()
             logger.info("fused sidecar: %d chunks (%d built, %d reused) "
-                        "spilled to %s", K, len(missing), K - len(missing),
-                        spill_dir)
+                        "spilled to %s", len(owned), len(missing),
+                        len(owned) - len(missing), spill_dir)
     if res and sidecar_store is None:
-        sidecar_resident = [build_sidecar(i) for i in range(K)]
+        owned_set = set(owned)
+        sidecar_resident = [build_sidecar(i) if i in owned_set else None
+                            for i in range(K)]
 
     engine = FusedCycleEngine(
         fe_name=fe_name, fe_coord=fe_coord, res=res, n_examples=n,

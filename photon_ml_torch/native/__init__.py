@@ -87,19 +87,13 @@ def _bind(dll: ctypes.CDLL) -> None:
 
 
 def lib() -> "ctypes.CDLL | None":
-    """The loaded native library, or None (numpy fallback; also when
-    ``$PHOTON_ML_TPU_NATIVE`` is ``0``)."""
+    """The loaded native library, or None (numpy fallback)."""
     global _lib
     if _lib is not False:
         return _lib  # type: ignore[return-value]
-    from photon_ml_torch.config import read_env
-
     with _lock:
         if _lib is not False:
             return _lib  # type: ignore[return-value]
-        if read_env("PHOTON_ML_TPU_NATIVE") == "0":
-            _lib = None
-            return None
         final = library_path()
         if not final.exists() and not _build(final):
             _lib = None

@@ -84,6 +84,7 @@ from photon_ml_torch.optim.tron import (
     _SIGMA3,
     _boundary_tau,
 )
+from photon_ml_torch.parallel import fleet as _fleet
 from photon_ml_torch.reliability import checkpoint as _ckpt
 from photon_ml_torch.reliability import faults as _faults
 from photon_ml_torch.telemetry import convergence as _conv
@@ -99,6 +100,7 @@ _CURVATURE_EPS = 1e-10
 # Consumer-side stall deadline (seconds): a wedged disk becomes one
 # actionable error after this long, never an eternal wait.
 DEFAULT_STALL_TIMEOUT_S = 600.0
+
 
 # The leaves a chunk moves to the card.
 _LEAVES = ("values", "col_ids", "labels", "weights", "offsets", "mask")
@@ -614,22 +616,27 @@ class ChunkedGLMObjective:
         return placed
 
     def _chunk_stream(self):
-        """``(chunk_id, placed chunk)`` in order 0..K-1, pipelined: the
-        prefetch thread for a spilled batch, else the next chunk's copy
-        issued before the current chunk's compute."""
-        order = list(range(self.batch.n_chunks))
-        if not order:
+        """``(chunk_id, placed chunk)`` in this host's schedule order,
+        pipelined: the prefetch thread for a spilled batch, else the next
+        chunk's copy issued before the current chunk's compute.  A fleet
+        host visits only its shard; a sentinel step (``EMPTY_CHUNK``,
+        padding a ragged shard) yields ``(EMPTY_CHUNK, None)`` and places
+        nothing: the prefetcher never waits on one."""
+        sched = self.batch.chunk_schedule
+        real = [i for i in sched if i >= 0]
+        if not sched:
             return
-        if self.batch.store is not None and self.prefetch_depth > 0:
+        if (self.batch.store is not None and self.prefetch_depth > 0
+                and real):
             pf = ChunkPrefetcher(self.batch.chunk, self._place,
                                  self.prefetch_depth,
                                  store=self.batch.store,
                                  device=self.device)
             self._active_prefetcher = pf
-            pf.start(order)
+            pf.start(real)
             try:
-                for i in order:
-                    yield i, _handover(pf.next(i))
+                for i in sched:
+                    yield (i, _handover(pf.next(i))) if i >= 0 else (i, None)
             finally:
                 pf.close()
                 self._active_prefetcher = None
@@ -637,18 +644,30 @@ class ChunkedGLMObjective:
                 self.stats["load_s"] += pf.load_s
                 self.stats["place_s"] += pf.place_s
             return
-        nxt = self._get(order[0])
-        for pos, i in enumerate(order):
+        nxt = self._get(real[0]) if real else None
+        pos = 0
+        for i in sched:
+            if i < 0:
+                yield i, None
+                continue
             cur = nxt
-            if pos + 1 < len(order):
-                nxt = self._get(order[pos + 1])
+            pos += 1
+            if pos < len(real):
+                nxt = self._get(real[pos])
             yield i, _handover(cur)
 
-    def _fenced(self, pass_span: str, cost=None):
-        """Yield ``(chunk_id, placed chunk)`` for the consumer's work,
-        inside a ``chunk_compute`` span that, on the spilled path, first
-        fences chunk i-1's work (the backpressure fence: the wait is that
-        chunk's compute retiring).  The whole pass is one ``pass_span``.
+    def _stream_pass(self, pass_span: str, compute, fold, cost=None,
+                     finish=None):
+        """One pass over this host's schedule: ``compute(cid, chunk)``
+        runs inside a ``chunk_compute`` span that, on the spilled path,
+        first fences the previous chunk's work (the backpressure fence:
+        the wait is that chunk's compute retiring), then ``fold(cid,
+        out)`` takes its result outside the chunk's timed scope (a fleet
+        reduction waits there).  A sentinel step (``cid`` < 0) gets
+        ``chunk`` None and no fence, timing or capture.  The whole pass,
+        ``finish()`` after the last step included, is one ``pass_span``
+        (returning ``finish``'s result); the monitor's step count is the
+        schedule's length.
 
         ``cost`` = (program name, chunk → ``program_cost``) turns on
         with telemetry the program's ``device_cost`` capture at its first
@@ -660,20 +679,24 @@ class ChunkedGLMObjective:
         timed = (cost is not None and self.batch.store is not None
                  and telemetry.active() is not None)
         program = cost[0] if cost is not None else None
-        # The monitor's stage: chunks against the pass's count.
+        # The monitor's stage: chunks against the pass's step count.
         stage = "train.sweep" if pass_span == "sweep" else "train.pass"
-        steps = self.batch.n_chunks
+        steps = len(self.batch.chunk_schedule)
         fence = None
         first = True
         with telemetry.span(pass_span, cat="solver",
                             chunks=self.batch.n_chunks):
             for ci, (cid, cur) in enumerate(self._chunk_stream()):
+                if cid < 0:
+                    fold(cid, compute(cid, None))
+                    _mon.progress(stage, ci + 1, steps, unit="chunks")
+                    continue
                 t0 = time.perf_counter() if timed else None
                 with telemetry.span("chunk_compute", cat="device"):
                     if fence is not None:
                         fence.synchronize()
                     with telemetry.device_timed(program, self.device):
-                        yield cid, cur
+                        out = compute(cid, cur)
                     if bounded:
                         fence = torch.cuda.Event()
                         fence.record()
@@ -686,17 +709,38 @@ class ChunkedGLMObjective:
                 if timed and not captured:
                     telemetry.observe("device.dispatch_s." + program,
                                       time.perf_counter() - t0)
+                fold(cid, out)
+            return finish() if finish is not None else None
 
-    def _sweep(self, per_chunk, combine, cost=None):
-        """Stream every chunk through ``per_chunk`` and fold the partials
-        with ``combine``: one ``solver.sweeps`` data pass."""
+    def _sweep(self, per_chunk, combine, cost=None, zero=None):
+        """Stream this host's schedule through ``per_chunk`` and fold the
+        partials with ``combine``: one ``solver.sweeps`` data pass.
+
+        ``zero``: the sentinel partial (``() →`` exact zeros shaped as
+        ``per_chunk``'s result), required in a fleet.  There every step's
+        partial (zeros on a sentinel step) is summed across the hosts
+        before it is folded, so every host accumulates the same global
+        totals in the same order and the solvers above stay
+        fleet-oblivious."""
         self.sweeps += 1
         telemetry.count("solver.sweeps")
-        acc = None
-        for _cid, cur in self._fenced("sweep", cost):
-            out = per_chunk(cur)
-            acc = out if acc is None else combine(acc, out)
-        return acc
+        fred = _fleet.reducer()
+        if fred is not None and zero is None:
+            raise ValueError("fleet sweep needs a zero() sentinel template")
+        acc = [None]
+
+        def compute(cid, cur):
+            return per_chunk(cur) if cid >= 0 else zero()
+
+        def fold(cid, out):
+            if fred is not None:
+                out = fred.reduce(out)
+                if cid >= 0:
+                    telemetry.count("fleet.chunks_streamed")
+            acc[0] = out if acc[0] is None else combine(acc[0], out)
+
+        self._stream_pass("sweep", compute, fold, cost)
+        return acc[0]
 
     def _cost(self, inputs, output_bytes: int, products: int,
               lanes: int = 1):
@@ -719,7 +763,8 @@ class ChunkedGLMObjective:
         w = self._w(w)
         val = self._sweep(lambda b: self._inner.value(w, b),
                           lambda a, x: a + x,
-                          cost=("chunk_value", self._cost([w], 4, 1)))
+                          cost=("chunk_value", self._cost([w], 4, 1)),
+                          zero=lambda: w.new_zeros(()))
         val = val + self.objective.reg.l2_value(w)
         if self.objective.prior is not None:
             val = val + self.objective.prior.value(w)
@@ -730,7 +775,8 @@ class ChunkedGLMObjective:
         f, g = self._sweep(
             lambda b: self._inner.value_and_gradient(w, b),
             lambda a, x: (a[0] + x[0], a[1] + x[1]),
-            cost=("chunk_vg", self._cost([w], 4 + 4 * w.numel(), 2)))
+            cost=("chunk_vg", self._cost([w], 4 + 4 * w.numel(), 2)),
+            zero=lambda: (w.new_zeros(()), torch.zeros_like(w)))
         reg = self.objective.reg
         f = f + reg.l2_value(w)
         g = g + reg.l2_gradient(w)
@@ -747,7 +793,8 @@ class ChunkedGLMObjective:
         hv = self._sweep(lambda b: self._inner.hessian_vector(w, v, b),
                          lambda a, x: a + x,
                          cost=None if cost is None else
-                         (cost, self._cost([w, v], 4 * v.numel(), 3)))
+                         (cost, self._cost([w, v], 4 * v.numel(), 3)),
+                         zero=lambda: torch.zeros_like(w))
         hv = hv + self.objective.reg.l2_hessian_vector(v)
         if self.objective.prior is not None:
             hv = hv + self.objective.prior.hessian_vector(v)
@@ -769,7 +816,8 @@ class ChunkedGLMObjective:
         w = self._w(w)
         telemetry.count("solver.aux_sweeps")
         hd = self._sweep(lambda b: self._inner.hessian_diagonal(w, b),
-                         lambda a, x: a + x)
+                         lambda a, x: a + x,
+                         zero=lambda: torch.zeros_like(w))
         hd = hd + self.objective.reg.l2_hessian_diagonal(w)
         if self.objective.prior is not None:
             hd = hd + self.objective.prior.hessian_diagonal()
@@ -795,7 +843,8 @@ class ChunkedGLMObjective:
                           lambda a, x: a + x,
                           cost=("chunk_value_swept",
                                 self._cost([W], 4 * W.shape[0], 1,
-                                           W.shape[0])))
+                                           W.shape[0])),
+                          zero=lambda: W.new_zeros((W.shape[0],)))
         val = val + self._lane_reg(W, reg, "l2_value")
         if self.objective.prior is not None:
             val = val + self.objective.prior.value(W)
@@ -812,7 +861,8 @@ class ChunkedGLMObjective:
             lambda a, x: (a[0] + x[0], a[1] + x[1]),
             cost=("chunk_vg_swept",
                   self._cost([W], 4 * W.shape[0] + 4 * W.numel(), 2,
-                             W.shape[0])))
+                             W.shape[0])),
+            zero=lambda: (W.new_zeros((W.shape[0],)), torch.zeros_like(W)))
         f = f + self._lane_reg(W, reg, "l2_value")
         g = g + self._lane_reg(W, reg, "l2_gradient")
         if self.objective.prior is not None:
@@ -825,15 +875,39 @@ class ChunkedGLMObjective:
     def _per_example(self, fn) -> np.ndarray:
         """A per-chunk per-example quantity over every chunk → [n] host
         array, through the same pipelined chunk feed (one
-        ``solver.per_example_passes`` pass)."""
+        ``solver.per_example_passes`` pass).  A fleet host scatters its
+        chunks' slices into the full [n] plane and sums it across the
+        hosts once (each example has one owner, so the sum is the
+        concatenation): one reduction a pass."""
         telemetry.count("solver.per_example_passes")
+        fred = _fleet.reducer()
         pending = []
-        for cid, cur in self._fenced("per_example_pass"):
+
+        def compute(cid, cur):
+            if cid < 0:
+                return None
             lo, hi = self.batch.chunk_slice(cid)
-            pending.append(fn(cur)[: hi - lo])
-        if not pending:
-            return np.zeros(0, np.float32)
-        return torch.cat(pending).cpu().numpy()
+            return fn(cur)[: hi - lo]
+
+        def fold(cid, out):
+            if out is not None:
+                pending.append((cid, out))
+
+        def finish():
+            host = (torch.cat([m for _, m in pending]).cpu().numpy()
+                    if pending else np.zeros(0, np.float32))
+            if fred is None:
+                return host
+            full = np.zeros(self.batch.n, np.float32)
+            pos = 0
+            for cid, m in pending:
+                lo, hi = self.batch.chunk_slice(cid)
+                full[lo:hi] = host[pos:pos + hi - lo]
+                pos += hi - lo
+            return np.asarray(fred.reduce(full))
+
+        return self._stream_pass("per_example_pass", compute, fold,
+                                 finish=finish)
 
     def predict_margins(self, w) -> np.ndarray:
         """Per-example margins (offsets included) over all chunks."""
@@ -1000,6 +1074,7 @@ def streaming_lbfgs_solve(
         tracker = _restore_tracker(restored["tracker"], dev)
         converged = bool(restored["converged"])
         it = int(restored["it"])
+        _fleet.restore_seq(restored.get("fleet_seq"))
         logger.info("streaming lbfgs '%s': resumed at iteration %d",
                     label, it)
     else:
@@ -1117,7 +1192,7 @@ def streaming_lbfgs_solve(
                 "rho_hist": [float(r) for r in rho_hist],
                 "converged": bool(converged),
                 "tracker": _tracker_state(tracker),
-                "fleet_seq": -1,
+                "fleet_seq": _fleet.seq(),
             })
 
     if ck is not None:
@@ -1186,6 +1261,7 @@ def streaming_tron_solve(
             cg_state = (_to(cg["p"], dev), _to(cg["r"], dev),
                         _to(cg["d"], dev), _to(cg["rs"], dev),
                         int(cg["cg_it"]))
+        _fleet.restore_seq(restored.get("fleet_seq"))
         logger.info(
             "streaming tron '%s': resumed at iteration %d%s", label, it,
             f" (mid-CG, step {cg_state[4]})" if cg_state else "")
@@ -1222,7 +1298,7 @@ def streaming_tron_solve(
             "scale": scale, "it": it, "steps": steps,
             "converged": bool(converged),
             "tracker": _tracker_state(tracker),
-            "fleet_seq": -1,
+            "fleet_seq": _fleet.seq(),
             "cg": cg,
         })
 
@@ -1460,6 +1536,7 @@ def streaming_lbfgs_solve_swept(
         t_vals = _to(restored["t_vals"], dev)
         t_gn = _to(restored["t_gn"], dev)
         it = int(restored["it"])
+        _fleet.restore_seq(restored.get("fleet_seq"))
         logger.info("streaming swept lbfgs '%s': resumed at iteration "
                     "%d (%d/%d lanes done)", label, it,
                     int(done.sum()), L)
@@ -1592,7 +1669,7 @@ def streaming_lbfgs_solve_swept(
                 "S_buf": S_buf, "Y_buf": Y_buf, "Rho": Rho,
                 "head": head, "count": count,
                 "t_vals": t_vals, "t_gn": t_gn,
-                "fleet_seq": -1,
+                "fleet_seq": _fleet.seq(),
             })
 
     if ck is not None:

@@ -27,6 +27,13 @@ The serving fault matrix adds the request path's seams:
   replica's ``/healthz`` (a flaky or wedged probe: the unhealthy-replica
   restart policy).
 
+The training fleet adds:
+
+- ``fleet.reduce``: in ``parallel.fleet.FleetReducer.reduce`` before
+  each cross-host reduction, with the sequence number (the ``kill``
+  kind is the killed-host drill: the host dies there and its restart
+  replays the reduce sequence from its checkpoint).
+
 A ``FaultInjector`` holds ``Fault`` specs, each targeting a site's Nth
 occurrence (per-site counters under one lock); ``seeded_plan`` draws
 the occurrences from a seed.  With no injector installed a seam is one

@@ -1,5 +1,5 @@
 """Telemetry CLI: ``python -m photon_ml_torch.telemetry
-<report|history|watch|serve-report>``.
+<report|history|watch|serve-report|fleet-report>``.
 
 Counterpart of ``photon_ml_tpu/telemetry/__main__.py``.
 
@@ -26,8 +26,11 @@ attribution, retry cost), optionally with a Perfetto flow trace
 cross-process join falls below ``--join-threshold`` (see
 ``telemetry.serve_report``).
 
-``fleet-report`` (multi-host training, ROADMAP A7) is not ported: it
-exits with an error naming its item.
+``fleet-report <host_logs...>`` joins a multi-host training run's
+per-host ``run_log.jsonl`` files into one fleet view: per-host chunk,
+reduce and barrier-wait rows, the barrier agreement (every host took the
+same reductions) and the fleet-wide sweep odometer; exit code 1 on any
+disagreement (see ``telemetry.fleet_report``).
 
 Every subcommand prints one JSON object as its last stdout line.
 """
@@ -37,6 +40,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from photon_ml_torch.telemetry import fleet_report as fleet_report_mod
 from photon_ml_torch.telemetry import serve_report as serve_report_mod
 from photon_ml_torch.telemetry import watch as watch_mod
 from photon_ml_torch.telemetry.history import (
@@ -46,11 +50,6 @@ from photon_ml_torch.telemetry.history import (
     run_history,
 )
 from photon_ml_torch.telemetry.report import report
-
-_NOT_PORTED = {
-    "fleet-report": "the multi-host fleet (ROADMAP A7)",
-}
-
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
@@ -113,13 +112,19 @@ def main(argv=None) -> int:
     sp.add_argument("--trace-out", default=None,
                     help="also write a Perfetto-loadable Chrome trace "
                          "with cross-process flow events here")
-    for cmd, what in _NOT_PORTED.items():
-        sp = sub.add_parser(cmd, help=f"not ported: {what}")
-        sp.add_argument("rest", nargs="*")
+    fp = sub.add_parser(
+        "fleet-report",
+        help="join a multi-host training run's per-host run logs into "
+             "one fleet view: per-host chunk/reduce/barrier-wait rows, "
+             "the barrier-agreement check, and the fleet-wide sweep "
+             "odometer")
+    fp.add_argument("logs", nargs="+",
+                    help="per-host run logs (each host_NNN/ output "
+                         "subdir's run_log.jsonl)")
     args = p.parse_args(argv)
-    if args.cmd in _NOT_PORTED:
-        p.error(f"'{args.cmd}' is {_NOT_PORTED[args.cmd]}, not ported to "
-                "photon_ml_torch yet")
+    if args.cmd == "fleet-report":
+        result = fleet_report_mod.run_fleet_report(args.logs)
+        return 0 if result["ok"] else 1
     if args.cmd == "serve-report":
         result = serve_report_mod.run_serve_report(
             args.logs, join_threshold=args.join_threshold,

@@ -627,9 +627,30 @@ class Monitor:
 
 
 def _fleet_status() -> dict | None:
-    """This host's slice of a multi-host fleet's view for ``/status``.
-    The port has no multi-host fleet yet (ROADMAP A7), so there is none."""
-    return None
+    """This host's slice of the training fleet's view for ``/status``:
+    its identity and its reduce and barrier counters.  Every host serves
+    its own status endpoint (a dashboard joins them on ``host``; offline,
+    ``telemetry fleet-report`` joins the hosts' run logs).  None outside
+    a fleet."""
+    from photon_ml_torch.parallel import fleet
+
+    ctx = fleet.active()
+    if ctx is None or not ctx.is_fleet:
+        return None
+    t = telemetry.active()
+    out = {
+        "host": ctx.host_id,
+        "n_hosts": ctx.n_hosts,
+        "transport": ctx.transport,
+    }
+    if t is not None:
+        out.update({
+            "reduces": t.counter("fleet.psums"),
+            "chunks_streamed": t.counter("fleet.chunks_streamed"),
+            "barrier_wait_s": round(
+                float(t.counter("fleet.barrier_wait_s")), 3),
+        })
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,10 @@ subprocess with ``--device cpu``) and on 20,000 of the 60,000 rows with
 64-entity and 2,048-row chunks; there the fused fit's held-out AUC ends
 above the per-coordinate fit's by more than the 1e-3 gate (a property of
 the size, as phase 6's AUC gate is), so that gate is expected to report.
+Phase 16 (the training fleet) runs at phase 10's small size with
+1,500-row chunks (5 chunks: host 1 owns two and a sentinel), its host
+processes and drivers on the CPU, every gate but the card-only B1
+counts.
 """
 
 from __future__ import annotations
@@ -699,3 +703,36 @@ def test_fleet_phase_on_cpu(work):
     assert out["serve_report"]["rc"] == 0
     assert len(out["serve_report"]["logs"]) == 1 + cs.FLEET_REPLICAS
     assert set(out["serve_report"]["stages"]) >= {"route", "forward"}
+
+
+def test_training_fleet_phase_on_cpu(work):
+    """Phase 16 at phase 10's small size: the streamed fit, its
+    killed-host replay, the fused fit (10 cycles) and the training
+    driver as two-host fleets, with their single-process references;
+    every gate holds, host 1 owns a sentinel step, the resumed host
+    restored its reduce sequence, and the result is one JSON object."""
+    kw = dict(n=8000, d=2000, n_entities=300, chunk_rows=1500)
+    refs = cs.fleet_references("cpu", cycles=10, **kw)
+    out = cs.phase_fleet_training(*refs, "cpu", cycles=10, time_it=False,
+                                  **kw)
+    assert out["failures"] == [], out["failures"]
+    json.loads(json.dumps(out, default=str))
+    a = out["16a"]
+    assert a["owned"] == [[0, 1, 2], [3, 4]] and a["bitwise"]
+    assert a["seq"][0] == a["seq"][1] == a["reduces"] > 0
+    assert a["fleet_report"]["rc"] == 0
+    assert a["reduce"]["ms"] > 0 and not a["reduce"]["errors"]
+    b = out["16b"]
+    assert b["victim_rc"] == -9 and b["replays"] > 0
+    assert b["bitwise_to_16a"] == [True, True]
+    assert b["fleet_report"]["restarted_hosts"] == [1]
+    assert b["fleet_report"]["rows"][1]["seq_restored"] > 0
+    assert b["rejoin_s"] is not None and b["rejoin_s"] > 0
+    c = out["16c"]
+    assert c["bitwise"] and c["auc_gap"] <= cs.STREAM_AUC_ATOL
+    assert c["stats_bytes_a_step"] > 0
+    assert all(r["passes"] == 11 for r in c["b1"].values())
+    d = out["16d"]
+    assert d["bitwise"] and d["fleet_report"]["rc"] == 0
+    assert d["max_abs_dw_vs_10c"] <= cs.DRIVER_COEF_TOL
+

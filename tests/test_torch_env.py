@@ -5,9 +5,14 @@ which raises on a name not registered in ``config.SANCTIONED_ENV``.  The
 port registers the names it honours, a subset of the reference's.  For
 each, the variable is set with ``monkeypatch.setenv`` for both packages
 and both act alike: the plan cache lands in (and is read back from) that
-directory across packages, the spill dir resolves to it, ``NATIVE=0``
-takes the numpy ETL with equal outputs, and ``GRR=0`` routes ``contract``
-to the plain contraction.
+directory across packages, the spill dir resolves to it, and the fleet
+trio builds equal contexts.  The reference's two opt-outs,
+``PHOTON_ML_TPU_NATIVE=0`` and ``PHOTON_ML_TPU_GRR=0``, are not the
+port's: its numpy ETL (taken without the native library) equals the
+reference's under ``NATIVE=0``, and its ``contract`` keeps going through
+the GRR kernel wrappers under ``GRR=0`` (on a CUDA table a wrapper
+launches its kernel; on the CPU it runs its plain version) with the
+reference's plain result.
 """
 
 from __future__ import annotations
@@ -36,8 +41,12 @@ def test_read_env_raises_on_unregistered_name():
     for mod in (tconfig, jconfig):
         with pytest.raises(KeyError, match="SANCTIONED_ENV"):
             mod.read_env("PHOTON_NOT_A_KNOB")
-    assert tconfig.read_env("PHOTON_ML_TPU_GRR", "dflt") in ("dflt", "0",
-                                                            "1")
+    name = "PHOTON_ML_TPU_SPILL_DIR"
+    assert tconfig.read_env(name, "dflt") == os.environ.get(name, "dflt")
+    for name in ("PHOTON_ML_TPU_NATIVE", "PHOTON_ML_TPU_GRR"):
+        assert jconfig.read_env(name, "dflt") == os.environ.get(name, "dflt")
+        with pytest.raises(KeyError, match="SANCTIONED_ENV"):
+            tconfig.read_env(name)
 
 
 def test_registry_is_a_subset_of_the_reference():
@@ -47,7 +56,6 @@ def test_registry_is_a_subset_of_the_reference():
     assert port <= set(jconfig.SANCTIONED_ENV)
     assert port == {
         "PHOTON_ML_TPU_PLAN_CACHE", "PHOTON_ML_TPU_SPILL_DIR",
-        "PHOTON_ML_TPU_NATIVE", "PHOTON_ML_TPU_GRR",
         "PHOTON_FLEET_NUM_HOSTS", "PHOTON_FLEET_HOST_ID",
         "PHOTON_FLEET_COORDINATOR"}
 
@@ -111,9 +119,10 @@ def test_spill_dir_env_resolves_alike(tmp_path, monkeypatch):
 
 
 def test_native_off_takes_numpy_etl_alike(monkeypatch):
-    """``PHOTON_ML_TPU_NATIVE=0``: both loaders return None and the ETL
-    (here the transposed-ELL build) takes the numpy path, with outputs
-    equal to each other and to the native build's."""
+    """The reference under ``PHOTON_ML_TPU_NATIVE=0`` and the port
+    without its native library both take the numpy ETL (here the
+    transposed-ELL build), with outputs equal to each other and to the
+    native build's."""
     from photon_ml_tpu import native as jnative
     from photon_ml_tpu.data import colmajor as jcol
 
@@ -123,7 +132,7 @@ def test_native_off_takes_numpy_etl_alike(monkeypatch):
     cols, vals, d = _ell(5, n=800, d=300)
     with_native = tcol.build_colmajor_arrays(cols, vals, d, capacity=8)
     monkeypatch.setenv("PHOTON_ML_TPU_NATIVE", "0")
-    monkeypatch.setattr(tnative, "_lib", False)
+    monkeypatch.setattr(tnative, "_lib", None)
     monkeypatch.setattr(jnative, "_lib", False)
     assert tnative.lib() is None and jnative.lib() is None
     assert not tnative.native_available()
@@ -137,10 +146,11 @@ def test_native_off_takes_numpy_etl_alike(monkeypatch):
 
 
 def test_grr_off_routes_contract_to_plain(monkeypatch):
-    """``PHOTON_ML_TPU_GRR=0`` sends ``GrrDirection.contract`` to the
-    plain contraction, never the kernel wrappers (asserted here by the
-    route, since on the CPU both reach the plain version), with the
-    reference's result."""
+    """Under ``PHOTON_ML_TPU_GRR=0`` the reference takes its plain
+    contraction.  The port has no such opt-out: ``contract`` still goes
+    through the kernel wrappers (asserted by the route), and on these
+    CPU tensors each wrapper runs its plain version, with the
+    reference's plain result."""
     import jax.numpy as jnp
     from photon_ml_tpu.data import grr as jgrr
 
@@ -150,26 +160,46 @@ def test_grr_off_routes_contract_to_plain(monkeypatch):
     cols, vals, d = _ell(7)
     pair = tgrr.build_grr_pair(cols, vals, d, device="cpu")
     ref = jgrr.build_grr_pair(cols, vals, d)
-    calls = {"kernel": 0, "plain": 0}
+    calls = {"kernel": 0}
 
-    def wrap(fn, key):
+    def wrap(fn):
         def inner(*a, **kw):
-            calls[key] += 1
+            calls["kernel"] += 1
             return fn(*a, **kw)
         return inner
 
     for name in ("grr_contract_dense", "grr_contract"):
-        monkeypatch.setattr(tgrr, name, wrap(getattr(tgrr, name), "kernel"))
-    for name in ("grr_contract_dense_reference", "grr_contract_reference"):
-        monkeypatch.setattr(tgrr, name, wrap(getattr(tgrr, name), "plain"))
+        monkeypatch.setattr(tgrr, name, wrap(getattr(tgrr, name)))
     rng = np.random.default_rng(1)
     w = rng.normal(0, 1, d).astype(np.float32)
-    on = pair.dot(torch.from_numpy(w)).numpy()
-    assert calls["kernel"] > 0 and calls["plain"] == 0
-    calls.update(kernel=0, plain=0)
+    unset = pair.dot(torch.from_numpy(w)).numpy()
+    assert calls["kernel"] > 0
+    calls["kernel"] = 0
     monkeypatch.setenv("PHOTON_ML_TPU_GRR", "0")
     off = pair.dot(torch.from_numpy(w)).numpy()
-    assert calls["kernel"] == 0 and calls["plain"] > 0
-    np.testing.assert_array_equal(on, off)
+    assert calls["kernel"] > 0
+    np.testing.assert_array_equal(unset, off)
     np.testing.assert_allclose(off, np.asarray(ref.dot(jnp.asarray(w))),
                                rtol=1e-5, atol=1e-5)
+
+
+def test_fleet_trio_builds_equal_contexts(monkeypatch):
+    from photon_ml_tpu.parallel import fleet as jfleet
+
+    from photon_ml_torch.parallel import fleet as tfleet
+
+    monkeypatch.setenv("PHOTON_FLEET_NUM_HOSTS", "3")
+    monkeypatch.setenv("PHOTON_FLEET_HOST_ID", "2")
+    monkeypatch.setenv("PHOTON_FLEET_COORDINATOR", "127.0.0.1:9")
+    monkeypatch.setattr(tfleet, "_ACTIVE", None)
+    monkeypatch.setattr(jfleet, "_ACTIVE", None)
+    t = tfleet.initialize_from_env()
+    j = jfleet.initialize_from_env()
+    assert (t.host_id, t.n_hosts, t.transport, t.coordinator) == (
+        j.host_id, j.n_hosts, j.transport, j.coordinator) == (
+        2, 3, "tcp", "127.0.0.1:9")
+    monkeypatch.setattr(tfleet, "_ACTIVE", None)
+    monkeypatch.setattr(jfleet, "_ACTIVE", None)
+    monkeypatch.setenv("PHOTON_FLEET_NUM_HOSTS", "1")
+    assert tfleet.initialize_from_env() is None
+    assert jfleet.initialize_from_env() is None

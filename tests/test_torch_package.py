@@ -21,6 +21,9 @@ FORBIDDEN = ("jax", "jaxlib", "photon_ml_tpu")
 PORT_FILES = sorted(
     str(p.relative_to(REPO))
     for p in (REPO / "photon_ml_torch").rglob("*.py")) + ["chip_smoke.py"]
+# The examples that run the port's phases alone on the card.
+PORT_FILES += sorted(str(p.relative_to(REPO))
+                     for p in (REPO / "examples").glob("chip_phase*.py"))
 
 
 def _imported_modules(path: pathlib.Path) -> list[str]:
@@ -153,6 +156,29 @@ def test_port_has_the_fleet_slice():
     from photon_ml_torch.serving.fleet import FleetServer
 
     assert serving.FleetServer is FleetServer
+
+
+def test_port_has_the_training_fleet_slice():
+    """The multi-host training fleet over tcp (A7a): ``parallel.fleet``,
+    the ``fleet-report`` CLI, the environment registry, and phase 16's
+    example; importing the fleet pulls in neither jax nor the JAX
+    package."""
+    for rel in ("photon_ml_torch/parallel/__init__.py",
+                "photon_ml_torch/parallel/fleet.py",
+                "photon_ml_torch/telemetry/fleet_report.py",
+                "examples/chip_phase16.py"):
+        assert (REPO / rel).is_file() and rel in PORT_FILES, rel
+    from photon_ml_torch.config import SANCTIONED_ENV, read_env
+
+    assert "PHOTON_FLEET_COORDINATOR" in SANCTIONED_ENV and read_env
+    code = ("import json, sys\n"
+            "import photon_ml_torch.parallel.fleet\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax'"
+            " or m.startswith(('jax.', 'photon_ml_tpu')))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_port_has_the_lane_kernel_source():

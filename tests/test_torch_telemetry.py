@@ -508,14 +508,10 @@ def test_report_reads_stitched_segments(tmp_path, capsys):
 
 
 def test_unported_subcommands_name_their_items(capsys):
-    """``fleet-report`` names its item (A7); ``watch`` and
-    ``serve-report`` are ported (their parity is in
-    ``test_torch_monitor.py`` and ``test_torch_serve_trace.py``)."""
-    with pytest.raises(SystemExit) as e:
-        telemetry_main(["fleet-report", "x.jsonl"])
-    assert e.value.code == 2
-    assert "A7" in capsys.readouterr().err
-    for cmd in ("watch", "serve-report"):
+    """Every subcommand is ported now: ``fleet-report`` (A7a; its parity
+    is in ``test_torch_fleet.py``), ``watch`` and ``serve-report``
+    (``test_torch_monitor.py``, ``test_torch_serve_trace.py``)."""
+    for cmd in ("fleet-report", "watch", "serve-report"):
         with pytest.raises(SystemExit) as e:
             telemetry_main([cmd, "--help"])
         assert e.value.code == 0
