@@ -319,7 +319,27 @@ raises on failure:
    Printed: the fleet's fit walls beside 10a's, each host's barrier wait
    and its share of the pass time, ms a reduce, each host's peak
    allocated card memory, the kill-to-rejoin time, the fused pass's
-   reduced statistics' bytes a step and its cycle ms beside 11b's.
+   reduced statistics' bytes a step and its cycle ms beside 11b's;
+17. meshes, 8 shards on the card (17a right after phase 6, 17b after 7,
+   17c-d after 10): (a) configs 1 and 2 (TRON) of phase 6 through
+   ``GameEstimator`` with ``n_devices: 8`` on the ELL, transposed-ELL
+   (padded to the shards' common virtual-row count) and GRR (congruent
+   per-shard plans) layouts: the distributed objective's surfaces within
+   phase 6's float64 gates, each fit within 1e-3 (final loss, AUC) of
+   the same layout's single-device fit, one evaluation launching B1 8
+   times (16 on the transposed ELL) and B2/B3 once a padded level a
+   shard, and every shard's kernel shapes (its ELL rows, its padded
+   transposed ELL with its padding share, each padded GRR level) against
+   their plain versions, shard 0's timed; (b) config 5 on 8 shards (the
+   random effects' entities sharded): AUC within 1e-3 of phase 7's;
+   (c) phase 10a's fit on GRR chunks kept on the card (B2/B3 on every
+   chunk of every pass), then on GRR chunks x 2 shards: each within
+   phase 10's gates of 10a, the first chunk's padded levels against
+   their plain versions; (d) the training driver with
+   ``distributed_init`` and 8 shards on 10c's fixture, in this process:
+   a world of one NCCL process (the run log's ``distributed``), the
+   group gone after the run, the model within phase 8's tolerance of
+   10c's.
 
 The line before the card's and the result's is one JSON object with a
 ``kernels`` list: per kernel its launches on its path (``gather_rowsum``:
@@ -337,8 +357,10 @@ scoring pass as ``launches_telemetry_fits`` and
 ``launches_traced_serving``, phase 15's replicas' batches (one B1
 launch each, in each replica's process) as ``fleet_batches`` and phase
 16's fleet fit and fleet fused fit, one count a host process, as
-``launches_fleet_fit`` and ``launches_fleet_fused``; the GRR
-kernels: phase 6's GRR fit;
+``launches_fleet_fit`` and ``launches_fleet_fused``; phase 17's mesh
+fits as ``launches_mesh_fits``, ``launches_mesh_game_fit`` and
+``launches_mesh_stream_fits``; the GRR kernels: phase 6's GRR fit, and
+phase 17's under the same keys;
 ``gather_rowsum_lanes``: phase 9's ELL, transposed-ELL and tuned fits and
 phase 10d's streamed grid, and by shape in ``shapes``; phase 13c's
 traced grid as ``launches_telemetry_sweep``),
@@ -2536,6 +2558,10 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
     ell_evaluations = res_ell.iterations + 1 + int(
         sum(traj["ell"]["ls_trials"]))
     test_auc = float(auc(test.margins(res.w), test.labels, mask=test.mask))
+    test_auc_ell = float(auc(test.margins(res_ell.w), test.labels,
+                             mask=test.mask))
+    test_auc_cm = float(auc(test.margins(res_cm.w), test.labels,
+                            mask=test.mask))
 
     def gap(a, b):
         return abs(float(a) - float(b)) / abs(float(b))
@@ -2554,6 +2580,7 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
     w = rng.normal(0, 0.05, dim)
     v = rng.normal(0, 1.0, dim)
     ref = f64_surfaces(X, y, w, v, TRAIN_L2)
+    data["f64"] = {"w": w, "v": v, "ref": ref}     # phase 17a's
     w_t = torch.from_numpy(w.astype(np.float32)).to(dev)
     v_t = torch.from_numpy(v.astype(np.float32)).to(dev)
     errors = {}
@@ -2575,7 +2602,8 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
         "early_loss_gap_rel": early_gap,
         "loss_final_perturbed_start": float(res_perturbed.value),
         "perturbed_start_gap_rel": self_gap,
-        "test_auc": test_auc, "f64_errors": errors,
+        "test_auc": test_auc, "test_auc_ell": test_auc_ell,
+        "test_auc_colmajor": test_auc_cm, "f64_errors": errors,
         "launches": launches, "ell_gather_rowsum_launches": ell_launches,
         "ell_evaluations": ell_evaluations,
         "loss_final_colmajor": float(res_cm.value),
@@ -3818,9 +3846,11 @@ class _StreamProbe:
         def place(old):
             def _place(obj, host):
                 placed = old(obj, host)
-                probe.placed_devices.update(
-                    str(getattr(placed.batch, leaf).device)
-                    for leaf in streaming_mod._LEAVES)
+                # A mesh chunk is placed piece by piece.
+                for piece in getattr(placed.batch, "pieces", [placed]):
+                    probe.placed_devices.update(
+                        str(getattr(piece.batch, leaf).device)
+                        for leaf in streaming_mod._LEAVES)
                 return placed
             return _place
 
@@ -5996,6 +6026,475 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
+# -- phase 17: meshes ---------------------------------------------------------
+
+MESH_DEVICES = 8          # shards of phase 17's meshes (all on cuda:0 here)
+MESH_CHUNK_DEVICES = 2    # 17c's chunks × shards
+
+
+def _sync_card() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def mesh_fe_config(layout: str, device: str, optimizer=OptimizerType.LBFGS,
+                   task=TaskType.LOGISTIC_REGRESSION, iters: int = TRAIN_ITERS,
+                   n_devices: int = MESH_DEVICES) -> TrainingConfig:
+    """Phase 6's problem (config 1, or config 2 with TRON and the squared
+    loss) as a one-coordinate ``TrainingConfig`` on ``n_devices`` shards:
+    the rows already carry phase 6's intercept column, and the solver
+    settings are ``OptimizationProblem``'s defaults."""
+    evaluator = (EvaluatorType.AUC if task == TaskType.LOGISTIC_REGRESSION
+                 else EvaluatorType.RMSE)
+    return TrainingConfig(
+        task_type=task,
+        coordinates=[CoordinateConfig(
+            "global", CoordinateKind.FIXED_EFFECT, "global",
+            optimizer=OptimizerSettings(
+                optimizer=optimizer, max_iters=iters, reg_weight=TRAIN_L2,
+                tolerance=OptimizerConfig().tolerance))],
+        update_sequence=["global"], n_iterations=1, evaluators=[evaluator],
+        sparse_layout=layout, intercept=False, n_devices=n_devices,
+        device=device)
+
+
+def _fe_dataset(rows, labels) -> GameDataset:
+    return GameDataset(labels=np.asarray(labels, np.float32),
+                       features={"global": rows}, entity_ids={},
+                       feature_dims={"global": D + 1})
+
+
+def _mesh_fit(config: TrainingConfig, train, valid, prep) -> dict:
+    """One ``GameEstimator.fit`` on an already sharded dataset (``prep``
+    from ``_prepare``), with every kernel count set to 0 just before
+    and read just after, and the fixed effect's solve wall from the run
+    log."""
+    est = GameEstimator(config)
+    est._prepare = lambda _train: prep
+    log_path = os.path.join(WORK, f"mesh_{time.monotonic_ns()}.jsonl")
+    gather_rowsum.launches = 0
+    grr_contract.launches = grr_contract_dense.launches = 0
+    with RunLogger(log_path) as log:
+        t = time.perf_counter()
+        res = est.fit(train, valid, run_logger=log)[0]
+        _sync_card()
+        wall = time.perf_counter() - t
+    solve_s = sum(e["duration_s"] for e in read_run_log(log_path)
+                  if e["event"] == "cd_coordinate")
+    ev = next(iter(res.evaluations.values()))
+    return {"wall_s": wall, "solve_s": solve_s,
+            "fe_value": float(res.descent.history[-1]["global"]["value"]),
+            "evaluation": float(ev),
+            "launches": {"gather_rowsum": gather_rowsum.launches,
+                         "grr_contract": grr_contract.launches,
+                         "grr_contract_dense": grr_contract_dense.launches},
+            "w": res.model.models["global"].coefficients.means}
+
+
+def _per_evaluation_launches(dobj, w, batch) -> dict:
+    """The kernel launches of one ``value_and_gradient`` on the mesh."""
+    gather_rowsum.launches = 0
+    grr_contract.launches = grr_contract_dense.launches = 0
+    dobj.value_and_gradient(w, batch)
+    _sync_card()
+    return {"gather_rowsum": gather_rowsum.launches,
+            "grr": grr_contract.launches + grr_contract_dense.launches}
+
+
+def _mesh_shard_shapes(layout: str, batch, w, rng, time_it: bool) -> list:
+    """Each shard's kernel shapes against their plain versions: B1 over
+    the shard's ELL rows (the table w) and its transposed ELL (the table
+    a residual over the shard's rows), B2/B3 at every padded level of
+    the shard's GRR plan; shard 0 timed."""
+    shapes = []
+    for i, shard in enumerate(batch.shards):
+        timed = time_it and i == 0
+        if layout == "ELL":
+            scale = max(1.0, float(w.abs().max()))
+            shapes.append(check_b1_case(
+                f"mesh_ell_shard{i}_{shard.values.shape[0]}x"
+                f"{shard.values.shape[1]}", w, shard.values, shard.col_ids,
+                ATOL * scale, time_it=timed))
+        elif layout == "COLMAJOR":
+            cm = shard.colmajor
+            r = ((torch.sigmoid(shard.margins(w)) - shard.labels)
+                 * shard.mask).contiguous()
+            entry = check_b1_case(
+                f"mesh_colmajor_shard{i}_{cm.n_virtual_rows}x{cm.capacity}",
+                r, cm.tvals, cm.trows, COLMAJOR_ATOL, time_it=timed)
+            entry["padding_share"] = float((cm.tvals == 0).sum()) / \
+                cm.tvals.numel()
+            shapes.append(entry)
+        else:
+            for name, d in plan_levels(shard.grr):
+                lv = check_grr_level(f"shard{i}.{name}", d, rng, timed)
+                lv["real_supertiles"] = int(torch.count_nonzero(
+                    d.vals.abs().sum(dim=(1, 2))))
+                print(f"  {lv['kernel']} shard{i}.{name}: " + json.dumps(lv))
+                shapes.append(lv)
+    return shapes
+
+
+def phase_mesh(data: dict, training: dict, device: str,
+               time_it: bool = True) -> dict:
+    """Phase 17a (module docstring): config 1 on 8 shards through
+    ``GameEstimator`` on the ELL, transposed-ELL and GRR layouts, and
+    config 2 (TRON, so the HVP through the mesh) on the transposed ELL,
+    against phase 6's float64 surfaces and single-device fits; each new
+    per-shard kernel shape against its plain version."""
+    from photon_ml_torch.parallel import DistributedGLMObjective
+
+    failures: list = []
+    train = _fe_dataset(data["rows"], data["labels"])
+    valid = _fe_dataset(data["test_rows"], data["test_labels"])
+    f64 = data["f64"]
+    w_t = torch.from_numpy(f64["w"].astype(np.float32)).to(device)
+    v_t = torch.from_numpy(f64["v"].astype(np.float32)).to(device)
+    obj = GLMObjective(losses.LOGISTIC, RegularizationContext.l2(TRAIN_L2),
+                       NormalizationContext.identity())
+    single = {"ELL": (training["loss_final_ell"], training["test_auc_ell"],
+                      training["fit_ell_s"]),
+              "COLMAJOR": (training["loss_final_colmajor"],
+                           training["test_auc_colmajor"],
+                           training["fit_colmajor_s"]),
+              "GRR": (training["loss_final"], training["test_auc"],
+                      training["fit_s"])}
+    rng = np.random.default_rng(17)
+    out: dict = {"shards": MESH_DEVICES, "shapes": {}}
+    launches = {"gather_rowsum": 0, "grr_contract": 0,
+                "grr_contract_dense": 0}
+    for layout in ("ELL", "COLMAJOR", "GRR"):
+        cfg = mesh_fe_config(layout, device)
+        t = time.perf_counter()
+        prep = GameEstimator(cfg)._prepare(train)
+        _sync_card()
+        build_s = time.perf_counter() - t
+        batch = prep["global"]["batch"]
+        dobj = DistributedGLMObjective(obj, batch.mesh)
+        val, grad = dobj.value_and_gradient(w_t, batch)
+        got = {"gradient": grad,
+               "hessian_vector": dobj.hessian_vector(w_t, v_t, batch),
+               "hessian_diagonal": dobj.hessian_diagonal(w_t, batch)}
+        errors = {"value": abs(float(val) - f64["ref"]["value"])
+                  / abs(f64["ref"]["value"])}
+        for key, g in got.items():
+            ref = f64["ref"][key]
+            errors[key] = float(np.abs(g.double().cpu().numpy() - ref).max()
+                                / np.abs(ref).max())
+        per_eval = _per_evaluation_launches(dobj, w_t, batch)
+        fit = _mesh_fit(cfg, train, valid, prep)
+        for k, n in fit["launches"].items():
+            launches[k] += n
+        loss_1, auc_1, solve_1 = single[layout]
+        entry = {
+            "build_s": build_s, "rows_per_shard": batch.rows_per_shard,
+            "f64_errors": errors, "per_evaluation_launches": per_eval,
+            "fit_wall_s": fit["wall_s"], "fit_solve_s": fit["solve_s"],
+            "single_device_solve_s": solve_1,
+            "loss_final": fit["fe_value"], "single_loss_final": loss_1,
+            "loss_gap_rel": abs(fit["fe_value"] - loss_1) / abs(loss_1),
+            "auc": fit["evaluation"], "single_auc": auc_1,
+            "auc_gap": abs(fit["evaluation"] - auc_1),
+            "fit_launches": fit["launches"]}
+        for key, err in errors.items():
+            limit = F64_VALUE_RTOL if key == "value" else F64_VECTOR_RTOL
+            if not err <= limit:
+                failures.append(f"17a {layout}: {key} differs from the "
+                                f"float64 reference by {err:g} > {limit:g}")
+        if not entry["loss_gap_rel"] <= LAYOUT_LOSS_RTOL:
+            failures.append(f"17a {layout}: the mesh fit ends "
+                            f"{entry['loss_gap_rel']:g} from the single "
+                            "device's (relative)")
+        if not entry["auc_gap"] <= GAME_LAYOUT_AUC_ATOL:
+            failures.append(f"17a {layout}: AUC {fit['evaluation']:.5f} vs "
+                            f"the single device's {auc_1:.5f}")
+        if layout == "GRR":
+            levels = sum(len(plan_levels(s.grr)) for s in batch.shards)
+            entry["padded_levels"] = levels
+        if device == "cpu":
+            pass                 # the plain versions count no launch
+        elif layout == "GRR":
+            if per_eval["grr"] != levels:
+                failures.append(f"17a GRR: one evaluation launched B2/B3 "
+                                f"{per_eval['grr']} times for {levels} "
+                                "padded levels over the shards")
+            if fit["launches"]["grr_contract"] \
+                    + fit["launches"]["grr_contract_dense"] < levels:
+                failures.append("17a GRR: the fit launched B2/B3 fewer "
+                                "times than one evaluation")
+        else:
+            want = MESH_DEVICES * (1 if layout == "ELL" else 2)
+            if per_eval["gather_rowsum"] != want:
+                failures.append(f"17a {layout}: one evaluation launched B1 "
+                                f"{per_eval['gather_rowsum']} times, not "
+                                f"{want}")
+            # The fit's launches: its evaluations' (8 or 16 each) and
+            # the validation's scoring (one a sweep, single device).
+            n_b1 = fit["launches"]["gather_rowsum"]
+            if n_b1 < want:
+                failures.append(f"17a {layout}: the fit launched B1 {n_b1} "
+                                f"times, fewer than one evaluation's")
+        out["shapes"][layout] = _mesh_shard_shapes(layout, batch, w_t, rng,
+                                                   time_it)
+        out[layout.lower()] = entry
+        print(f"  17a {layout}: " + json.dumps(entry))
+        if layout == "COLMAJOR":
+            cm_prep = prep            # config 2's: the same shards
+        del prep, batch, dobj
+
+    # Config 2: TRON (squared loss) on the transposed ELL.
+    cfg = mesh_fe_config("COLMAJOR", device, optimizer=OptimizerType.TRON,
+                         task=TaskType.LINEAR_REGRESSION, iters=TRON_ITERS)
+    fit = _mesh_fit(cfg, train, valid, cm_prep)
+    for k, n in fit["launches"].items():
+        launches[k] += n
+    want = training["config2"]["tron_colmajor"]["loss_final"]
+    gap = abs(fit["fe_value"] - want) / abs(want)
+    out["config2_tron_colmajor"] = {
+        "loss_final": fit["fe_value"], "single_loss_final": want,
+        "loss_gap_rel": gap, "fit_wall_s": fit["wall_s"],
+        "fit_solve_s": fit["solve_s"],
+        "single_device_solve_s": training["config2"]["tron_colmajor"][
+            "fit_s"], "fit_launches": fit["launches"]}
+    if not gap <= LAYOUT_LOSS_RTOL:
+        failures.append(f"17a config-2 TRON: the mesh fit ends {gap:g} from "
+                        "the single device's (relative)")
+    del cm_prep
+    fast = [lv["level"] for lv in out["shapes"]["GRR"]
+            if lv.get("share_of_bound", 0.0) > GRR_BOUND_SLACK]
+    if fast:
+        failures.append(f"17a: L2-cold times beat the HBM bound at {fast}")
+    out["launches"] = launches
+    out["failures"] = failures
+    return out
+
+
+def phase_mesh_game(seed: int, n: int, device: str, ref: dict,
+                    d: int = D, n_entities: int = N_ENTITIES) -> dict:
+    """Phase 17b: config 5 (phase 7's ELL fit) on 8 shards: the fixed
+    effect's rows and both random effects' entities sharded; AUC within
+    phase 7's layout gate of its fit (``ref``: its AUC and wall)."""
+    failures: list = []
+    data = make_game_data(seed, n, d=d, n_entities=n_entities)
+    n_train = n - int(n * TRAIN_HOLDOUT)
+    train, valid = data.take(slice(0, n_train)), data.take(slice(n_train, n))
+    del data
+    fit = _fit_game(dataclasses.replace(game_config("ELL", device),
+                                        n_devices=MESH_DEVICES),
+                    train, valid)
+    res = fit.pop("result")
+    shard_entities = sorted({b["entities"] for b in fit["buckets"]})
+    out = {k: v for k, v in fit.items() if k != "buckets"}
+    out.update(shards=MESH_DEVICES, bucket_solves=len(fit["buckets"]),
+               shard_entities=shard_entities,
+               single_device_auc=ref["auc"],
+               single_device_wall_s=ref["wall_s"],
+               auc_gap=abs(fit["auc"] - ref["auc"]))
+    if not out["auc_gap"] <= GAME_LAYOUT_AUC_ATOL:
+        failures.append(f"17b: AUC {fit['auc']:.5f} vs phase 7's "
+                        f"{ref['auc']:.5f}")
+    if device != "cpu" and not (fit["fe_evaluation_launches"]
+                                >= fit["fe_evaluations"] >= MESH_DEVICES):
+        failures.append(f"17b: B1 launched {fit['fe_evaluation_launches']} "
+                        f"times in {fit['fe_evaluations']} shard "
+                        "evaluations")
+    for name in ("per_user", "per_item"):
+        blocks = res.model.models[name].coefficient_blocks
+        if any(b.shape[0] % MESH_DEVICES for b in blocks):
+            failures.append(f"17b: {name}'s blocks are not padded to the "
+                            "entity mesh")
+    out["failures"] = failures
+    return out
+
+
+def phase_mesh_stream(ref_10a: dict, device: str, seed: int = 7,
+                      n: int = GAME_ROWS, d: int = D,
+                      n_entities: int = N_ENTITIES,
+                      chunk_rows: int = STREAM_CHUNK_ROWS,
+                      time_it: bool = True, spill: bool = False) -> dict:
+    """Phase 17c: phase 10a's chunked fit with GRR chunks (B2/B3 on
+    every chunk of every pass), then with GRR chunks × 2 shards; each
+    within phase 10's gates of 10a (``ref_10a``); the chunk plans' padded
+    levels against their plain versions.  The chunks stay on the card
+    (placed once through the pinned ring, as 10a's resident variant);
+    ``spill`` streams them from disk every pass instead (a GRR pass moves
+    its plans, ~1.3 GB: ROADMAP B4.14)."""
+    failures: list = []
+    data = make_game_data(seed, n, d=d, n_entities=n_entities)
+    n_train = n - int(n * TRAIN_HOLDOUT)
+    train, valid = data.take(slice(0, n_train)), data.take(slice(n_train, n))
+    del data
+    out: dict = {"chunk_rows": chunk_rows}
+    rng = np.random.default_rng(23)
+    launches = {"grr_contract": 0, "grr_contract_dense": 0,
+                "gather_rowsum": 0}
+    shapes = []
+    n_chunks = -(-n_train // chunk_rows)
+    for name, over in (("grr", {}),
+                       ("grr_mesh", {"n_devices": MESH_CHUNK_DEVICES})):
+        spill_dir = (os.path.join(WORK, f"mesh_stream_{name}") if spill
+                     else None)
+        resident = {} if spill else {"chunk_max_resident": n_chunks}
+        grr_contract.launches = grr_contract_dense.launches = 0
+        fit = _stream_fit(stream_config(device, spill_dir, chunk_rows,
+                                        chunk_layout="GRR", **over,
+                                        **resident),
+                          train, valid)
+        n_grr = grr_contract.launches + grr_contract_dense.launches
+        launches["grr_contract"] += grr_contract.launches
+        launches["grr_contract_dense"] += grr_contract_dense.launches
+        launches["gather_rowsum"] += fit["launches"]
+        probe = fit["probe"]
+        evals = probe.evaluations(("value", "value_and_gradient"))
+        fe = probe.objectives[0]
+        pieces = 1 if fe.batch.mesh is None else fe.batch.mesh.size
+        chunk_passes = sum(c["chunks"] for c in evals)
+        entry = {"wall_s": fit["wall_s"], "stages": fit["stages"],
+                 "single_device_ell_wall_s": ref_10a["wall_s"],
+                 "evaluations": len(evals), "chunk_passes": chunk_passes,
+                 "pieces_a_chunk": pieces, "grr_launches": n_grr,
+                 "b1_launches": fit["launches"],
+                 **_stream_gates(f"17c {name} vs 10a", _fit_summary(fit),
+                                 ref_10a, failures)}
+        if not evals:
+            failures.append(f"17c {name}: no chunked evaluation")
+        if device != "cpu" and n_grr < chunk_passes * pieces:
+            failures.append(f"17c {name}: B2/B3 launched {n_grr} times for "
+                            f"{chunk_passes} chunk passes × {pieces} pieces")
+        if device != "cpu" and not all(dv.startswith("cuda")
+                                       for dv in probe.placed_devices):
+            failures.append(f"17c {name}: chunks placed on "
+                            f"{sorted(probe.placed_devices)}")
+        # The first chunk's plan (or pieces' plans) level by level.
+        host = fe.batch.chunk(0)
+        for j, piece in enumerate(host if isinstance(host, list)
+                                  else [host]):
+            pair = piece.grr.to(device)
+            for lname, lv in plan_levels(pair):
+                lvl = check_grr_level(f"{name}.chunk0.piece{j}.{lname}", lv,
+                                      rng, time_it and name == "grr")
+                lvl["real_supertiles"] = int(torch.count_nonzero(
+                    lv.vals.abs().sum(dim=(1, 2))))
+                print(f"  {lvl['kernel']} {lvl['level']}: "
+                      + json.dumps(lvl))
+                shapes.append(lvl)
+            del pair
+        out[name] = entry
+        print(f"  17c {name}: " + json.dumps(entry, default=str))
+        del fit, probe, fe, host
+    fast = [lv["level"] for lv in shapes
+            if lv.get("share_of_bound", 0.0) > GRR_BOUND_SLACK]
+    if fast:
+        failures.append(f"17c: L2-cold times beat the HBM bound at {fast}")
+    out["shapes"] = shapes
+    out["launches"] = launches
+    out["failures"] = failures
+    return out
+
+
+def phase_mesh_driver(ref_10c_dir: str, failures: list,
+                      device_args: list = ()) -> dict:
+    """Phase 17d: the training driver with ``distributed_init`` and 8
+    shards on phase 10c's chunked config-4 fixture, in this process (no
+    ``JAX_*`` variables: a world of one): the process group is NCCL
+    (gloo with ``--device cpu``; the run log's ``distributed``) and gone
+    after the run, its model within phase 8's coefficient tolerance of
+    10c's uninterrupted run (``ref_10c_dir``)."""
+    import torch.distributed as dist
+
+    from photon_ml_torch.cli import game_training_driver
+
+    out_dir = os.path.join(WORK, "mesh_driver")
+    cfg = stream_driver_config(out_dir)
+    cfg.update(distributed_init=True, n_devices=MESH_DEVICES)
+    cfg_path = os.path.join(WORK, "mesh_driver.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        game_training_driver.main([
+            "--config", cfg_path, "--spill-dir",
+            os.path.join(WORK, "mesh_driver_spill"), *device_args])
+    out = {"wall_s": time.perf_counter() - t,
+           "group_left": dist.is_initialized()}
+    if out["group_left"]:
+        failures.append("17d: the driver left its process group behind")
+    header = _read_log(os.path.join(out_dir, "run_log.jsonl"))[0]
+    out["distributed"] = header.get("distributed")
+    backend = "gloo" if "cpu" in device_args else "nccl"
+    if out["distributed"] != {"backend": backend, "world": 1, "rank": 0}:
+        failures.append(f"17d: process group {out['distributed']}, not a "
+                        f"world of one {backend} process")
+    got, _ = load_game_model(os.path.join(out_dir, "model"))
+    want, _ = load_game_model(os.path.join(ref_10c_dir, "model"))
+    w_got = got.models["global"].coefficients.means.numpy()
+    w_want = want.models["global"].coefficients.means.numpy()
+    out["max_abs_dw"] = float(np.abs(w_got - w_want).max())
+    if not np.allclose(w_got, w_want, rtol=DRIVER_COEF_TOL,
+                       atol=DRIVER_COEF_TOL):
+        failures.append(f"17d: the model differs from 10c's by "
+                        f"{out['max_abs_dw']:g}")
+    return out
+
+
+def mesh_references(device: str,
+                    parts=("17a", "17b", "17c", "17d")) -> tuple:
+    """Phase 17's references when it runs alone, for the sub-phases in
+    ``parts`` (None where not needed): phase 6's data, fits and float64
+    surfaces (untimed), phase 7's ELL fit, phase 10a's streamed fit and
+    phase 10c's uninterrupted driver run, as ``main()`` hands them
+    over."""
+    from photon_ml_torch.cli import game_training_driver
+
+    train = training = ref_7 = ref_10a = out_dir = None
+    if "17a" in parts:
+        train = phase_train_build(seed=3, n=TRAIN_ROWS, device=device)
+        training = phase_training(train, time_it=False)
+    data = make_game_data(7, GAME_ROWS)
+    n_train = GAME_ROWS - int(GAME_ROWS * TRAIN_HOLDOUT)
+    gtrain = data.take(slice(0, n_train))
+    gvalid = data.take(slice(n_train, GAME_ROWS))
+    del data
+    if "17b" in parts:
+        fit = _fit_game(game_config("ELL", device), gtrain, gvalid)
+        ref_7 = {"auc": fit["auc"], "wall_s": fit["wall_s"]}
+        del fit
+    if "17c" in parts:
+        fit = _stream_fit(stream_config(device, os.path.join(
+            WORK, "mesh_ref_spill"), STREAM_CHUNK_ROWS), gtrain, gvalid)
+        ref_10a = dict(_fit_summary(fit), wall_s=fit["wall_s"])
+        del fit
+    del gtrain, gvalid
+    if "17d" not in parts:
+        return train, training, ref_7, ref_10a, out_dir
+    out_dir = os.path.join(WORK, "mesh_ref_driver")
+    cfg_path = os.path.join(WORK, "mesh_ref_driver.json")
+    with open(cfg_path, "w") as f:
+        json.dump(stream_driver_config(out_dir), f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        game_training_driver.main([
+            "--config", cfg_path, "--spill-dir",
+            os.path.join(WORK, "mesh_ref_driver_spill")])
+    return train, training, ref_7, ref_10a, out_dir
+
+
+def add_mesh_shapes(kernels: list, launches: dict, key: str,
+                    b1_shapes: list, grr_shapes: list) -> None:
+    """Phase 17's launches (under ``key``) and checked shapes into the
+    kernel entries of B1 (``kernels[0]``) and of B2/B3."""
+    by_name = {k["name"]: k for k in kernels}
+    b1 = by_name["gather_rowsum"]
+    b1[key] = launches["gather_rowsum"]
+    b1["shapes"] += b1_shapes
+    for name in ("grr_contract_dense", "grr_contract"):
+        entry = by_name[name]
+        entry[key] = launches[name]
+        entry["shapes"] += [lv for lv in grr_shapes if lv["kernel"] == name]
+    for entry in by_name.values():
+        entry["max_abs_err"] = max(
+            sh["max_abs_err"] for sh in entry["shapes"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -6105,7 +6604,19 @@ def main() -> int:
                                      "the GRR fit")
         sweep = {key: train[key] for key in ("rows", "labels", "test_rows",
                                               "test_labels")}
-        del train
+
+        t = time.perf_counter()
+        mesh = phase_mesh(train, training, "cuda")
+        mesh["card"] = card
+        print(f"phase 17a mesh training ({time.perf_counter() - t:.1f} s): "
+              + json.dumps({"mesh": mesh}, default=str))
+        if mesh["failures"]:
+            raise AssertionError("phase 17a: " + "; ".join(
+                mesh["failures"]))
+        add_mesh_shapes(kernels, mesh["launches"], "launches_mesh_fits",
+                        mesh["shapes"]["ELL"] + mesh["shapes"]["COLMAJOR"],
+                        mesh["shapes"]["GRR"])
+        del train, mesh
 
         t = time.perf_counter()
         game = phase_game(seed=7, n=GAME_ROWS, device="cuda")
@@ -6120,6 +6631,17 @@ def main() -> int:
                       "w": game_ell_fe_w}
         kernels[0]["launches_game_fit"] = game["ell"]["launches"]
         kernels[0]["game_fit_fe_evaluations"] = game["ell"]["fe_evaluations"]
+
+        t = time.perf_counter()
+        mesh_game = phase_mesh_game(seed=7, n=GAME_ROWS, device="cuda",
+                                    ref=game["ell"])
+        mesh_game["card"] = card
+        print(f"phase 17b mesh GAME training ({time.perf_counter() - t:.1f}"
+              " s): " + json.dumps({"mesh_game": mesh_game}, default=str))
+        if mesh_game["failures"]:
+            raise AssertionError("phase 17b: " + "; ".join(
+                mesh_game["failures"]))
+        kernels[0]["launches_mesh_game_fit"] = mesh_game["launches"]
         kernels[0]["shapes"] += game["kernel_shapes"]
         kernels[0]["max_abs_err"] = max(
             sh["max_abs_err"] for sh in kernels[0]["shapes"])
@@ -6178,6 +6700,23 @@ def main() -> int:
             raise AssertionError("phase 10d: " + "; ".join(
                 stream_sweep["failures"]))
         kernels[0]["launches_stream_fit"] = stream["10a"]["launches"]
+
+        t = time.perf_counter()
+        mesh_stream = phase_mesh_stream(
+            dict(fit_10a, wall_s=stream["10a"]["wall_s"]), "cuda")
+        mesh_stream["17d"] = phase_mesh_driver(
+            os.path.join(WORK, "stream_driver_full"), mesh_stream["failures"])
+        mesh_stream["card"] = card
+        print(f"phase 17c-d mesh streamed training and driver ("
+              f"{time.perf_counter() - t:.1f} s): "
+              + json.dumps({"mesh_stream": mesh_stream}, default=str))
+        if mesh_stream["failures"]:
+            raise AssertionError("phase 17c-d: " + "; ".join(
+                mesh_stream["failures"]))
+        add_mesh_shapes(kernels, mesh_stream["launches"],
+                        "launches_mesh_stream_fits", [],
+                        mesh_stream["shapes"])
+        del mesh_stream
         kernels[0]["shapes"].append(stream["kernel_shape"])
         kernels[0]["max_abs_err"] = max(
             sh["max_abs_err"] for sh in kernels[0]["shapes"])

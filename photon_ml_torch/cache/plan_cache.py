@@ -2,10 +2,10 @@
 
 Counterpart of ``photon_ml_tpu/cache/plan_cache.py``, in the same file
 format and with the same keys, so a plan written by either package loads
-in the other (the sharded builder's list-of-plans files come with it,
-ROADMAP A7b).  ``data.grr.build_grr_pair`` resolves ``cache_dir=None``
-through ``$PHOTON_ML_TPU_PLAN_CACHE``.  A compiled plan (``GrrPair`` / ``GrrDirection`` /
-``GrrRangeSplit``) is a pure function of the ELL arrays, the table width
+in the other (the sharded builder's list-of-plans files too).
+``data.grr.build_grr_pair`` resolves ``cache_dir=None`` through
+``$PHOTON_ML_TPU_PLAN_CACHE``.  A compiled plan (``GrrPair`` /
+``GrrDirection`` / ``GrrRangeSplit``) is a pure function of the ELL arrays, the table width
 and the plan-affecting build options; its cache key is a content
 fingerprint of (cols, vals, dim) × a config key × the planner version.
 
@@ -81,20 +81,24 @@ def _host(a) -> np.ndarray:
     return np.asarray(a)
 
 
-def _encode_node(node, prefix: str, arrays: dict):
-    """Plan node → manifest fragment; array leaves land in ``arrays`` as
-    host numpy under tree-path keys."""
+def _encode_node(node, prefix: str, arrays: dict, raw: bool = False):
+    """Plan node → manifest fragment; array leaves land in ``arrays``
+    under tree-path keys, as host numpy (``raw``: as the node holds
+    them, e.g. a spilled chunk's memory-mapped members)."""
     from photon_ml_torch.data.grr import GrrDirection, GrrPair, GrrRangeSplit
+
+    def leaf(a):
+        return a if raw else _host(a)
 
     if node is None:
         return None
     if isinstance(node, GrrDirection):
         for f in _DIR_ARRAYS:
-            arrays[prefix + f] = _host(getattr(node, f))
+            arrays[prefix + f] = leaf(getattr(node, f))
         meta = {"kind": "dir"}
         meta.update({f: getattr(node, f) for f in _DIR_STATIC})
         meta["overflow"] = _encode_node(node.overflow, prefix + "o.",
-                                        arrays)
+                                        arrays, raw)
         return meta
     if isinstance(node, GrrRangeSplit):
         return {
@@ -102,26 +106,27 @@ def _encode_node(node, prefix: str, arrays: dict):
             "bounds": list(node.bounds),
             "table_len": node.table_len,
             "n_segments": node.n_segments,
-            "parts": [_encode_node(p, f"{prefix}p{i}.", arrays)
+            "parts": [_encode_node(p, f"{prefix}p{i}.", arrays, raw)
                       for i, p in enumerate(node.parts)],
         }
     if isinstance(node, GrrPair):
-        arrays[prefix + "hot_ids"] = _host(node.hot_ids)
-        arrays[prefix + "x_hot"] = _host(node.x_hot)
+        arrays[prefix + "hot_ids"] = leaf(node.hot_ids)
+        arrays[prefix + "x_hot"] = leaf(node.x_hot)
         if node.mid_ids is not None:
-            arrays[prefix + "mid_ids"] = _host(node.mid_ids)
+            arrays[prefix + "mid_ids"] = leaf(node.mid_ids)
         return {
             "kind": "pair",
-            "row": _encode_node(node.row_dir, prefix + "r.", arrays),
-            "col": _encode_node(node.col_dir, prefix + "c.", arrays),
-            "mid": _encode_node(node.col_mid, prefix + "m.", arrays),
+            "row": _encode_node(node.row_dir, prefix + "r.", arrays, raw),
+            "col": _encode_node(node.col_dir, prefix + "c.", arrays, raw),
+            "mid": _encode_node(node.col_mid, prefix + "m.", arrays, raw),
             "has_mid_ids": node.mid_ids is not None,
         }
     raise TypeError(f"cannot serialize plan node {type(node)!r}")
 
 
 def _decode_node(meta, prefix: str, arrays):
-    """Manifest fragment → plan node with host numpy leaves."""
+    """Manifest fragment → plan node with the leaves of ``arrays`` (host
+    numpy, or tensors already placed)."""
     from photon_ml_torch.data.grr import GrrDirection, GrrPair, GrrRangeSplit
 
     if meta is None:
@@ -177,10 +182,16 @@ def atomic_savez(path: str, meta, arrays: dict) -> None:
 
 
 def save_plan(path: str, plan) -> None:
-    """Serialize a plan to ``path`` atomically.  Leaves may be numpy
-    arrays or tensors on any device."""
+    """Serialize a plan (or a list of plans, the sharded builder's) to
+    ``path`` atomically.  Leaves may be numpy arrays or tensors on any
+    device."""
     arrays: dict = {}
-    meta = _encode_node(plan, "", arrays)
+    if isinstance(plan, (list, tuple)):
+        meta = {"kind": "list",
+                "items": [_encode_node(p, f"s{i}.", arrays)
+                          for i, p in enumerate(plan)]}
+    else:
+        meta = _encode_node(plan, "", arrays)
     atomic_savez(path, meta, arrays)
 
 
@@ -193,6 +204,9 @@ def load_plan(path: str):
     try:
         z = np.load(path, allow_pickle=False)
         meta = json.loads(bytes(z["__meta__"]).decode())
+        if isinstance(meta, dict) and meta.get("kind") == "list":
+            return [_decode_node(m, f"s{i}.", z)
+                    for i, m in enumerate(meta["items"])]
         return _decode_node(meta, "", z)
     except Exception as e:  # corrupt, partial or stale: rebuild
         logger.warning("plan cache: unreadable entry %s (%r); rebuilding",

@@ -45,15 +45,20 @@ Launched as one host of a multi-host training fleet (the
 host's chunk shard, reduces every chunk step over tcp, and writes its
 outputs under ``host_NNN/`` of the output dir; its run log's
 ``run_info`` carries ``fleet_host``, ``fleet_hosts`` and
-``fleet_transport``.  ``distributed_init`` and ``n_devices`` (the
-meshes and the psum transport, ROADMAP A7b) are not ported: those
-config fields must stay at their defaults.
+``fleet_transport``.  ``n_devices`` shards the fit over a mesh
+(``parallel.mesh``).  ``distributed_init`` first joins a
+``torch.distributed`` process group from ``JAX_COORDINATOR_ADDRESS`` /
+``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` (the JAX package's names, so
+one launcher serves both packages; NCCL on the card, gloo on the CPU);
+under a world of more than one process the fleet then reduces over
+``torch.distributed`` (the psum transport).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 
 import numpy as np
@@ -77,6 +82,8 @@ from photon_ml_torch.io.index_map import load_index_maps, save_index_maps
 from photon_ml_torch.io.libsvm import read_libsvm
 from photon_ml_torch.io.model_io import save_game_model
 from photon_ml_torch.utils.run_log import DEFAULT_FLUSH_EVERY_S, RunLogger
+
+logger = logging.getLogger(__name__)
 
 
 def _read_libsvm_dataset(path: str, config: TrainingConfig,
@@ -158,13 +165,80 @@ def _save_result(result: FitResult, estimator: GameEstimator,
     }
 
 
+def distributed_init_from_env(device=None) -> bool:
+    """Join a ``torch.distributed`` process group before the fit: the
+    coordinator address, world size and rank come from
+    ``JAX_COORDINATOR_ADDRESS`` (``host:port``; a free local port for a
+    world of one), ``JAX_NUM_PROCESSES`` (default 1) and
+    ``JAX_PROCESS_ID`` (default 0).  The backend follows the run's
+    device: ``"nccl"`` on CUDA, ``"gloo"`` on the CPU.  Returns at once
+    (False) if a group is already initialized; True when it made one."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from photon_ml_torch.config import read_env
+    from photon_ml_torch.device import resolve_device
+
+    if dist.is_initialized():
+        return False
+    world = int(read_env("JAX_NUM_PROCESSES") or 1)
+    rank = int(read_env("JAX_PROCESS_ID") or 0)
+    address = read_env("JAX_COORDINATOR_ADDRESS")
+    if not address:
+        if world > 1:
+            raise ValueError(
+                "distributed_init with JAX_NUM_PROCESSES > 1 needs "
+                "JAX_COORDINATOR_ADDRESS (host:port)")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            address = f"127.0.0.1:{s.getsockname()[1]}"
+    dev = resolve_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"tcp://{address}",
+                            world_size=world, rank=rank)
+    logger.info("distributed: rank %d of %d (%s, %s)", rank, world,
+                backend, address)
+    return True
+
+
+def _distributed_info() -> dict:
+    """The run log's record of an initialized process group: backend,
+    world size and rank."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return {}
+    return {"distributed": {"backend": dist.get_backend(),
+                            "world": dist.get_world_size(),
+                            "rank": dist.get_rank()}}
+
+
 def run(config: TrainingConfig, log: RunLogger | None = None) -> dict:
     """The whole training pipeline; returns the written summary."""
     config.validate()
-    # A host of a multi-host fleet (the PHOTON_FLEET_* trio) joins it
-    # and writes its own output tree (run log, summary, model,
-    # telemetry) under host_NNN/; `telemetry fleet-report` joins the
-    # hosts' logs.
+    made_group = (distributed_init_from_env(config.device)
+                  if config.distributed_init else False)
+    try:
+        return _run_joined(config, log)
+    finally:
+        if made_group:
+            import torch.distributed as dist
+
+            from photon_ml_torch.parallel import fleet
+
+            fleet.deactivate()
+            dist.destroy_process_group()
+
+
+def _run_joined(config: TrainingConfig, log: RunLogger | None) -> dict:
+    # A host of a multi-host fleet (the PHOTON_FLEET_* trio, or a world
+    # of processes) joins it and writes its own output tree (run log,
+    # summary, model, telemetry) under host_NNN/; `telemetry
+    # fleet-report` joins the hosts' logs.
     from photon_ml_torch.parallel import fleet
 
     fctx = fleet.initialize_from_env()
@@ -186,7 +260,8 @@ def run(config: TrainingConfig, log: RunLogger | None = None) -> dict:
                                      **({"fleet_host": fctx.host_id,
                                          "fleet_hosts": fctx.n_hosts,
                                          "fleet_transport": fctx.transport}
-                                        if in_fleet else {})},
+                                        if in_fleet else {}),
+                                     **_distributed_info()},
                            flush_every_s=DEFAULT_FLUSH_EVERY_S)) as log, \
             telemetry.maybe_session(
                 config.telemetry,

@@ -11,12 +11,9 @@ chunk-streamed, disk-spilled fixed effect (``chunk_rows``,
 and the fused cycle (``re_chunk_entities``, ``cd_fused``) and streamed
 scoring (``score_chunk_rows`` and its knobs), pipeline telemetry
 (``telemetry``, ``telemetry_dir``), profiling (``profile_dir``) and the
-live monitor (``monitor``, ``monitor_every_s``, ``status_port``) are
-ported, with the reference's validation.  A training config's fields of
-tiers the port does not have yet (meshes: ROADMAP A7b) are accepted in
-the file but ``validate()`` raises ``NotImplementedError`` when one is
-set to anything but its default, naming its ROADMAP item.  For
-serving:
+live monitor (``monitor``, ``monitor_every_s``, ``status_port``) and
+the meshes (``n_devices``, ``distributed_init``) are ported, with the
+reference's validation.  For serving:
 
 - ``telemetry``, ``monitor`` and ``trace`` have the reference's
   defaults (``"metrics"``, ``"on"``, ``"on"``); ``replicas`` > 1 runs
@@ -55,6 +52,11 @@ SANCTIONED_ENV = {
     "PHOTON_ML_TPU_SPILL_DIR": (
         "default chunk-store spill dir (data.chunk_store"
         ".resolve_spill_dir)"),
+    "JAX_COORDINATOR_ADDRESS": (
+        "process-group coordinator host:port (multi-process init, "
+        "training driver; the JAX package's name)"),
+    "JAX_NUM_PROCESSES": "process-group world size",
+    "JAX_PROCESS_ID": "process-group rank",
     "PHOTON_FLEET_NUM_HOSTS": (
         "local-fleet host count (parallel.fleet tcp transport)"),
     "PHOTON_FLEET_HOST_ID": "local-fleet host id (parallel.fleet)",
@@ -234,11 +236,14 @@ class TrainingConfig:
     # Sparse fixed-effect layout: AUTO is plain ELL here (as in the JAX
     # package off the TPU); GRR and COLMAJOR select the others.
     sparse_layout: str = "AUTO"
-    n_devices: int | None = None           # ROADMAP A7b
+    # Mesh training: the fixed effect's rows and the random effects'
+    # entities split into n_devices shards (parallel.mesh), round-robin
+    # over the visible devices of the run's kind.
+    n_devices: int | None = None
     # The chunk-streamed fixed effect (data.chunked_batch): sparse fixed
     # effects become ceil(n/chunk_rows) congruent chunks streamed to the
     # card every evaluation; chunk_layout AUTO is ELL here (GRR chunks
-    # are ROADMAP A7b); chunk_max_resident placed chunks stay on the
+    # run B2/B3 a chunk); chunk_max_resident placed chunks stay on the
     # card.  spill_dir (default $PHOTON_ML_TPU_SPILL_DIR) spills the
     # chunks to disk, host_max_resident decoded chunks stay in host RAM
     # and prefetch_depth chunks are prefetched disk → host → card ahead
@@ -271,13 +276,11 @@ class TrainingConfig:
     monitor: str = "off"
     monitor_every_s: float = 2.0
     status_port: int | None = None
-    distributed_init: bool = False         # ROADMAP A7b
+    # Join a torch.distributed process group from the JAX_* trio before
+    # the fit (cli.game_training_driver.distributed_init_from_env).
+    distributed_init: bool = False
     # Where training runs: "cuda" (default) or "cpu".
     device: str = "cuda"
-
-    # (field, default, ROADMAP item) of the tiers not ported yet.
-    _NOT_PORTED = (
-        ("n_devices", None, "A7b"), ("distributed_init", False, "A7b"))
 
     def validate(self) -> None:
         names = [c.name for c in self.coordinates]
@@ -317,6 +320,15 @@ class TrainingConfig:
             raise ValueError("telemetry must be off|metrics|trace")
         _validate_monitor(self)
         self._validate_chunked()
+        if self.n_devices is not None:
+            if self.n_devices <= 0:
+                raise ValueError("n_devices must be positive")
+            for c in self.coordinates:
+                if c.down_sampling_rate is not None:
+                    raise ValueError(
+                        "down-sampling is not supported with mesh "
+                        "training (n_devices); the row subset would "
+                        "cross shard boundaries")
         for name, grid in self.reg_weight_grid.items():
             if name not in names:
                 raise ValueError(f"grid entry '{name}' unknown")
@@ -332,12 +344,6 @@ class TrainingConfig:
                 if name not in names:
                     raise ValueError(f"tuning range '{name}' unknown")
         _validate_device(self.device)
-        for knob, default, item in self._NOT_PORTED:
-            if getattr(self, knob) != default:
-                raise NotImplementedError(
-                    f"{knob}={getattr(self, knob)!r} is not ported to "
-                    f"photon_ml_torch yet (ROADMAP {item}); leave it at "
-                    f"its default")
 
     def _validate_chunked(self) -> None:
         """The reference's rules for the chunked and spilled tier."""

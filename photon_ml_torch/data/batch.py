@@ -162,13 +162,18 @@ Batch = Union[DenseBatch, SparseBatch]
 def make_dense_batch(x: np.ndarray, labels: np.ndarray,
                      weights: np.ndarray | None = None,
                      offsets: np.ndarray | None = None,
+                     pad_to: int | None = None,
                      device=None) -> DenseBatch:
-    """A DenseBatch on ``device`` (default CUDA) from host arrays."""
+    """A DenseBatch on ``device`` (default CUDA) from host arrays, its
+    rows padded to ``pad_to`` with masked zero rows."""
     dev = resolve_device(device)
     n = x.shape[0]
+    pad = max((pad_to or n) - n, 0)
 
     def col(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+        a = np.asarray(a, np.float32)
+        a = np.pad(a, ((0, pad),) + ((0, 0),) * (a.ndim - 1))
+        return torch.from_numpy(a).to(dev)
 
     return DenseBatch(
         x=col(x), labels=col(labels),

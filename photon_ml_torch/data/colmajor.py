@@ -96,6 +96,8 @@ def build_colmajor_arrays(
     values: np.ndarray,
     dim: int,
     capacity: int | None = None,
+    pad_vrows_to_multiple: int | None = None,
+    pad_vrows_to: int | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(tvals [V, C] f32, trows [V, C] i32, vcol [V] i32) on the host
     from row-ELL arrays; entries with value 0 are dropped.
@@ -104,9 +106,10 @@ def build_colmajor_arrays(
       col_ids, values: [n, k] row-major ELL (padding slots carry 0).
       dim: feature-space width.
       capacity: virtual-row capacity C (default ``choose_capacity``).
-
-    V is padded to a multiple of 8 (``vrow_pad``) with all-zero virtual
-    rows.
+      pad_vrows_to_multiple: pad V up to a multiple of this (default 8,
+        ``vrow_pad``) with all-zero virtual rows.
+      pad_vrows_to: pad V to exactly this (equal-shape shards under data
+        parallelism, ``parallel.mesh.shard_sparse_batch``).
     """
     col_ids = np.asarray(col_ids)
     values = np.asarray(values)
@@ -119,7 +122,10 @@ def build_colmajor_arrays(
 
     from photon_ml_torch.native import colmajor_build_native
 
-    native = colmajor_build_native(col_ids, values, dim, capacity)
+    native = colmajor_build_native(
+        col_ids, values, dim, capacity,
+        pad_vrows_to_multiple=pad_vrows_to_multiple,
+        pad_vrows_to=pad_vrows_to)
     if native is not None:
         return native
 
@@ -138,7 +144,11 @@ def build_colmajor_arrays(
     vrow_base = np.zeros(dim + 1, np.int64)
     np.cumsum(vrows_per_col, out=vrow_base[1:])
     V = int(vrow_base[-1])
-    V_pad = vrow_pad(V)
+    V_pad = vrow_pad(V, pad_vrows_to_multiple)
+    if pad_vrows_to is not None:
+        if pad_vrows_to < V:
+            raise ValueError(f"pad_vrows_to={pad_vrows_to} < V={V}")
+        V_pad = pad_vrows_to
 
     offs = np.zeros(dim + 1, np.int64)
     np.cumsum(counts, out=offs[1:])
@@ -162,12 +172,16 @@ def build_colmajor(
     dim: int,
     capacity: int | None = None,
     device=None,
+    pad_vrows_to_multiple: int | None = None,
+    pad_vrows_to: int | None = None,
 ) -> ColMajorSlice:
     """``build_colmajor_arrays`` placed on ``device`` (default CUDA;
     ``"cpu"`` when asked)."""
     dev = resolve_device(device)
-    tvals, trows, vcol = build_colmajor_arrays(col_ids, values, dim,
-                                               capacity=capacity)
+    tvals, trows, vcol = build_colmajor_arrays(
+        col_ids, values, dim, capacity=capacity,
+        pad_vrows_to_multiple=pad_vrows_to_multiple,
+        pad_vrows_to=pad_vrows_to)
     return ColMajorSlice(
         tvals=torch.from_numpy(tvals).to(dev),
         trows=torch.from_numpy(trows).to(dev),

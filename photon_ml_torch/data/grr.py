@@ -26,8 +26,12 @@ path) exceeds 5 % of its entries is flagged; the flags of one
 ``build_grr_pair`` are one warning and one ``grr.spill_flagged_builds``
 telemetry count (``_SpillWarnings``).
 
-Left out of this port (ROADMAP A7b): the mesh-sharded builder
-``build_sharded_grr_pairs`` and its padding helpers.
+``build_sharded_grr_pairs`` compiles one congruent plan a row shard
+(the mesh's shards and the GRR chunk layouts): one hot and mid set, one
+cap a direction, overflow decided on the pooled spill, and every shard
+padded to the same leaf shapes with zero-valued supertiles and COO
+entries.  Its host plans are the JAX package's, array for array, and
+its plan-cache entries load in either package.
 """
 
 from __future__ import annotations
@@ -35,8 +39,10 @@ from __future__ import annotations
 import dataclasses
 import functools
 import logging
+import os
 import threading
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -150,6 +156,14 @@ def _collect_spill_warnings(fn):
     return wrapped
 
 
+def collect_spill_warnings():
+    """The public aggregation scope for builds that compile several plan
+    families (``build_chunked_batch``, ``shard_sparse_batch``): every
+    nested ``build_grr_pair``/``build_sharded_grr_pairs`` scope folds
+    into one summary at the outermost exit (the scope is re-entrant)."""
+    return _spill_warnings
+
+
 def _next_pow2(x: int) -> int:
     return 1 << max(0, int(x - 1).bit_length())
 
@@ -184,6 +198,15 @@ def _nnz(a) -> int:
 
 
 def _place(a, device: torch.device) -> Tensor:
+    """A leaf on ``device``.  A read-only array (a plan loaded from a
+    memory-mapped spill file) is copied: up to the card by the transfer,
+    on the CPU explicitly, so no tensor aliases the mapping."""
+    if isinstance(a, np.ndarray) and not a.flags.writeable:
+        if device.type == "cpu":
+            return torch.from_numpy(a.copy())
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # read once by the copy
+            return torch.from_numpy(a).to(device)
     return torch.as_tensor(a).to(device)
 
 
@@ -258,8 +281,14 @@ class GrrDirection:
         if self.overflow is not None:
             out = out + self.overflow.contract(table)
         if self.n_spill:
-            out = out.index_add(0, self.spill_seg,
-                                self.spill_val * table[self.spill_idx])
+            # The COO residual adds a segment's terms one after another
+            # (atomics on the card): in float64, so their order never
+            # shows in the float32 result and a fit repeats bitwise.
+            spill = torch.zeros(self.n_segments, dtype=torch.float64,
+                                device=out.device).index_add_(
+                0, self.spill_seg,
+                (self.spill_val * table[self.spill_idx]).double())
+            out = out + spill.to(out.dtype)
         return out
 
     def squared(self) -> "GrrDirection":
@@ -883,14 +912,16 @@ def _plan_col_ranges(cols, vals_masked, dim, max_parts=4,
 
 
 def _mid_hot_split(cols, vals_masked, dim, n, mid_threshold, validate,
-                   overflow_threshold):
+                   overflow_threshold, mid=None, cap=None, dense_grid=None):
     """Mid-hot column split for the gradient direction: columns that
     would overflow the tail plan's capacities get a compact host plan
-    over remapped ids.  Returns (mid_ids | None, col_mid | None,
-    vals_masked_tail)."""
+    over remapped ids.  ``mid``/``cap``/``dense_grid`` may be forced
+    (the sharded build's one global mid set and common plan structure).
+    Returns (mid_ids | None, col_mid | None, vals_masked_tail)."""
     nz = vals_masked != 0
-    counts = np.bincount(cols[nz].reshape(-1), minlength=dim)
-    mid = np.flatnonzero(counts > mid_threshold)
+    if mid is None:
+        counts = np.bincount(cols[nz].reshape(-1), minlength=dim)
+        mid = np.flatnonzero(counts > mid_threshold)
     if not mid.size:
         return None, None, vals_masked
     pos = np.full(dim, -1, np.int64)
@@ -900,8 +931,8 @@ def _mid_hot_split(cols, vals_masked, dim, n, mid_threshold, validate,
     col_mid = _build_host_direction(
         idx=r_idx.astype(np.int64), seg=pos[cols[r_idx, k_idx]],
         val=vals_masked[r_idx, k_idx], table_len=n,
-        n_segments=int(mid.size), validate=validate,
-        overflow_threshold=overflow_threshold)
+        n_segments=int(mid.size), cap=cap, validate=validate,
+        overflow_threshold=overflow_threshold, dense_grid=dense_grid)
     tail = np.where(is_mid, np.float32(0.0), vals_masked)
     return mid.astype(np.int32), col_mid, tail
 
@@ -956,11 +987,12 @@ def _resolve_cache_dir(cache_dir: str | None) -> str | None:
     return cache_dir or read_env(PLAN_CACHE_ENV) or None
 
 
-def _pair_cache_path(cols, vals, dim, cache_dir, config: dict) -> str:
+def _pair_cache_path(cols, vals, dim, cache_dir, config: dict,
+                     extra: tuple = ()) -> str:
     from photon_ml_torch.cache import plan_cache
 
     fp = plan_cache.dataset_fingerprint(
-        np.asarray(cols), np.asarray(vals, np.float32), dim)
+        np.asarray(cols), np.asarray(vals, np.float32), dim, extra=extra)
     return plan_cache.plan_cache_path(
         cache_dir, fp, plan_cache.plan_config_key(**config))
 
@@ -1129,3 +1161,317 @@ def build_grr_pair(
     phases["total_s"] = time.perf_counter() - t_all
     last_build_phases = phases
     return pair
+
+
+# -- mesh-sharded plans: congruent per-shard GrrPairs ----------------------------
+#
+# Each shard owns a contiguous block of rows: its row direction contracts
+# the replicated w over its rows, its col direction gives its [dim]
+# gradient partial, and the distributed objective sums the partials.
+# The shards are built congruent (equal leaf shapes, the same hot and mid
+# sets, one cap a direction, overflow for all or none), as the JAX
+# package's builder must for its global arrays; the port keeps the
+# congruence so both packages compile the same plans and share cache
+# files.  Shape differences that remain are closed by zero-valued dummy
+# supertiles and COO entries, which add exactly zero.
+
+
+def _pad_grr_direction(d: GrrDirection, n_st: int, n_spill: int,
+                       ovf_pad=None) -> GrrDirection:
+    """Pad a host plan to (n_st supertiles, n_spill COO entries).
+
+    Dummy supertiles carry vals 0, gw 0 and ow n_ow − 1 with
+    first_of_ow 0: appended after the real tiles, they extend the last
+    output-window run, so the revisiting order stays valid."""
+    rep = {}
+    add = n_st - d.n_supertiles
+    if d.dense_grid and add:
+        raise AssertionError(
+            "dense-grid shard plans must have equal tile counts (full "
+            "grid); got a mismatch")
+    if add:
+        def z3(a, dt):
+            a = np.asarray(a)
+            return np.concatenate([a, np.zeros((add,) + a.shape[1:], dt)])
+        rep.update(
+            g1=z3(d.g1, np.int8), g2=z3(d.g2, np.int8), g3=z3(d.g3, np.int8),
+            vals=z3(d.vals, np.float32),
+            gw_of_st=np.concatenate(
+                [np.asarray(d.gw_of_st), np.zeros(add, np.int32)]),
+            ow_of_st=np.concatenate(
+                [np.asarray(d.ow_of_st),
+                 np.full(add, d.n_ow - 1, np.int32)]),
+            first_of_ow=np.concatenate(
+                [np.asarray(d.first_of_ow), np.zeros(add, np.int32)]))
+    madd = n_spill - d.n_spill
+    if madd:
+        rep.update(
+            spill_idx=np.pad(np.asarray(d.spill_idx), (0, madd)),
+            spill_seg=np.pad(np.asarray(d.spill_seg), (0, madd)),
+            spill_val=np.pad(np.asarray(d.spill_val), (0, madd)))
+    if ovf_pad is not None and d.overflow is not None:
+        rep["overflow"] = _pad_grr_direction(d.overflow, *ovf_pad)
+    return dataclasses.replace(d, **rep) if rep else d
+
+
+def _pool_overflow(dirs: list, table_len: int, n_segments: int,
+                   validate: bool, threshold: int | None) -> list:
+    """The sharded build's two-level overflow, decided once on the pooled
+    spill (all shards or none, so they stay congruent), with the
+    economics of ``_spill_overflow``."""
+    ms = [int(np.count_nonzero(np.asarray(d.spill_val))) for d in dirs]
+    total = sum(ms)
+    if threshold is None or total <= threshold:
+        return dirs
+    st_floor = -(-n_segments // (WIN // 4))
+    if st_floor * SLOTS * len(dirs) > 96 * total:
+        return dirs
+    seed = {"cap": None, "dense": None}
+    lvl2: list = [None] * len(dirs)
+
+    def build(i):
+        d = dirs[i]
+        lvl2[i] = _build_host_direction(
+            np.asarray(d.spill_idx, np.int64),
+            np.asarray(d.spill_seg, np.int64), np.asarray(d.spill_val),
+            table_len, n_segments, cap=seed["cap"], validate=validate,
+            overflow_threshold=None, dense_grid=seed["dense"])
+        if seed["cap"] is None:
+            seed["cap"] = lvl2[i].cap
+            seed["dense"] = lvl2[i].dense_grid
+
+    _seeded_map(build, sorted(range(len(dirs)), key=lambda j: -ms[j]))
+    if sum(x.n_supertiles for x in lvl2) * SLOTS > 96 * total:
+        return dirs
+    z = np.zeros(0, np.int32)
+    return [dataclasses.replace(d, overflow=l2, spill_idx=z, spill_seg=z,
+                                spill_val=np.zeros(0, np.float32))
+            for d, l2 in zip(dirs, lvl2)]
+
+
+def _pad_dirs_common(dirs: list) -> list:
+    """Pad every shard's plan (and level-2 plan) to the largest shapes."""
+    n_st = max(d.n_supertiles for d in dirs)
+    n_sp = max(d.n_spill for d in dirs)
+    ovf_pad = None
+    if dirs[0].overflow is not None:  # all or none by construction
+        ovf_pad = (max(d.overflow.n_supertiles for d in dirs),
+                   max(d.overflow.n_spill for d in dirs))
+    return [_pad_grr_direction(d, n_st, n_sp, ovf_pad) for d in dirs]
+
+
+def _seeded_map(fn, order: list) -> None:
+    """``fn(i)`` for every shard in ``order``: the first alone (it seeds
+    the choices the others share), the rest on a thread pool (the C++
+    builder releases the GIL).  Each call writes only its own shard's
+    results, so the outcome is the sequential one."""
+    if not order:
+        return
+    fn(order[0])
+    if len(order) > 1:
+        with ThreadPoolExecutor(
+                max_workers=min(len(order) - 1, os.cpu_count() or 1)) as ex:
+            list(ex.map(fn, order[1:]))
+
+
+@_collect_spill_warnings
+def build_sharded_grr_pairs(
+    shard_cols: list,
+    shard_vals: list,
+    dim: int,
+    cap: int | None = None,
+    hot_threshold: int | None = None,
+    max_hot: int = 128,
+    max_hot_bytes: int = 2 << 30,
+    mid_threshold: int | None = None,
+    validate: bool = True,
+    overflow_threshold: int | None = None,
+    col_range_split: bool | None = None,
+    cache_dir: str | None = None,
+) -> list:
+    """Compile congruent GRR plans over equal-size row shards.
+
+    ``shard_cols``/``shard_vals``: one [per, k] ELL pair a shard, padded
+    to equal row counts.  Returns one ``GrrPair`` a shard with host
+    (numpy) leaves, equal in structure and leaf shapes; place each with
+    ``GrrPair.to``.  The options are ``build_grr_pair``'s, with
+    thresholds scaled to the shard grid; ``col_range_split`` (default:
+    on for shards of at least one row window) splits every shard's row
+    direction into the same column ranges, decided on a pooled sample.
+    ``cache_dir`` (default ``$PHOTON_ML_TPU_PLAN_CACHE``): the plan cache
+    over the whole shard list, one entry (``"sharded": True`` in its
+    key) shared with the JAX package.
+    """
+    n_shards = len(shard_cols)
+    cache_dir = _resolve_cache_dir(cache_dir)
+    cache_path = None
+    if cache_dir is not None:
+        from photon_ml_torch.cache import plan_cache
+
+        passed = locals()
+        config = {name: passed[name] for name in _PLAN_OPTION_NAMES}
+        config.update({"n_shards": n_shards, "sharded": True})
+        cache_path = _pair_cache_path(
+            shard_cols[0], shard_vals[0], dim, cache_dir, config,
+            extra=tuple(shard_cols[1:]) + tuple(shard_vals[1:]))
+        cached = plan_cache.load_plan(cache_path)
+        if cached is not None:
+            logger.info("sharded GRR plan cache hit: %s", cache_path)
+            return cached
+    per = shard_cols[0].shape[0]
+    n_total = per * n_shards
+    if overflow_threshold is None:   # nnz-scaled, as in build_grr_pair
+        nnz = sum(int(np.count_nonzero(np.asarray(v))) for v in shard_vals)
+        overflow_threshold = 16384 + nnz // 256
+
+    # One hot id set for every shard, from the global column counts.
+    counts = np.zeros(dim, np.int64)
+    for c, v in zip(shard_cols, shard_vals):
+        nz = np.asarray(v) != 0
+        counts += np.bincount(np.asarray(c)[nz].reshape(-1), minlength=dim)
+    n_row_windows = max(1, -(-per // WIN)) * n_shards
+    if hot_threshold is None:
+        hot_threshold = min(max(64, n_total // 16), 48 * n_row_windows)
+    # The byte budget applies to each shard's x_hot [per, H].
+    max_hot = min(max_hot, max(1, max_hot_bytes // (4 * per)))
+    hot = _select_hot(counts, hot_threshold, max_hot)
+    hot_ids = hot.astype(np.int32)
+
+    # One mid-hot set for every shard.
+    auto_mid = mid_threshold is None
+    if auto_mid:
+        mid_threshold = 16 * n_row_windows
+    counts_nonhot = counts.copy()
+    counts_nonhot[hot] = 0
+    mid = (np.flatnonzero(counts_nonhot > mid_threshold)
+           if (not auto_mid or per >= WIN) else np.zeros(0, np.int64))
+    mid_ids = mid.astype(np.int32) if mid.size else None
+    mid_pos = None
+    if mid.size:
+        mid_pos = np.full(dim, -1, np.int64)
+        mid_pos[mid] = np.arange(mid.size)
+
+    # Pass 1: hot masking a shard, and each shard's mid mass (the mid cap
+    # is seeded by a shard that carries mid entries).
+    prepped, mid_counts = [], []
+    for c, v in zip(shard_cols, shard_vals):
+        c = np.asarray(c)
+        v = np.asarray(v, np.float32)
+        x_hot, keep = _apply_hot_split(c, v, dim, per, hot)
+        vm = np.where(keep, v, np.float32(0.0))
+        prepped.append((c, x_hot, vm))
+        mid_counts.append(
+            0 if mid_pos is None
+            else int(((vm != 0) & (mid_pos[c] >= 0)).sum()))
+
+    # Pass 2: mid plans, heaviest shard first (it seeds cap and grid).
+    mid_dirs: list = [None] * n_shards
+    tails: list = [None] * n_shards
+    mseed = {"cap": None, "dense": None}
+
+    def mid_plan(i):
+        c, _, vm = prepped[i]
+        _, md, tail = _mid_hot_split(
+            c, vm, dim, per, mid_threshold, validate, None, mid=mid,
+            cap=mseed["cap"], dense_grid=mseed["dense"])
+        if mseed["cap"] is None:
+            mseed["cap"], mseed["dense"] = md.cap, md.dense_grid
+        mid_dirs[i] = md
+        tails[i] = tail
+
+    if mid_pos is not None:
+        _seeded_map(mid_plan, sorted(range(n_shards),
+                                     key=lambda j: -mid_counts[j]))
+
+    # The row direction's column-range split, decided once on a pooled
+    # sample so every shard splits into the same ranges.
+    row_ranges = None
+    if col_range_split or (col_range_split is None and per >= WIN):
+        samp_per = max(1, 65536 // n_shards)
+        stride = max(1, per // samp_per)
+        samp_c = np.concatenate(
+            [c[::stride][:samp_per] for (c, _, _) in prepped])
+        samp_v = np.concatenate(
+            [vm[::stride][:samp_per] for (_, _, vm) in prepped])
+        row_ranges = _plan_col_ranges(samp_c, samp_v, dim,
+                                      sample_rows=samp_c.shape[0])
+        if row_ranges:
+            logger.info(
+                "sharded GRR row direction: column-range split into %d "
+                "parts (bounds %s)", len(row_ranges),
+                [lo for lo, _, _ in row_ranges] + [dim])
+
+    # Pass 3: the main directions, heaviest shard first (it seeds the
+    # shared caps and grid choices).
+    row_dirs: list = [None] * n_shards
+    col_dirs: list = [None] * n_shards
+    x_hots = [x_hot for (_, x_hot, _) in prepped]
+    nnzs = [int(np.count_nonzero(vm)) for (_, _, vm) in prepped]
+    n_parts = len(row_ranges) if row_ranges else 0
+    row_parts: list = [[None] * n_parts for _ in range(n_shards)]
+    part_caps = [cap] * n_parts
+    part_dense: list = [None] * n_parts
+    caps = {"row": cap, "col": cap}
+    dense: dict = {"row": None, "col": None}
+
+    def main_plans(i):
+        c, _, vm = prepped[i]
+        vm_tail = tails[i] if tails[i] is not None else vm
+        if row_ranges:
+            for r, (lo, hi, _) in enumerate(row_ranges):
+                p = _build_direction_ell(
+                    c, vm, 0, dim, per, part_caps[r], validate, None,
+                    dense_grid=part_dense[r], idx_range=(lo, hi))
+                part_caps[r] = part_caps[r] or p.cap
+                part_dense[r] = (p.dense_grid if part_dense[r] is None
+                                 else part_dense[r])
+                row_parts[i][r] = p
+        else:
+            rd = _build_direction_ell(c, vm, 0, dim, per, caps["row"],
+                                      validate, None,
+                                      dense_grid=dense["row"])
+            caps["row"] = caps["row"] or rd.cap
+            if dense["row"] is None:
+                dense["row"] = rd.dense_grid
+            row_dirs[i] = rd
+        cd_ = _build_direction_ell(c, vm_tail, 1, per, dim, caps["col"],
+                                   validate, None, dense_grid=dense["col"])
+        caps["col"] = caps["col"] or cd_.cap
+        if dense["col"] is None:
+            dense["col"] = cd_.dense_grid
+        col_dirs[i] = cd_
+
+    _seeded_map(main_plans, sorted(range(n_shards), key=lambda j: -nnzs[j]))
+
+    if row_ranges:
+        # Overflow pooling and padding a range across the shards.
+        bounds = tuple(lo for lo, _, _ in row_ranges) + (dim,)
+        for r, (lo, hi, frac) in enumerate(row_ranges):
+            fam = [row_parts[i][r] for i in range(n_shards)]
+            thr = _range_overflow_threshold(overflow_threshold, frac)
+            fam = _pad_dirs_common(
+                _pool_overflow(fam, hi - lo, per, validate, thr))
+            for i in range(n_shards):
+                row_parts[i][r] = fam[i]
+        row_dirs = [GrrRangeSplit(parts=tuple(row_parts[i]), bounds=bounds,
+                                  table_len=dim, n_segments=per)
+                    for i in range(n_shards)]
+    else:
+        row_dirs = _pad_dirs_common(_pool_overflow(
+            row_dirs, dim, per, validate, overflow_threshold))
+    col_dirs = _pad_dirs_common(_pool_overflow(
+        col_dirs, per, dim, validate, overflow_threshold))
+    if mid_pos is not None:
+        mid_dirs = _pad_dirs_common(_pool_overflow(
+            mid_dirs, per, int(mid.size), validate, overflow_threshold))
+    pairs = [
+        GrrPair(row_dir=rd, col_dir=cd_, hot_ids=hot_ids.copy(), x_hot=xh,
+                mid_ids=None if mid_ids is None else mid_ids.copy(),
+                col_mid=md)
+        for rd, cd_, xh, md in zip(row_dirs, col_dirs, x_hots, mid_dirs)]
+    if cache_path is not None:
+        try:
+            plan_cache.save_plan(cache_path, pairs)
+        except Exception as e:  # noqa: BLE001 - logged, run continues
+            logger.warning("plan cache: save failed (%r)", e)
+    return pairs

@@ -34,16 +34,15 @@ class FeatureStatistics:
         return self.mean.shape[-1]
 
 
-def compute_statistics(batch: Batch) -> FeatureStatistics:
-    """Masked reductions → FeatureStatistics.  Sparse batches are not
-    densified; a feature absent from some rows has implicit zeros, so
-    its extrema include 0."""
+def _partials(batch: Batch) -> tuple:
+    """(n, Σx, Σx², nnz, min, max) over one batch's real examples: sums
+    by ``index_add_``, extrema by ``scatter_reduce`` (±inf where a
+    feature has no stored entry)."""
     mask = batch.mask
     n = mask.sum()
     dim = batch.dim
     real = mask[:, None] > 0.0
     inf = torch.tensor(float("inf"), dtype=mask.dtype, device=mask.device)
-
     if isinstance(batch, DenseBatch):
         xm = batch.x * mask[:, None]
         s1 = xm.sum(0)
@@ -51,25 +50,55 @@ def compute_statistics(batch: Batch) -> FeatureStatistics:
         nnz = ((batch.x != 0.0) & real).sum(0).to(mask.dtype)
         x_min = torch.where(real, batch.x, inf).amin(0)
         x_max = torch.where(real, batch.x, -inf).amax(0)
+        return n, s1, s2, nnz, x_min, x_max
+    assert isinstance(batch, SparseBatch)
+    v = batch.values
+    cols = batch.col_ids.reshape(-1).long()
+    vm = v * mask[:, None]
+    zeros = torch.zeros(dim, dtype=v.dtype, device=v.device)
+    s1 = zeros.index_add(0, cols, vm.reshape(-1))
+    s2 = zeros.index_add(0, cols, (vm * v).reshape(-1))
+    real_entry = (v != 0.0) & real
+    nnz = zeros.index_add(0, cols, real_entry.to(v.dtype).reshape(-1))
+    x_min = torch.full((dim,), float("inf"), dtype=v.dtype,
+                       device=v.device).scatter_reduce(
+        0, cols, torch.where(real_entry, v, inf).reshape(-1), "amin")
+    x_max = torch.full((dim,), -float("inf"), dtype=v.dtype,
+                       device=v.device).scatter_reduce(
+        0, cols, torch.where(real_entry, v, -inf).reshape(-1), "amax")
+    return n, s1, s2, nnz, x_min, x_max
+
+
+def compute_statistics(batch) -> FeatureStatistics:
+    """Masked reductions → FeatureStatistics.  Sparse batches are not
+    densified; a feature absent from some rows has implicit zeros, so
+    its extrema include 0.  A ``parallel.mesh.ShardedBatch`` folds its
+    shards' partials in shard order (and across the processes of an
+    initialized world)."""
+    from photon_ml_torch.parallel.mesh import (
+        ShardedBatch,
+        all_reduce_max,
+        all_reduce_sum,
+    )
+
+    if isinstance(batch, ShardedBatch):
+        dev = batch.mesh.device
+        parts = [tuple(t.to(dev) for t in _partials(b))
+                 for b in batch.shards]
+        n, s1, s2, nnz, x_min, x_max = parts[0]
+        for pn, p1, p2, pz, pmin, pmax in parts[1:]:
+            n, s1, s2, nnz = n + pn, s1 + p1, s2 + p2, nnz + pz
+            x_min = torch.minimum(x_min, pmin)
+            x_max = torch.maximum(x_max, pmax)
+        n, s1, s2, nnz = all_reduce_sum([n, s1, s2, nnz])
+        neg_min, x_max = all_reduce_max([-x_min, x_max])
+        x_min = -neg_min
     else:
-        assert isinstance(batch, SparseBatch)
-        v = batch.values
-        cols = batch.col_ids.reshape(-1).long()
-        vm = v * mask[:, None]
-        zeros = torch.zeros(dim, dtype=v.dtype, device=v.device)
-        s1 = zeros.index_add(0, cols, vm.reshape(-1))
-        s2 = zeros.index_add(0, cols, (vm * v).reshape(-1))
-        real_entry = (v != 0.0) & real
-        nnz = zeros.index_add(0, cols, real_entry.to(v.dtype).reshape(-1))
-        x_min = torch.full((dim,), float("inf"), dtype=v.dtype,
-                           device=v.device).scatter_reduce(
-            0, cols, torch.where(real_entry, v, inf).reshape(-1), "amin")
-        x_max = torch.full((dim,), -float("inf"), dtype=v.dtype,
-                           device=v.device).scatter_reduce(
-            0, cols, torch.where(real_entry, v, -inf).reshape(-1), "amax")
-        implicit_zero = nnz < n
-        x_min = torch.where(implicit_zero, x_min.clamp(max=0.0), x_min)
-        x_max = torch.where(implicit_zero, x_max.clamp(min=0.0), x_max)
+        n, s1, s2, nnz, x_min, x_max = _partials(batch)
+    # A feature stored in fewer rows than there are has implicit zeros.
+    implicit_zero = nnz < n
+    x_min = torch.where(implicit_zero, x_min.clamp(max=0.0), x_min)
+    x_max = torch.where(implicit_zero, x_max.clamp(min=0.0), x_max)
 
     # Unseen features: clean zeros, not ±inf.
     x_min = torch.where(torch.isfinite(x_min), x_min, 0.0)

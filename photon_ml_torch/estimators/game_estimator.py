@@ -23,7 +23,13 @@ every evaluation.  With ``re_chunk_entities`` each random effect is a
 ``cd_fused`` a fit is one ``game.fused_sweep`` pass a cycle over the
 chunked fixed effect and every random effect.  With ``checkpoint_dir``
 the coordinate descent, the swept fit's lanes and the tuner's rounds
-snapshot, and ``resume`` restores them.  A mesh is ROADMAP A7b.
+snapshot, and ``resume`` restores them.  With ``n_devices`` the fixed
+effect's rows shard over a data mesh (``parallel.mesh``: ELL,
+transposed ELL padded to a common virtual-row count, or congruent GRR
+plans a shard; AUTO resolves to COLMAJOR there, as the reference's does
+off the TPU) and train through the ``DistributedGLMObjective``, chunks
+compose with it (chunks × shards), and the random effects' entities
+shard over an entity mesh.
 """
 
 from __future__ import annotations
@@ -136,6 +142,8 @@ class GameEstimator:
         self.task = config.task_type
         self.loss = self.task.loss
         self._warm_model = None
+        self._mesh_cache = None
+        self._entity_mesh_cache = None
         # The host residency group of the store-backed coordinates (set
         # by _share_chunk_window, or by the fused engine's build).
         self._chunk_window_group = None
@@ -155,6 +163,31 @@ class GameEstimator:
                 for c in self.config.coordinates
                 if c.kind == CoordinateKind.FIXED_EFFECT}
 
+    def _mesh(self):
+        """The data mesh of ``n_devices`` shards (built once), or None."""
+        if self.config.n_devices is None:
+            return None
+        if self._mesh_cache is None:
+            from photon_ml_torch.parallel import data_parallel_mesh
+
+            # A chunk-streamed fit under a psum fleet splits its chunks
+            # across the processes: its mesh stays within the process.
+            self._mesh_cache = data_parallel_mesh(
+                self.config.n_devices, device=self.device,
+                span_processes=self.config.chunk_rows is None)
+        return self._mesh_cache
+
+    def _entity_mesh(self):
+        """The entity mesh of ``n_devices`` shards (built once), or None."""
+        if self.config.n_devices is None:
+            return None
+        if self._entity_mesh_cache is None:
+            from photon_ml_torch.parallel.mesh import entity_mesh
+
+            self._entity_mesh_cache = entity_mesh(self.config.n_devices,
+                                                  device=self.device)
+        return self._entity_mesh_cache
+
     def _layout(self) -> str:
         layout = self.config.sparse_layout
         return "ELL" if layout == "AUTO" else layout
@@ -166,6 +199,7 @@ class GameEstimator:
         feats = train.features[coord_cfg.feature_shard]
         labels = train.labels.astype(np.float32)
         weights = train.weight_array()
+        mesh = self._mesh()
         intercept_index = None
         if isinstance(feats, np.ndarray):
             if cfg.chunk_rows is not None:
@@ -178,7 +212,16 @@ class GameEstimator:
             if cfg.intercept:
                 x = np.concatenate([x, np.ones((len(x), 1), np.float32)], 1)
                 intercept_index = x.shape[1] - 1
-            batch = make_dense_batch(x, labels, weights=weights, device=dev)
+            if mesh is not None:
+                from photon_ml_torch.parallel import padded_rows, shard_batch
+
+                batch = shard_batch(make_dense_batch(
+                    x, labels, weights=weights,
+                    pad_to=padded_rows(len(x), mesh.size), device="cpu"),
+                    mesh)
+            else:
+                batch = make_dense_batch(x, labels, weights=weights,
+                                         device=dev)
             dim = x.shape[1]
         else:
             dim = train.feature_dim(coord_cfg.feature_shard)
@@ -189,16 +232,31 @@ class GameEstimator:
                 dim += 1
             if cfg.chunk_rows is not None:
                 return self._prepare_chunked(rows, dim, labels, weights,
-                                             intercept_index)
-            layout = self._layout()
-            # The ELL arrays serve normalization statistics and the
-            # down-sampled view; a GRR batch that needs neither skips them.
-            keep_ell = (cfg.normalization != NormalizationType.NONE
-                        or coord_cfg.down_sampling_rate is not None)
-            batch = make_sparse_batch(
-                rows, dim, labels, weights=weights, grr=(layout == "GRR"),
-                col_major=(layout == "COLMAJOR"), keep_ell=keep_ell,
-                cache_dir=cfg.plan_cache_dir, device=dev)
+                                             intercept_index, mesh)
+            if mesh is not None:
+                # Per-shard layouts: each shard indexes its own rows.
+                # AUTO is COLMAJOR on a mesh, as the reference's AUTO is
+                # off the TPU.
+                from photon_ml_torch.parallel import shard_sparse_batch
+
+                layout = cfg.sparse_layout
+                if layout == "AUTO":
+                    layout = "COLMAJOR"
+                batch = shard_sparse_batch(
+                    rows, dim, labels, mesh, weights=weights,
+                    layout=layout.lower(), cache_dir=cfg.plan_cache_dir)
+            else:
+                layout = self._layout()
+                # The ELL arrays serve normalization statistics and the
+                # down-sampled view; a GRR batch that needs neither
+                # skips them.
+                keep_ell = (cfg.normalization != NormalizationType.NONE
+                            or coord_cfg.down_sampling_rate is not None)
+                batch = make_sparse_batch(
+                    rows, dim, labels, weights=weights,
+                    grr=(layout == "GRR"), col_major=(layout == "COLMAJOR"),
+                    keep_ell=keep_ell, cache_dir=cfg.plan_cache_dir,
+                    device=dev)
 
         norm = NormalizationContext.identity()
         if cfg.normalization != NormalizationType.NONE:
@@ -220,10 +278,11 @@ class GameEstimator:
             train_weights = torch.from_numpy(new_w).to(dev)
         return {"batch": batch, "norm": norm, "dim": dim,
                 "intercept_index": intercept_index, "train_idx": train_idx,
-                "train_weights": train_weights}
+                "train_weights": train_weights, "mesh": mesh,
+                "n_examples": train.n}
 
     def _prepare_chunked(self, rows, dim: int, labels, weights,
-                         intercept_index) -> dict:
+                         intercept_index, mesh=None) -> dict:
         """The chunk-streamed fixed effect: ELL chunks on the host, spilled
         to ``spill_dir`` (or ``$PHOTON_ML_TPU_SPILL_DIR``: the environment
         default applies at this layer only).  AUTO resolves to ELL on
@@ -235,13 +294,14 @@ class GameEstimator:
         layout = "ELL" if cfg.chunk_layout == "AUTO" else cfg.chunk_layout
         chunked = build_chunked_batch(
             rows, dim, labels, weights=weights, chunk_rows=cfg.chunk_rows,
-            layout=layout.lower(), cache_dir=cfg.plan_cache_dir,
+            layout=layout.lower(), mesh=mesh, cache_dir=cfg.plan_cache_dir,
             spill_dir=resolve_spill_dir(cfg.spill_dir),
             host_max_resident=cfg.host_max_resident)
         return {"chunked": chunked, "batch": None,
                 "norm": NormalizationContext.identity(), "dim": dim,
                 "intercept_index": intercept_index, "train_idx": None,
-                "train_weights": None}
+                "train_weights": None, "mesh": mesh,
+                "n_examples": len(labels)}
 
     # -- warm start (a saved raw-space model → training space) -------------
 
@@ -373,18 +433,28 @@ class GameEstimator:
                         prefetch_depth=cfg.prefetch_depth,
                         device=self.device)
                     continue
+                distributed = None
+                if p["mesh"] is not None:
+                    from photon_ml_torch.parallel import (
+                        DistributedGLMObjective,
+                    )
+
+                    distributed = DistributedGLMObjective(objective,
+                                                          p["mesh"])
                 coords[cc.name] = FixedEffectCoordinate(
                     name=cc.name, batch=p["batch"],
                     problem=OptimizationProblem(
                         objective=objective,
                         optimizer=cc.optimizer.optimizer, config=ocfg),
                     train_idx=p["train_idx"],
-                    train_weights=p["train_weights"])
+                    train_weights=p["train_weights"],
+                    distributed=distributed, n_examples=p["n_examples"])
                 continue
             objective = GLMObjective(
                 loss=self.loss,
                 reg=_reg_context(cc.optimizer, weight, 1, None, self.device),
                 norm=NormalizationContext.identity())
+            e_mesh = self._entity_mesh()
             if cfg.re_chunk_entities is not None:
                 from photon_ml_torch.data.chunk_store import (
                     resolve_spill_dir,
@@ -402,18 +472,19 @@ class GameEstimator:
                     config=ocfg, optimizer=cc.optimizer.optimizer,
                     host_max_resident=cfg.host_max_resident,
                     prefetch_depth=cfg.prefetch_depth,
-                    retirement=cfg.re_retirement, device=self.device)
+                    retirement=cfg.re_retirement, mesh=e_mesh,
+                    device=self.device)
             elif isinstance(train.features[cc.feature_shard], np.ndarray):
                 coord = build_random_effect_coordinate(
                     cc.entity_key, train, cc.feature_shard, objective,
                     config=ocfg, optimizer=cc.optimizer.optimizer,
-                    device=self.device)
+                    mesh=e_mesh, device=self.device)
             else:
                 coord = build_random_effect_coordinate_sparse(
                     cc.entity_key, train, cc.feature_shard, objective,
                     global_dim=train.feature_dim(cc.feature_shard),
                     config=ocfg, optimizer=cc.optimizer.optimizer,
-                    device=self.device)
+                    mesh=e_mesh, device=self.device)
             # Built under its entity key; known by the coordinate name.
             coord.name = cc.name
             coords[cc.name] = coord
@@ -584,8 +655,11 @@ class GameEstimator:
             obj.reg.reg_mask))
         if isinstance(coord, ChunkedFixedEffectCoordinate):
             return dataclasses.replace(coord, objective=obj_l)
-        return dataclasses.replace(coord, problem=dataclasses.replace(
-            coord.problem, objective=obj_l))
+        return dataclasses.replace(
+            coord, problem=dataclasses.replace(coord.problem,
+                                               objective=obj_l),
+            distributed=(None if coord.distributed is None
+                         else coord.distributed.replace(obj_l)))
 
     def _swept_lane_model(self, coords: dict, name: str, w_j: Tensor,
                           locked: dict, offsets: Tensor, lam: float,

@@ -2,6 +2,10 @@
 the per-entity (sharded) variants (counterpart of
 ``photon_ml_tpu/evaluation``)."""
 
+from photon_ml_torch.evaluation.sharded import (
+    sharded_auc,
+    sharded_precision_at_k,
+)
 from photon_ml_torch.evaluation.evaluators import (
     EvaluatorType,
     auc,
@@ -32,4 +36,6 @@ __all__ = [
     "poisson_loss",
     "rmse",
     "squared_loss",
+    "sharded_auc",
+    "sharded_precision_at_k",
 ]

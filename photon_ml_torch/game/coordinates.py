@@ -26,8 +26,14 @@ coordinates.
 
 ``train_swept`` trains a whole λ grid as one lane-batched solve over
 the shared batch (``optim.lbfgs.lbfgs_solve_swept``, or its streamed
-counterpart).  The mesh variants are ROADMAP A7b and raise
-``NotImplementedError``.
+counterpart).
+
+On a mesh (``parallel.mesh``) the fixed effect's batch is a
+``ShardedBatch`` solved through the ``DistributedGLMObjective`` (each
+shard's partial, one reduction), its scores sliced back to the real
+example count; the random effects' blocks are padded to the mesh's
+entity grid and each shard's entities solve as one lane-batched solve
+(``solve_entity_sharded``), their results joined in shard order.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from photon_ml_torch.models.coefficients import Coefficients
 from photon_ml_torch.models.game import FixedEffectModel, RandomEffectModel
 from photon_ml_torch.ops.objective import (
     GLMObjective,
+    _lane_objective,
     sweep_value,
     sweep_value_and_gradient,
 )
@@ -66,16 +73,16 @@ logger = logging.getLogger(__name__)
 Tensor = torch.Tensor
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded coordinates are not ported yet (ROADMAP A7b)")
-
-
 def _apply_training_view(batch: Batch, offsets: Tensor, train_idx,
                          train_weights) -> Batch:
     """The batch with the offsets installed; with ``train_idx``, only
-    those rows (the down-sampled view) and their ``train_weights``."""
+    those rows (the down-sampled view) and their ``train_weights``.  A
+    sharded batch takes global offsets (``ShardedBatch.with_offsets``);
+    the config refuses down-sampling on a mesh."""
+    from photon_ml_torch.parallel.mesh import ShardedBatch
+
+    if isinstance(batch, ShardedBatch):
+        return batch.with_offsets(offsets)
     if train_idx is None:
         return dataclasses.replace(batch, offsets=offsets)
     if isinstance(batch, SparseBatch):
@@ -128,20 +135,27 @@ class FixedEffectCoordinate(Coordinate):
     """One global solve over the full batch."""
 
     name: str
-    batch: Batch                     # the full batch (scoring)
+    batch: Batch                     # the full batch (scoring), or sharded
     problem: OptimizationProblem
     # Down-sampled training view: train on rows ``train_idx`` with
     # ``train_weights``; score every row.
     train_idx: Tensor | None = None
     train_weights: Tensor | None = None
-    distributed: None = None         # mesh objective: ROADMAP A7b
+    # Set when the batch is sharded on a mesh.
+    distributed: "object | None" = None   # DistributedGLMObjective
+    # The real example count when the mesh padded the rows: scores are
+    # sliced back to it so they stay summable with other coordinates'.
+    n_examples: int | None = None
 
-    def __post_init__(self):
-        _no_mesh(self.distributed)
+    @property
+    def device(self) -> torch.device:
+        if self.distributed is not None:
+            return self.distributed.mesh.device
+        return self.batch.labels.device
 
     def initial_coefficients(self) -> Tensor:
         return torch.zeros(self.batch.dim, dtype=torch.float32,
-                           device=self.batch.labels.device)
+                           device=self.device)
 
     def _training_batch(self, offsets: Tensor) -> Batch:
         return _apply_training_view(self.batch, offsets, self.train_idx,
@@ -149,7 +163,31 @@ class FixedEffectCoordinate(Coordinate):
 
     def train(self, offsets: Tensor, warm_start: Tensor | None = None):
         w0 = self.initial_coefficients() if warm_start is None else warm_start
-        res = self.problem.run(self._training_batch(offsets), w0)
+        if self.distributed is None:
+            res = self.problem.run(self._training_batch(offsets), w0)
+            return res.w, res
+        from photon_ml_torch.optim.tron import tron_solve
+
+        view = self._training_batch(offsets)
+        dist, problem = self.distributed, self.problem
+        if problem.optimizer == OptimizerType.TRON:
+            if problem.has_l1():
+                raise ValueError(
+                    "TRON requires a smooth objective; use LBFGS (OWL-QN) "
+                    "for L1/elastic-net problems")
+            res = tron_solve(
+                lambda w: dist.value_and_gradient(w, view),
+                lambda w, v: dist.hessian_vector(w, v, view), w0,
+                problem.config)
+        else:
+            from photon_ml_torch.optim.lbfgs import lbfgs_solve
+
+            res = lbfgs_solve(
+                lambda w: dist.value_and_gradient(w, view), w0,
+                problem.config,
+                l1_weight=problem._l1_vector(w0) if problem.has_l1()
+                else None,
+                value=lambda w: dist.value(w, view))
         return res.w, res
 
     def train_swept(self, offsets: Tensor, reg, warm_start=None):
@@ -171,7 +209,7 @@ class FixedEffectCoordinate(Coordinate):
                 "train_swept supports LBFGS/OWL-QN lanes only (the λ "
                 "sweep is the L-BFGS grid workload; fit TRON "
                 "coordinates per grid point)")
-        dev = self.batch.labels.device
+        dev = self.device
         dim = self.batch.dim
         W0 = (torch.zeros((reg.n_lanes, dim), dtype=torch.float32,
                           device=dev) if warm_start is None
@@ -181,6 +219,15 @@ class FixedEffectCoordinate(Coordinate):
                if reg.has_l1() else None)
         l2s = reg.l2_weights.to(dev)
         view = self._training_batch(offsets)
+        if self.distributed is not None:
+            # Lanes ride through every shard's products; one reduction
+            # an evaluation for all of them.
+            lane = self.distributed.replace(_lane_objective(obj, l2s))
+            res = lbfgs_solve_swept(
+                lambda W: lane.value_and_gradient(W, view), W0,
+                self.problem.config, l1_weights=l1v,
+                value=lambda W: lane.value(W, view))
+            return res.w, res
         res = lbfgs_solve_swept(
             lambda W: sweep_value_and_gradient(obj, W, view, l2s), W0,
             self.problem.config, l1_weights=l1v,
@@ -188,7 +235,15 @@ class FixedEffectCoordinate(Coordinate):
         return res.w, res
 
     def score(self, coefficients: Tensor) -> Tensor:
-        return self.batch.x_dot(coefficients)
+        if self.distributed is None:
+            scores = self.batch.x_dot(coefficients)
+        else:
+            scores = self.batch.gather_rows(
+                self.distributed.x_dot(coefficients, self.batch))
+        if (self.n_examples is not None
+                and self.n_examples != scores.shape[-1]):
+            scores = scores[..., : self.n_examples]
+        return scores
 
     def as_model(self, coefficients: Tensor) -> FixedEffectModel:
         return FixedEffectModel(
@@ -200,9 +255,9 @@ class FixedEffectCoordinate(Coordinate):
         """Coefficient variances at the optimum over the training view."""
         from photon_ml_torch.optim.variance import compute_variances
 
-        return compute_variances(self.problem.objective, coefficients,
-                                 self._training_batch(offsets),
-                                 variance_type)
+        return compute_variances(
+            self.distributed or self.problem.objective, coefficients,
+            self._training_batch(offsets), variance_type)
 
 
 @dataclasses.dataclass(eq=False)
@@ -371,6 +426,9 @@ class RandomEffectCoordinate(Coordinate):
     n_examples: int
     problem: OptimizationProblem
     projection: "object | None" = None   # SubspaceProjection when sparse
+    # Entity mesh: the blocks are padded to its grid and each shard's
+    # entities solve on the shard's device.
+    mesh: "object | None" = None
 
     @property
     def device(self) -> torch.device:
@@ -393,9 +451,9 @@ class RandomEffectCoordinate(Coordinate):
 
     def train(self, offsets: Tensor, warm_start=None):
         w0s = self.initial_coefficients() if warm_start is None else warm_start
-        results = [solve_batched(self.problem, self.block_batch(b, offsets),
-                                 w0s[b])
-                   for b in range(len(self.x_blocks))]
+        results = [solve_entity_sharded(
+            self.problem, self.block_batch(b, offsets), w0s[b], self.mesh)
+            for b in range(len(self.x_blocks))]
         return [r.w for r in results], results
 
     def score(self, coefficient_blocks: list[Tensor]) -> Tensor:
@@ -429,18 +487,77 @@ class RandomEffectCoordinate(Coordinate):
         return [(blk.shape[0], blk.shape[-1]) for blk in self.x_blocks]
 
 
+def _cat_results(results: list, device) -> "object":
+    """Lane-batched results of consecutive entity slices → one result
+    over all their lanes, on ``device``."""
+    from photon_ml_torch.optim.base import OptimizationResult, StatesTracker
+
+    def cat(field, of=lambda r: r):
+        return torch.cat([getattr(of(r), field).to(device)
+                          for r in results])
+
+    tracker = StatesTracker(**{
+        f.name: cat(f.name, lambda r: r.tracker)
+        for f in dataclasses.fields(StatesTracker)})
+    return OptimizationResult(
+        w=cat("w"), value=cat("value"), grad_norm=cat("grad_norm"),
+        iterations=cat("iterations"), converged=cat("converged"),
+        tracker=tracker)
+
+
+def _gather_result(res):
+    """A process's lanes of a result → every process's lanes, in rank
+    order (a one-process world returns ``res``)."""
+    from photon_ml_torch.optim.base import OptimizationResult, StatesTracker
+    from photon_ml_torch.parallel.mesh import all_gather_rows
+
+    tracker = StatesTracker(**{
+        f.name: all_gather_rows(getattr(res.tracker, f.name))
+        for f in dataclasses.fields(StatesTracker)})
+    return OptimizationResult(
+        w=all_gather_rows(res.w), value=all_gather_rows(res.value),
+        grad_norm=all_gather_rows(res.grad_norm),
+        iterations=all_gather_rows(res.iterations),
+        converged=all_gather_rows(res.converged), tracker=tracker)
+
+
+def solve_entity_sharded(problem: OptimizationProblem, batch: DenseBatch,
+                         w0s: Tensor, mesh):
+    """``solve_batched`` over entity lanes split across an entity mesh:
+    each of this process's shards (an equal, contiguous slice of the
+    lanes, which ``parallel.mesh.shard_entity_blocks`` padded to the
+    grid) solves on its device, the results join in shard order on the
+    mesh's first device, then across the world's processes.  Lanes are
+    independent problems, so each lane's result is the unsharded
+    solve's.  Without a mesh it is ``solve_batched``."""
+    if mesh is None:
+        return solve_batched(problem, batch, w0s)
+    from photon_ml_torch.parallel.mesh import entity_slices
+
+    fields = [f.name for f in dataclasses.fields(DenseBatch)]
+    pieces = {k: entity_slices(getattr(batch, k), mesh) for k in fields}
+    w0_pieces = entity_slices(w0s, mesh)
+    results = [
+        solve_batched(problem,
+                      DenseBatch(**{k: pieces[k][j] for k in fields}),
+                      w0_pieces[j])
+        for j in range(mesh.local_size)]
+    res = _cat_results(results, mesh.device)
+    return _gather_result(res) if mesh.process_count > 1 else res
+
+
 # -- the streamed random effect --------------------------------------------
 
 
-def _re_chunk_train(problem: OptimizationProblem, dev: dict):
-    """One entity chunk's lane-batched solve: (w [C, p], scores [C, cap]
-    at w, per-lane max |w − w0|, converged [C], iterations [C]).  The
-    scores come out of the same placed chunk, so a sweep never pays a
-    second scoring pass over the store."""
+def _re_chunk_train(problem: OptimizationProblem, dev: dict, mesh=None):
+    """One entity chunk's lane-batched solve (entity-sharded on a mesh):
+    (w [C, p], scores [C, cap] at w, per-lane max |w − w0|, converged
+    [C], iterations [C]).  The scores come out of the same placed chunk,
+    so a sweep never pays a second scoring pass over the store."""
     batch = DenseBatch(x=dev["x"], labels=dev["labels"],
                        weights=dev["weights"], offsets=dev["offsets"],
                        mask=dev["mask"])
-    res = solve_batched(problem, batch, dev["w0"])
+    res = solve_entity_sharded(problem, batch, dev["w0"], mesh)
     scores = torch.einsum("ecp,ep->ec", dev["x"], res.w)
     dw = (res.w - dev["w0"]).abs().amax(-1)
     return res.w, scores, dw, res.converged, res.iterations
@@ -567,6 +684,9 @@ class StreamedRandomEffectCoordinate(Coordinate):
     retire_tolerance: float | None = None
     projection: "object | None" = None
     device: "object" = None          # default CUDA; "cpu" when asked
+    # Entity mesh: chunk sizes are multiples of its size, and a chunk's
+    # lanes solve a shard on each shard's device.
+    mesh: "object | None" = None
     traces_convergence = True        # re_convergence events a sweep
 
     def __post_init__(self):
@@ -575,6 +695,8 @@ class StreamedRandomEffectCoordinate(Coordinate):
         if self.retire_tolerance is None:
             self.retire_tolerance = float(self.problem.config.tolerance)
         self.device = resolve_device(self.device)
+        if self.mesh is not None:
+            self.device = self.mesh.device
         ne = self.grouping.n_entities
         self._w_host = [np.zeros((e, p), np.float32)
                         for e, p in zip(ne, self.widths)]
@@ -709,7 +831,12 @@ class StreamedRandomEffectCoordinate(Coordinate):
 
     def _place(self, item: dict):
         """The placement stage: the chunk's arrays to the card (pinned
-        staging, copy stream, an event); the host maps ride along."""
+        staging, copy stream, an event); the host maps ride along.  On a
+        mesh the chunk must split evenly over its shards."""
+        if self.mesh is not None:
+            from photon_ml_torch.parallel.mesh import check_entity_chunk
+
+            check_entity_chunk(item["arrays"], self.mesh)
         return (self._placer.place(item["arrays"]), item["b"], item["ents"],
                 item["ex"], item["rows"], item["cols"])
 
@@ -810,7 +937,8 @@ class StreamedRandomEffectCoordinate(Coordinate):
                 with telemetry.span("chunk_compute", cat="device",
                                     bucket=b):
                     with telemetry.device_timed(program, self.device):
-                        outs = _re_chunk_train(self.problem, dev)
+                        outs = _re_chunk_train(self.problem, dev,
+                                               self.mesh)
                     _device.maybe_capture(
                         program, lambda: _re_chunk_cost(dev, outs,
                                                         self.device),
@@ -1030,6 +1158,19 @@ def _problem(objective, config, optimizer) -> OptimizationProblem:
                                config=config or OptimizerConfig())
 
 
+def _shard_re_blocks(coord_kwargs: dict, mesh) -> dict:
+    """A coordinate's bucket blocks padded to the entity mesh's grid
+    (per-entity solves need no communication, so the entity axis shards
+    cleanly)."""
+    if mesh is None:
+        return coord_kwargs
+    from photon_ml_torch.parallel.mesh import shard_entity_blocks
+
+    for key in ("x_blocks", "label_blocks", "weight_blocks", "mask_blocks"):
+        coord_kwargs[key] = shard_entity_blocks(coord_kwargs[key], mesh)
+    return coord_kwargs
+
+
 def build_random_effect_coordinate(
     name: str,
     dataset: GameDataset,
@@ -1042,9 +1183,9 @@ def build_random_effect_coordinate(
     device=None,
 ) -> RandomEffectCoordinate:
     """Dense shard: host grouping → per-bucket blocks on ``device``
-    (default CUDA; ``"cpu"`` when asked)."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    (default CUDA; ``"cpu"`` when asked; the mesh's first device on a
+    mesh, the blocks padded to its entity grid)."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     x = np.asarray(dataset.features[feature_shard], np.float32)
     grouping = group_by_entity(dataset.entity_ids[name],
                                bucket_base=bucket_base)
@@ -1060,11 +1201,13 @@ def build_random_effect_coordinate(
         xb[grouping.example_row[sel], grouping.example_col[sel]] = x[sel]
         x_blocks.append(torch.from_numpy(xb).to(dev))
     _log_occupancy(name, grouping)
+    blocks = _shard_re_blocks(
+        dict(x_blocks=x_blocks, label_blocks=lab, weight_blocks=wt,
+             mask_blocks=msk), mesh)
     return RandomEffectCoordinate(
-        name=name, grouping=grouping, x_blocks=x_blocks, label_blocks=lab,
-        weight_blocks=wt, mask_blocks=msk, ex_idx=ex_idx, row_idx=row_idx,
-        col_idx=col_idx, n_examples=len(labels),
-        problem=_problem(objective, config, optimizer))
+        name=name, grouping=grouping, **blocks, ex_idx=ex_idx,
+        row_idx=row_idx, col_idx=col_idx, n_examples=len(labels),
+        problem=_problem(objective, config, optimizer), mesh=mesh)
 
 
 def build_random_effect_coordinate_sparse(
@@ -1083,8 +1226,7 @@ def build_random_effect_coordinate_sparse(
     solved in its observed-feature subspace (``game.projector``)."""
     from photon_ml_torch.game.projector import build_subspace_projection
 
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     grouping = group_by_entity(dataset.entity_ids[name],
                                bucket_base=bucket_base)
     projection, x_blocks_np = build_subspace_projection(
@@ -1094,13 +1236,14 @@ def build_random_effect_coordinate_sparse(
                                   dev)
     ex_idx, row_idx, col_idx = _index_maps(grouping, dev)
     _log_occupancy(name, grouping)
+    blocks = _shard_re_blocks(
+        dict(x_blocks=[torch.from_numpy(xb).to(dev) for xb in x_blocks_np],
+             label_blocks=lab, weight_blocks=wt, mask_blocks=msk), mesh)
     return RandomEffectCoordinate(
-        name=name, grouping=grouping,
-        x_blocks=[torch.from_numpy(xb).to(dev) for xb in x_blocks_np],
-        label_blocks=lab, weight_blocks=wt, mask_blocks=msk, ex_idx=ex_idx,
+        name=name, grouping=grouping, **blocks, ex_idx=ex_idx,
         row_idx=row_idx, col_idx=col_idx, n_examples=len(labels),
         problem=_problem(objective, config, optimizer),
-        projection=projection)
+        projection=projection, mesh=mesh)
 
 
 def build_streamed_random_effect_coordinate(
@@ -1128,7 +1271,8 @@ def build_streamed_random_effect_coordinate(
     whose blocks are spilled and freed (a lineage rebuild re-runs the
     deterministic projection).  ``chunk_entities`` is the budget a
     chunk, balanced over each bucket's chunk count and capped by its
-    entity count."""
+    entity count, then rounded up to the mesh's entity grid when
+    ``mesh`` is given (every chunk then splits evenly over its shards)."""
     from photon_ml_torch.data.chunk_store import (
         ENTITY_CHUNK_CODEC,
         ChunkStore,
@@ -1137,7 +1281,6 @@ def build_streamed_random_effect_coordinate(
     )
     from photon_ml_torch.data.sparse_rows import SparseRows
 
-    _no_mesh(mesh)
     if chunk_entities <= 0:
         raise ValueError("chunk_entities must be positive")
     if not spill_dir:
@@ -1151,11 +1294,14 @@ def build_streamed_random_effect_coordinate(
     labels = dataset.labels.astype(np.float32)
     weights = dataset.weight_array()
     # A global chunk size would pad a small bucket's one chunk with dead
-    # solve lanes: balance the budget over each bucket's chunks.
+    # solve lanes: balance the budget over each bucket's chunks, then
+    # round up to the mesh grid.
+    n_dev = 1 if mesh is None else mesh.size
     chunk_ents = []
     for e in grouping.n_entities:
         k_b = max(1, -(-e // max(1, int(chunk_entities))))
-        chunk_ents.append(-(-e // k_b))
+        cb = -(-e // k_b)
+        chunk_ents.append(-(-cb // n_dev) * n_dev)
     ex_sorted, ent_starts = _example_runs(grouping)
 
     sparse = not isinstance(feats, np.ndarray)
@@ -1256,4 +1402,5 @@ def build_streamed_random_effect_coordinate(
         ent_starts=ent_starts, chunk_base=chunk_base,
         n_source_chunks=[int(k) for k in n_source_chunks],
         n_examples=len(labels), prefetch_depth=prefetch_depth,
-        retirement=retirement, projection=projection, device=dev)
+        retirement=retirement, projection=projection, device=dev,
+        mesh=mesh)

@@ -180,10 +180,13 @@ def grr_routes_native(dst: np.ndarray, hi: np.ndarray):
 
 
 def colmajor_build_native(cols: np.ndarray, vals: np.ndarray, dim: int,
-                          capacity: int):
+                          capacity: int,
+                          pad_vrows_to_multiple: int | None = None,
+                          pad_vrows_to: int | None = None):
     """Transposed-ELL build → (tvals, trows, vcol), or None without the
     library.  A counting sort in row-scan order: the arrays of
-    ``data.colmajor``'s numpy path, byte for byte."""
+    ``data.colmajor``'s numpy path, byte for byte, with its padding
+    options."""
     dll = lib()
     if dll is None:
         return None
@@ -197,7 +200,11 @@ def colmajor_build_native(cols: np.ndarray, vals: np.ndarray, dim: int,
                                _ptr(counts))
     if v < 0:
         raise ValueError("column id out of range in colmajor build")
-    v_pad = vrow_pad(int(v))
+    v_pad = vrow_pad(int(v), pad_vrows_to_multiple)
+    if pad_vrows_to is not None:
+        if pad_vrows_to < v:
+            raise ValueError(f"pad_vrows_to={pad_vrows_to} < V={v}")
+        v_pad = pad_vrows_to
     tvals = np.zeros((v_pad, capacity), np.float32)
     trows = np.zeros((v_pad, capacity), np.int32)
     vcol = np.zeros(v_pad, np.int32)

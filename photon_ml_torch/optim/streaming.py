@@ -36,6 +36,15 @@ The path from disk to the card, for a spilled batch:
   arrays (the streamed random effect's entity chunks, the fused cycle's
   chunk-and-sidecar pairs), through ``prefetch_stream``.
 
+A GRR chunk carries its compiled plan (``layout="grr"``): the plan's
+leaves go through the same staging ring as the chunk's (named by their
+plan-cache paths, rebuilt on the card), and B2/B3 run on it.  A chunk of a mesh batch is a list of per-shard pieces:
+each piece is placed on its shard device (a stager a device), the
+placed pieces form a ``parallel.mesh.ShardedBatch``, and the partials
+come from the ``DistributedGLMObjective`` (per-shard, summed in shard
+order).  Swept λ-lanes ride through every shard's and every plan's
+products.
+
 A failed copy, a dead prefetch thread or a CUDA error raises on the
 consumer's thread; nothing carries on synchronously or on the CPU.
 
@@ -137,6 +146,8 @@ def _read_members(reads: list) -> None:
     jobs = []
     try:
         for view, filename, offset in reads:
+            if view.nbytes == 0:     # an empty leaf (a GRR chunk's ELL)
+                continue
             if filename not in fds:
                 fds[filename] = os.open(filename, os.O_RDONLY)
             mv = memoryview(view).cast("B")
@@ -163,14 +174,26 @@ def _read_members(reads: list) -> None:
 
 class _Placed:
     """A placed chunk and the event its copies completed on (None on the
-    CPU)."""
+    CPU); ``tensors``: every tensor the copies made, when the chunk
+    holds more than its ``_LEAVES`` (a GRR plan)."""
 
-    __slots__ = ("batch", "event", "nbytes")
+    __slots__ = ("batch", "event", "nbytes", "tensors")
 
     def __init__(self, batch, event, nbytes: int):
         self.batch = batch
         self.event = event
         self.nbytes = nbytes
+        self.tensors = None
+
+
+class _Pieces:
+    """A placed mesh chunk: its per-shard ``_Placed`` pieces."""
+
+    __slots__ = ("pieces", "mesh")
+
+    def __init__(self, pieces: list, mesh):
+        self.pieces = pieces
+        self.mesh = mesh
 
 
 class _Slot:
@@ -243,10 +266,26 @@ class _Stager:
         return _Placed(placed, event, nbytes)
 
     def place(self, host: SparseBatch) -> _Placed:
-        p = self.place_arrays({leaf: getattr(host, leaf)
-                               for leaf in _LEAVES})
-        p.batch = dataclasses.replace(host, grr=None, colmajor=None,
-                                      **p.batch)
+        """A chunk's leaves, and a GRR chunk's plan leaf by leaf, through
+        the staging ring (a spilled plan's members are read from the
+        file straight into pinned memory)."""
+        leaves = {leaf: getattr(host, leaf) for leaf in _LEAVES}
+        meta = None
+        if host.grr is not None:
+            from photon_ml_torch.cache.plan_cache import _encode_node
+
+            meta = _encode_node(host.grr, "g.", leaves, raw=True)
+        p = self.place_arrays(leaves)
+        placed = p.batch
+        grr = None
+        if meta is not None:
+            from photon_ml_torch.cache.plan_cache import _decode_node
+
+            grr = _decode_node(meta, "g.", placed)
+            p.tensors = list(placed.values())
+        p.batch = dataclasses.replace(
+            host, grr=grr, colmajor=None,
+            **{leaf: placed[leaf] for leaf in _LEAVES})
         return p
 
     def quiesce(self) -> None:
@@ -265,18 +304,28 @@ def _place_cpu_arrays(leaves: dict) -> _Placed:
 
 def _place_cpu(host: SparseBatch) -> _Placed:
     p = _place_cpu_arrays({leaf: getattr(host, leaf) for leaf in _LEAVES})
-    p.batch = dataclasses.replace(host, grr=None, colmajor=None, **p.batch)
+    p.batch = dataclasses.replace(
+        host, grr=None if host.grr is None else host.grr.to("cpu"),
+        colmajor=None, **p.batch)
     return p
 
 
-def _handover(placed: _Placed) -> SparseBatch:
+def _handover(placed: _Placed):
     """The consumer's side: the current stream waits for the chunk's
-    copies, and the placed tensors are marked as used on it."""
+    copies, and the placed tensors are marked as used on it.  A mesh
+    chunk's pieces are handed over one by one, into a ``ShardedBatch``."""
+    if isinstance(placed.batch, _Pieces):
+        from photon_ml_torch.parallel.mesh import ShardedBatch
+
+        return ShardedBatch(
+            shards=tuple(_handover(p) for p in placed.batch.pieces),
+            mesh=placed.batch.mesh)
     if placed.event is not None:
         stream = torch.cuda.current_stream(placed.batch.labels.device)
         stream.wait_event(placed.event)
-        for leaf in _LEAVES:
-            getattr(placed.batch, leaf).record_stream(stream)
+        for t in (placed.tensors if placed.tensors is not None else
+                  [getattr(placed.batch, leaf) for leaf in _LEAVES]):
+            t.record_stream(stream)
     return placed.batch
 
 
@@ -575,9 +624,16 @@ class ChunkedGLMObjective:
                       "placed_chunks": 0}
         self._cache: dict = {}
         self._active_prefetcher: ChunkPrefetcher | None = None
-        self._stager: _Stager | None = None
+        self._stagers: dict = {}
         self._inner = dataclasses.replace(
             objective, reg=RegularizationContext.none(), prior=None)
+        # A mesh batch: each chunk's pieces sum through the distributed
+        # objective (regularization stays added once, after the pass).
+        self._mesh = batch.mesh
+        if self._mesh is not None:
+            from photon_ml_torch.parallel import DistributedGLMObjective
+
+            self._inner = DistributedGLMObjective(self._inner, self._mesh)
 
     # -- chunk residency ---------------------------------------------------
 
@@ -591,18 +647,27 @@ class ChunkedGLMObjective:
             self._active_prefetcher = None
         if self.batch.store is not None:
             self.batch.store.assert_quiesced()
-        if self._stager is not None:
-            self._stager.quiesce()
+        for stager in self._stagers.values():
+            stager.quiesce()
         self._cache.clear()
 
-    def _place(self, host: SparseBatch) -> _Placed:
-        if self.device.type != "cuda":
-            placed = _place_cpu(host)
+    def _place_on(self, host: SparseBatch, device: torch.device) -> _Placed:
+        if device.type != "cuda":
+            return _place_cpu(host)
+        stager = self._stagers.get(device)
+        if stager is None:
+            stager = self._stagers[device] = _Stager(
+                device, max(self.prefetch_depth, 0) + 2)
+        return stager.place(host)
+
+    def _place(self, host) -> _Placed:
+        if self._mesh is None:
+            placed = self._place_on(host, self.device)
         else:
-            if self._stager is None:
-                self._stager = _Stager(self.device,
-                                       max(self.prefetch_depth, 0) + 2)
-            placed = self._stager.place(host)
+            pieces = [self._place_on(b, d)
+                      for b, d in zip(host, self._mesh.devices)]
+            placed = _Placed(_Pieces(pieces, self._mesh), None,
+                             sum(p.nbytes for p in pieces))
         self.stats["placed_bytes"] += placed.nbytes
         self.stats["placed_chunks"] += 1
         return placed
@@ -748,10 +813,12 @@ class ChunkedGLMObjective:
         ``inputs`` read, ``output_bytes`` written, ``products`` sparse
         products over its slots for each of ``lanes``."""
         def make(b):
-            leaves = [getattr(b, leaf) for leaf in _LEAVES]
+            shards = getattr(b, "shards", (b,))
+            leaves = [getattr(p, leaf) for p in shards for leaf in _LEAVES]
             return _device.program_cost(
                 leaves + list(inputs), output_bytes,
-                2.0 * b.values.numel() * products * lanes, self.device)
+                2.0 * sum(p.values.numel() for p in shards) * products
+                * lanes, self.device)
         return make
 
     def _w(self, w) -> Tensor:
@@ -912,12 +979,19 @@ class ChunkedGLMObjective:
     def predict_margins(self, w) -> np.ndarray:
         """Per-example margins (offsets included) over all chunks."""
         w = self._w(w)
+        if self._mesh is not None:
+            return self._per_example(
+                lambda b: b.gather_rows(self._inner.predict_margins(w, b)))
         return self._per_example(
             lambda b: self._inner.predict_margins(w, b))
 
     def x_dot(self, w) -> np.ndarray:
-        """Raw X·w per example (offset-free scoring)."""
+        """Raw X·w per example (offset-free scoring); a mesh chunk's
+        pieces score shard-local, then gather in shard order."""
         w = self._w(w)
+        if self._mesh is not None:
+            return self._per_example(
+                lambda b: b.gather_rows(self._inner.x_dot(w, b)))
         return self._per_example(lambda b: b.x_dot(w))
 
 

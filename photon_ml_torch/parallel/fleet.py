@@ -1,7 +1,7 @@
 """Multi-host chunk-synchronized fleet streaming over tcp.
 
-Counterpart of ``photon_ml_tpu/parallel/fleet.py`` (its tcp transport).
-A streamed fit's chunk grid is split across processes ("hosts"): each
+Counterpart of ``photon_ml_tpu/parallel/fleet.py``.  A streamed fit's
+chunk grid is split across processes ("hosts"): each
 host builds, spills and streams only its own contiguous shard from a
 per-host spill directory, and the streaming objectives reduce every
 chunk step's partial across the fleet, so every host holds the same
@@ -10,10 +10,10 @@ global totals and the solvers above stay fleet-oblivious.
 Pieces:
 
 - ``FleetContext``: (host_id, n_hosts, transport) of this process.
-  ``initialize_from_env`` builds it from the ``PHOTON_FLEET_*`` trio
-  (``transport="tcp"``).  The ``psum`` transport (a collective over an
-  initialized ``torch.distributed`` group) is ROADMAP A7b: its context
-  validates, its reducer raises ``NotImplementedError``.
+  ``initialize_from_env`` gives the ``psum`` transport (one
+  ``torch.distributed.all_reduce`` a leaf: NCCL on the card, gloo on
+  the CPU) under an initialized world of more than one process, else
+  the ``tcp`` transport from the ``PHOTON_FLEET_*`` trio.
 - ``shard_chunk_ids``: a contiguous shard a host, padded with
   ``EMPTY_CHUNK`` sentinels to a common step count, so every host takes
   the same number of reductions (a sentinel step contributes exact
@@ -68,8 +68,9 @@ DEFAULT_STALL_TIMEOUT_S = 600.0
 # fast-forward past its checkpoint.
 _RESULT_CACHE_CAP = 4096
 
-_PSUM = ("the psum transport (a torch.distributed collective) is not "
-         "ported yet (ROADMAP A7b); use the tcp transport")
+# The JAX package's marker of a jaxlib without multi-process CPU
+# collectives; the port's probe reports it too, should a worker print it.
+MULTIPROC_UNSUPPORTED_MARKER = "Multiprocess computations aren't implemented"
 
 
 class FleetBarrierError(RuntimeError):
@@ -81,8 +82,9 @@ class FleetBarrierError(RuntimeError):
 class FleetContext:
     """This process's position in the training fleet.
 
-    ``transport``: ``"psum"`` (a collective; ROADMAP A7b) or ``"tcp"``
-    (the star all-reduce through ``coordinator``, ``host:port``)."""
+    ``transport``: ``"psum"`` (a ``torch.distributed`` all-reduce over
+    the initialized world) or ``"tcp"`` (the star all-reduce through
+    ``coordinator``, ``host:port``)."""
 
     host_id: int
     n_hosts: int
@@ -183,6 +185,17 @@ def restore_seq(value) -> None:
         telemetry.count("fleet.seq_restored")
 
 
+def deactivate() -> None:
+    """Drop the active fleet context and close its reducer (a driver run
+    that made its process group leaves none behind)."""
+    global _ACTIVE, _REDUCER
+    with _ACTIVE_LOCK:
+        red, _REDUCER = _REDUCER, None
+        _ACTIVE = None
+    if red is not None:
+        red.close()
+
+
 @contextlib.contextmanager
 def session(ctx: FleetContext | None):
     """Make ``ctx`` the active fleet for the block; None is a no-op."""
@@ -205,13 +218,13 @@ def session(ctx: FleetContext | None):
 
 
 def initialize_from_env() -> FleetContext | None:
-    """Build and activate this process's fleet context from the
+    """Build and activate this process's fleet context, or None.
+
+    An initialized ``torch.distributed`` world of more than one process
+    wins (``transport="psum"``, host = rank); otherwise the
     ``PHOTON_FLEET_NUM_HOSTS`` / ``PHOTON_FLEET_HOST_ID`` /
-    ``PHOTON_FLEET_COORDINATOR`` trio (tcp transport), or None.  An
-    initialized ``torch.distributed`` group of more than one process
-    asks for the psum transport, which raises (ROADMAP A7b) rather than
-    falling back to tcp.  Idempotent: an active context is returned
-    as is."""
+    ``PHOTON_FLEET_COORDINATOR`` trio selects the tcp transport.
+    Idempotent: an active context is returned as is."""
     global _ACTIVE
     if _ACTIVE is not None:
         return _ACTIVE
@@ -220,16 +233,18 @@ def initialize_from_env() -> FleetContext | None:
     dist = torch.distributed
     if (dist.is_available() and dist.is_initialized()
             and dist.get_world_size() > 1):
-        raise NotImplementedError(_PSUM)
-    n = read_env("PHOTON_FLEET_NUM_HOSTS")
-    if n is None or int(n) <= 1:
-        return None
-    ctx = FleetContext(
-        host_id=int(read_env("PHOTON_FLEET_HOST_ID", "0") or 0),
-        n_hosts=int(n),
-        transport="tcp",
-        coordinator=read_env("PHOTON_FLEET_COORDINATOR"),
-    )
+        ctx = FleetContext(host_id=dist.get_rank(),
+                           n_hosts=dist.get_world_size(), transport="psum")
+    else:
+        n = read_env("PHOTON_FLEET_NUM_HOSTS")
+        if n is None or int(n) <= 1:
+            return None
+        ctx = FleetContext(
+            host_id=int(read_env("PHOTON_FLEET_HOST_ID", "0") or 0),
+            n_hosts=int(n),
+            transport="tcp",
+            coordinator=read_env("PHOTON_FLEET_COORDINATOR"),
+        )
     with _ACTIVE_LOCK:
         if _ACTIVE is None:
             _ACTIVE = ctx
@@ -509,6 +524,29 @@ class FleetReducer:
                 time.sleep(delay)
                 delay = min(delay * 2, 1.0)
 
+    def _psum_reduce(self, leaves: list) -> list:
+        """One ``all_reduce`` (SUM) a leaf on this rank's device: the
+        group's CUDA device under NCCL, the CPU under gloo.  Every rank
+        gets the same bits."""
+        dist = torch.distributed
+        if not dist.is_initialized():
+            raise FleetBarrierError(
+                "psum transport without an initialized torch.distributed "
+                "process group")
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist.get_backend() == "nccl" else torch.device("cpu"))
+        out = []
+        for lf in leaves:
+            t = (lf.detach() if isinstance(lf, torch.Tensor)
+                 else torch.from_numpy(np.ascontiguousarray(lf)))
+            buf = t.to(dev, copy=True).contiguous()
+            dist.all_reduce(buf)
+            if isinstance(lf, torch.Tensor):
+                out.append(buf.to(lf.device))
+            else:
+                out.append(buf.cpu().numpy())
+        return out
+
     def _tcp_reduce(self, leaves: list[np.ndarray]) -> list[np.ndarray]:
         if self._sock is None:
             self._connect()
@@ -533,18 +571,20 @@ class FleetReducer:
         fleet-ness."""
         if not self.ctx.is_fleet:
             return tree
-        if self.ctx.transport == "psum":
-            raise NotImplementedError(_PSUM)
         faults.fire("fleet.reduce", seq=self.seq)
         leaves: list = []
         spec = _flatten(tree, leaves)
         t0 = time.perf_counter()
-        totals = self._tcp_reduce(_to_host(leaves))
-        if len(totals) != len(leaves):
-            raise FleetBarrierError(
-                f"fleet reduce seq={self.seq}: {len(totals)} leaves back "
-                f"for {len(leaves)} sent (hosts disagree on the tree)")
-        out = [_like(tot, lf) for tot, lf in zip(totals, leaves)]
+        if self.ctx.transport == "psum":
+            out = self._psum_reduce(leaves)
+        else:
+            totals = self._tcp_reduce(_to_host(leaves))
+            if len(totals) != len(leaves):
+                raise FleetBarrierError(
+                    f"fleet reduce seq={self.seq}: {len(totals)} leaves "
+                    f"back for {len(leaves)} sent (hosts disagree on the "
+                    "tree)")
+            out = [_like(tot, lf) for tot, lf in zip(totals, leaves)]
         dt = time.perf_counter() - t0
         self.seq += 1
         self.barrier_wait_s += dt
@@ -562,3 +602,59 @@ class FleetReducer:
             with contextlib.suppress(OSError):
                 self._sock.close()
             self._sock = None
+
+
+# ---------------------------------------------------------------------------
+# The capability probe of multi-process CPU collectives.
+# ---------------------------------------------------------------------------
+
+_PROBE_WORKER = r'''
+import os, sys
+import torch
+import torch.distributed as dist
+dist.init_process_group("gloo", init_method=sys.argv[1],
+                        world_size=2, rank=int(sys.argv[2]))
+t = torch.ones(1)
+dist.all_reduce(t)
+assert float(t) == 2.0
+dist.destroy_process_group()
+print("FLEET_PROBE_OK", flush=True)
+'''
+
+_PROBE_RESULT: bool | None = None
+
+
+def probe_cpu_multiprocess_collectives(timeout_s: float = 120.0) -> bool:
+    """Whether two processes can run a real gloo all-reduce on the CPU:
+    two tiny workers are spawned once a process and the verdict cached
+    (the psum tests' skip guard)."""
+    global _PROBE_RESULT
+    if _PROBE_RESULT is not None:
+        return _PROBE_RESULT
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _PROBE_WORKER, f"tcp://127.0.0.1:{port}",
+         str(rank)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out, _ = p.communicate()
+        outs.append(out or "")
+    ok = (all(p.returncode == 0 for p in procs)
+          and all("FLEET_PROBE_OK" in o for o in outs)
+          and not any(MULTIPROC_UNSUPPORTED_MARKER in o for o in outs))
+    if not ok:
+        logger.info("fleet probe: 2-process CPU collectives unavailable "
+                    "(rc=%s)", [p.returncode for p in procs])
+    _PROBE_RESULT = ok
+    return ok

@@ -736,3 +736,65 @@ def test_training_fleet_phase_on_cpu(work):
     assert d["bitwise"] and d["fleet_report"]["rc"] == 0
     assert d["max_abs_dw_vs_10c"] <= cs.DRIVER_COEF_TOL
 
+
+
+def test_mesh_phase_on_cpu(train, training, work):
+    """Phase 17a on the 60,000 rows: config 1 on 8 shards (ELL,
+    transposed ELL, GRR) through the estimator within phase 6's float64
+    and layout gates, config 2's TRON on the mesh, every shard's kernel
+    shapes checked (the plain versions against themselves here)."""
+    out = cs.phase_mesh(train, training, "cpu", time_it=False)
+    assert out["failures"] == []
+    assert out["ell"]["rows_per_shard"] * cs.MESH_DEVICES >= \
+        ROWS - ROWS // 10
+    assert len(out["shapes"]["ELL"]) == cs.MESH_DEVICES
+    assert {s["max_abs_err"] for s in out["shapes"]["COLMAJOR"]} == {0.0}
+    assert all(0.0 <= s["padding_share"] < 1.0
+               for s in out["shapes"]["COLMAJOR"])
+    assert out["grr"]["padded_levels"] == len(out["shapes"]["GRR"])
+    assert out["config2_tron_colmajor"]["loss_gap_rel"] <= \
+        cs.LAYOUT_LOSS_RTOL
+
+
+def test_mesh_game_stream_and_driver_phases_on_cpu(work):
+    """Phases 17b-17d at phase 10's small size: config 5 on 8 shards
+    against its single-device fit, phase 10a's fit on GRR chunks and on
+    GRR chunks × 2 shards against the ELL-chunk fit, and the driver with
+    ``distributed_init`` (a world of one gloo process) and 8 shards
+    against its single-device run; 17c also spilled to disk."""
+    from photon_ml_torch.cli import game_training_driver
+
+    n, d, n_entities = 8000, 2000, 300
+    data = cs.make_game_data(7, n, d=d, n_entities=n_entities)
+    n_train = n - int(n * cs.TRAIN_HOLDOUT)
+    train, valid = data.take(slice(0, n_train)), data.take(slice(n_train, n))
+    fit = cs._fit_game(cs.game_config("ELL", "cpu"), train, valid)
+    game = cs.phase_mesh_game(7, n, "cpu", {"auc": fit["auc"],
+                                            "wall_s": fit["wall_s"]},
+                              d=d, n_entities=n_entities)
+    assert game["failures"] == []
+    assert game["shard_entities"] and game["bucket_solves"] % \
+        cs.MESH_DEVICES == 0
+    stream_fit = cs._stream_fit(cs.stream_config(
+        "cpu", str(work / "ref_spill"), 2048), train, valid)
+    ref = dict(cs._fit_summary(stream_fit), wall_s=stream_fit["wall_s"])
+    for spill in (False, True):
+        stream = cs.phase_mesh_stream(ref, "cpu", n=n, d=d,
+                                      n_entities=n_entities,
+                                      chunk_rows=2048, time_it=False,
+                                      spill=spill)
+        assert stream["failures"] == []
+    assert stream["grr"]["evaluations"] >= 1
+    assert stream["grr_mesh"]["pieces_a_chunk"] == cs.MESH_CHUNK_DEVICES
+    assert {s["max_abs_err"] for s in stream["shapes"]} == {0.0}
+    out_dir = str(work / "ref_driver")
+    cfg_path = str(work / "ref_driver.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cs.stream_driver_config(out_dir), f)
+    game_training_driver.main(["--config", cfg_path, "--spill-dir",
+                               str(work / "ref_driver_spill"), "--device",
+                               "cpu"])
+    failures: list = []
+    drv = cs.phase_mesh_driver(out_dir, failures, ["--device", "cpu"])
+    assert failures == [] and not drv["group_left"]
+    assert drv["distributed"] == {"backend": "gloo", "world": 1, "rank": 0}

@@ -1,7 +1,7 @@
 """Parity of the port's chunk-accumulated training with the JAX package.
 
-Mirrors ``tests/test_chunked.py`` on its ELL cases (the mesh case and
-GRR chunks are ROADMAP A7): ``build_chunked_batch`` →
+Mirrors ``tests/test_chunked.py``: ``build_chunked_batch`` (ELL and GRR
+chunks, alone or × mesh shards) →
 ``ChunkedGLMObjective`` → the streaming L-BFGS / OWL-QN / TRON solvers →
 ``ChunkedFixedEffectCoordinate`` → ``GameEstimator`` with
 ``chunk_rows``, the port on the CPU.  Tolerances: chunked surfaces
@@ -501,11 +501,19 @@ def test_chunked_config_validation(jax_c1):
                           **{knob: value}).validate()
     rows = SparseRows.from_rows([(np.array([0, 2], np.int32),
                                   np.ones(2, np.float32))] * 4)
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_chunked_batch(rows, 3, np.zeros(4), n_chunks=2, layout="grr")
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_chunked_batch(rows, 3, np.zeros(4), n_chunks=2,
-                            mesh=object())
+    # GRR chunks and chunks × mesh shards are ported now (A7b, they
+    # raised before): they build, and an unknown layout still raises.
+    from photon_ml_torch.parallel.mesh import data_parallel_mesh
+
+    grr = build_chunked_batch(rows, 3, np.zeros(4), n_chunks=2,
+                              layout="grr")
+    assert grr.chunk(0).grr is not None and grr.chunk(0).values.shape == \
+        (2, 0)
+    meshed = build_chunked_batch(rows, 3, np.zeros(4), n_chunks=2,
+                                 mesh=data_parallel_mesh(2, device=CPU))
+    assert [len(meshed.chunk(i)) for i in range(2)] == [2, 2]
+    with pytest.raises(ValueError, match="unknown chunk layout"):
+        build_chunked_batch(rows, 3, np.zeros(4), n_chunks=2, layout="csr")
 
 
 def test_estimator_chunked_warm_start_prior(rng, tmp_path):
@@ -611,3 +619,113 @@ def test_chunked_coordinate_tron_routes_and_swept_rejects(rng):
     np.testing.assert_allclose(lbfgs.score(w1).numpy(),
                                resident.x_dot(w1).numpy(), rtol=0,
                                atol=1e-5)
+
+
+# -- GRR chunks and chunks × mesh shards -------------------------------------
+
+
+MESH_CASES = [("grr", None), ("ell", 2), ("grr", 4)]
+
+
+def _mesh(n):
+    from photon_ml_torch.parallel.mesh import data_parallel_mesh
+
+    return None if n is None else data_parallel_mesh(n, device=CPU)
+
+
+def _ref_mesh(n):
+    from photon_ml_tpu.parallel.mesh import data_parallel_mesh
+
+    return None if n is None else data_parallel_mesh(n)
+
+
+@pytest.mark.parametrize("layout,n_dev", MESH_CASES)
+def test_chunked_grr_and_mesh_match_resident(jax_c1, rng, layout, n_dev):
+    """GRR chunks (B2/B3 on every chunk's congruent plans) and chunks ×
+    shards (pieces summed in shard order) give the resident surfaces,
+    and the reference's chunked objective on the same layout and mesh
+    gives the same value and gradient; swept lanes ride through."""
+    from photon_ml_tpu.data.chunked_batch import (
+        build_chunked_batch as jbuild,
+    )
+    from photon_ml_tpu.optim.streaming import ChunkedGLMObjective as JCO
+
+    rows, labels, weights, offsets = _sparse_problem(rng, n=1200)
+    d = 900
+    obj = _objective()
+    resident = make_sparse_batch(rows, d, labels, weights=weights,
+                                 offsets=offsets, device=CPU)
+    cb = build_chunked_batch(rows, d, labels, weights=weights,
+                             offsets=offsets, n_chunks=3, layout=layout,
+                             mesh=_mesh(n_dev))
+    cobj = ChunkedGLMObjective(obj, cb, max_resident=2, device=CPU)
+    w = _t(rng.normal(0, 0.2, d))
+    v = _t(rng.normal(0, 1, d))
+    f_r, g_r = obj.value_and_gradient(w, resident)
+    f_c, g_c = cobj.value_and_gradient(w)
+    np.testing.assert_allclose(float(f_c), float(f_r), rtol=VALUE_RTOL)
+    _close_vec(g_c, g_r)
+    _close_vec(cobj.hessian_vector(w, v),
+               obj.hessian_vector(w, v, resident))
+    _close_vec(cobj.hessian_diagonal(w), obj.hessian_diagonal(w, resident))
+    _close_vec(cobj.x_dot(w), resident.x_dot(w))
+    _close_vec(cobj.predict_margins(w), obj.predict_margins(w, resident))
+    W = torch.stack([w, 0.5 * w])
+    reg = SweptRegularization.from_grid(RegularizationType.L2, [0.7, 0.7])
+    fs, gs = cobj.value_and_gradient_swept(W, reg)
+    np.testing.assert_allclose(float(fs[1]),
+                               float(cobj.value_and_gradient(W[1])[0]),
+                               rtol=VALUE_RTOL)
+    _close_vec(gs[0], g_c)
+
+    jobj = JCO(_ref_objective(), jbuild(
+        _ref_rows(rows), d, labels, weights=weights, offsets=offsets,
+        n_chunks=3, layout=layout, mesh=_ref_mesh(n_dev)), max_resident=2)
+    f_j, g_j = jobj.value_and_gradient(jax_c1.numpy.asarray(w.numpy()))
+    np.testing.assert_allclose(float(f_c), float(f_j), rtol=VALUE_RTOL)
+    _close_vec(g_c, g_j)
+
+
+@pytest.mark.parametrize("first", ["jax", "torch"])
+@pytest.mark.parametrize("layout,n_dev", [("grr", 2), ("ell", 4)])
+def test_spilled_grr_and_mesh_chunks_shared_between_packages(
+        jax_c1, rng, tmp_path, first, layout, n_dev):
+    """A spill dir of GRR or mesh chunks written by one package loads
+    warm in the other: the same key and file names, nothing built or
+    rebuilt on the second side, the pieces and plans equal leaf for
+    leaf (the ``"mesh"`` meta both ways)."""
+    from photon_ml_tpu.data.chunked_batch import (
+        build_chunked_batch as jbuild,
+    )
+    from test_torch_grr import assert_same_plan
+
+    rows, labels, weights, _ = _sparse_problem(rng, n=800)
+    d, spill = 900, str(tmp_path / "spill")
+    kw = dict(n_chunks=2, layout=layout, spill_dir=spill,
+              host_max_resident=2)
+
+    def port():
+        return build_chunked_batch(rows, d, labels, weights=weights,
+                                   mesh=_mesh(n_dev), **kw)
+
+    def ref():
+        return jbuild(_ref_rows(rows), d, labels, weights=weights,
+                      mesh=_ref_mesh(n_dev), **kw)
+
+    writer, reader = (ref(), port()) if first == "jax" else (port(), ref())
+    assert writer.store.key == reader.store.key
+    assert writer.store.spills == writer.n_chunks
+    assert reader.store.spills == 0
+    for i in range(reader.n_chunks):
+        assert reader.store.path(i) == writer.store.path(i)
+        got, want = reader.chunk(i), writer.chunk(i)
+        assert isinstance(got, list) and len(got) == len(want) == n_dev
+        for g, w_ in zip(got, want):
+            for leaf in ("values", "col_ids", "labels", "weights",
+                         "offsets", "mask"):
+                np.testing.assert_array_equal(
+                    np.asarray(getattr(g, leaf)),
+                    np.asarray(getattr(w_, leaf)))
+            jp, tp = (w_.grr, g.grr) if first == "jax" else (g.grr, w_.grr)
+            assert_same_plan(jp, tp)
+    assert reader.store.rebuilds == 0

@@ -166,10 +166,24 @@ def test_driver_subprocess_defaults_to_cuda(tmp_path):
     assert summary["best_index"] == 0
 
 
-def test_driver_rejects_unported_knobs(tmp_path):
-    # The streamed random effects train now; the mesh is still A7.
+def test_driver_rejects_unported_knobs(tmp_path, golden):
+    # The mesh is ported now (A7b; it raised before): config 4 with
+    # n_devices 2 and distributed_init (a world of one gloo process)
+    # reproduces the golden at its tolerances, and the driver leaves no
+    # process group behind.  Its validation is the reference's.
     cfg = config4(str(tmp_path / "out"))
     cfg["n_devices"] = 2
-    with pytest.raises(NotImplementedError, match="A7"):
+    cfg["distributed_init"] = True
+    summary = game_training_driver.main(
+        ["--config", _write(tmp_path, cfg), "--device", "cpu"])
+    want = golden["config4"]
+    assert abs(summary["models"][0]["evaluations"]["AUC"]
+               - want["auc"]) < 2e-3
+    np.testing.assert_allclose(
+        _fixed(os.path.join(str(tmp_path / "out"), "model")),
+        np.asarray(want["fixed_coefficients"]), rtol=2e-3, atol=2e-3)
+    assert not torch.distributed.is_initialized()
+    cfg["n_devices"] = 0
+    with pytest.raises(ValueError, match="n_devices must be positive"):
         game_training_driver.main(["--config", _write(tmp_path, cfg),
                                    "--device", "cpu"])

@@ -5,8 +5,11 @@ which raises on a name not registered in ``config.SANCTIONED_ENV``.  The
 port registers the names it honours, a subset of the reference's.  For
 each, the variable is set with ``monkeypatch.setenv`` for both packages
 and both act alike: the plan cache lands in (and is read back from) that
-directory across packages, the spill dir resolves to it, and the fleet
-trio builds equal contexts.  The reference's two opt-outs,
+directory across packages, the spill dir resolves to it, the fleet
+trio builds equal contexts, and the training driver's
+``distributed_init_from_env`` reads the reference's
+``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``
+into a ``torch.distributed`` group (gloo on the CPU).  The reference's two opt-outs,
 ``PHOTON_ML_TPU_NATIVE=0`` and ``PHOTON_ML_TPU_GRR=0``, are not the
 port's: its numpy ETL (taken without the native library) equals the
 reference's under ``NATIVE=0``, and its ``contract`` keeps going through
@@ -57,7 +60,8 @@ def test_registry_is_a_subset_of_the_reference():
     assert port == {
         "PHOTON_ML_TPU_PLAN_CACHE", "PHOTON_ML_TPU_SPILL_DIR",
         "PHOTON_FLEET_NUM_HOSTS", "PHOTON_FLEET_HOST_ID",
-        "PHOTON_FLEET_COORDINATOR"}
+        "PHOTON_FLEET_COORDINATOR", "JAX_COORDINATOR_ADDRESS",
+        "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"}
 
 
 def test_port_reads_registered_names_only_through_read_env():
@@ -203,3 +207,48 @@ def test_fleet_trio_builds_equal_contexts(monkeypatch):
     monkeypatch.setenv("PHOTON_FLEET_NUM_HOSTS", "1")
     assert tfleet.initialize_from_env() is None
     assert jfleet.initialize_from_env() is None
+
+
+def test_distributed_init_reads_the_reference_trio(monkeypatch):
+    """The training drivers of both packages read the same three names
+    (the reference hands them to ``jax.distributed.initialize``); the
+    port joins a world of one gloo process on the given address, returns
+    at once once a group exists, and refuses a larger world without an
+    address rather than guessing one."""
+    import ast
+    import inspect
+    import socket
+
+    import torch.distributed as dist
+    from photon_ml_tpu.cli import game_training_driver as jdrv
+
+    from photon_ml_torch.cli import game_training_driver as tdrv
+
+    def names(fn):
+        return {n.args[0].value for n in ast.walk(ast.parse(
+            inspect.getsource(fn))) if isinstance(n, ast.Call)
+            and getattr(n.func, "id", None) == "read_env"}
+
+    trio = {"JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"}
+    assert names(jdrv.distributed_init_from_env) == trio
+    assert names(tdrv.distributed_init_from_env) == trio
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", f"127.0.0.1:{port}")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "1")
+    monkeypatch.setenv("JAX_PROCESS_ID", "0")
+    assert not dist.is_initialized()
+    try:
+        assert tdrv.distributed_init_from_env("cpu") is True
+        assert dist.get_backend() == "gloo"
+        assert (dist.get_world_size(), dist.get_rank()) == (1, 0)
+        assert tdrv.distributed_init_from_env("cpu") is False
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    with pytest.raises(ValueError, match="JAX_COORDINATOR_ADDRESS"):
+        tdrv.distributed_init_from_env("cpu")
+    assert not dist.is_initialized()

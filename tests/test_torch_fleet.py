@@ -8,8 +8,9 @@ Mirrors ``tests/test_fleet.py`` on the tcp transport:
   validation messages, the coordinator's totals (bitwise equal to
   ``np.add`` in host-id order), its replay cache and its overwrite per
   (seq, host), a stalled peer raising within the stall timeout, the
-  single-host reducer returning its input, and the psum transport
-  raising (ROADMAP A7b).
+  single-host reducer returning its input, and the psum transport's
+  context from an initialized world (its two-rank reduce runs in
+  ``tests/test_torch_distributed.py``).
 - **Wire compatibility** both ways over threads: the port's reducers
   against the reference's coordinator and the reference's reducers
   against the port's, totals bitwise equal.
@@ -238,17 +239,25 @@ def test_single_host_reduce_is_identity():
 
 
 def test_psum_transport_raises_naming_a7b(monkeypatch):
+    # The psum transport is ported now (A7b; it raised before): without
+    # an initialized process group its reduce raises a barrier error,
+    # and an initialized world of more than one process wins over the
+    # tcp trio, as in the reference (the real two-rank reduce is in
+    # tests/test_torch_distributed.py).
     ctx = tfleet.FleetContext(0, 2)          # the default transport
     assert ctx.transport == "psum"
-    with pytest.raises(NotImplementedError, match="A7b"):
+    with pytest.raises(tfleet.FleetBarrierError, match="process group"):
         tfleet.FleetReducer(ctx).reduce(_tree(1.0))
     monkeypatch.setattr(tfleet, "_ACTIVE", None)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 1)
     monkeypatch.setenv("PHOTON_FLEET_NUM_HOSTS", "2")
     monkeypatch.setenv("PHOTON_FLEET_COORDINATOR", "127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="A7b"):
-        tfleet.initialize_from_env()
+    got = tfleet.initialize_from_env()
+    assert (got.host_id, got.n_hosts, got.transport) == (1, 2, "psum")
+    assert tfleet.active() is got
+    tfleet.deactivate()
     assert tfleet.active() is None
 
 

@@ -365,11 +365,22 @@ def test_locked_coordinate_and_validator():
     assert res.history[0]["per_user"]["entities"] == \
         user.grouping.n_total_entities
     assert res.last_offsets["per_user"].shape == (n,)
-    # Checkpoints (A8a) and the fused cycle (A5b) are ported; a
-    # mesh-sharded random effect is still A7.
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_random_effect_coordinate(
-            "userId", ttr, "user_re", to, mesh=object(), device=CPU)
+    # Checkpoints (A8a), the fused cycle (A5b) and the mesh-sharded
+    # random effect (A7b; it raised before) are ported: on a 3-shard
+    # entity mesh the blocks pad to the grid and the solves give the
+    # unsharded coefficients (lanes batched otherwise: float32 order).
+    from photon_ml_torch.parallel.mesh import entity_mesh
+
+    meshed = build_random_effect_coordinate(
+        "userId", ttr, "user_re", to, mesh=entity_mesh(3, device=CPU),
+        config=OptimizerConfig(max_iters=50, tolerance=1e-6), device=CPU)
+    assert all(s[0] % 3 == 0 for s in meshed.coefficient_shapes)
+    off = torch.zeros(n)
+    w_plain, _ = user.train(off)
+    w_mesh, _ = meshed.train(off)
+    for a, b in zip(w_plain, w_mesh):
+        np.testing.assert_allclose(_np(b)[: a.shape[0]], _np(a),
+                                   rtol=COEF_ATOL, atol=COEF_ATOL)
 
 
 # -- GameEstimator ---------------------------------------------------------------
@@ -478,14 +489,11 @@ def test_estimator_defaults_to_cuda_and_rejects_unported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             GameEstimator(cfg)
-    # cd_fused trains now (A5b): its place goes to distributed_init;
-    # telemetry (A8b) and the monitor (D3) are ported and validate.
-    for knob, value, item in (("distributed_init", True, "A7"),
-                              ("n_devices", 2, "A7")):
-        with pytest.raises(NotImplementedError, match=item):
-            training_config_from_json(json.dumps({**base, knob: value,
-                                                  "device": CPU}))
-    for knob, value in (("monitor", "on"), ("status_port", 0)):
+    # cd_fused (A5b), distributed_init and n_devices (A7b; they raised
+    # before), telemetry (A8b) and the monitor (D3) are ported and
+    # validate.
+    for knob, value in (("distributed_init", True), ("n_devices", 2),
+                        ("monitor", "on"), ("status_port", 0)):
         assert getattr(training_config_from_json(json.dumps(
             {**base, knob: value, "device": CPU})), knob) == value
     one = _config(update_sequence=["global"],

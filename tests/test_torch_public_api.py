@@ -6,10 +6,22 @@ semantics, and one parametrised case a name holds it against the JAX
 package on the same numpy-made inputs (values at 1e-6, shapes and
 integers exactly).  ``ChunkedBatch.owned_chunk_ids`` and
 ``chunk_schedule`` (A7a) are held in ``tests/test_torch_fleet.py``.
+
+The package re-exports (ROADMAP C10): every name a reference package
+``__init__.py`` imports from its modules or defines, read by AST (so
+``photon_ml_tpu`` is not imported), must be an attribute of the port's
+package of the same path, one case a package; a mutation check removes
+one re-export and the comparison must name it.  The only exclusions:
+``analysis`` (photon-lint over the JAX package, not ported) and
+``cache.enable_compilation_cache`` (XLA's compilation cache, whose
+module is not ported).
 """
 
 from __future__ import annotations
 
+import ast
+import importlib
+import os
 import types
 
 import numpy as np
@@ -245,3 +257,71 @@ def test_added_public_name_matches_reference(name):
         p, r = _np(p), _np(r)
         assert p.shape == r.shape
         np.testing.assert_allclose(p, r, rtol=1e-6, atol=1e-6)
+
+
+# -- package re-exports (C10) ------------------------------------------------
+
+_REF_ROOT = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "photon_ml_tpu")
+# (package, name or None for the whole package): the reason each stays out.
+_EXCLUDED = {
+    ("analysis", None): "photon-lint over the JAX package is not ported",
+    ("cache", "enable_compilation_cache"):
+        "XLA's compilation cache; cache/compile_cache.py is not ported",
+}
+
+
+def _ref_packages() -> list[str]:
+    """Every reference package, by dotted path below ``photon_ml_tpu``
+    ("" for the top package)."""
+    out = []
+    for dirpath, _dirs, files in os.walk(_REF_ROOT):
+        if "__init__.py" in files:
+            rel = os.path.relpath(dirpath, _REF_ROOT)
+            out.append("" if rel == "." else rel.replace(os.sep, "."))
+    return sorted(out)
+
+
+def _exported(pkg: str) -> set[str]:
+    """The public names the reference package's ``__init__.py`` imports
+    from its modules (``from ... import``) or defines at top level."""
+    path = os.path.join(_REF_ROOT, *([pkg] if pkg else []), "__init__.py")
+    tree = ast.parse(open(path).read())
+    out = set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom) and node.module != "__future__":
+            out.update(a.asname or a.name for a in node.names)
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                           ast.Name):
+            out.add(node.target.id)
+    return {n for n in out if not n.startswith("_")}
+
+
+def _missing(pkg: str) -> list[str]:
+    mod = importlib.import_module(
+        "photon_ml_torch" + (f".{pkg}" if pkg else ""))
+    return sorted(n for n in _exported(pkg)
+                  if not hasattr(mod, n) and (pkg, n) not in _EXCLUDED)
+
+
+@pytest.mark.parametrize("pkg", [p for p in _ref_packages()
+                                 if (p, None) not in _EXCLUDED],
+                         ids=lambda p: p or "photon_ml_tpu")
+def test_package_reexports_match_reference(pkg):
+    assert _missing(pkg) == []
+
+
+def test_package_reexport_check_catches_a_removed_name(monkeypatch):
+    """Mutation check: with one re-export removed from the port's
+    package the comparison names it (and only it)."""
+    import photon_ml_torch.optim as topt
+
+    assert "lbfgs_solve" in _exported("optim")
+    monkeypatch.delattr(topt, "lbfgs_solve")
+    assert _missing("optim") == ["lbfgs_solve"]
+    assert _missing("cache") == []          # the named exclusion holds
+    assert "enable_compilation_cache" in _exported("cache")

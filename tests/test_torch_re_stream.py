@@ -567,9 +567,12 @@ def test_config_validation_re_knobs(tmp_path, monkeypatch):
     c.validate()
     c2 = training_config_from_json(config_to_json(c))
     assert c2.re_chunk_entities == 4 and c2.re_retirement is False
-    # The mesh stays A7.
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_streamed_random_effect_coordinate(
-            "u", _dataset(_arrays(np.random.default_rng(0))), "re",
-            _objective(), spill_dir=str(tmp_path), chunk_entities=4,
-            mesh=object(), device=CPU)
+    # The entity mesh is ported now (A7b; it raised before): the chunk
+    # sizes round up to its grid.
+    from photon_ml_torch.parallel.mesh import entity_mesh
+
+    coord = build_streamed_random_effect_coordinate(
+        "u", _dataset(_arrays(np.random.default_rng(0))), "re",
+        _objective(), spill_dir=str(tmp_path), chunk_entities=4,
+        mesh=entity_mesh(3, device=CPU), device=CPU)
+    assert all(c % 3 == 0 for c in coord.chunk_ents)

@@ -438,8 +438,8 @@ def test_unported_options_raise():
     effect are ported now (they ran into ``NotImplementedError`` naming
     A2, A6 and A5 before); a swept solve of a TRON coordinate raises
     ``ValueError`` as in the reference, and the options still missing
-    raise, naming their ROADMAP items: the streamed random effect (A5b)
-    and GRR chunks (A7)."""
+    raise, naming their ROADMAP items.  The streamed random effect (A5b),
+    a mesh and GRR chunks (A7b) are ported now: they build."""
     from photon_ml_torch.data.chunked_batch import build_chunked_batch
     from photon_ml_torch.game.coordinates import (
         ChunkedFixedEffectCoordinate,
@@ -460,15 +460,12 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="LBFGS/OWL-QN lanes only"):
         coord.train_swept(torch.zeros(50), SweptRegularization.from_grid(
             "L2", [1.0, 0.1]))
-    # The chunked fixed effect (A5a) and the streamed random effect
-    # (A5b) are ported; a mesh and GRR chunks (A7) still raise.
+    # The chunked fixed effect (A5a), the streamed random effect (A5b),
+    # a mesh and GRR chunks (A7b) are ported.
     assert ChunkedFixedEffectCoordinate.train_swept
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_streamed_random_effect_coordinate(
-            "u", None, "re", None, spill_dir="/tmp/s", chunk_entities=4,
-            mesh=object())
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_chunked_batch(rows, 123, labels, n_chunks=2, layout="grr")
+    assert build_streamed_random_effect_coordinate
+    grr = build_chunked_batch(rows, 123, labels, n_chunks=2, layout="grr")
+    assert grr.n_chunks == 2 and grr.chunk(1).grr is not None
 
 
 def test_duplicate_ids_rejected():
