@@ -6293,11 +6293,17 @@ def phase_mesh_game(seed: int, n: int, device: str, ref: dict,
     if not out["auc_gap"] <= GAME_LAYOUT_AUC_ATOL:
         failures.append(f"17b: AUC {fit['auc']:.5f} vs phase 7's "
                         f"{ref['auc']:.5f}")
-    if device != "cpu" and not (fit["fe_evaluation_launches"]
-                                >= fit["fe_evaluations"] >= MESH_DEVICES):
+    # Every fixed-effect evaluation runs its 8 shards' margins, each one
+    # B1 launch: the shard evaluations come in eights, one launch each.
+    if fit["fe_evaluations"] % MESH_DEVICES or \
+            fit["fe_evaluations"] < MESH_DEVICES:
+        failures.append(f"17b: {fit['fe_evaluations']} shard evaluations, "
+                        f"not whole evaluations of {MESH_DEVICES} shards")
+    if device != "cpu" and \
+            fit["fe_evaluation_launches"] != fit["fe_evaluations"]:
         failures.append(f"17b: B1 launched {fit['fe_evaluation_launches']} "
                         f"times in {fit['fe_evaluations']} shard "
-                        "evaluations")
+                        "evaluations (one each)")
     for name in ("per_user", "per_item"):
         blocks = res.model.models[name].coefficient_blocks
         if any(b.shape[0] % MESH_DEVICES for b in blocks):
@@ -6305,6 +6311,11 @@ def phase_mesh_game(seed: int, n: int, device: str, ref: dict,
                             "entity mesh")
     out["failures"] = failures
     return out
+
+
+def _chunk_pieces(host) -> list:
+    """A host chunk's pieces: its shards' under a mesh, else itself."""
+    return host if isinstance(host, list) else [host]
 
 
 def phase_mesh_stream(ref_10a: dict, device: str, seed: int = 7,
@@ -6361,14 +6372,33 @@ def phase_mesh_stream(ref_10a: dict, device: str, seed: int = 7,
         if device != "cpu" and n_grr < chunk_passes * pieces:
             failures.append(f"17c {name}: B2/B3 launched {n_grr} times for "
                             f"{chunk_passes} chunk passes × {pieces} pieces")
+        # One chunked evaluation launches every padded level of every
+        # chunk's pieces exactly once (17a's gate, chunk by chunk).
+        levels = sum(len(plan_levels(p.grr))
+                     for cid in range(fe.batch.n_chunks)
+                     for p in _chunk_pieces(fe.batch.chunk(cid)))
+        co = streaming_mod.ChunkedGLMObjective(
+            fe.objective, fe.batch, max_resident=0, prefetch_depth=2,
+            device=device)
+        w = torch.from_numpy(_fit_summary(fit)["w"]).to(device)
+        grr_contract.launches = grr_contract_dense.launches = 0
+        co.value_and_gradient(w)
+        _sync_card()
+        entry.update(evaluation_padded_levels=levels,
+                     evaluation_grr_launches=grr_contract.launches
+                     + grr_contract_dense.launches)
+        if device != "cpu" and entry["evaluation_grr_launches"] != levels:
+            failures.append(f"17c {name}: one evaluation launched B2/B3 "
+                            f"{entry['evaluation_grr_launches']} times for "
+                            f"{levels} padded levels over the chunks' "
+                            "pieces")
+        del co, w
         if device != "cpu" and not all(dv.startswith("cuda")
                                        for dv in probe.placed_devices):
             failures.append(f"17c {name}: chunks placed on "
                             f"{sorted(probe.placed_devices)}")
         # The first chunk's plan (or pieces' plans) level by level.
-        host = fe.batch.chunk(0)
-        for j, piece in enumerate(host if isinstance(host, list)
-                                  else [host]):
+        for j, piece in enumerate(_chunk_pieces(fe.batch.chunk(0))):
             pair = piece.grr.to(device)
             for lname, lv in plan_levels(pair):
                 lvl = check_grr_level(f"{name}.chunk0.piece{j}.{lname}", lv,
@@ -6381,7 +6411,7 @@ def phase_mesh_stream(ref_10a: dict, device: str, seed: int = 7,
             del pair
         out[name] = entry
         print(f"  17c {name}: " + json.dumps(entry, default=str))
-        del fit, probe, fe, host
+        del fit, probe, fe
     fast = [lv["level"] for lv in shapes
             if lv.get("share_of_bound", 0.0) > GRR_BOUND_SLACK]
     if fast:

@@ -281,9 +281,12 @@ class GrrDirection:
         if self.overflow is not None:
             out = out + self.overflow.contract(table)
         if self.n_spill:
-            # The COO residual adds a segment's terms one after another
-            # (atomics on the card): in float64, so their order never
-            # shows in the float32 result and a fit repeats bitwise.
+            # The COO residual adds a segment's terms (float32 products)
+            # in the atomics' order on the card.  Their float64 sum's
+            # rounding is far below the float32 result's, so the order
+            # shows only where that sum lies within float64 rounding of
+            # a float32 rounding boundary: rare, but a run is not
+            # bitwise by construction.
             spill = torch.zeros(self.n_segments, dtype=torch.float64,
                                 device=out.device).index_add_(
                 0, self.spill_seg,

@@ -73,12 +73,13 @@ def compute_statistics(batch) -> FeatureStatistics:
     """Masked reductions → FeatureStatistics.  Sparse batches are not
     densified; a feature absent from some rows has implicit zeros, so
     its extrema include 0.  A ``parallel.mesh.ShardedBatch`` folds its
-    shards' partials in shard order (and across the processes of an
-    initialized world)."""
+    shards' partials in shard order (and across the world's processes
+    when its mesh spans them)."""
     from photon_ml_torch.parallel.mesh import (
         ShardedBatch,
         all_reduce_max,
         all_reduce_sum,
+        spans_world,
     )
 
     if isinstance(batch, ShardedBatch):
@@ -90,9 +91,10 @@ def compute_statistics(batch) -> FeatureStatistics:
             n, s1, s2, nnz = n + pn, s1 + p1, s2 + p2, nnz + pz
             x_min = torch.minimum(x_min, pmin)
             x_max = torch.maximum(x_max, pmax)
-        n, s1, s2, nnz = all_reduce_sum([n, s1, s2, nnz])
-        neg_min, x_max = all_reduce_max([-x_min, x_max])
-        x_min = -neg_min
+        if spans_world(batch.mesh):
+            n, s1, s2, nnz = all_reduce_sum([n, s1, s2, nnz])
+            neg_min, x_max = all_reduce_max([-x_min, x_max])
+            x_min = -neg_min
     else:
         n, s1, s2, nnz, x_min, x_max = _partials(batch)
     # A feature stored in fewer rows than there are has implicit zeros.

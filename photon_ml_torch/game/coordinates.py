@@ -163,31 +163,10 @@ class FixedEffectCoordinate(Coordinate):
 
     def train(self, offsets: Tensor, warm_start: Tensor | None = None):
         w0 = self.initial_coefficients() if warm_start is None else warm_start
-        if self.distributed is None:
-            res = self.problem.run(self._training_batch(offsets), w0)
-            return res.w, res
-        from photon_ml_torch.optim.tron import tron_solve
-
-        view = self._training_batch(offsets)
-        dist, problem = self.distributed, self.problem
-        if problem.optimizer == OptimizerType.TRON:
-            if problem.has_l1():
-                raise ValueError(
-                    "TRON requires a smooth objective; use LBFGS (OWL-QN) "
-                    "for L1/elastic-net problems")
-            res = tron_solve(
-                lambda w: dist.value_and_gradient(w, view),
-                lambda w, v: dist.hessian_vector(w, v, view), w0,
-                problem.config)
-        else:
-            from photon_ml_torch.optim.lbfgs import lbfgs_solve
-
-            res = lbfgs_solve(
-                lambda w: dist.value_and_gradient(w, view), w0,
-                problem.config,
-                l1_weight=problem._l1_vector(w0) if problem.has_l1()
-                else None,
-                value=lambda w: dist.value(w, view))
+        problem = self.problem
+        if self.distributed is not None:
+            problem = dataclasses.replace(problem, objective=self.distributed)
+        res = problem.run(self._training_batch(offsets), w0)
         return res.w, res
 
     def train_swept(self, offsets: Tensor, reg, warm_start=None):
@@ -532,7 +511,7 @@ def solve_entity_sharded(problem: OptimizationProblem, batch: DenseBatch,
     solve's.  Without a mesh it is ``solve_batched``."""
     if mesh is None:
         return solve_batched(problem, batch, w0s)
-    from photon_ml_torch.parallel.mesh import entity_slices
+    from photon_ml_torch.parallel.mesh import entity_slices, spans_world
 
     fields = [f.name for f in dataclasses.fields(DenseBatch)]
     pieces = {k: entity_slices(getattr(batch, k), mesh) for k in fields}
@@ -543,7 +522,7 @@ def solve_entity_sharded(problem: OptimizationProblem, batch: DenseBatch,
                       w0_pieces[j])
         for j in range(mesh.local_size)]
     res = _cat_results(results, mesh.device)
-    return _gather_result(res) if mesh.process_count > 1 else res
+    return _gather_result(res) if spans_world(mesh) else res
 
 
 # -- the streamed random effect --------------------------------------------

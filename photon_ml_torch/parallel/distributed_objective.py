@@ -15,9 +15,10 @@ Regularization and the prior are example-independent: they are added
 once, outside the sum.  Scoring (``predict_margins``, ``x_dot``) stays
 shard-local: a shard's layout indexes only its own rows.
 
-The solvers take this objective through the same ``(value_and_grad,
-hvp)`` callables as the local one.  Coefficients may carry a leading
-λ-lane axis ([L, d]), which every shard's products take.
+``OptimizationProblem.run`` takes this objective in place of the local
+one (it reads the inner objective's ``reg`` and ``prior``).
+Coefficients may carry a leading λ-lane axis ([L, d]), which every
+shard's products take.
 """
 
 from __future__ import annotations
@@ -46,6 +47,17 @@ class DistributedGLMObjective:
 
     def replace(self, objective: GLMObjective) -> "DistributedGLMObjective":
         return DistributedGLMObjective(objective, self.mesh)
+
+    # The inner objective's regularization and prior, so that
+    # ``OptimizationProblem`` routes this objective as it does the local
+    # one (OWL-QN on an L1 weight; TRON refuses one).
+    @property
+    def reg(self) -> RegularizationContext:
+        return self.objective.reg
+
+    @property
+    def prior(self):
+        return self.objective.prior
 
     def _each(self, batch: ShardedBatch, fn, *vectors) -> list:
         """``fn(*vectors, shard)`` a shard, the vectors copied once a

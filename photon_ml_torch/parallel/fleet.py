@@ -69,7 +69,7 @@ DEFAULT_STALL_TIMEOUT_S = 600.0
 _RESULT_CACHE_CAP = 4096
 
 # The JAX package's marker of a jaxlib without multi-process CPU
-# collectives; the port's probe reports it too, should a worker print it.
+# collectives, kept for its surface: a gloo worker never prints it.
 MULTIPROC_UNSUPPORTED_MARKER = "Multiprocess computations aren't implemented"
 
 
@@ -626,8 +626,11 @@ _PROBE_RESULT: bool | None = None
 
 def probe_cpu_multiprocess_collectives(timeout_s: float = 120.0) -> bool:
     """Whether two processes can run a real gloo all-reduce on the CPU:
-    two tiny workers are spawned once a process and the verdict cached
-    (the psum tests' skip guard)."""
+    two tiny workers are spawned once a process and the verdict cached.
+    The JAX package's psum tests skip on its own probe's verdict (a
+    jaxlib may lack multi-process CPU collectives).  gloo always has
+    them, so the port's two-rank tests run unguarded; this probe keeps
+    the reference's surface and tells whether local tcp works at all."""
     global _PROBE_RESULT
     if _PROBE_RESULT is not None:
         return _PROBE_RESULT

@@ -25,9 +25,11 @@ of ``n_devices`` shards gives each process ``n_devices / W`` of them:
 process r holds shards r·L … r·L + L − 1 of the global grid, builds
 only those, and the all-reduce joins the processes' partials.  A mesh
 built with ``span_processes=False`` stays within its process (all
-``n_devices`` shards local): the chunk-streamed fit under a psum fleet
-splits its chunks across the processes instead, and the fleet's reducer
-joins them.
+``n_devices`` shards local) and runs no collective of its own: the
+chunk-streamed fit under a psum fleet splits its chunks across the
+processes instead, and the fleet's reducer joins them.  Whether a
+reduction or a gather crosses processes is the mesh's to say
+(``spans_world``), never the world's alone.
 
 Axis names: ``DATA_AXIS`` for example parallelism (the fixed effect),
 ``ENTITY_AXIS`` for entity-sharded random effects.
@@ -208,10 +210,27 @@ def all_gather_rows(t: Tensor) -> Tensor:
     return out.to(torch.bool) if t.dtype == torch.bool else out
 
 
+def spans_world(mesh: Mesh) -> bool:
+    """Whether ``mesh``'s shards span the processes of the world, so its
+    partials meet in a collective.  A mesh within one process
+    (``span_processes=False``, or no world) runs none; a spanning mesh
+    must match the world it was built in."""
+    if mesh.process_count == 1:
+        return False
+    rank, world = _world()
+    if (world, rank) != (mesh.process_count, mesh.process_index):
+        raise RuntimeError(
+            f"mesh spans {mesh.process_count} processes as rank "
+            f"{mesh.process_index}, but the world has {world} with this "
+            f"process as rank {rank}")
+    return True
+
+
 def reduce_partials(parts: list, mesh: Mesh):
     """Per-shard partial trees (a tensor or a tuple of tensors each) →
     their sum: added one after another in shard order on the mesh's
-    first device, then summed across the world's processes."""
+    first device, then summed across the world's processes when the
+    mesh spans them."""
     dev = mesh.device
 
     def leaves_of(p):
@@ -220,7 +239,8 @@ def reduce_partials(parts: list, mesh: Mesh):
     total = [t.to(dev) for t in leaves_of(parts[0])]
     for p in parts[1:]:
         total = [a + b.to(dev) for a, b in zip(total, leaves_of(p))]
-    total = all_reduce_sum(total)
+    if spans_world(mesh):
+        total = all_reduce_sum(total)
     return tuple(total) if isinstance(parts[0], tuple) else total[0]
 
 
@@ -285,8 +305,10 @@ class ShardedBatch:
 
     def gather_rows(self, local: Tensor) -> Tensor:
         """Per-example values of this process's rows → every row of the
-        mesh ([n_padded]), on the mesh's first device."""
-        return all_gather_rows(local.to(self.mesh.device))
+        mesh ([n_padded]), on the mesh's first device: gathered from the
+        world's processes when the mesh spans them."""
+        local = local.to(self.mesh.device)
+        return all_gather_rows(local) if spans_world(self.mesh) else local
 
 
 def _local_ids(mesh: Mesh) -> range:

@@ -775,6 +775,7 @@ def test_mesh_game_stream_and_driver_phases_on_cpu(work):
     assert game["failures"] == []
     assert game["shard_entities"] and game["bucket_solves"] % \
         cs.MESH_DEVICES == 0
+    assert game["fe_evaluations"] % cs.MESH_DEVICES == 0
     stream_fit = cs._stream_fit(cs.stream_config(
         "cpu", str(work / "ref_spill"), 2048), train, valid)
     ref = dict(cs._fit_summary(stream_fit), wall_s=stream_fit["wall_s"])
@@ -784,6 +785,9 @@ def test_mesh_game_stream_and_driver_phases_on_cpu(work):
                                       chunk_rows=2048, time_it=False,
                                       spill=spill)
         assert stream["failures"] == []
+        for name in ("grr", "grr_mesh"):
+            assert stream[name]["evaluation_padded_levels"] >= \
+                stream[name]["pieces_a_chunk"]
     assert stream["grr"]["evaluations"] >= 1
     assert stream["grr_mesh"]["pieces_a_chunk"] == cs.MESH_CHUNK_DEVICES
     assert {s["max_abs_err"] for s in stream["shapes"]} == {0.0}

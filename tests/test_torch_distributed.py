@@ -21,7 +21,11 @@ held against the reference's single-process 8-device mesh:
 - **The driver**: ``distributed_init: true`` with ``n_devices: 8`` on 2
   ranks (the fixed effect's 8 shards split 4 and 4 across the ranks):
   models bitwise equal across ranks and within 1e-3 of the
-  single-process 8-shard fit.
+  single-process 8-shard fit.  With ``chunk_rows`` as well, each rank
+  holds all 8 shards of its own chunks (3 chunks: rank 1 takes a
+  sentinel step) and the psum fleet joins the chunk partials once:
+  bitwise across ranks, within 1e-3 of the one-process chunked 8-shard
+  fit and of the JAX package's.
 
 Every worker is a port-only process (no jax) with a 120 s limit; the
 test kills what it started.
@@ -199,6 +203,20 @@ def test_two_rank_objective_matches_reference_8_device_mesh(jax_c1,
                 atol=1e-5 * float(np.abs(want).max()), err_msg=key)
 
 
+def test_probe_cpu_multiprocess_collectives_verdict():
+    """The probe's two gloo workers all-reduce here, its verdict is
+    cached, and its marker is the JAX package's jaxlib text."""
+    from photon_ml_tpu.parallel import fleet as jfleet
+
+    from photon_ml_torch.parallel import fleet
+
+    assert fleet.probe_cpu_multiprocess_collectives(timeout_s=TIMEOUT_S)
+    assert fleet._PROBE_RESULT is True
+    assert fleet.probe_cpu_multiprocess_collectives()
+    assert fleet.MULTIPROC_UNSUPPORTED_MARKER == \
+        jfleet.MULTIPROC_UNSUPPORTED_MARKER
+
+
 _PSUM_PREAMBLE = r'''
 from photon_ml_torch.cli.game_training_driver import distributed_init_from_env
 assert distributed_init_from_env("cpu")
@@ -265,16 +283,8 @@ def _driver_dataset(path, n=400, d=12, seed=5):
             f.write(f"{int(y[i])} {feats}\n")
 
 
-def test_driver_distributed_init_two_ranks(tmp_path):
-    """The training driver with ``distributed_init`` and ``n_devices: 8``
-    on 2 gloo ranks: each writes its host tree, the ranks' models are
-    bitwise equal and within 1e-3 of the one-process 8-shard fit."""
-    from photon_ml_torch.cli import game_training_driver as drv
-    from photon_ml_torch.io.model_io import load_game_model
-
-    data = tmp_path / "train.libsvm"
-    _driver_dataset(data)
-    base = {
+def _driver_base(data) -> dict:
+    return {
         "input_path": str(data), "input_format": "libsvm",
         "task_type": "LOGISTIC_REGRESSION",
         "coordinates": [{"name": "global", "kind": "FIXED_EFFECT",
@@ -282,10 +292,19 @@ def test_driver_distributed_init_two_ranks(tmp_path):
                          "optimizer": {"max_iters": 40, "reg_weight": 1.0}}],
         "update_sequence": ["global"], "n_devices": 8,
         "sparse_layout": "COLMAJOR"}
-    solo_cfg = {**base, "output_dir": str(tmp_path / "solo")}
-    (tmp_path / "solo.json").write_text(json.dumps(solo_cfg))
-    drv.main(["--config", str(tmp_path / "solo.json"), "--device", "cpu"])
-    dist_cfg = {**base, "output_dir": str(tmp_path / "dist"),
+
+
+def _global_means(out_dir) -> np.ndarray:
+    from photon_ml_torch.io.model_io import load_game_model
+
+    model = load_game_model(str(out_dir))[0]
+    return model.models["global"].coefficients.means.numpy()
+
+
+def _driver_world(tmp_path, cfg: dict) -> list[np.ndarray]:
+    """``cfg`` with ``distributed_init`` on 2 gloo ranks → each rank's
+    fixed-effect coefficients (from its ``host_NNN`` tree)."""
+    dist_cfg = {**cfg, "output_dir": str(tmp_path / "dist"),
                 "distributed_init": True}
     (tmp_path / "dist.json").write_text(json.dumps(dist_cfg))
     script = tmp_path / "driver_worker.py"
@@ -293,11 +312,51 @@ def test_driver_distributed_init_two_ranks(tmp_path):
     results = _run_world(str(script), extra={
         "PML_CFG": str(tmp_path / "dist.json")})
     assert [r["rank"] for r in results] == [0, 1]
-    models = [load_game_model(str(tmp_path / "dist" / f"host_{r:03d}"
-                                  / "model"))[0] for r in (0, 1)]
-    solo = load_game_model(str(tmp_path / "solo" / "model"))[0]
-    w0, w1 = (m.models["global"].coefficients.means.numpy() for m in models)
+    return [_global_means(tmp_path / "dist" / f"host_{r:03d}" / "model")
+            for r in (0, 1)]
+
+
+def _solo_driver(tmp_path, cfg: dict) -> np.ndarray:
+    from photon_ml_torch.cli import game_training_driver as drv
+
+    solo_cfg = {**cfg, "output_dir": str(tmp_path / "solo")}
+    (tmp_path / "solo.json").write_text(json.dumps(solo_cfg))
+    drv.main(["--config", str(tmp_path / "solo.json"), "--device", "cpu"])
+    return _global_means(tmp_path / "solo" / "model")
+
+
+def test_driver_distributed_init_two_ranks(tmp_path):
+    """The training driver with ``distributed_init`` and ``n_devices: 8``
+    on 2 gloo ranks: each writes its host tree, the ranks' models are
+    bitwise equal and within 1e-3 of the one-process 8-shard fit."""
+    data = tmp_path / "train.libsvm"
+    _driver_dataset(data)
+    base = _driver_base(data)
+    solo = _solo_driver(tmp_path, base)
+    w0, w1 = _driver_world(tmp_path, base)
     np.testing.assert_array_equal(w0, w1)
-    np.testing.assert_allclose(
-        w0, solo.models["global"].coefficients.means.numpy(), atol=1e-3,
-        rtol=1e-3)
+    np.testing.assert_allclose(w0, solo, atol=1e-3, rtol=1e-3)
+
+
+def test_driver_distributed_init_chunked_mesh_two_ranks(jax_c1, tmp_path):
+    """``chunk_rows`` with ``n_devices: 8`` and ``distributed_init`` on 2
+    gloo ranks: 400 rows in 3 chunks of 136 (the device grid), rank 0
+    streams chunks 0-1 and rank 1 chunk 2 and a sentinel step; each
+    chunk's 8 pieces are summed within the rank and the psum fleet sums
+    the ranks once.  The ranks' models are bitwise equal and within
+    1e-3 of the one-process chunked 8-shard fit and of the JAX
+    package's chunked 8-device fit."""
+    from photon_ml_tpu.cli import game_training_driver as jdrv
+
+    data = tmp_path / "train.libsvm"
+    _driver_dataset(data)
+    cfg = {**_driver_base(data), "chunk_rows": 136}
+    solo = _solo_driver(tmp_path, cfg)
+    jax_cfg = {**cfg, "output_dir": str(tmp_path / "jax")}
+    (tmp_path / "jax.json").write_text(json.dumps(jax_cfg))
+    jdrv.main(["--config", str(tmp_path / "jax.json")])
+    ref = _global_means(tmp_path / "jax" / "model")
+    w0, w1 = _driver_world(tmp_path, cfg)
+    np.testing.assert_array_equal(w0, w1)
+    np.testing.assert_allclose(w0, solo, atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(w0, ref, atol=1e-3, rtol=1e-3)

@@ -18,6 +18,7 @@ it, so the ``cuda`` tests also run where only PyTorch is installed::
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -421,6 +422,47 @@ def test_direction_empty():
                                  device="cpu")
     out = d.contract(torch.zeros(100))
     assert out.shape == (50,) and not out.any()
+
+
+def _coo_residual_direction(rng, device, m=20000, L=300, S=40):
+    """An empty plan given a COO residual of ``m`` terms over ``S``
+    segments (~500 terms a segment)."""
+    idx, seg, val = _coo(rng, m, L, S)
+    d = tgrr.build_grr_direction(np.empty(0, np.int64),
+                                 np.empty(0, np.int64),
+                                 np.empty(0, np.float32), L, S,
+                                 device="cpu")
+    d = dataclasses.replace(
+        d, spill_idx=torch.from_numpy(idx.astype(np.int32)),
+        spill_seg=torch.from_numpy(seg.astype(np.int32)),
+        spill_val=torch.from_numpy(val)).to(device)
+    assert d.n_spill == m
+    return d, (idx, seg, val)
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_coo_residual_sums_in_float64(device):
+    """The COO residual (~500 terms a segment, each a float32 product) is
+    summed in float64: each of twenty contractions is the float64 sum of
+    the products rounded to float32 (within 2^-23 relative; a float32
+    sum misses by ~1e-6), and on the CPU, which adds in index order,
+    they are bitwise equal."""
+    if device == "cuda":
+        _cuda_or_skip()
+    rng = np.random.default_rng(21)
+    d, (idx, seg, val) = _coo_residual_direction(rng, device)
+    table = rng.normal(0, 1, 300).astype(np.float32)
+    t = torch.from_numpy(table).to(device)
+    outs = [d.contract(t).cpu().numpy() for _ in range(20)]
+    want = np.zeros(40, np.float64)
+    np.add.at(want, seg, (val * table[idx]).astype(np.float64))
+    for o in outs:
+        np.testing.assert_allclose(o, want, rtol=2.0 ** -23,
+                                   atol=1e-9 * float(np.abs(want).max()))
+    if device == "cpu":
+        for o in outs[1:]:
+            np.testing.assert_array_equal(o, outs[0])
 
 
 def test_pair_matches_dense():

@@ -328,6 +328,71 @@ def test_distributed_objective_adds_l2_and_prior_once():
         _np(obj.hessian_diagonal(w, single)), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("l1,optimizer", [
+    (0.0, "LBFGS"), (2.0, "LBFGS"), (0.0, "TRON")])
+def test_problem_runs_the_distributed_objective(l1, optimizer):
+    """``OptimizationProblem.run`` takes the 8-shard objective in place of
+    the local one and routes it alike (L-BFGS, OWL-QN on an L1 weight,
+    TRON; TRON refuses L1 through the mesh too): the mesh solve within
+    the fits' 1e-3 of the single-device solve."""
+    import dataclasses
+
+    from photon_ml_torch.optim.base import OptimizerConfig, OptimizerType
+    from photon_ml_torch.optim.problem import OptimizationProblem
+
+    rows, y, d = _sparse_rows(6, n=480)
+    reg = RegularizationContext(l1, 0.8, None)
+    problem = OptimizationProblem(
+        GLMObjective(loss=losses.LOGISTIC, reg=reg,
+                     norm=NormalizationContext.identity()),
+        optimizer=OptimizerType[optimizer],
+        config=OptimizerConfig(max_iters=60))
+    single = make_sparse_batch(rows, d, y, device=CPU)
+    sharded = shard_sparse_batch(rows, d, y,
+                                 data_parallel_mesh(8, device=CPU),
+                                 layout="colmajor")
+    dist = DistributedGLMObjective(problem.objective, sharded.mesh)
+    assert dist.reg is problem.objective.reg and dist.prior is None
+    on_mesh = dataclasses.replace(problem, objective=dist)
+    w0 = torch.zeros(d)
+    got = on_mesh.run(sharded, w0)
+    want = problem.run(single, w0)
+    np.testing.assert_allclose(_np(got.w), _np(want.w), rtol=COEF_ATOL,
+                               atol=COEF_ATOL)
+    if l1:
+        assert (got.w == 0).any()            # OWL-QN's exact zeros
+        with pytest.raises(ValueError, match="TRON requires"):
+            dataclasses.replace(on_mesh, optimizer=OptimizerType.TRON).run(
+                sharded, w0)
+
+
+def test_collectives_follow_the_mesh(monkeypatch):
+    """A mesh within its process runs no collective whatever the world;
+    a mesh spanning processes must match the world it meets."""
+    calls = []
+    monkeypatch.setattr(tmesh, "all_reduce_sum",
+                        lambda leaves, op=None: calls.append("sum") or leaves)
+    monkeypatch.setattr(tmesh, "all_gather_rows",
+                        lambda t: calls.append("gather") or t)
+    local = data_parallel_mesh(2, device=CPU)
+    parts = [torch.ones(3), 2 * torch.ones(3)]
+    monkeypatch.setattr(tmesh, "_world", lambda: (1, 2))
+    assert not tmesh.spans_world(local)
+    assert torch.equal(tmesh.reduce_partials(parts, local), 3 * torch.ones(3))
+    sb = tmesh.ShardedBatch(shards=(), mesh=local)
+    assert torch.equal(sb.gather_rows(torch.ones(4)), torch.ones(4))
+    assert calls == []
+    spanning = tmesh.Mesh(devices=local.devices, axis=tmesh.DATA_AXIS,
+                          process_index=1, process_count=2)
+    assert tmesh.spans_world(spanning)
+    tmesh.reduce_partials(parts, spanning)
+    tmesh.ShardedBatch(shards=(), mesh=spanning).gather_rows(torch.ones(4))
+    assert calls == ["sum", "gather"]
+    monkeypatch.setattr(tmesh, "_world", lambda: (0, 1))
+    with pytest.raises(RuntimeError, match="mesh spans 2 processes"):
+        tmesh.reduce_partials(parts, spanning)
+
+
 # -- estimator fits -----------------------------------------------------------
 
 
