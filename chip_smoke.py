@@ -385,6 +385,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -6525,6 +6526,96 @@ def add_mesh_shapes(kernels: list, launches: dict, key: str,
             sh["max_abs_err"] for sh in entry["shapes"])
 
 
+# -- phase 18: the kernel build cache -----------------------------------------
+
+# Run in a fresh process, so that no kernel library is loaded yet: point
+# the build directory at argv[1] (which holds the built libraries), load
+# every library, launch B1 once on argv[2]'s arrays against its plain
+# version (rtol argv[3], atol argv[4]); one JSON line of the result.
+_CACHE_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+from photon_ml_torch.cache import enable_compilation_cache
+from photon_ml_torch.kernels import _build
+from photon_ml_torch.ops.kernels import gather_rowsum, gather_rowsum_reference
+
+builds = []
+_build.add_build_listener(builds.append)
+kernels_dir = enable_compilation_cache(sys.argv[1])
+paths = {name: _build.load(name)._name for name in sorted(_build._SIGNATURES)}
+arrays = np.load(sys.argv[2])
+table, vals, ids = (torch.from_numpy(arrays[key]).cuda()
+                    for key in ("table", "vals", "ids"))
+gather_rowsum.launches = 0
+got = gather_rowsum(table, vals, ids)
+torch.cuda.synchronize()
+launches = gather_rowsum.launches
+want = gather_rowsum_reference(table, vals, ids).cpu().numpy()
+got = got.cpu().numpy()
+err = float(np.max(np.abs(got - want)))
+np.testing.assert_allclose(got, want, rtol=float(sys.argv[3]),
+                           atol=float(sys.argv[4]))
+print(json.dumps({"kernels_dir": kernels_dir, "paths": paths,
+                  "builds": builds, "launches": launches,
+                  "finite": bool(np.isfinite(got).all()),
+                  "max_abs_err": err}))
+"""
+
+
+def phase_compile_cache(libs: list, seed: int) -> dict:
+    """``enable_compilation_cache`` on the card: a subprocess points the
+    kernels' build directory at a fresh cache directory into which the
+    built libraries ``libs`` were copied under their hashed names, loads
+    every kernel library from there and launches B1 once at the serving
+    shape against its plain version.  Gates: every library path lies
+    under the directory, no build, one launch, B1 within phase 3's
+    tolerance."""
+    failures = []
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.normal(0, 1, D).astype(np.float32)).cuda()
+    vals, ids = kernel_inputs(rng, table, *KERNEL_SHAPES[0])
+    with tempfile.TemporaryDirectory(prefix="photon-compile-cache-") as tmp:
+        kdir = os.path.join(tmp, "kernels")
+        os.makedirs(kdir)
+        for p in libs:
+            shutil.copy2(p, os.path.join(kdir, os.path.basename(p)))
+        inputs = os.path.join(tmp, "b1.npz")
+        np.savez(inputs, table=table.cpu().numpy(), vals=vals.cpu().numpy(),
+                 ids=ids.cpu().numpy())
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _CACHE_CHILD, tmp, inputs, repr(RTOL),
+             repr(ATOL)], cwd=REPO, capture_output=True, text=True,
+            timeout=300)
+        wall_s = time.perf_counter() - t
+    out = {"wall_s": wall_s, "rc": proc.returncode, "shape": list(
+        KERNEL_SHAPES[0]), "rtol": RTOL, "atol": ATOL}
+    if proc.returncode != 0:
+        failures.append(f"the cache subprocess exited {proc.returncode}: "
+                        + proc.stderr[-2000:])
+        return dict(out, failures=failures)
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    out.update(res)
+    out["paths"] = {n: os.path.relpath(p, tmp)
+                    for n, p in res["paths"].items()}
+    if res["kernels_dir"] != kdir:
+        failures.append(f"build directory {res['kernels_dir']} is not "
+                        f"{kdir}")
+    if sorted(res["paths"]) != sorted(_build._SIGNATURES):
+        failures.append(f"loaded {sorted(res['paths'])}")
+    outside = [n for n, p in res["paths"].items()
+               if os.path.dirname(p) != kdir]
+    if outside:
+        failures.append(f"libraries loaded outside the cache: {outside}")
+    if res["builds"]:
+        failures.append(f"built {res['builds']} with every library cached")
+    if res["launches"] != 1 or not res["finite"]:
+        failures.append(f"B1 launched {res['launches']} time(s), finite "
+                        f"{res['finite']}")
+    return dict(out, failures=failures)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -6547,6 +6638,13 @@ def main() -> int:
         print(f"phase 2 build: {len(libs)} kernel(s) in "
               f"{time.perf_counter() - t:.2f} s: "
               + ", ".join(os.path.relpath(p, REPO) for p in libs))
+        compile_cache = phase_compile_cache(libs, seed=18)
+        compile_cache["card"] = card
+        print("phase 18 compile cache: " + json.dumps(
+            {"compile_cache": compile_cache}))
+        if compile_cache["failures"]:
+            raise AssertionError("phase 18: " + "; ".join(
+                compile_cache["failures"]))
 
         t = time.perf_counter()
         train = phase_train_build(seed=3, n=TRAIN_ROWS, device="cuda")
@@ -6836,6 +6934,9 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"compile_cache": {
+        key: compile_cache[key] for key in ("wall_s", "builds", "paths",
+                                            "launches", "max_abs_err")}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

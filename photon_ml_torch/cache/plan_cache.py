@@ -176,7 +176,7 @@ def atomic_savez(path: str, meta, arrays: dict) -> None:
     except BaseException:
         try:
             os.unlink(tmp)
-        except OSError:
+        except OSError:  # photon-lint: disable=swallowed-exception (tmp-orphan cleanup; the primary write error re-raises below)
             pass
         raise
 

@@ -24,6 +24,7 @@ import argparse
 import json
 
 from photon_ml_torch import telemetry
+from photon_ml_torch.cache import enable_compilation_cache
 from photon_ml_torch.io.dataset import build_index_maps
 from photon_ml_torch.io.index_map import save_index_maps
 from photon_ml_torch.telemetry import monitor as _mon
@@ -37,6 +38,9 @@ def run(input_path: str, output_dir: str,
         telemetry_mode: str = "off", monitor: str = "off",
         status_port: int | None = None) -> dict:
     """Build and save the maps; returns their sizes."""
+    # Indexing itself is host-only, but the cache is wired like the
+    # other drivers', so $PHOTON_ML_TPU_COMPILE_CACHE covers them alike.
+    enable_compilation_cache()
     with (log or RunLogger()) as log, \
             telemetry.maybe_session(telemetry_mode, output_dir,
                                     run_logger=log, device="cpu"), \

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from photon_ml_torch import telemetry
+from photon_ml_torch.cache import enable_compilation_cache
 from photon_ml_torch.telemetry import monitor as _mon
 from photon_ml_torch.config import ScoringConfig, load_scoring_config
 from photon_ml_torch.device import resolve_device
@@ -125,6 +126,8 @@ def _make_sinks(config: ScoringConfig, n: int, entity_keys) -> list:
 def run(config: ScoringConfig, log: RunLogger | None = None) -> dict:
     """The whole scoring pipeline; returns the output path, the row
     count and the evaluation."""
+    # The kernel build cache, before the scoring kernels build.
+    enable_compilation_cache(config.compilation_cache_dir)
     config.validate()
     out_dir = os.path.dirname(os.path.abspath(config.output_path))
     os.makedirs(out_dir, exist_ok=True)

@@ -64,6 +64,7 @@ import os
 import numpy as np
 
 from photon_ml_torch import telemetry
+from photon_ml_torch.cache import enable_compilation_cache
 from photon_ml_torch.telemetry import monitor as _mon
 from photon_ml_torch.config import (
     CoordinateKind,
@@ -220,6 +221,10 @@ def _distributed_info() -> dict:
 def run(config: TrainingConfig, log: RunLogger | None = None) -> dict:
     """The whole training pipeline; returns the written summary."""
     config.validate()
+    # The kernel build cache first, before any kernel builds
+    # (cache.compile_cache; falls back to $PHOTON_ML_TPU_COMPILE_CACHE,
+    # no-op when neither is set).
+    enable_compilation_cache(config.compilation_cache_dir)
     made_group = (distributed_init_from_env(config.device)
                   if config.distributed_init else False)
     try:

@@ -19,9 +19,10 @@ reference's validation.  For serving:
   defaults (``"metrics"``, ``"on"``, ``"on"``); ``replicas`` > 1 runs
   the supervised replica fleet (``serving.fleet``), under the
   reference's fleet checks.
-- ``compilation_cache_dir`` is accepted and has no effect: the port has
-  no compiled programs to cache (its CUDA kernels are cached under
-  ``build/kernels/`` by source hash).
+- ``compilation_cache_dir`` (or ``$PHOTON_ML_TPU_COMPILE_CACHE``)
+  places the port's compiled artifacts, its CUDA kernel libraries:
+  they are built into and reused from ``<dir>/kernels`` instead of
+  ``build/kernels/`` (``cache.enable_compilation_cache``).
 """
 
 from __future__ import annotations
@@ -49,6 +50,9 @@ from photon_ml_torch.optim.variance import VarianceComputationType
 SANCTIONED_ENV = {
     "PHOTON_ML_TPU_PLAN_CACHE": (
         "default on-disk GRR plan cache dir (data.grr cache_dir=None)"),
+    "PHOTON_ML_TPU_COMPILE_CACHE": (
+        "default persistent XLA compilation cache dir (cache"
+        ".compile_cache)"),
     "PHOTON_ML_TPU_SPILL_DIR": (
         "default chunk-store spill dir (data.chunk_store"
         ".resolve_spill_dir)"),
@@ -260,9 +264,9 @@ class TrainingConfig:
     re_chunk_entities: int | None = None
     re_retirement: bool = True
     cd_fused: bool = False
-    # The GRR plan cache (shared with the JAX package).  The compilation
-    # cache is accepted and has no effect: the port's CUDA kernels are
-    # cached under build/kernels/ by source hash.
+    # The GRR plan cache (shared with the JAX package), and the
+    # compilation cache: the kernel libraries build into
+    # <compilation_cache_dir>/kernels (cache.compile_cache).
     plan_cache_dir: str | None = None
     compilation_cache_dir: str | None = None
     # The training phase runs under torch.profiler; its Chrome trace
@@ -441,7 +445,7 @@ class ScoringConfig:
     index_dir: str | None = None           # default: <model_dir>/../index_maps
     dense_feature_shards: list[str] = dataclasses.field(default_factory=list)
     evaluators: list[EvaluatorType] = dataclasses.field(default_factory=list)
-    # Accepted for config compatibility; has no effect in the port.
+    # The kernel libraries build into <dir>/kernels (cache.compile_cache).
     compilation_cache_dir: str | None = None
     # Set: the one-pass streamed scorer (estimators.streaming_scorer),
     # chunks of this many rows, spilled to spill_dir, read through a
@@ -508,7 +512,7 @@ class ServingConfig:
     host_max_resident: int = 4
     # Hot model swap: poll the manifest at this cadence (0 = off).
     hot_swap_poll_s: float = 2.0
-    # Accepted for config compatibility; has no effect in the port.
+    # The kernel libraries build into <dir>/kernels (cache.compile_cache).
     compilation_cache_dir: str | None = None
     # Telemetry (the registry behind /metrics) and the live monitor
     # (progress, alert rules, /status): both on by default, as in the

@@ -70,7 +70,7 @@ def release_free_heap() -> None:
         import ctypes
 
         ctypes.CDLL("libc.so.6").malloc_trim(0)
-    except (OSError, AttributeError):  # not glibc: nothing to trim
+    except (OSError, AttributeError):  # photon-lint: disable=swallowed-exception (non-glibc platforms: nothing to trim)
         pass
 
 
@@ -118,7 +118,7 @@ def _free_bytes(path: str) -> int | None:
         p = parent
     try:
         return shutil.disk_usage(p).free
-    except OSError:  # advisory: the error then says "unknown"
+    except OSError:  # photon-lint: disable=swallowed-exception (free-space probe is advisory; the spill error then says 'unknown')
         return None
 
 
@@ -581,7 +581,7 @@ class ChunkStore:
             try:
                 telemetry.count("store.bytes_spilled",
                                 os.path.getsize(path))
-            except OSError:  # a racing cleanup: the size is advisory
+            except OSError:  # photon-lint: disable=swallowed-exception (racing cleanup; the size metric is best-effort)
                 pass
         if keep_resident is None:
             keep_resident = i < self.host_max_resident
@@ -625,7 +625,7 @@ class ChunkStore:
                 try:
                     telemetry.count("store.bytes_read",
                                     os.path.getsize(path))
-                except OSError:  # a racing cleanup: advisory size
+                except OSError:  # photon-lint: disable=swallowed-exception (best-effort size metric; racing cleanup)
                     pass
             meta = json.loads(bytes(np.asarray(arrays["__meta__"]))
                               .decode())

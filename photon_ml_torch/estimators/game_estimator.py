@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from photon_ml_torch import telemetry
+from photon_ml_torch.cache import enable_compilation_cache
 from photon_ml_torch.config import (
     CoordinateConfig,
     CoordinateKind,
@@ -929,7 +930,11 @@ class GameEstimator:
         ``config.telemetry`` opens a session and ``config.monitor`` (or
         ``status_port``) a live monitor for the fit unless one is active
         (a driver's); the fit is one ``estimator_fit`` phase span (not
-        ``fit``: a driver's timed phase has that name)."""
+        ``fit``: a driver's timed phase has that name).  Programmatic
+        callers (no driver) get the kernel build cache from the config
+        too; a no-op when neither the config nor the environment sets
+        it."""
+        enable_compilation_cache(self.config.compilation_cache_dir)
         with telemetry.maybe_session(
                 self.config.telemetry,
                 self.config.telemetry_dir or self.config.output_dir,

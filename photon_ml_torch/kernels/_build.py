@@ -2,8 +2,9 @@
 
 Each ``photon_ml_torch/csrc/<name>.cu`` exports one or more plain
 ``extern "C"`` launchers.  It is compiled by ``nvcc`` for ``sm_90a`` into
-a shared library under ``build/kernels/`` at the repository root, named
-by a hash of its source and flags, and loaded with ``ctypes``.  No
+a shared library under ``build/kernels/`` at the repository root (or
+the directory ``cache.enable_compilation_cache`` names), named by a hash
+of its source and flags, and loaded with ``ctypes``.  No
 PyTorch header is included, so a build takes seconds, not minutes.  A
 library whose hash already exists is loaded as it is; any edit to the
 source builds a new one.
@@ -27,7 +28,10 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
+# The default build directory; ``cache.enable_compilation_cache`` points
+# the builds elsewhere (``set_build_dir``).
 BUILD_DIR = _PKG.parent / "build" / "kernels"
+_build_dir: Path | None = None
 
 # -Xptxas -v: ptxas reports each kernel's registers, shared memory and
 # spills; a build prints that report to stderr.
@@ -138,8 +142,7 @@ def _notify_build(name: str) -> None:
 
 
 def _nvcc() -> str:
-    # Toolchain discovery, not a configuration knob: this read stays
-    # outside ``config.SANCTIONED_ENV``.
+    # photon-lint: disable=env-read (toolchain discovery of the CUDA toolkit's own variables, as nvcc's users set them; not a photon knob for the sanctioned registry)
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
         return os.path.join(home, "bin", "nvcc")
@@ -154,10 +157,22 @@ def _nvcc() -> str:
                        "toolkit is installed")
 
 
+def build_dir() -> Path:
+    """The directory kernels are built into and loaded from now."""
+    return _build_dir if _build_dir is not None else BUILD_DIR
+
+
+def set_build_dir(path) -> None:
+    """Build and load kernels under ``path`` from now on.  A library
+    already loaded stays loaded."""
+    global _build_dir
+    _build_dir = Path(path)
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{h[:16]}.so"
+    return build_dir() / f"{name}-{h[:16]}.so"
 
 
 def _start_build(name: str):
@@ -166,7 +181,7 @@ def _start_build(name: str):
     final = library_path(name)
     if final.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    final.parent.mkdir(parents=True, exist_ok=True)
     tmp = final.with_name(f"{final.stem}.{os.getpid()}.tmp.so")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,

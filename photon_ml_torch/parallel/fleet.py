@@ -405,9 +405,15 @@ class ReduceCoordinator:
         while not self._closed:
             try:
                 conn, _addr = self._srv.accept()
-            except socket.timeout:   # the poll tick: re-check _closed
+            except socket.timeout:  # photon-lint: disable=swallowed-exception (the accept poll tick; the loop re-checks _closed)
                 continue
-            except OSError:          # the server socket closed: shutdown
+            except OSError as e:
+                # close() closes the socket under us; any other failure
+                # ends the coordinator, and the hosts would only see
+                # their barrier time out.
+                if not self._closed:
+                    logger.warning("fleet coordinator %s stopped "
+                                   "accepting: %r", self.address, e)
                 break
             t = threading.Thread(target=self._serve, args=(conn,),
                                  daemon=True, name="photon-fleet-conn")
@@ -421,10 +427,16 @@ class ReduceCoordinator:
                 while True:
                     try:
                         header, payload = _recv_msg(fh)
-                    # The worker hung up (maybe killed); its restart
-                    # replays the sequence.
-                    except (EOFError, FleetBarrierError, ValueError,
-                            OSError):
+                    except EOFError:
+                        # A hang-up between messages: a host done with
+                        # its fit, or killed (its restart replays the
+                        # sequence).
+                        logger.debug("fleet host hung up")
+                        return
+                    except (FleetBarrierError, ValueError, OSError) as e:
+                        logger.warning("fleet host dropped mid-message: "
+                                       "%r; a restarted host replays "
+                                       "its sequence", e)
                         return
                     total = self._reduce_one(int(header["host"]),
                                              int(header["seq"]),
@@ -433,7 +445,9 @@ class ReduceCoordinator:
                         return   # closed, or the barrier timed out
                     _send_msg(conn, {"seq": int(header["seq"])},
                               _encode_leaves(total))
-        except OSError:   # the peer died mid-reply; it raises on its side
+        except OSError as e:
+            logger.warning("fleet host dropped before its reply: %r; it "
+                           "raises its own barrier error", e)
             return
 
     def _reduce_one(self, host: int, seq: int,

@@ -201,7 +201,7 @@ class RunCheckpointer:
             try:
                 telemetry.count("reliability.checkpoint_bytes",
                                 os.path.getsize(path))
-            except OSError:  # a racing cleanup: the size is advisory
+            except OSError:  # photon-lint: disable=swallowed-exception (best-effort size metric; racing cleanup)
                 pass
         self._event("checkpoint_saved", level=kind, path=path)
 

@@ -248,6 +248,8 @@ class MicroBatcher:
         return self.max_rows
 
     def _pop_accounted(self, timeout=None):
+        """Queue pop that keeps ``_queued_rows`` honest."""
+        # photon-lint: disable=eternal-wait (drain contract: close() always enqueues the sentinel under the lock submit() takes, and submit() refuses once _closing is set, so the unbounded get is terminated by shutdown)
         item = self._q.get() if timeout is None \
             else self._q.get(timeout=timeout)
         if item is not self._SENTINEL:
@@ -284,8 +286,8 @@ class MicroBatcher:
                     break
                 try:
                     nxt = self._pop_accounted(timeout=wait)
-                except queue.Empty:
-                    break          # the coalescing deadline expired
+                except queue.Empty:  # photon-lint: disable=swallowed-exception (the coalescing deadline expiring IS the dispatch signal, not a failure)
+                    break
                 if nxt is self._SENTINEL:
                     carry = nxt    # dispatch, then exit next loop
                     break

@@ -154,8 +154,8 @@ class SubprocessReplicaHandle(ReplicaHandle):
             try:
                 with open(self._info_path) as f:
                     self._url = json.load(f)["url"]
-            except (OSError, ValueError, KeyError):
-                return None       # not written yet: still starting
+            except (OSError, ValueError, KeyError):  # photon-lint: disable=swallowed-exception (the info file simply has not been written yet; the caller treats None as still-starting)
+                return None
         return self._url
 
     def pid(self) -> int | None:
@@ -172,8 +172,8 @@ class SubprocessReplicaHandle(ReplicaHandle):
     def wait(self, timeout_s: float) -> int | None:
         try:
             return self._proc.wait(timeout=timeout_s)
-        except subprocess.TimeoutExpired:
-            return None           # still alive; the caller escalates
+        except subprocess.TimeoutExpired:  # photon-lint: disable=swallowed-exception (the timeout IS the result: None tells the caller the process is still alive and escalation — SIGKILL — is its decision)
+            return None
 
 
 class SubprocessReplicaLauncher:
@@ -449,8 +449,8 @@ class FleetSupervisor:
             except Exception:
                 state = None      # a non-JSON 5xx: an unhealthy probe
             return "warming" if state == "warming" else "error"
-        except Exception:
-            return "error"        # the transport failure is the result
+        except Exception:  # photon-lint: disable=swallowed-exception (any transport failure IS the probe result; the caller counts consecutive failures toward the wedge threshold)
+            return "error"
 
     def note_failure(self, idx: int) -> None:
         """Frontend feedback: a connection-level failure against a

@@ -65,7 +65,7 @@ def _manifest_signature(model_dir: str) -> tuple | None:
         try:
             st = os.stat(path)
             return (path, st.st_mtime_ns, st.st_size)
-        except OSError:
+        except OSError:  # photon-lint: disable=swallowed-exception (an absent candidate means "try the next layout"; a fully absent model dir returns None and the caller raises with context)
             continue
     return None
 
@@ -77,7 +77,7 @@ def _peak_rss_mb() -> float | None:
         ru = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         return ru / 1024.0 if os.uname().sysname == "Linux" \
             else ru / (1024.0 * 1024.0)
-    except Exception:
+    except Exception:  # photon-lint: disable=swallowed-exception (RSS is advisory status info; platforms without rusage report null)
         return None
 
 
@@ -117,9 +117,11 @@ class ModelServer:
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> "ModelServer":
+        from photon_ml_torch.cache import enable_compilation_cache
         from photon_ml_torch.telemetry import monitor as _mon
 
         cfg = self.config
+        enable_compilation_cache(cfg.compilation_cache_dir)
         logger.info("model server bound on http://%s:%d (warming)",
                     cfg.host, self.port)
         if cfg.telemetry != "off" and telemetry.active() is None:
@@ -164,6 +166,7 @@ class ModelServer:
         return self
 
     def serve_forever(self) -> None:
+        # photon-lint: disable=eternal-wait (the main thread parks until stop() or the CLI signal handler sets the event; there is nothing to time out toward)
         self._stop_evt.wait()
 
     def stop(self) -> None:

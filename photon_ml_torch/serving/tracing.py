@@ -128,9 +128,7 @@ def parse_trace_header(value: str | None) -> TraceContext | None:
         return TraceContext(trace_id, 0)
     try:
         return TraceContext(trace_id, max(0, int(hop)))
-    except ValueError:
-        # A malformed hop means "no context to adopt"; logging each
-        # hostile header would be a log-spam vector.
+    except ValueError:  # photon-lint: disable=swallowed-exception (a malformed client hop means "no adoptable context"; the caller mints a fresh one — logging each hostile header would be a log-spam vector)
         return None
 
 

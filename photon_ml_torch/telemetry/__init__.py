@@ -259,7 +259,7 @@ class _RssSampler:
                 for line in f:
                     if line.startswith("VmRSS:"):
                         return int(line.split()[1]) / 1024.0
-        except OSError:   # no /proc: the sampler never starts
+        except OSError:  # photon-lint: disable=swallowed-exception (/proc absent off-Linux; start() then never starts the sampler)
             return None
         return None
 

@@ -248,7 +248,7 @@ def watch(path: str, once: bool = False,
                 if out is sys.stdout and sys.stdout.isatty():
                     print("\x1b[H\x1b[2J", end="", file=out)
                 render(snap, out)
-        except KeyboardInterrupt:
-            pass   # operator detach: the final JSON line still prints
+        except KeyboardInterrupt:  # photon-lint: disable=swallowed-exception (operator detach: the final JSON line still prints)
+            pass
     print(json.dumps(snap), file=out)
     return snap

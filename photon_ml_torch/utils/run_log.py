@@ -71,7 +71,7 @@ def _ends_torn(path: str) -> bool:
                 return False
             f.seek(-1, os.SEEK_END)
             return f.read(1) != b"\n"
-    except OSError:  # unreadable: nothing to repair
+    except OSError:  # photon-lint: disable=swallowed-exception (tail probe is best-effort; the append that follows raises on a file it cannot write, and the worst case is one fused line)
         return False
 
 

@@ -59,6 +59,7 @@ def test_registry_is_a_subset_of_the_reference():
     assert port <= set(jconfig.SANCTIONED_ENV)
     assert port == {
         "PHOTON_ML_TPU_PLAN_CACHE", "PHOTON_ML_TPU_SPILL_DIR",
+        "PHOTON_ML_TPU_COMPILE_CACHE",
         "PHOTON_FLEET_NUM_HOSTS", "PHOTON_FLEET_HOST_ID",
         "PHOTON_FLEET_COORDINATOR", "JAX_COORDINATOR_ADDRESS",
         "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"}

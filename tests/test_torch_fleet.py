@@ -219,6 +219,35 @@ def test_stalled_peer_raises_within_stall_timeout():
         coord.close()
 
 
+def test_coordinator_logs_a_host_dropped_mid_message(caplog):
+    """A host that drops mid-message is logged as a warning, one that
+    hangs up between messages at debug level; both leave the
+    coordinator serving (the others' barrier still holds)."""
+    import logging
+    import socket
+
+    coord = tfleet.ReduceCoordinator(2, stall_timeout_s=5.0)
+    host, port = coord.address.rsplit(":", 1)
+    try:
+        with caplog.at_level(logging.DEBUG, logger=tfleet.__name__):
+            with socket.create_connection((host, int(port))) as s:
+                s.sendall(json.dumps({"host": 0, "seq": 0,
+                                      "nbytes": 100}).encode()
+                          + b"\n" + b"x" * 10)
+            with socket.create_connection((host, int(port))):
+                pass
+            deadline = time.monotonic() + 10.0
+            while time.monotonic() < deadline and len(caplog.records) < 2:
+                time.sleep(0.05)
+        got = sorted((r.levelname, r.getMessage().split(":")[0])
+                     for r in caplog.records)
+        assert got == [("DEBUG", "fleet host hung up"),
+                       ("WARNING", "fleet host dropped mid-message")]
+        assert coord.reduces == 0
+    finally:
+        coord.close()
+
+
 def test_unreachable_coordinator_raises_barrier_error():
     with __import__("socket").socket() as s:
         s.bind(("127.0.0.1", 0))

@@ -192,6 +192,32 @@ def test_port_has_the_lane_kernel_source():
         REPO / "photon_ml_torch/csrc/gather_rowsum.cu").read_text()
 
 
+def test_port_has_the_lint_and_compile_cache_slice():
+    """photon-lint (``analysis.checkers`` and its CLI) and the kernel
+    build cache: with them every module of the JAX package has its
+    counterpart; importing them pulls in neither jax nor the JAX
+    package."""
+    rels = ("photon_ml_torch/analysis/checkers.py",
+            "photon_ml_torch/analysis/__main__.py",
+            "photon_ml_torch/cache/compile_cache.py")
+    for rel in rels:
+        assert (REPO / rel).is_file() and rel in PORT_FILES, rel
+    ref = {p.relative_to(REPO / "photon_ml_tpu")
+           for p in (REPO / "photon_ml_tpu").rglob("*.py")}
+    port = {p.relative_to(REPO / "photon_ml_torch")
+            for p in (REPO / "photon_ml_torch").rglob("*.py")}
+    assert sorted(map(str, ref - port)) == []
+    code = ("import json, sys\n"
+            "import photon_ml_torch.analysis.__main__\n"
+            "import photon_ml_torch.cache.compile_cache\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax'"
+            " or m.startswith(('jax.', 'photon_ml_tpu')))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 @pytest.mark.parametrize("rel", PORT_FILES)
 def test_no_jax_import_in_port_source(rel):
     bad = [m for m in _imported_modules(REPO / rel)
@@ -265,6 +291,8 @@ def test_fresh_import_leaves_jax_out():
         "import photon_ml_torch.serving.fleet\n"
         "import photon_ml_torch.serving.frontend\n"
         "import photon_ml_torch.analysis.guards\n"
+        "import photon_ml_torch.analysis.checkers\n"
+        "import photon_ml_torch.cache.compile_cache\n"
         "import photon_ml_torch.utils.timing\n"
         "import photon_ml_torch.utils.synthetic\n"
         f"print(json.dumps(sorted(m for m in sys.modules "

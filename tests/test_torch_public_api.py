@@ -11,10 +11,8 @@ The package re-exports (ROADMAP C10): every name a reference package
 ``__init__.py`` imports from its modules or defines, read by AST (so
 ``photon_ml_tpu`` is not imported), must be an attribute of the port's
 package of the same path, one case a package; a mutation check removes
-one re-export and the comparison must name it.  The only exclusions:
-``analysis`` (photon-lint over the JAX package, not ported) and
-``cache.enable_compilation_cache`` (XLA's compilation cache, whose
-module is not ported).
+one re-export and the comparison must name it.  The only exclusion:
+``analysis.tracer_leak_guard`` (eager PyTorch has no tracers to leak).
 """
 
 from __future__ import annotations
@@ -265,9 +263,8 @@ _REF_ROOT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "photon_ml_tpu")
 # (package, name or None for the whole package): the reason each stays out.
 _EXCLUDED = {
-    ("analysis", None): "photon-lint over the JAX package is not ported",
-    ("cache", "enable_compilation_cache"):
-        "XLA's compilation cache; cache/compile_cache.py is not ported",
+    ("analysis", "tracer_leak_guard"):
+        "eager PyTorch has no tracers to leak",
 }
 
 
@@ -323,5 +320,5 @@ def test_package_reexport_check_catches_a_removed_name(monkeypatch):
     assert "lbfgs_solve" in _exported("optim")
     monkeypatch.delattr(topt, "lbfgs_solve")
     assert _missing("optim") == ["lbfgs_solve"]
-    assert _missing("cache") == []          # the named exclusion holds
-    assert "enable_compilation_cache" in _exported("cache")
+    assert _missing("analysis") == []       # the named exclusion holds
+    assert "tracer_leak_guard" in _exported("analysis")
