@@ -1,0 +1,32 @@
+"""A kernel's share of its roofline over a traced window.
+
+Bound: the sum over the launches recorded while the profiler ran of each
+launch's byte bound.  Time: the kernel's device seconds in the trace
+(events whose name holds the kernel's ``device_name`` and no longer
+listed kernel's), scaled by launches recorded over events seen (a trace
+can lose device events late in a process; the mean event time times the
+launches is what they took)."""
+
+
+def share(sources, kernel: str, bound_s):
+    """``bound_s(launch, bytes_per_s)`` → one launch's least seconds."""
+    trace = sources.get("trace")
+    launches = sources.get("launches", {}).get(kernel)
+    peak = sources.get("bytes_per_s")
+    if not trace or not launches or not peak:
+        return None
+    names = [s["device_name"] for s in sources["kernels"].values()]
+    mine = sources["kernels"][kernel]["device_name"]
+
+    def owner(event: str):
+        hits = [n for n in names if n in event]
+        return max(hits, key=len) if hits else None
+
+    seen = {k: s for k, s in trace["by_name"].items() if owner(k) == mine}
+    events = sum(trace["count"][k] for k in seen)
+    device_s = sum(seen.values())
+    if events == 0 or device_s <= 0:
+        return None
+    device_s *= len(launches) / events
+    bound = sum(bound_s(x, peak) for x in launches)
+    return 100.0 * bound / device_s
