@@ -37,6 +37,7 @@ from typing import Union
 import numpy as np
 import torch
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.data.colmajor import ColMajorSlice, build_colmajor
 from photon_ml_torch.data.grr import GrrPair, build_grr_pair
 from photon_ml_torch.device import resolve_device
@@ -114,7 +115,12 @@ class SparseBatch:
         The scatter accumulates in float64: it adds a column's terms one
         after another (atomics on the card), and a power-law head column
         collects a term from nearly every row, which float32 would sum
-        with ~n·2⁻²⁴ relative error."""
+        with ~n·2⁻²⁴ relative error.  In a telemetry session the whole
+        product, on whichever path, is the span ``xtr``."""
+        with telemetry.span("xtr", cat="ops"):
+            return self._xt_dot(r)
+
+    def _xt_dot(self, r: Tensor) -> Tensor:
         if self.grr is not None:
             if r.dim() == 2:
                 return torch.stack([self.grr.t_dot(r_l) for r_l in r])
@@ -215,39 +221,49 @@ def make_sparse_batch(
       keep_ell: with ``grr``, whether the ELL arrays also go to the
         device (feature statistics need them; the plan does not).
       cache_dir: the on-disk GRR plan cache, shared with the JAX package.
-    """
+
+    In a telemetry session the host arrays are built in the span
+    ``prepare.ell`` and the ELL and per-example arrays are copied to
+    the device in ``prepare.place`` (the GRR plan and the transposed ELL
+    place their own)."""
     from photon_ml_torch.data.sparse_rows import SparseRows
 
     dev = resolve_device(device)
     n = len(rows)
-    if isinstance(rows, SparseRows):
-        k = max(row_capacity or rows.max_nnz, 1)
-        n_out = max(pad_to or n, n)
-        cols, vals = rows.to_ell(row_capacity=k, pad_to=n_out)
-    else:
-        k = max(row_capacity or max((len(c) for c, _ in rows), default=1), 1)
-        n_out = max(pad_to or n, n)
-        vals = np.zeros((n_out, k), np.float32)
-        cols = np.zeros((n_out, k), np.int32)
-        for i, (c, v) in enumerate(rows):
-            if len(c) > k:
-                raise ValueError(f"row {i} nnz {len(c)} exceeds capacity {k}")
-            # Duplicate ids would give Σv² instead of (Σv)² in the
-            # Hessian diagonal: reject them.
-            if len(np.unique(c)) != len(c):
-                raise ValueError(
-                    f"row {i} has duplicate column ids; SparseBatch "
-                    "requires unique col_ids per row (pre-sum duplicates "
-                    "on the host)")
-            vals[i, : len(c)] = v
-            cols[i, : len(c)] = c
-    weights = np.ones(n) if weights is None else np.asarray(weights)
-    offsets = np.zeros(n) if offsets is None else np.asarray(offsets)
+    n_out = max(pad_to or n, n)
+    with telemetry.span("prepare.ell", cat="setup"):
+        if isinstance(rows, SparseRows):
+            k = max(row_capacity or rows.max_nnz, 1)
+            cols, vals = rows.to_ell(row_capacity=k, pad_to=n_out)
+        else:
+            k = max(row_capacity or max((len(c) for c, _ in rows),
+                                        default=1), 1)
+            vals = np.zeros((n_out, k), np.float32)
+            cols = np.zeros((n_out, k), np.int32)
+            for i, (c, v) in enumerate(rows):
+                if len(c) > k:
+                    raise ValueError(
+                        f"row {i} nnz {len(c)} exceeds capacity {k}")
+                # Duplicate ids would give Σv² instead of (Σv)² in the
+                # Hessian diagonal: reject them.
+                if len(np.unique(c)) != len(c):
+                    raise ValueError(
+                        f"row {i} has duplicate column ids; SparseBatch "
+                        "requires unique col_ids per row (pre-sum "
+                        "duplicates on the host)")
+                vals[i, : len(c)] = v
+                cols[i, : len(c)] = c
 
-    def padded(a) -> Tensor:
-        out = np.zeros(n_out, np.float32)
-        out[:n] = a
-        return torch.from_numpy(out).to(dev)
+        def padded(a) -> np.ndarray:
+            out = np.zeros(n_out, np.float32)
+            out[:n] = a
+            return out
+
+        per_example = {
+            "labels": padded(labels),
+            "weights": padded(np.ones(n) if weights is None else weights),
+            "offsets": padded(np.zeros(n) if offsets is None else offsets),
+            "mask": padded(np.ones(n))}
 
     cm = (build_colmajor(cols, vals, dim, capacity=col_capacity, device=dev)
           if col_major and not grr else None)
@@ -256,10 +272,12 @@ def make_sparse_batch(
     if grr and not keep_ell:
         vals = np.zeros((n_out, 0), np.float32)
         cols = np.zeros((n_out, 0), np.int32)
-    return SparseBatch(
-        values=torch.from_numpy(
-            np.ascontiguousarray(vals, np.float32)).to(dev),
-        col_ids=torch.from_numpy(np.ascontiguousarray(cols, np.int32)).to(dev),
-        labels=padded(labels), weights=padded(weights),
-        offsets=padded(offsets), mask=padded(np.ones(n)),
-        dim=dim, grr=pair, colmajor=cm)
+    with telemetry.span("prepare.place", cat="setup"):
+        return SparseBatch(
+            values=torch.from_numpy(
+                np.ascontiguousarray(vals, np.float32)).to(dev),
+            col_ids=torch.from_numpy(
+                np.ascontiguousarray(cols, np.int32)).to(dev),
+            **{name: torch.from_numpy(a).to(dev)
+               for name, a in per_example.items()},
+            dim=dim, grr=pair, colmajor=cm)

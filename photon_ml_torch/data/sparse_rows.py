@@ -14,6 +14,8 @@ import dataclasses
 
 import numpy as np
 
+from photon_ml_torch import telemetry
+
 
 @dataclasses.dataclass
 class SparseRows:
@@ -67,7 +69,13 @@ class SparseRows:
         ids, and (optionally) drops entries with ``col >= clip_dim``.
 
         ``cols`` may arrive in any order and with repeats; negative ids
-        raise (they indicate an upstream indexing bug)."""
+        raise (they indicate an upstream indexing bug).  In a telemetry
+        session the call is the span ``data.from_flat``."""
+        with telemetry.span("data.from_flat", cat="setup"):
+            return SparseRows._from_flat(indptr, cols, vals, clip_dim)
+
+    @staticmethod
+    def _from_flat(indptr, cols, vals, clip_dim) -> "SparseRows":
         indptr = np.asarray(indptr, np.int64)
         n = len(indptr) - 1
         cols = np.asarray(cols)

@@ -226,11 +226,12 @@ class GameEstimator:
             dim = x.shape[1]
         else:
             dim = train.feature_dim(coord_cfg.feature_shard)
-            rows = SparseRows.from_rows(feats)
-            if cfg.intercept:
-                rows = rows.with_constant_col(dim)
-                intercept_index = dim
-                dim += 1
+            with telemetry.span("prepare.rows", cat="setup"):
+                rows = SparseRows.from_rows(feats)
+                if cfg.intercept:
+                    rows = rows.with_constant_col(dim)
+                    intercept_index = dim
+                    dim += 1
             if cfg.chunk_rows is not None:
                 return self._prepare_chunked(rows, dim, labels, weights,
                                              intercept_index, mesh)

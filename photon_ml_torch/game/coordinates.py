@@ -388,7 +388,9 @@ class ChunkedFixedEffectCoordinate(Coordinate):
 
 @dataclasses.dataclass(eq=False)
 class RandomEffectCoordinate(Coordinate):
-    """Per-entity solves: one lane-batched solve a size bucket."""
+    """Per-entity solves: one lane-batched solve a size bucket, in a
+    telemetry session the span ``re.bucket_solve`` (its lanes and the
+    rows a lane holds)."""
 
     name: str
     grouping: EntityGrouping
@@ -430,9 +432,13 @@ class RandomEffectCoordinate(Coordinate):
 
     def train(self, offsets: Tensor, warm_start=None):
         w0s = self.initial_coefficients() if warm_start is None else warm_start
-        results = [solve_entity_sharded(
-            self.problem, self.block_batch(b, offsets), w0s[b], self.mesh)
-            for b in range(len(self.x_blocks))]
+        results = []
+        for b, x in enumerate(self.x_blocks):
+            with telemetry.span("re.bucket_solve", cat="solver",
+                                lanes=x.shape[0], rows=x.shape[1]):
+                results.append(solve_entity_sharded(
+                    self.problem, self.block_batch(b, offsets), w0s[b],
+                    self.mesh))
         return [r.w for r in results], results
 
     def score(self, coefficient_blocks: list[Tensor]) -> Tensor:

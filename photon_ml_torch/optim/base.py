@@ -7,7 +7,9 @@ stopping rules, lane by lane: relative gradient norm ``‖g‖ ≤
 tol·max(1, ‖g₀‖)`` and, when set, relative loss change.
 ``StatesTracker`` keeps the per-iteration history as [E, max_iters + 1]
 planes on the solver's device, written in place (no host sync per
-write).
+write).  ``any_lane`` is the read a solver's loop blocks on (is any lane
+still running?), counted as ``solver.resident.host_reads`` in a
+telemetry session.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import enum
 from typing import Callable
 
 import torch
+
+from photon_ml_torch import telemetry
 
 Tensor = torch.Tensor
 
@@ -112,6 +116,13 @@ class OptimizationResult:
     iterations: int      # lane-batched: an int32 tensor [E]
     converged: bool      # tolerance met (vs iteration-capped); [E] bool
     tracker: StatesTracker
+
+
+def any_lane(mask: Tensor) -> bool:
+    """Whether any lane of ``mask`` is set: one blocking device→host
+    read, counted as ``solver.resident.host_reads``."""
+    telemetry.count("solver.resident.host_reads")
+    return bool(mask.any())
 
 
 def grad_converged(g_norm: Tensor, g0_norm: Tensor,

@@ -20,6 +20,17 @@ curvature guard and stopping decisions; a finished lane keeps its
 state.  One host read a line-search trial and one an iteration ask
 whether any lane is still running.
 
+In a telemetry session the solve counts ``solver.resident.iterations``,
+``solver.resident.ls_trials`` (every trial point, the first included),
+``solver.resident.evaluations`` (every objective call) and
+``solver.resident.host_reads`` (every blocking read), and its spans
+partition each iteration: ``lbfgs.direction``, ``lbfgs.line_search``,
+``lbfgs.gradient`` and ``lbfgs.update`` inside ``lbfgs.solve``.  The
+counters are apart from the streamed solver's ``solver.iterations`` and
+``solver.ls_trials``, which the report's sweep odometer reads as data
+passes.  Counting happens on the host at sites that exist anyway: it
+adds no read, sync or launch.
+
 ``lbfgs_solve_swept`` / ``owlqn_solve_swept`` are the λ-sweep entries:
 the same batched loop over L λ-lanes of ONE problem, whose objective
 evaluates every lane against a shared batch
@@ -31,11 +42,13 @@ from __future__ import annotations
 
 import torch
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.optim.base import (
     OptimizationResult,
     OptimizerConfig,
     StatesTracker,
     ValueAndGrad,
+    any_lane,
     grad_converged,
     loss_converged,
 )
@@ -106,6 +119,8 @@ def _line_search(value_fn, w: Tensor, f0: Tensor, pg: Tensor,
         if xi is not None:
             w_try = torch.where(torch.sign(w_try) == xi, w_try,
                                 torch.zeros_like(w_try))
+        telemetry.count("solver.resident.ls_trials")
+        telemetry.count("solver.resident.evaluations")
         return w_try, value_fn(w_try)
 
     def accepts(w_try, f_try):
@@ -115,7 +130,7 @@ def _line_search(value_fn, w: Tensor, f0: Tensor, pg: Tensor,
     steps = torch.zeros(f0.shape, dtype=torch.int32, device=f0.device)
     w_try, f_try = trial(alpha)
     searching = active & ~accepts(w_try, f_try)
-    while bool(searching.any()):
+    while any_lane(searching):
         alpha = torch.where(searching, alpha * config.ls_shrink, alpha)
         w_next, f_next = trial(alpha)
         w_try = torch.where(searching[:, None], w_next, w_try)
@@ -155,84 +170,96 @@ def lbfgs_solve_batched(value_and_grad: ValueAndGrad, w0: Tensor,
         f = smooth_value(w)
         return f + (l1 * w.abs()).sum(-1) if owlqn else f
 
-    f0_s, g = value_and_grad(w0)
-    f = f0_s + (l1 * w0.abs()).sum(-1) if owlqn else f0_s
-    pg0 = _pseudo_gradient(g, w0, l1) if owlqn else g
-    g0_norm = torch.linalg.norm(pg0, dim=-1)
-    tracker = StatesTracker.create(lanes, config.max_iters, dev)
-    every = torch.ones(lanes, dtype=torch.bool, device=dev)
-    if config.track_states:
-        tracker.record(0, every, f, g0_norm)
-    converged = grad_converged(g0_norm, g0_norm, config.tolerance)
-    done = converged.clone()
-
-    s_buf = torch.zeros((lanes, m, d), dtype=w0.dtype, device=dev)
-    y_buf = torch.zeros_like(s_buf)
-    rho_buf = torch.zeros((lanes, m), dtype=w0.dtype, device=dev)
-    count = torch.zeros(lanes, dtype=torch.int32, device=dev)
-    iterations = torch.zeros(lanes, dtype=torch.int32, device=dev)
-    w = w0
-    step = 0
-    while step < config.max_iters and bool((~done).any()):
-        active = ~done
-        pg = _pseudo_gradient(g, w, l1) if owlqn else g
-        d_dir = _two_loop(pg, s_buf, y_buf, rho_buf, count,
-                                min(step, m))
-        xi = None
-        if owlqn:
-            d_dir = torch.where(d_dir * -pg > 0.0, d_dir,
-                                torch.zeros_like(d_dir))
-            xi = _orthant(w, pg)
-        bad = _vdot(pg, d_dir) >= 0.0
-        d_dir = torch.where(bad[:, None], -pg, d_dir)
-
-        w_new, f_new, ls_ok, alpha, trials = _line_search(
-            full_value, w, f, pg, d_dir, config, xi, active)
-        _, g_new = value_and_grad(w_new)
-
-        s = w_new - w
-        y = g_new - g
-        sy = _vdot(s, y)
-        good = ls_ok & (sy > _CURVATURE_EPS * torch.linalg.norm(s, dim=-1)
-                        * torch.linalg.norm(y, dim=-1))
-        rho = 1.0 / torch.clamp(sy, min=_CURVATURE_EPS)
-        push = (active & good)[:, None, None]
-        s_buf = torch.where(push, torch.cat([s[:, None], s_buf[:, :-1]], 1),
-                            s_buf)
-        y_buf = torch.where(push, torch.cat([y[:, None], y_buf[:, :-1]], 1),
-                            y_buf)
-        rho_buf = torch.where(push[:, :, 0],
-                              torch.cat([rho[:, None], rho_buf[:, :-1]], 1),
-                              rho_buf)
-        count = torch.where(active & good, torch.clamp(count + 1, max=m),
-                            count)
-
-        pg_new = _pseudo_gradient(g_new, w_new, l1) if owlqn else g_new
-        g_norm = torch.linalg.norm(pg_new, dim=-1)
-        # A failed backtrack on a guaranteed descent direction: the
-        # decrease is below float32 resolution; reported converged.
-        conv = (grad_converged(g_norm, g0_norm, config.tolerance)
-                | loss_converged(f_new, f, config.rel_tolerance)
-                | ~ls_ok)
-        step += 1
+    with telemetry.span("lbfgs.solve", cat="solver", lanes=lanes):
+        telemetry.count("solver.resident.evaluations")
+        f0_s, g = value_and_grad(w0)
+        f = f0_s + (l1 * w0.abs()).sum(-1) if owlqn else f0_s
+        pg0 = _pseudo_gradient(g, w0, l1) if owlqn else g
+        g0_norm = torch.linalg.norm(pg0, dim=-1)
+        tracker = StatesTracker.create(lanes, config.max_iters, dev)
+        every = torch.ones(lanes, dtype=torch.bool, device=dev)
         if config.track_states:
-            tracker.record(step, active, f_new, g_norm,
-                           step_size=torch.where(ls_ok, alpha,
-                                                 torch.zeros_like(alpha)),
-                           ls_trials=trials)
-        take = active & ls_ok
-        w = torch.where(take[:, None], w_new, w)
-        f = torch.where(take, f_new, f)
-        g = torch.where(take[:, None], g_new, g)
-        iterations = torch.where(active, torch.full_like(iterations, step),
-                                 iterations)
-        converged = converged | (active & conv)
-        done = done | (active & conv)
+            tracker.record(0, every, f, g0_norm)
+        converged = grad_converged(g0_norm, g0_norm, config.tolerance)
+        done = converged.clone()
 
-    pg_f = _pseudo_gradient(g, w, l1) if owlqn else g
-    return OptimizationResult(
-        w=w, value=f, grad_norm=torch.linalg.norm(pg_f, dim=-1),
-        iterations=iterations, converged=converged, tracker=tracker)
+        s_buf = torch.zeros((lanes, m, d), dtype=w0.dtype, device=dev)
+        y_buf = torch.zeros_like(s_buf)
+        rho_buf = torch.zeros((lanes, m), dtype=w0.dtype, device=dev)
+        count = torch.zeros(lanes, dtype=torch.int32, device=dev)
+        iterations = torch.zeros(lanes, dtype=torch.int32, device=dev)
+        w = w0
+        step = 0
+        while step < config.max_iters and any_lane(~done):
+            telemetry.count("solver.resident.iterations")
+            with telemetry.span("lbfgs.direction", cat="solver"):
+                active = ~done
+                pg = _pseudo_gradient(g, w, l1) if owlqn else g
+                d_dir = _two_loop(pg, s_buf, y_buf, rho_buf, count,
+                                  min(step, m))
+                xi = None
+                if owlqn:
+                    d_dir = torch.where(d_dir * -pg > 0.0, d_dir,
+                                        torch.zeros_like(d_dir))
+                    xi = _orthant(w, pg)
+                bad = _vdot(pg, d_dir) >= 0.0
+                d_dir = torch.where(bad[:, None], -pg, d_dir)
+
+            with telemetry.span("lbfgs.line_search", cat="solver"):
+                w_new, f_new, ls_ok, alpha, trials = _line_search(
+                    full_value, w, f, pg, d_dir, config, xi, active)
+            with telemetry.span("lbfgs.gradient", cat="solver"):
+                telemetry.count("solver.resident.evaluations")
+                _, g_new = value_and_grad(w_new)
+
+            with telemetry.span("lbfgs.update", cat="solver"):
+                s = w_new - w
+                y = g_new - g
+                sy = _vdot(s, y)
+                good = ls_ok & (sy > _CURVATURE_EPS
+                                * torch.linalg.norm(s, dim=-1)
+                                * torch.linalg.norm(y, dim=-1))
+                rho = 1.0 / torch.clamp(sy, min=_CURVATURE_EPS)
+                push = (active & good)[:, None, None]
+                s_buf = torch.where(
+                    push, torch.cat([s[:, None], s_buf[:, :-1]], 1), s_buf)
+                y_buf = torch.where(
+                    push, torch.cat([y[:, None], y_buf[:, :-1]], 1), y_buf)
+                rho_buf = torch.where(
+                    push[:, :, 0],
+                    torch.cat([rho[:, None], rho_buf[:, :-1]], 1), rho_buf)
+                count = torch.where(active & good,
+                                    torch.clamp(count + 1, max=m), count)
+
+                pg_new = (_pseudo_gradient(g_new, w_new, l1) if owlqn
+                          else g_new)
+                g_norm = torch.linalg.norm(pg_new, dim=-1)
+                # A failed backtrack on a guaranteed descent direction:
+                # the decrease is below float32 resolution; reported
+                # converged.
+                conv = (grad_converged(g_norm, g0_norm, config.tolerance)
+                        | loss_converged(f_new, f, config.rel_tolerance)
+                        | ~ls_ok)
+                step += 1
+                if config.track_states:
+                    tracker.record(
+                        step, active, f_new, g_norm,
+                        step_size=torch.where(ls_ok, alpha,
+                                              torch.zeros_like(alpha)),
+                        ls_trials=trials)
+                take = active & ls_ok
+                w = torch.where(take[:, None], w_new, w)
+                f = torch.where(take, f_new, f)
+                g = torch.where(take[:, None], g_new, g)
+                iterations = torch.where(
+                    active, torch.full_like(iterations, step), iterations)
+                converged = converged | (active & conv)
+                done = done | (active & conv)
+
+        pg_f = _pseudo_gradient(g, w, l1) if owlqn else g
+        return OptimizationResult(
+            w=w, value=f, grad_norm=torch.linalg.norm(pg_f, dim=-1),
+            iterations=iterations, converged=converged, tracker=tracker)
 
 
 def lbfgs_solve(value_and_grad: ValueAndGrad, w0: Tensor,
@@ -256,6 +283,8 @@ def lbfgs_solve(value_and_grad: ValueAndGrad, w0: Tensor,
         lambda W: tuple(t[None] for t in value_and_grad(W[0])), w0[None],
         config, l1_weight=l1,
         value=None if value is None else (lambda W: value(W[0])[None]))
+    # The lane's iterations, its convergence and its tracker's count.
+    telemetry.count("solver.resident.host_reads", 3)
     return OptimizationResult(
         w=res.w[0], value=res.value[0], grad_norm=res.grad_norm[0],
         iterations=int(res.iterations[0]), converged=bool(res.converged[0]),

@@ -8,7 +8,9 @@ its own trust radius, its own CG loop and its own stopping decisions,
 exactly as ``jax.vmap`` of the reference's solve does (a lane that has
 finished keeps its state); ``tron_solve`` is the one-lane case.  Each
 CG step and each outer iteration read one decision back to the host:
-whether any lane is still running.
+whether any lane is still running.  In a telemetry session the solve
+counts ``solver.resident.iterations`` and ``solver.resident.host_reads``,
+as L-BFGS does.
 
 The arithmetic is the reference's: LIBLINEAR's radius schedule, the
 ρ = actual/predicted acceptance test, the precision stop when the model
@@ -20,12 +22,14 @@ from __future__ import annotations
 
 import torch
 
+from photon_ml_torch import telemetry
 from photon_ml_torch.optim.base import (
     Hvp,
     OptimizationResult,
     OptimizerConfig,
     StatesTracker,
     ValueAndGrad,
+    any_lane,
     grad_converged,
     loss_converged,
 )
@@ -78,7 +82,7 @@ def _steihaug_cg(hvp_w, g: Tensor, delta: Tensor, config: OptimizerConfig,
     done = (g_norm <= 0.0) | ~active
     boundary = torch.zeros_like(done)
     for _ in range(config.cg_max_iters):
-        if not bool((~done).any()):
+        if not any_lane(~done):
             break
         live = ~done
         hd = hvp_w(d)
@@ -135,7 +139,8 @@ def tron_solve_batched(value_and_grad: ValueAndGrad, hvp: Hvp, w0: Tensor,
     iterations = torch.zeros(lanes, dtype=torch.int32, device=dev)
     w = w0
     step = 0
-    while step < config.max_iters and bool((~done).any()):
+    while step < config.max_iters and any_lane(~done):
+        telemetry.count("solver.resident.iterations")
         active = ~done
         w_at = w
 
@@ -196,6 +201,8 @@ def tron_solve(value_and_grad: ValueAndGrad, hvp: Hvp, w0: Tensor,
     res = tron_solve_batched(
         lambda W: tuple(t[None] for t in value_and_grad(W[0])),
         lambda W, V: hvp(W[0], V[0])[None], w0[None], config)
+    # The lane's iterations, its convergence and its tracker's count.
+    telemetry.count("solver.resident.host_reads", 3)
     return OptimizationResult(
         w=res.w[0], value=res.value[0], grad_norm=res.grad_norm[0],
         iterations=int(res.iterations[0]), converged=bool(res.converged[0]),

@@ -7,7 +7,11 @@ its own) whose time is only visible stage by stage.  One session gives:
 
 - **Spans**: nested, thread-aware ``telemetry.span`` records, kept per
   thread and merged at close.  Host wall clock: a span around a CUDA
-  launch measures the launch, not the kernel.
+  launch measures the launch, not the kernel.  While ``torch.profiler``
+  records, a span is also the profiler range ``photon::<name>``, so the
+  profiler's trace holds the program's spans beside the kernels they
+  launched, on one clock (``device.device_s_by_span`` reads the device
+  time under each).
 - **Device time**: ``device_timed`` records a CUDA event pair on the
   current stream at the edges of a chunk program (no synchronization);
   the pairs are read once, at session close, into the
@@ -173,12 +177,17 @@ def thread_exception(stage: str, error: BaseException, **fields) -> None:
         t.thread_exception(stage, error, **fields)
 
 
+# The prefix of a span's range in a torch.profiler trace.
+PROFILER_PREFIX = "photon::"
+
+
 class _Span:
     """One live span.  Duration on ``time.perf_counter``; the recorded
     ``ts`` is on the session RunLogger's clock, so span timestamps line
-    up with the JSONL ``t`` field."""
+    up with the JSONL ``t`` field.  While a profiler records, the span
+    is also its range ``photon::<name>``."""
 
-    __slots__ = ("_t", "name", "cat", "args", "ts", "t0", "depth")
+    __slots__ = ("_t", "name", "cat", "args", "ts", "t0", "depth", "_range")
 
     def __init__(self, t: "Telemetry", name: str, cat: str, args):
         self._t = t
@@ -200,15 +209,30 @@ class _Span:
         # the spans still account for the wall clock.
         if self.cat == "phase":
             self._t.sample_device_memory(self.name)
+        self._range = _profiler_range(self.name)
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         if self.cat == "phase":
             self._t.sample_device_memory(self.name)
         dur = time.perf_counter() - self.t0
         self._t._local.stack.pop()
         self._t._finish_span(self, dur, failed=exc_type is not None)
         return False
+
+
+def _profiler_range(name: str):
+    """The open profiler range ``photon::<name>`` while a
+    ``torch.profiler`` records, else None."""
+    import torch
+
+    if not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.profiler.record_function(PROFILER_PREFIX + name)
+    rf.__enter__()
+    return rf
 
 
 class _DeviceTimed:

@@ -22,6 +22,12 @@ set under a label that says so.
 Capture is once a session a program name (``maybe_capture``), at the
 program's first instrumented chunk, and writes one ``device_cost``
 event.  With telemetry off every helper is one global read.
+
+**Device time by span** (``device_s_by_span``) reads a ``torch.profiler``
+trace taken in a session, where every span is the range
+``photon::<name>``: each kernel, copy or fill goes to the CUDA call that
+launched it (the profiler's launch correlation), then to every span
+around that call.
 """
 
 from __future__ import annotations
@@ -120,3 +126,60 @@ def memory_snapshot(device) -> dict:
     mb = telemetry._RssSampler.rss_mb()
     return {"source": "host_rss (CPU device)",
             "bytes_in_use": int((mb or 0.0) * 1024 * 1024)}
+
+
+def device_s_by_span(events) -> dict:
+    """Device seconds under each span of a ``torch.profiler`` trace
+    (``prof.events()``) taken while a session was open.
+
+    A device activity (kernel, copy, fill) carries the id of the CUDA
+    call that launched it (``cudaLaunchKernel``, ``cudaMemcpyAsync``,
+    ``cuLaunchKernel``, ...), and that call sits
+    inside the host's operations and ranges, so a kernel launched
+    outside any PyTorch operation (B1's, through ``ctypes``) is found
+    too.  Returns ``busy_s`` (the union of the device's intervals),
+    ``spans`` {span: device seconds launched inside it, nested spans
+    included}, ``innermost`` {span: those whose innermost span it is},
+    ``outside_s`` (launched under no span) and ``unlinked_s`` (no launch
+    found).  The device's own copies of the profiler ranges
+    (``gpu_user_annotation``) are no device work and are left out."""
+    from torch.autograd import DeviceType
+
+    prefix = telemetry.PROFILER_PREFIX
+    launches, work = {}, []
+    for e in events:
+        if e.device_type == DeviceType.CPU:
+            if e.name.startswith("cu"):
+                launches[e.id] = e
+        elif not (e.name.startswith(prefix)
+                  or getattr(e, "is_user_annotation", False)):
+            work.append(e)
+    intervals, spans, innermost = [], {}, {}
+    outside = unlinked = 0.0
+    for e in work:
+        start, end = e.time_range.start, e.time_range.end
+        intervals.append((start, end))
+        s = (end - start) / 1e6
+        node = launches.get(e.id)
+        if node is None:
+            unlinked += s
+            continue
+        names = []
+        while node is not None:
+            name = node.name
+            if name.startswith(prefix) and name[len(prefix):] not in names:
+                names.append(name[len(prefix):])
+            node = node.cpu_parent
+        for name in names:
+            spans[name] = spans.get(name, 0.0) + s
+        if names:
+            innermost[names[0]] = innermost.get(names[0], 0.0) + s
+        else:
+            outside += s
+    busy = reach = 0.0
+    for a, b in sorted(intervals):
+        if b > reach:
+            busy += b - max(a, reach)
+            reach = b
+    return {"busy_s": busy / 1e6, "spans": spans, "innermost": innermost,
+            "outside_s": outside, "unlinked_s": unlinked}
