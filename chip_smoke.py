@@ -41,6 +41,14 @@ raises on failure:
    with every id 0 (the streams and sums alone) and the 31-slot ones
    with no table head kept (the table grown with zero rows) and with
    their ids mirrored (the popular rows past the head);
+   ``sorted_colsum`` (Xᵀr over a column-sorted copy) at the benchmark's
+   ``glm-fit`` shape (10^7 rows of 11 power-law columns of 54,686,452
+   and the intercept, drawn on the card; the copy built by
+   ``build_column_sorted``, its build timed; a residual in (-0.5, 0.5)),
+   launched twice and required bitwise equal, held against its plain
+   version and the float64 ``index_add_`` route it replaced within
+   2^-22 relative (1e-9 of the largest column where a column's terms
+   cancel), timed as B1 is with that route as the library call;
 4. serving: the config-5 GAME model (KDD Cup 2012 track 2 widths: a
    sparse fixed effect over 100,000 features plus an intercept, 30
    non-zeros a row; a per-user random effect of 100,000 entities x 2
@@ -63,8 +71,10 @@ raises on failure:
    the plan, and the counts are read.  The loss must fall, the held-out
    AUC reach 0.70, the objective's value, gradient, Hessian-vector
    product and Hessian diagonal agree with a float64 scipy reference,
-   and the same fit on the plain-ELL layout end at the same loss, having
-   launched ``gather_rowsum`` at least once an evaluation; the same fit
+   and the same fit on the plain-ELL layout (with the column-sorted
+   copy ``make_sparse_batch`` gives it) end at the same loss, having
+   launched ``gather_rowsum`` at least once an evaluation and
+   ``sorted_colsum`` once a gradient; the same fit
    on the transposed-ELL layout must end within 1e-3 of the ELL one and
    launch ``gather_rowsum`` twice a value-and-gradient.  Config 2
    (squared loss, L2, TRON, 20 iterations) runs on the ELL and the
@@ -84,7 +94,9 @@ raises on failure:
    must beat the fixed-only one, the two layouts' AUCs agree within
    1e-3, ``gather_rowsum`` launch at least once inside every fixed-effect
    evaluation (``SparseBatch.margins``) and, on the transposed ELL, once
-   inside every gradient (``SparseBatch.xt_dot``), 64 converged entity
+   inside every gradient (``SparseBatch.xt_dot``), ``sorted_colsum``
+   once inside every gradient of the ELL fit and never in the
+   transposed-ELL fit, 64 converged entity
    lanes drawn across every bucket of
    both random effects each reach, within 1e-4 relative, the objective
    of a float64 scipy solve of that entity's problem (with the offsets
@@ -93,7 +105,9 @@ raises on failure:
    ``gather_rowsum`` is checked and timed as in phase 3 on phase 7's
    own arrays: the fixed effect's ELL as the estimator builds it
    (900,000 x 31 with the intercept), its transposed ELL, and the
-   transformer's first scoring chunk of the held-out rows.  Printed:
+   transformer's first scoring chunk of the held-out rows; and
+   ``sorted_colsum`` as in phase 3 on that ELL batch's column-sorted
+   copy (the residual at coefficients near 0).  Printed:
    the wall a sweep and a coordinate, each bucket's entities, capacity,
    iterations and solve wall, one profiled sweep's device busy ms and
    idle share, and the fixed effect's evaluation on the ELL and the
@@ -411,6 +425,7 @@ from photon_ml_torch.data import colmajor as colmajor_mod
 from photon_ml_torch.data import grr as grr_mod
 from photon_ml_torch.data.batch import SparseBatch, make_sparse_batch
 from photon_ml_torch.data.colmajor import build_colmajor
+from photon_ml_torch.data.colsorted import build_column_sorted
 from photon_ml_torch.data.normalization import NormalizationContext
 from photon_ml_torch.data.sparse_rows import SparseRows
 from photon_ml_torch.estimators import game_transformer
@@ -445,6 +460,8 @@ from photon_ml_torch.ops.kernels import (
     gather_rowsum_lanes,
     gather_rowsum_lanes_reference,
     gather_rowsum_reference,
+    sorted_colsum,
+    sorted_colsum_reference,
 )
 from photon_ml_torch.ops.objective import GLMObjective, sweep_value_and_gradient
 from photon_ml_torch.ops.regularization import RegularizationContext
@@ -491,6 +508,16 @@ FP32_OPS_PER_S = 67e12
 # of the transposed-ELL virtual rows (capacities 8-512), checked only.
 KERNEL_SHAPES = ((BATCH_ROWS, ELL_CAP), (67, 5), (1 << 20, ELL_CAP))
 WIDTH_SHAPES = ((1 << 16, 8), (1 << 16, 128), (1 << 16, 512))
+
+# sorted_colsum (Xᵀr over the column-sorted copy) at the benchmark's
+# glm-fit shape (gpubench/configs/kdd12-glm.json): 10^7 rows of 11
+# power-law columns of 54,686,452 and the intercept.  Against its plain
+# version: both add the same float32 products in float64 in two orders
+# and round once, so they differ by a rounding step of float32 (two ulps
+# allowed), or, where a column's terms cancel, by float64 rounding of
+# terms up to the largest column's size (SORTED_ATOL_SCALE of it).
+GLM_ROWS, GLM_FEATURES, GLM_NNZ = 10_000_000, 54_686_452, 11
+SORTED_RTOL, SORTED_ATOL_SCALE = 2.0 ** -22, 1e-9
 
 # Phase 6: config 1 at the config-5 fixed-effect widths (bench.py:83).
 TRAIN_ROWS = 1_000_000      # 10% of them held out
@@ -1055,6 +1082,153 @@ def phase_kernels_lanes(ell, colmajor, seed: int,
         "single_lanes_ms": main.get("single_lanes_ms"),
         "shape": [main["n"], main["k"]], "lanes": LANES_MAIN,
         "shapes": shapes,
+    }
+
+
+def glm_fit_ell(seed: int, device: str = "cuda", n: int = GLM_ROWS,
+                d: int = GLM_FEATURES, k: int = GLM_NNZ) -> tuple:
+    """(col_ids [n, k + 1] i32, values f32, dim) of the glm-fit shape, drawn
+    on ``device`` as gpubench's generator draws its rows (``k`` distinct
+    power-law columns ``(d - k)·u^2.2`` a row, values 1), the intercept
+    column ``d`` last in every row."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand((n, k), generator=g, device=device, dtype=torch.float64)
+    cols = ((d - k) * u ** 2.2).long().sort(dim=1).values
+    del u
+    for j in range(1, k):
+        cols[:, j] = torch.maximum(cols[:, j], cols[:, j - 1] + 1)
+    cols = torch.cat([cols, torch.full((n, 1), d, device=device)], 1)
+    return (cols.to(torch.int32).contiguous(),
+            torch.ones((n, k + 1), device=device), d + 1)
+
+
+def scatter_xt_dot(col_ids, values, dim: int):
+    """The float64 ``index_add_`` route that plain-ELL Xᵀr took before the
+    column-sorted copy (``SparseBatch.xt_dot`` without it), as a function
+    of r."""
+    def run(r):
+        out = torch.zeros(dim, dtype=torch.float64, device=r.device)
+        out.index_add_(0, col_ids.reshape(-1),
+                       (values * r[:, None]).reshape(-1).double())
+        return out.to(r.dtype)
+    return run
+
+
+def sorted_colsum_bound_ms(cs) -> tuple[float, str]:
+    """Least time on one H100 for Xᵀr over the copy ``cs``: rows and vals
+    read once, col_ptr read once, out written once, the rows of r that a
+    slot gathers read once; a float32 product and a float64 add a slot."""
+    nnz, dim = cs.rows.numel(), cs.dim
+    touched = int(torch.unique(cs.rows).numel())
+    nbytes = nnz * 8 + (dim + 1) * 8 + dim * 4 + touched * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * nnz / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_sorted_case(name: str, cs, r, scatter, time_it: bool = True
+                      ) -> dict:
+    """Xᵀr over one column-sorted copy ``cs`` with the residual ``r``:
+    launched twice (bitwise equal), held against its plain version and
+    the ``index_add_`` route it replaced (``scatter``, a function of r)
+    within ``SORTED_RTOL`` / ``SORTED_ATOL_SCALE``; how many columns
+    differ from the plain version and by how many float32 ulps; with
+    ``time_it``, CUDA-event ms (back to back) of the kernel, the plain
+    version and that route, the kernel's device ms, and the bound."""
+    args = (r, cs.rows, cs.vals, cs.col_ptr)
+    before = sorted_colsum.launches
+    got = sorted_colsum(*args, cs.tiles)
+    again = sorted_colsum(*args, cs.tiles)
+    _sync_card()
+    if r.is_cuda and sorted_colsum.launches != before + 2:
+        raise AssertionError(f"sorted_colsum at {name}: 2 calls counted "
+                             f"{sorted_colsum.launches - before}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"sorted_colsum at {name}: two launches "
+                             "differ")
+    want = sorted_colsum_reference(*args).cpu().numpy()
+    library = scatter(r).cpu().numpy()
+    got = got.cpu().numpy()
+    if not np.isfinite(got).all():
+        raise AssertionError(f"sorted_colsum at {name} returned non-finite "
+                             "values")
+    atol = SORTED_ATOL_SCALE * float(np.abs(want).max(initial=0.0))
+    np.testing.assert_allclose(got, want, rtol=SORTED_RTOL, atol=atol)
+    np.testing.assert_allclose(got, library, rtol=SORTED_RTOL, atol=atol)
+    ulps = np.abs(got.astype(np.float64) - want) / np.spacing(
+        np.abs(want)).astype(np.float64)
+    bound, bound_by = sorted_colsum_bound_ms(cs)
+    entry = {"shape": name, "slots": cs.rows.numel(), "columns": cs.dim,
+             "rows": r.numel(), "tiles": cs.tiles.numel() - 1,
+             "max_abs_err": float(np.abs(got - want).max(initial=0.0)),
+             "max_ulps": float(ulps.max(initial=0.0)),
+             "columns_differing": int((got != want).sum()),
+             "library_max_abs_err": float(np.abs(library - want).max(
+                 initial=0.0)),
+             "rtol": SORTED_RTOL, "atol": atol,
+             "bound_ms": bound, "bound_by": bound_by}
+    if time_it:
+        def run():
+            return sorted_colsum(*args, cs.tiles)
+
+        entry["ms"] = time_ms(run, 5)
+        entry["device_ms"] = device_ms(run, 20)
+        entry["plain_ms"] = time_ms(lambda: sorted_colsum_reference(*args),
+                                    1)
+        entry["library_ms"] = time_ms(lambda: scatter(r), 1)
+        entry["share_of_bound"] = bound / entry["ms"]
+        if entry["share_of_bound"] > GRR_BOUND_SLACK:
+            raise AssertionError(f"sorted_colsum at {name} read faster than "
+                                 f"its HBM bound: {entry}")
+    print(f"  sorted_colsum {name}: " + json.dumps(entry))
+    return entry
+
+
+def phase_kernels_sorted(seed: int, time_it: bool = True,
+                         device: str = "cuda", **shape) -> dict:
+    """``sorted_colsum`` at the glm-fit shape (``glm_fit_ell`` drawn on
+    ``device``, or at its keyword ``shape``; its copy built by
+    ``build_column_sorted``, timed; a residual in (-0.5, 0.5)), as
+    ``check_sorted_case`` holds it.  Phase 7 adds its fixed effect's
+    shape, phases 6 and 7 the launches of their fits."""
+    t_check = time.perf_counter()
+    cols, vals, dim = glm_fit_ell(seed, device, **shape)
+    _sync_card()
+    t = time.perf_counter()
+    cs = build_column_sorted(cols, vals, dim)
+    _sync_card()
+    build_s = time.perf_counter() - t
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    r = torch.rand(cols.shape[0], generator=g, device=device) - 0.5
+    main = check_sorted_case("glm_fit", cs, r,
+                             scatter_xt_dot(cols, vals, dim), time_it)
+    main["build_s"] = build_s
+    main["check_s"] = time.perf_counter() - t_check
+    main["copy_bytes"] = sum(t.numel() * t.element_size()
+                             for t in (cs.rows, cs.vals, cs.col_ptr,
+                                       cs.tiles))
+    del cols, vals, cs, r
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return {
+        "name": "sorted_colsum", "route": "cuda",
+        "source": "photon_ml_torch/csrc/sorted_colsum.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the JAX package's plain-ELL Xᵀr is "
+                         "jax.ops.segment_sum (photon_ml_tpu/data/batch.py"
+                         ":127-132); it takes the place of the float64 "
+                         "index_add_ scatter",
+        "launches": None, "launches_ell_fit": None,
+        "launches_game_fit": None,
+        "max_abs_err": main["max_abs_err"], "max_ulps": main["max_ulps"],
+        "ms": main.get("ms"), "device_ms": main.get("device_ms"),
+        "plain_ms": main.get("plain_ms"),
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main.get("library_ms"),
+        "library_call": "float64 index_add_ scatter of the ELL's products "
+                        "(the route it replaced)",
+        "shapes": [main],
     }
 
 
@@ -2259,8 +2433,9 @@ def _power_law_rows(rng, n: int, d: int, k: int):
 def phase_train_build(seed: int, n: int, device: str) -> dict:
     """Training data; the GRR plan built on the host (the C++ builder
     must be loaded) and placed on ``device``; the plain-ELL view of the
-    same batch and its transposed-ELL view (``build_colmajor``, auto
-    capacity); the held-out batch."""
+    same batch (with its column-sorted copy, as ``make_sparse_batch``
+    places a plain-ELL batch) and its transposed-ELL view
+    (``build_colmajor``, auto capacity); the held-out batch."""
     if not native.native_available():
         raise RuntimeError("the native GRR plan builder did not load "
                            "(g++ missing?); the numpy fallback would take "
@@ -2277,14 +2452,15 @@ def phase_train_build(seed: int, n: int, device: str) -> dict:
     phases = dict(grr_mod.last_build_phases)
     test = make_sparse_batch(rows[n_train:], dim, y[n_train:],
                              row_capacity=ELL_CAP, device=device)
-    ell = dataclasses.replace(batch, grr=None)
+    ell = dataclasses.replace(batch, grr=None, colsorted=build_column_sorted(
+        batch.col_ids, batch.values, dim))
     t = time.perf_counter()
     cm = build_colmajor(ell.col_ids.cpu().numpy(), ell.values.cpu().numpy(),
                         dim, device=device)
     colmajor_s = time.perf_counter() - t
     return {
         "grr": batch, "ell": ell,
-        "colmajor": dataclasses.replace(ell, colmajor=cm),
+        "colmajor": dataclasses.replace(ell, colmajor=cm, colsorted=None),
         "test": test, "rows": rows[:n_train], "labels": y[:n_train],
         "test_rows": rows[n_train:], "test_labels": y[n_train:],
         "info": {
@@ -2534,9 +2710,10 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
     launches = {"grr_contract_dense": grr_contract_dense.launches,
                 "grr_contract": grr_contract.launches,
                 "gather_rowsum": gather_rowsum.launches}
-    gather_rowsum.launches = 0
+    gather_rowsum.launches = sorted_colsum.launches = 0
     res_ell, fit_ell_s = _fit(problem, ell, w0)
     ell_launches = gather_rowsum.launches
+    ell_sorted_launches = sorted_colsum.launches
     gather_rowsum.launches = 0
     res_cm, fit_cm_s = _fit(problem, cmb, w0)
     cm_launches = gather_rowsum.launches
@@ -2607,6 +2784,8 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
         "test_auc_colmajor": test_auc_cm, "f64_errors": errors,
         "launches": launches, "ell_gather_rowsum_launches": ell_launches,
         "ell_evaluations": ell_evaluations,
+        "ell_sorted_colsum_launches": ell_sorted_launches,
+        "ell_gradients": res_ell.iterations + 1,
         "loss_final_colmajor": float(res_cm.value),
         "colmajor_loss_gap_rel": cm_loss_gap,
         "colmajor_gather_rowsum_launches": cm_launches,
@@ -2631,6 +2810,11 @@ def phase_training(data: dict, time_it: bool = True) -> dict:
     if dev.type == "cuda" and ell_launches < ell_evaluations:
         failures.append(f"the ELL fit launched gather_rowsum {ell_launches} "
                         f"time(s) for {ell_evaluations} evaluations")
+    # Every gradient of the plain-ELL fit is one Xᵀr over its copy.
+    if dev.type == "cuda" and ell_sorted_launches != res_ell.iterations + 1:
+        failures.append(f"the ELL fit launched sorted_colsum "
+                        f"{ell_sorted_launches} time(s) for "
+                        f"{res_ell.iterations + 1} gradients")
     if not traj["grr"]["loss"][-1] < traj["grr"]["loss"][0]:
         failures.append("the GRR fit's loss did not fall")
     if test_auc < TRAIN_AUC_MIN:
@@ -2749,12 +2933,15 @@ def device_ms(fn, n: int = 5):
 
 
 def split_ell_evaluation(by_name: dict) -> dict:
-    """A plain-ELL evaluation's device ms by part: B1 (X·w), the float64
-    ``index_add_`` of Xᵀr (PyTorch's ``indexFunc*`` kernels), the rest,
-    and the five largest kernels by name."""
-    parts = {"gather_rowsum": 0.0, "index_add": 0.0, "rest": 0.0}
+    """A plain-ELL evaluation's device ms by part: B1 (X·w), Xᵀr over the
+    column-sorted copy (``sorted_colsum``'s two kernels) or its float64
+    ``index_add_`` (PyTorch's ``indexFunc*`` kernels), the rest, and the
+    five largest kernels by name."""
+    parts = {"gather_rowsum": 0.0, "sorted_colsum": 0.0, "index_add": 0.0,
+             "rest": 0.0}
     for name, ms in by_name.items():
         key = ("gather_rowsum" if "gather_rowsum" in name
+               else "sorted_colsum" if "sorted_colsum" in name
                else "index_add" if "indexFunc" in name else "rest")
         parts[key] += ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
@@ -2883,11 +3070,13 @@ class _FitProbe:
     """Counts, during a fit, the fixed-effect evaluations (each calls
     ``SparseBatch.margins`` once; scoring calls ``x_dot``) and the
     gradients (``SparseBatch.xt_dot``), with the B1 launches made inside
-    each, and times each bucket's lane-batched solve."""
+    each (and the ``sorted_colsum`` calls inside the gradients), and
+    times each bucket's lane-batched solve."""
 
     def __enter__(self):
         self.margins_calls = self.margins_launches = 0
         self.xt_dot_calls = self.xt_dot_launches = 0
+        self.xt_dot_sorted = 0
         self.buckets: list = []
         self._margins = SparseBatch.margins
         self._xt_dot = SparseBatch.xt_dot
@@ -2903,9 +3092,11 @@ class _FitProbe:
 
         def xt_dot(batch, r):
             before = gather_rowsum.launches
+            sorted_before = sorted_colsum.launches
             out = probe._xt_dot(batch, r)
             probe.xt_dot_calls += 1
             probe.xt_dot_launches += gather_rowsum.launches - before
+            probe.xt_dot_sorted += sorted_colsum.launches - sorted_before
             return out
 
         def solve(problem, batches, w0s):
@@ -2956,6 +3147,7 @@ def _fit_game(config: TrainingConfig, train, valid) -> dict:
             "fe_evaluation_launches": probe.margins_launches,
             "fe_gradients": probe.xt_dot_calls,
             "fe_gradient_launches": probe.xt_dot_launches,
+            "fe_gradient_sorted_colsum": probe.xt_dot_sorted,
             "buckets": probe.buckets,
             "sweep_coordinate_s": coord_s,
             "auc": float(result.evaluations[EvaluatorType.AUC]),
@@ -3200,6 +3392,15 @@ def phase_game(seed: int, n: int, device: str, d: int = D,
         check_b1_case(*case, time_it=time_it)
         for case in game_kernel_cases(problems["COLMAJOR"][1], res.model,
                                       valid, device, seed)]
+    # Xᵀr of the fixed effect's ELL batch (the estimator's, intercept
+    # included) over its column-sorted copy; the residual at w near 0.
+    fe = problems["ELL"][1]
+    w = torch.from_numpy(np.random.default_rng(seed).normal(
+        0, 0.05, fe.dim).astype(np.float32)).to(fe.labels.device)
+    out["sorted_shape"] = check_sorted_case(
+        "game_fe_ell", fe.colsorted,
+        (torch.sigmoid(fe.margins(w)) - fe.labels).contiguous(),
+        scatter_xt_dot(fe.col_ids, fe.values, fe.dim), time_it)
     if time_it and device != "cpu":
         out["one_sweep_profiled"] = profile_sweep(train, device)
         out["fe_evaluation_splits"] = fe_evaluation_splits(problems)
@@ -3228,6 +3429,15 @@ def phase_game(seed: int, n: int, device: str, d: int = D,
                 f"COLMAJOR fit launched gather_rowsum "
                 f"{cm['fe_gradient_launches']} time(s) in "
                 f"{cm['fe_gradients']} fixed-effect gradients")
+        # The ELL fit's Xᵀr runs over the column-sorted copy, one call a
+        # gradient; the transposed ELL's never.
+        if (ell["fe_gradient_sorted_colsum"] != ell["fe_gradients"]
+                or cm["fe_gradient_sorted_colsum"] != 0):
+            failures.append(
+                f"sorted_colsum counted {ell['fe_gradient_sorted_colsum']} "
+                f"time(s) in the ELL fit's {ell['fe_gradients']} "
+                f"fixed-effect gradients and "
+                f"{cm['fe_gradient_sorted_colsum']} in the COLMAJOR fit's")
     ec = out["entity_check"]
     if ec["checked"] < GAME_ENTITY_CHECKS or not (
             ec["worst_rel"] <= GAME_ENTITY_RTOL):
@@ -6662,6 +6872,7 @@ def main() -> int:
         kernels.append(phase_kernels_lanes(train["ell"],
                                            train["colmajor"].colmajor,
                                            seed=9))
+        kernels.append(phase_kernels_sorted(seed=10))
         print(f"phase 3 kernel check: ok in {time.perf_counter() - t:.2f} s")
 
         model_dir = os.path.join(WORK, "model")
@@ -6725,6 +6936,8 @@ def main() -> int:
             "ell_gather_rowsum_launches"]
         kernels[0]["launches_colmajor_fit"] = training[
             "colmajor_gather_rowsum_launches"]
+        kernels[4]["launches_ell_fit"] = training[
+            "ell_sorted_colsum_launches"]
         for k in kernels[1:3]:          # the GRR kernels
             k["launches"] = training["launches"][k["name"]]
             if k["launches"] < 1:
@@ -6759,6 +6972,11 @@ def main() -> int:
                       "w": game_ell_fe_w}
         kernels[0]["launches_game_fit"] = game["ell"]["launches"]
         kernels[0]["game_fit_fe_evaluations"] = game["ell"]["fe_evaluations"]
+        kernels[4]["launches_game_fit"] = game["ell"][
+            "fe_gradient_sorted_colsum"]
+        kernels[4]["launches"] = (kernels[4]["launches_ell_fit"]
+                                  + kernels[4]["launches_game_fit"])
+        kernels[4]["shapes"].append(game["sorted_shape"])
 
         t = time.perf_counter()
         mesh_game = phase_mesh_game(seed=7, n=GAME_ROWS, device="cuda",

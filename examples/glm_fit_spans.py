@@ -17,8 +17,9 @@ prepares the fit as the benchmark's entry does (set-up spans
 ``prepare.place``), warms it, then:
 
 1. counts ``--fits`` fits: the ``solver.resident.*`` counters a fit,
-   and the objective's calls at its boundary as the benchmark counts
-   them;
+   the Xᵀr path counters ``xtr.sorted`` / ``xtr.scatter`` and the
+   ``sorted_colsum`` calls, and the objective's calls at its boundary as
+   the benchmark counts them;
 2. traces one fit with the host's operations under ``torch.profiler``
    (``photon::`` ranges beside the kernels): device seconds by span
    over the device's busy seconds, the idle gaps' labels, and how many
@@ -49,12 +50,14 @@ from gpubench import entries, manifest, port  # noqa: E402
 from gpubench.trace import profiler, summarize  # noqa: E402
 from gpubench.traffic.generate import generate  # noqa: E402
 from photon_ml_torch import telemetry  # noqa: E402
+from photon_ml_torch.ops.kernels import sorted_colsum  # noqa: E402
 from photon_ml_torch.telemetry.device import device_s_by_span  # noqa: E402
 
 ETL_SPANS = ("data.from_flat", "prepare.rows", "prepare.ell")
 ITERATION_SPANS = ("lbfgs.direction", "lbfgs.line_search",
                    "lbfgs.gradient", "lbfgs.update")
 COUNTERS = ("iterations", "ls_trials", "evaluations", "host_reads")
+XTR_COUNTERS = ("xtr.sorted", "xtr.scatter")
 SCATTER = "indexFunc"     # the device name of index_add_'s kernels
 
 
@@ -87,7 +90,10 @@ def timed_fits(entry, n: int, device: str) -> tuple[list, object]:
 
 
 def counters(session) -> dict:
-    return {c: session.counter("solver.resident." + c) for c in COUNTERS}
+    out = {c: session.counter("solver.resident." + c) for c in COUNTERS}
+    out.update({c: session.counter(c) for c in XTR_COUNTERS})
+    out["sorted_colsum_calls"] = sorted_colsum.launches
+    return out
 
 
 def traced_fit(entry, device: str, with_host: bool) -> dict:

@@ -23,8 +23,12 @@ and the fixed-effect GLM training path:
       (L-BFGS / OWL-QN) → models.glm.GeneralizedLinearModel
       → evaluation.evaluators.auc
     with X·w and Xᵀr through ops.grr_kernel.grr_contract_dense /
-    grr_contract (CUDA C++, csrc/grr_contract.cu), or on the plain-ELL
-    layout through gather_rowsum and index_add_.
+    grr_contract (CUDA C++, csrc/grr_contract.cu); on the transposed
+    ELL through gather_rowsum both ways; or on the plain-ELL layout
+    through gather_rowsum and, for Xᵀr, ops.kernels.sorted_colsum
+    (CUDA C++, csrc/sorted_colsum.cu) over the batch's column-sorted
+    copy (data.colsorted), a float64 index_add_ where a batch has none
+    (host and streamed chunks, the down-sampled view, λ lanes).
 
 Every entry point runs on the GPU unless the caller passes
 ``device="cpu"`` (see ``device.resolve_device``).

@@ -4,7 +4,7 @@ Counterpart of ``photon_ml_tpu/data/batch.py``.
 
 - ``DenseBatch`` — ``x: [n, d]`` dense features; margins are one matmul.
 - ``SparseBatch`` — padded ELL: ``values/col_ids: [n, k]``, padding
-  entries (col 0, value 0).  Two layouts for the contractions:
+  entries (col 0, value 0).  Three routes for the contractions:
 
   - ``grr`` (``data.grr.GrrPair``, ``make_sparse_batch(..., grr=True)``):
     both directions run through the compiled GRR plan (the B2/B3 CUDA
@@ -13,8 +13,13 @@ Counterpart of ``photon_ml_tpu/data/batch.py``.
     ``make_sparse_batch(..., col_major=True)``): ``X·w`` through B1 on
     the row ELL, ``Xᵀr`` through B1 on the transposed ELL plus a small
     sorted fold;
-  - plain ELL: ``X·w`` through the ``gather_rowsum`` kernel (B1) and
-    ``Xᵀr`` through ``index_add_``.
+  - plain ELL: ``X·w`` through the ``gather_rowsum`` kernel (B1).
+    ``Xᵀr`` runs over the column-sorted copy ``colsorted``
+    (``data.colsorted.ColumnSorted``) that ``make_sparse_batch`` places
+    with every plain-ELL batch, as one float64 segmented sum
+    (``sorted_colsum``, ``csrc/sorted_colsum.cu`` on the card).  A
+    batch without the copy (host and streamed chunks, the down-sampled
+    row view) scatters with a float64 ``index_add_``.
 
   The products also take a λ-lane axis (the swept fit, the counterpart
   of ``jax.vmap`` of these products over a shared batch): W [L, d] →
@@ -39,6 +44,7 @@ import torch
 
 from photon_ml_torch import telemetry
 from photon_ml_torch.data.colmajor import ColMajorSlice, build_colmajor
+from photon_ml_torch.data.colsorted import ColumnSorted, build_column_sorted
 from photon_ml_torch.data.grr import GrrPair, build_grr_pair
 from photon_ml_torch.device import resolve_device
 from photon_ml_torch.ops.kernels import lane_gather_rowsum
@@ -87,8 +93,8 @@ class DenseBatch:
 
 @dataclasses.dataclass(frozen=True)
 class SparseBatch:
-    """Padded-ELL sparse batch, optionally with its transposed ELL or its
-    GRR plan."""
+    """Padded-ELL sparse batch, optionally with its transposed ELL, its
+    GRR plan or its column-sorted copy."""
 
     values: Tensor     # [n, k] f32 ([n, 0] when the plan serves alone)
     col_ids: Tensor    # [n, k] i32
@@ -99,6 +105,7 @@ class SparseBatch:
     dim: int
     grr: "GrrPair | None" = None
     colmajor: "ColMajorSlice | None" = None
+    colsorted: "ColumnSorted | None" = None
 
     @property
     def n_padded(self) -> int:
@@ -109,14 +116,19 @@ class SparseBatch:
         return self.x_dot(w) + self.offsets
 
     def xt_dot(self, r: Tensor) -> Tensor:
-        """Xᵀr — the GRR plan, else the transposed ELL, else a
-        scatter-add into [dim] (R [L, n] → [L, dim]).
+        """Xᵀr — the GRR plan, else the transposed ELL, else, for one
+        vector r [n], the segmented sum over the column-sorted copy, else
+        a scatter-add into [dim] (R [L, n] → [L, dim]).
 
-        The scatter accumulates in float64: it adds a column's terms one
-        after another (atomics on the card), and a power-law head column
+        The last two accumulate in float64: a power-law head column
         collects a term from nearly every row, which float32 would sum
-        with ~n·2⁻²⁴ relative error.  In a telemetry session the whole
-        product, on whichever path, is the span ``xtr``."""
+        with ~n·2⁻²⁴ relative error.  The segmented sum writes each
+        column once, with no atomics (bitwise repeatable on the card);
+        the scatter adds a column's terms one after another (atomics on
+        the card).  In a telemetry session the whole product, on
+        whichever path, is the span ``xtr``, and the counters
+        ``xtr.sorted`` and ``xtr.scatter`` count the calls that took
+        those two paths."""
         with telemetry.span("xtr", cat="ops"):
             return self._xt_dot(r)
 
@@ -127,6 +139,10 @@ class SparseBatch:
             return self.grr.t_dot(r)
         if self.colmajor is not None:
             return self.colmajor.xt_dot(r)
+        if self.colsorted is not None and r.dim() == 1:
+            telemetry.count("xtr.sorted")
+            return self.colsorted.xt_dot(r)
+        telemetry.count("xtr.scatter")
         if r.dim() == 2:
             # One call for every lane: rows of a [dim, L] target.
             lanes = r.shape[0]
@@ -213,7 +229,7 @@ def make_sparse_batch(
       row_capacity: per-row nnz capacity; defaults to the max observed.
       pad_to: pad the example count to this.
       col_major: also build the transposed ELL (``data.colmajor``), so
-        Xᵀr runs on B1 instead of ``index_add_``.
+        Xᵀr runs on B1 instead of the column-sorted copy.
       col_capacity: its virtual-row capacity (default: from the column
         occupancy, ``choose_capacity``).
       grr: compile the GRR plan (``data.grr.build_grr_pair``); it
@@ -222,10 +238,15 @@ def make_sparse_batch(
         device (feature statistics need them; the plan does not).
       cache_dir: the on-disk GRR plan cache, shared with the JAX package.
 
+    A batch with neither ``grr`` nor ``col_major`` also carries its
+    column-sorted copy (``data.colsorted``), built on ``device`` from
+    the placed ELL arrays.
+
     In a telemetry session the host arrays are built in the span
-    ``prepare.ell`` and the ELL and per-example arrays are copied to
-    the device in ``prepare.place`` (the GRR plan and the transposed ELL
-    place their own)."""
+    ``prepare.ell``, and the ELL and per-example arrays are copied to
+    the device, and the column-sorted copy built there, in
+    ``prepare.place`` (the GRR plan and the transposed ELL place their
+    own)."""
     from photon_ml_torch.data.sparse_rows import SparseRows
 
     dev = resolve_device(device)
@@ -273,11 +294,14 @@ def make_sparse_batch(
         vals = np.zeros((n_out, 0), np.float32)
         cols = np.zeros((n_out, 0), np.int32)
     with telemetry.span("prepare.place", cat="setup"):
+        values = torch.from_numpy(
+            np.ascontiguousarray(vals, np.float32)).to(dev)
+        col_ids = torch.from_numpy(
+            np.ascontiguousarray(cols, np.int32)).to(dev)
         return SparseBatch(
-            values=torch.from_numpy(
-                np.ascontiguousarray(vals, np.float32)).to(dev),
-            col_ids=torch.from_numpy(
-                np.ascontiguousarray(cols, np.int32)).to(dev),
+            values=values, col_ids=col_ids,
             **{name: torch.from_numpy(a).to(dev)
                for name, a in per_example.items()},
-            dim=dim, grr=pair, colmajor=cm)
+            dim=dim, grr=pair, colmajor=cm,
+            colsorted=(None if grr or col_major
+                       else build_column_sorted(col_ids, values, dim)))

@@ -86,12 +86,13 @@ def _apply_training_view(batch: Batch, offsets: Tensor, train_idx,
     if train_idx is None:
         return dataclasses.replace(batch, offsets=offsets)
     if isinstance(batch, SparseBatch):
-        # The transposed-ELL and GRR layouts index every row: the row
-        # subset drops them and runs on its ELL arrays.
+        # The transposed-ELL, GRR and column-sorted layouts index every
+        # row: the row subset drops them and runs on its ELL arrays.
         sub = dataclasses.replace(
             batch, values=batch.values[train_idx],
             col_ids=batch.col_ids[train_idx], labels=batch.labels[train_idx],
-            mask=batch.mask[train_idx], colmajor=None, grr=None)
+            mask=batch.mask[train_idx], colmajor=None, grr=None,
+            colsorted=None)
     else:
         sub = dataclasses.replace(
             batch, x=batch.x[train_idx], labels=batch.labels[train_idx],

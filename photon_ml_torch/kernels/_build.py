@@ -82,6 +82,24 @@ _SIGNATURES = {
             _P,      # cudaStream_t
         ],
     },
+    "sorted_colsum": {
+        "sorted_colsum_launch": [
+            _P,      # r        f32 [n]
+            _P,      # rows     i32 [nnz], 16-byte aligned
+            _P,      # vals     f32 [nnz], 16-byte aligned
+            _P,      # col_ptr  i64 [dim + 1]
+            _P,      # tiles    i64 [n_tiles + 1]
+            _P,      # out      f32 [dim]
+            _P,      # carry    f64 [n_tiles] (scratch)
+            _P,      # head     f64 [n_tiles] (scratch)
+            _I64,    # dim
+            _I64,    # nnz
+            _I64,    # n_tiles
+            _I32,    # tile_items: the source's kTile
+            _I32,    # device index
+            _P,      # cudaStream_t
+        ],
+    },
     "grr_contract": {
         "grr_contract_dense_launch": [
             _P,              # table_t f32 [n_gw, 128, 128]

@@ -25,6 +25,16 @@ an XLA formulation (the live path) and a Pallas kernel,
 
 Padding slots (id 0, val 0) are multiplied like any other slot in both
 versions, as in the JAX package.
+
+``sorted_colsum`` is Xᵀr over a column-sorted copy of a plain-ELL
+batch's slots (``data.colsorted``): ``out[j] = Σ vals[s] · r[rows[s]]``
+over column j's slots, summed in float64 and rounded once to float32.
+On CUDA tensors it launches ``csrc/sorted_colsum.cu`` (a merge-path
+segmented sum and its fix-up: no atomics, bitwise repeatable; counted
+in ``sorted_colsum.launches``), on CPU tensors it runs
+``sorted_colsum_reference``.  It replaces no TPU kernel (the JAX
+package's plain-ELL Xᵀr is ``jax.ops.segment_sum``); it takes the place
+of a float64 ``index_add_`` scatter.
 """
 
 from __future__ import annotations
@@ -69,6 +79,10 @@ _LANE_RUN = 8
 _LANE_HEAD_MIN_SLOTS = 1 << 21
 _LANE_HEAD_MIN_SHARE = 1 / 32
 _LANE_HEAD_MAX_LANES = 8
+# csrc/sorted_colsum.cu: merged items (column ends and slots) a block
+# takes, its kTile (512 threads x 4 items).  The partition of a copy into
+# such tiles (``sorted_colsum_tiles``) is built with the copy.
+SORTED_COLSUM_TILE = 2048
 
 
 def gather_rowsum_reference(table: Tensor, vals: Tensor, ids: Tensor
@@ -399,6 +413,114 @@ def gather_rowsum_lanes(table: Tensor, vals: Tensor, ids: Tensor) -> Tensor:
 
 
 gather_rowsum_lanes.launches = 0
+
+
+def sorted_colsum_reference(r: Tensor, rows: Tensor, vals: Tensor,
+                            col_ptr: Tensor) -> Tensor:
+    """Plain PyTorch version of ``sorted_colsum``: the float32 products
+    ``vals · r[rows]`` added in float64 by ``index_add_`` into their
+    columns (slot order: rows ascending within a column), then rounded to
+    float32.  On the CPU that is the plain-ELL scatter's arithmetic term
+    for term, so the two agree bit for bit where no slot's value is 0."""
+    dim = col_ptr.numel() - 1
+    cols = torch.repeat_interleave(
+        torch.arange(dim, device=col_ptr.device), col_ptr.diff())
+    out = torch.zeros(dim, dtype=torch.float64, device=r.device)
+    out.index_add_(0, cols, (vals * r[rows]).double())
+    return out.to(r.dtype)
+
+
+def sorted_colsum_tiles(col_ptr: Tensor, nnz: int) -> Tensor:
+    """The merge-path partition of ``nnz`` slots over ``col_ptr``'s
+    columns into tiles of ``SORTED_COLSUM_TILE`` merged items: entry b
+    (int64, one more than the tiles) is the number of columns that end
+    before tile b's first item.  Column j's end is item col_ptr[j+1] + j
+    of the merged list (after its slots), so that number is a
+    ``searchsorted`` of the tiles' first items in those ends."""
+    dim = col_ptr.numel() - 1
+    n_tiles = -(-(dim + nnz) // SORTED_COLSUM_TILE)
+    starts = torch.arange(n_tiles + 1, device=col_ptr.device,
+                          dtype=torch.int64) * SORTED_COLSUM_TILE
+    ends = col_ptr[1:] + torch.arange(dim, device=col_ptr.device)
+    return torch.searchsorted(ends, starts)
+
+
+_SORTED_LAUNCHERS: dict[int, object] = {}
+
+
+def sorted_colsum(r: Tensor, rows: Tensor, vals: Tensor, col_ptr: Tensor,
+                  tiles: Tensor) -> Tensor:
+    """``out[j] = Σ_{s ∈ [col_ptr[j], col_ptr[j+1])} vals[s] · r[rows[s]]``.
+
+    Args:
+      r:       [n] float32 — the residual, gathered by row.
+      rows:    [nnz] int32 — each slot's row, sorted by column (rows
+        ascending within a column).
+      vals:    [nnz] float32 — each slot's value.
+      col_ptr: [dim + 1] int64 — column j's slots are
+        ``[col_ptr[j], col_ptr[j+1])``; ``col_ptr[dim] == nnz``.
+      tiles:   ``sorted_colsum_tiles(col_ptr, nnz)`` (read by the kernel
+        only).
+
+    Returns [dim] float32.
+    """
+    if r.dtype != torch.float32 or vals.dtype != torch.float32:
+        raise TypeError(f"sorted_colsum takes float32 r and vals, got "
+                        f"{r.dtype} and {vals.dtype}")
+    if (rows.dtype != torch.int32 or col_ptr.dtype != torch.int64
+            or tiles.dtype != torch.int64):
+        raise TypeError(
+            f"sorted_colsum takes int32 rows and int64 col_ptr and tiles, "
+            f"got {rows.dtype}, {col_ptr.dtype} and {tiles.dtype}")
+    if (r.dim() != 1 or rows.dim() != 1 or rows.shape != vals.shape
+            or col_ptr.dim() != 1 or col_ptr.numel() < 1
+            or tiles.dim() != 1):
+        raise ValueError(
+            f"sorted_colsum takes 1-D r, rows, vals, col_ptr and tiles, "
+            f"rows and vals of one shape; got {tuple(r.shape)}, "
+            f"{tuple(rows.shape)}, {tuple(vals.shape)}, "
+            f"{tuple(col_ptr.shape)} and {tuple(tiles.shape)}")
+    dim, nnz = col_ptr.numel() - 1, rows.numel()
+    n_tiles = tiles.numel() - 1
+    if n_tiles != -(-(dim + nnz) // SORTED_COLSUM_TILE):
+        raise ValueError(f"tiles holds {n_tiles} tiles, not the "
+                         f"partition of {dim} columns and {nnz} slots")
+    dev = vals.device
+    if any(t.device != dev for t in (r, rows, col_ptr, tiles)):
+        raise ValueError("sorted_colsum inputs must share one device")
+    if dev.type == "cpu":
+        return sorted_colsum_reference(r, rows, vals, col_ptr)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not all(t.is_contiguous() for t in (r, rows, vals, col_ptr, tiles)):
+        raise ValueError("sorted_colsum's CUDA kernel takes contiguous "
+                         "tensors")
+    if not _aligned(vals, rows):
+        raise ValueError("sorted_colsum's CUDA kernel takes rows and vals "
+                         "that start on a 16-byte boundary")
+    out = torch.empty(dim, dtype=torch.float32, device=dev)
+    if dim == 0:
+        return out
+    launch = _SORTED_LAUNCHERS.get(dev.index)
+    if launch is None:
+        from photon_ml_torch.kernels import _build
+
+        launch = _build.load("sorted_colsum").sorted_colsum_launch
+        _SORTED_LAUNCHERS[dev.index] = launch
+    carry = torch.empty(2, n_tiles, dtype=torch.float64, device=dev)
+    err = launch(r.data_ptr(), rows.data_ptr(), vals.data_ptr(),
+                 col_ptr.data_ptr(), tiles.data_ptr(), out.data_ptr(),
+                 carry[0].data_ptr(), carry[1].data_ptr(), dim, nnz, n_tiles,
+                 SORTED_COLSUM_TILE, dev.index,
+                 torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"sorted_colsum kernel launch failed: CUDA "
+                           f"error {err}")
+    sorted_colsum.launches += 1
+    return out
+
+
+sorted_colsum.launches = 0
 
 
 def lane_gather_rowsum(v: Tensor, vals: Tensor, ids: Tensor) -> Tensor:

@@ -140,6 +140,8 @@ def _elementwise_square_batch(batch: Batch) -> Batch:
         batch, values=batch.values * batch.values,
         colmajor=(None if batch.colmajor is None
                   else batch.colmajor.squared()),
+        colsorted=(None if batch.colsorted is None
+                   else batch.colsorted.squared()),
         grr=None if batch.grr is None else batch.grr.squared())
 
 

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from photon_ml_torch.data.batch import DenseBatch, SparseBatch
+from photon_ml_torch.data.colsorted import build_column_sorted
 from photon_ml_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -257,13 +258,19 @@ def _batch_to(batch, device: torch.device):
         cm = dataclasses.replace(cm, tvals=cm.tvals.to(device),
                                  trows=cm.trows.to(device),
                                  vcol=cm.vcol.to(device))
+    cs = batch.colsorted
+    if cs is not None:
+        cs = dataclasses.replace(cs, rows=cs.rows.to(device),
+                                 vals=cs.vals.to(device),
+                                 col_ptr=cs.col_ptr.to(device),
+                                 tiles=cs.tiles.to(device))
     return dataclasses.replace(
         batch, values=batch.values.to(device),
         col_ids=batch.col_ids.to(device), labels=batch.labels.to(device),
         weights=batch.weights.to(device), offsets=batch.offsets.to(device),
         mask=batch.mask.to(device),
         grr=None if batch.grr is None else batch.grr.to(device),
-        colmajor=cm)
+        colmajor=cm, colsorted=cs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -345,10 +352,14 @@ def shard_batch(batch, mesh: Mesh) -> ShardedBatch:
         if isinstance(b, DenseBatch):
             return DenseBatch(**{f.name: getattr(b, f.name)[lo:hi]
                                  for f in dataclasses.fields(b)})
+        # A shard's rows are a slice of the batch's: its column-sorted
+        # copy is built from them.
         return dataclasses.replace(
             b, values=b.values[lo:hi], col_ids=b.col_ids[lo:hi],
             labels=b.labels[lo:hi], weights=b.weights[lo:hi],
-            offsets=b.offsets[lo:hi], mask=b.mask[lo:hi])
+            offsets=b.offsets[lo:hi], mask=b.mask[lo:hi],
+            colsorted=(None if b.colsorted is None else build_column_sorted(
+                b.col_ids[lo:hi], b.values[lo:hi], b.dim)))
 
     shards = tuple(
         _batch_to(rows(batch, i * per, (i + 1) * per), d)
@@ -443,11 +454,12 @@ def shard_sparse_batch(
             v_max = _vrow_common(cols, vals, dim, col_capacity)
             shards = [dataclasses.replace(b, colmajor=build_colmajor(
                 c, v, dim, capacity=col_capacity, pad_vrows_to=v_max,
-                device="cpu")) for b, c, v in zip(shards, cols, vals)]
+                device="cpu"), colsorted=None)
+                for b, c, v in zip(shards, cols, vals)]
         elif layout == "grr":
             pairs = build_sharded_grr_pairs(cols, vals, dim,
                                             cache_dir=cache_dir)
-            shards = [dataclasses.replace(b, grr=p)
+            shards = [dataclasses.replace(b, grr=p, colsorted=None)
                       for b, p in zip(shards, pairs)]
     return ShardedBatch(
         shards=tuple(_batch_to(b, d) for b, d in zip(shards, mesh.devices)),

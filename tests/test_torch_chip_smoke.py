@@ -129,7 +129,16 @@ def test_ell_split_by_kernel():
         "Memcpy DtoH (Device -> Pinned)": 0.01})
     assert split["gather_rowsum"] == 0.25 and split["index_add"] == 1.5
     assert split["rest"] == pytest.approx(0.51)
+    assert split["sorted_colsum"] == 0.0
     assert len(split["largest"]) == 4
+    # Xᵀr over the column-sorted copy: its kernel and its fix-up.
+    split = cs.split_ell_evaluation({
+        "void gather_rowsum_kernel<4, 8>(float const*)": 0.25,
+        "(anonymous namespace)::sorted_colsum_kernel(float const*)": 0.04,
+        "(anonymous namespace)::sorted_colsum_fixup_kernel(long const*)":
+            0.002})
+    assert split["sorted_colsum"] == pytest.approx(0.042)
+    assert split["index_add"] == 0.0
 
 
 def test_training_phase_gates_on_cpu(training):
@@ -140,6 +149,10 @@ def test_training_phase_gates_on_cpu(training):
     assert max(out["f64_errors"]["grr"].values()) <= cs.F64_VECTOR_RTOL
     assert out["launches"] == {"grr_contract_dense": 0, "grr_contract": 0,
                                "gather_rowsum": 0}
+    # Launches are counted on the card only; the ELL fit's gradients run
+    # over its column-sorted copy there.
+    assert out["ell_sorted_colsum_launches"] == 0
+    assert out["ell_gradients"] == len(out["trajectories"]["ell"]["loss"])
 
 
 def test_transposed_ell_kernel_check_on_cpu(train):
@@ -221,11 +234,15 @@ def test_game_phase_on_cpu(work):
     assert (shapes["game_fe_ell"]["n"], shapes["game_fe_ell"]["k"]) == (
         n_train, cs.NNZ + 1)
     assert shapes["game_fe_colmajor"]["table"] == n_train
+    sorted_shape = out["sorted_shape"]
+    assert sorted_shape["shape"] == "game_fe_ell"
+    assert (sorted_shape["rows"], sorted_shape["columns"]) == (n_train, 2001)
+    assert sorted_shape["max_ulps"] == 0.0
     for layout in ("ell", "colmajor"):
         f = out[layout]
         assert f["fe_evaluations"] > 0 and f["launches"] == 0
         assert f["fe_evaluation_launches"] == f["fe_gradient_launches"] == 0
-        assert f["fe_gradients"] > 0
+        assert f["fe_gradients"] > 0 and f["fe_gradient_sorted_colsum"] == 0
         assert len(f["auc_by_sweep"]) == cs.GAME_SWEEPS
         assert sorted(f["sweep_coordinate_s"]) == [1, 2]
         assert {b["width"] for b in f["buckets"]} == {cs.P_USER, cs.P_ITEM}
@@ -318,6 +335,8 @@ def test_kernel_entries_carry_every_key(train):
         0, 0.1, cs.D + 1).astype(np.float32))
     entries = [cs.phase_kernels(table, seed=1, time_it=False)]
     entries += cs.phase_kernels_grr(train["grr"].grr, seed=5, time_it=False)
+    entries.append(cs.phase_kernels_sorted(10, time_it=False, device="cpu",
+                                           n=20_000, d=50_000))
     for e in entries:
         assert KERNEL_KEYS <= set(e), e["name"]
 
