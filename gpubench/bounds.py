@@ -1,9 +1,10 @@
 """Peaks of the card and the least time of the work the benchmark reads.
 
-The byte bound is a frozen copy of ``chip_smoke.py``'s
-``gather_rowsum_bound_ms``: every input byte read once (the values and
-ids of each slot, each table entry the ids touch), every output byte
-written once, against the card's memory rate.  The peaks are copied from
+The byte bounds are frozen copies of ``chip_smoke.py``'s
+``gather_rowsum_bound_ms`` and ``sorted_colsum_bound_ms``: every input
+byte read once (the values and ids of each slot, each table entry or
+row the ids touch), every output byte written once, against the card's
+memory rate.  The peaks are copied from
 ``photon_ml_torch/telemetry/device.py`` (``CARD_PEAK_GBPS``) and the
 H100 SXM data sheet.
 """
@@ -27,3 +28,15 @@ def gather_rowsum_bound_s(n: int, k: int, touched: int,
     slot."""
     nbytes = n * k * (4 + 4) + touched * 4 + n * 4
     return max(nbytes / bytes_per_s, 2 * n * k / FP32_OPS_PER_S)
+
+
+def sorted_colsum_bound_s(nnz: int, dim: int, touched: int,
+                          bytes_per_s: float) -> float:
+    """Xᵀr over a column-sorted copy (``out[j] = Σ vals[s]·r[rows[s]]``
+    over column j's slots) of ``nnz`` slots and ``dim`` columns whose
+    rows touch ``touched`` entries of r: rows (int32) and vals read once,
+    col_ptr (int64, dim + 1) read once, out (float32) written once, those
+    entries of r read once; a float32 product and a float64 add a
+    slot."""
+    nbytes = nnz * (4 + 4) + (dim + 1) * 8 + dim * 4 + touched * 4
+    return max(nbytes / bytes_per_s, 2 * nnz / FP32_OPS_PER_S)

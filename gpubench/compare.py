@@ -7,7 +7,11 @@ over the leaves:
 - ``obj_gap``: |F(w) − F(w_ref)| / |F(w_ref)|, F the configuration's
   objective in float64 at the leaf's λ;
 - ``coef_gap``: ‖w − w_ref‖ over the larger of ‖w_ref‖ and the median
-  leaf's ‖w_ref‖ (a strongly regularized lane is all but zero).
+  leaf's ‖w_ref‖ (a strongly regularized lane is all but zero);
+- ``coef_max_gap``: the same with the largest magnitude in place of the
+  Euclidean norm: the worst single coefficient against the leaf's
+  largest, so that one coefficient altered reads about 2 however many
+  coefficients the leaf has.
 """
 
 from __future__ import annotations
@@ -17,28 +21,39 @@ import numpy as np
 _TINY = np.finfo(np.float64).tiny
 
 
-def leaf_scales(reference: dict) -> dict:
+def _norm(x, order) -> float:
+    return float(np.linalg.norm(np.ravel(x), order))
+
+
+def leaf_scales(reference: dict, order=None) -> dict:
     names = list(reference)
-    norms = [float(np.linalg.norm(reference[k])) for k in names]
+    norms = [_norm(reference[k], order) for k in names]
     median = float(np.median(norms))
     return {k: max(n, median, _TINY) for k, n in zip(names, norms)}
 
 
-def leaf_gaps(answer: dict, reference: dict) -> dict:
-    scales = leaf_scales(reference)
+def leaf_gaps(answer: dict, reference: dict, order=None) -> dict:
+    """Each leaf's gap in the ``order`` norm (``numpy.linalg.norm``'s;
+    None the Euclidean) over its scale (``leaf_scales``)."""
+    scales = leaf_scales(reference, order)
     out = {}
     for name, ref in reference.items():
         got = np.asarray(answer[name], np.float64)
         if got.shape != ref.shape:
             raise ValueError(f"leaf {name}: shape {got.shape} against the "
                              f"reference's {ref.shape}")
-        out[name] = float(np.linalg.norm(got - ref)) / scales[name]
+        out[name] = _norm(got - ref, order) / scales[name]
     return out
 
 
 def coef_gap(answer: dict, reference: dict) -> float:
     """One fit's ``coef_gap``."""
     return max(leaf_gaps(answer, reference).values())
+
+
+def coef_max_gap(answer: dict, reference: dict) -> float:
+    """One fit's ``coef_max_gap``."""
+    return max(leaf_gaps(answer, reference, np.inf).values())
 
 
 def obj_gap(values: dict, reference: dict) -> float:

@@ -20,7 +20,8 @@ Each module defines:
   {number: reading}} of the kept fits (``kept``: window index →
   answer).
 - ``window`` (optional): the measured window, in place of
-  ``gpubench.run.repeat_fits``.
+  ``gpubench.run.repeat_fits`` and called as it is (``entry, seconds,
+  trace, device, inst, pick, port``).
 """
 
 from __future__ import annotations

@@ -22,16 +22,17 @@ class FinalAnswer:
 
 def numbers(reference_answer, leaf_lambdas, answers: list, data: dict,
             config: dict, traffic: dict, device: str, reference=None):
-    """``obj_gap`` and ``coef_gap`` of each answer ({leaf: array})
-    against the float64 reference (worked out here unless given) →
-    ([{number: reading}], reference)."""
+    """``obj_gap``, ``coef_gap`` and ``coef_max_gap`` of each answer
+    ({leaf: array}) against the float64 reference (worked out here
+    unless given) → ([{number: reading}], reference)."""
     if reference is None:
         reference = reference_answer(data, config, traffic, torch.float64,
                                      device)
     values = objective_values(data, config, leaf_lambdas(traffic),
                               [reference] + list(answers), device)
     return [{"obj_gap": compare.obj_gap(v, values[0]),
-             "coef_gap": compare.coef_gap(a, reference)}
+             "coef_gap": compare.coef_gap(a, reference),
+             "coef_max_gap": compare.coef_max_gap(a, reference)}
             for a, v in zip(answers, values[1:])], reference
 
 

@@ -2,8 +2,8 @@
 
 Set-up prepares the batch through the estimator (``_prepare``,
 ``_build_coordinates``); each fit is ``problem.run(batch, w0)`` at the
-traffic's λ.  Judged by its final coefficients (``coef_gap``) against
-the reference's independent fit.
+traffic's λ.  Judged by its final coefficients (``obj_gap``,
+``coef_max_gap``) against the reference's independent fit.
 """
 
 from __future__ import annotations

@@ -1,10 +1,9 @@
-"""Objective evaluations a fit (value-and-gradient and value-only calls
-at the objective's boundary)."""
+"""Objective evaluations a fit, as the port's resident solvers count
+them (``solver.resident.evaluations``: value-and-gradient and
+value-only calls)."""
+
+from gpubench.metrics import _spans
 
 
 def read(sources):
-    fits = [f for f in sources.get("fits", [])
-            if f["evaluations"] is not None]
-    if not fits:
-        return None
-    return sum(f["evaluations"] for f in fits) / len(fits)
+    return _spans.counter(sources, "solver.resident.evaluations")

@@ -7,7 +7,7 @@ the fits' arithmetic is a few operations a byte."""
 
 def read(sources):
     peak = sources.get("bytes_per_s")
-    fits = [f for f in sources.get("fits", []) if not f["profiled"]
+    fits = [f for f in sources.get("fits", []) if f["span"] is None
             and f["eval_bytes"] is not None]
     wall = sum(f["end"] - f["start"] for f in fits)
     if not peak or not fits or wall <= 0:

@@ -1,14 +1,15 @@
-"""Share (%) of the device's busy time in the scatter kernels of Xᵀr
-(PyTorch's ``index_add_``, whose kernels the profiler names
-``indexFunc…``), from the profiler's device events."""
+"""Share (%) of the device's busy time launched under the port's ``xtr``
+span (Xᵀr on whichever path runs: ``sorted_colsum`` over the
+column-sorted copy, or the ``index_add_`` scatter, with their casts and
+fills), in the session span.
 
-SCATTER = "indexFunc"
+The span's bounds are the port's (``xtr`` in ``data/batch.py``): work
+moved into or out of it moves this share.  Readings taken before the
+metric read the span (the summed ``indexFunc`` scatter kernels of the
+device-only span) are not comparable with these."""
+
+from gpubench.metrics import _spans
 
 
 def read(sources):
-    trace = sources.get("trace")
-    if not trace or trace["busy_s"] <= 0:
-        return None
-    scatter = sum(s for name, s in trace["by_name"].items()
-                  if SCATTER in name)
-    return 100.0 * scatter / trace["busy_s"] if scatter > 0 else None
+    return _spans.share(sources, ("xtr",))

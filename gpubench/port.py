@@ -4,9 +4,14 @@ No other file of the benchmark imports the port.  Every name of the
 port that the benchmark touches is listed in ``PORT_NAMES``, and each
 kernel launcher named by a file of ``gpubench/kernels/``; the
 estimator's ``_prepare`` and ``_build_coordinates`` are its seams,
-driven as ``chip_smoke.py`` drives them.  The instruments (``Instruments``) wrap the objective's
-two evaluation methods and those launchers while a traced run asks them
-to count; otherwise nothing is patched.
+driven as ``chip_smoke.py`` drives them, and ``game_fit`` runs the
+estimator's coordinate descent over the coordinates they build.  The
+instruments (``Instruments``) wrap the objective's two evaluation
+methods and those launchers while a traced run asks them to count;
+otherwise nothing is patched.  A traced run also opens the port's own
+telemetry session (``open_session``) while its session span records,
+and reads device time by the port's spans from that trace
+(``span_device_s``).
 """
 
 from __future__ import annotations
@@ -25,12 +30,15 @@ from photon_ml_torch.config import (
     TaskType,
     TrainingConfig,
 )
-from photon_ml_torch.data.batch import SparseBatch
+from photon_ml_torch import telemetry
+from photon_ml_torch.data.batch import DenseBatch, SparseBatch
 from photon_ml_torch.data.sparse_rows import SparseRows
 from photon_ml_torch.estimators.game_estimator import GameEstimator
+from photon_ml_torch.game.coordinate_descent import run_coordinate_descent
 from photon_ml_torch.game.dataset import GameDataset
 from photon_ml_torch.ops.objective import GLMObjective
 from photon_ml_torch.optim.base import OptimizerConfig
+from photon_ml_torch.telemetry.device import device_s_by_span
 
 PORT_NAMES = (
     "photon_ml_torch.cache.compile_cache.enable_compilation_cache",
@@ -39,6 +47,7 @@ PORT_NAMES = (
     "photon_ml_torch.config.OptimizerSettings",
     "photon_ml_torch.config.TaskType",
     "photon_ml_torch.config.TrainingConfig",
+    "photon_ml_torch.data.batch.DenseBatch",
     "photon_ml_torch.data.batch.SparseBatch",
     "photon_ml_torch.data.sparse_rows.SparseRows",
     "photon_ml_torch.estimators.game_estimator.GameEstimator",
@@ -46,10 +55,14 @@ PORT_NAMES = (
     "photon_ml_torch.estimators.game_estimator.GameEstimator._build_coordinates",
     "photon_ml_torch.game.dataset.GameDataset",
     "photon_ml_torch.game.coordinates.FixedEffectCoordinate (batch, problem)",
+    "photon_ml_torch.game.coordinate_descent.run_coordinate_descent",
     "photon_ml_torch.optim.problem.OptimizationProblem.run",
     "photon_ml_torch.ops.objective.GLMObjective.value",
     "photon_ml_torch.ops.objective.GLMObjective.value_and_gradient",
     "photon_ml_torch.optim.base.OptimizerConfig",
+    "photon_ml_torch.telemetry.start",
+    "photon_ml_torch.telemetry.Telemetry.summary",
+    "photon_ml_torch.telemetry.device.device_s_by_span",
 )
 
 KERNELS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -87,33 +100,42 @@ def check_solver(solver: dict) -> None:
 
 
 def game_dataset(data: dict) -> GameDataset:
-    """The generated arrays as the port's dataset: one fixed-effect
-    shard, ``global``, as ``SparseRows``."""
+    """The generated arrays as the port's dataset: the fixed-effect shard
+    ``global`` as ``SparseRows``, and where the data model returns them,
+    its ``entity_ids`` (key → [n] ids) and further dense ``shards``
+    (name → [n, p] array)."""
     rows = SparseRows.from_flat(data["indptr"], data["cols"], data["vals"])
-    return GameDataset(labels=data["labels"], features={"global": rows},
-                       entity_ids={},
+    return GameDataset(labels=data["labels"],
+                       features={"global": rows, **data.get("shards", {})},
+                       entity_ids=dict(data.get("entity_ids", {})),
                        feature_dims={"global": int(data["dim"])})
 
 
 def training_config(config: dict, traffic: dict, device: str
                     ) -> TrainingConfig:
     """The configuration's coordinates and the traffic's layout as the
-    port's ``TrainingConfig``."""
+    port's ``TrainingConfig``: an entry of ``"kind": "fixed"`` a fixed
+    effect, of ``"kind": "random"`` a random effect over its
+    ``entity_key``; ``n_iterations`` coordinate-descent sweeps (1 where
+    the configuration states none)."""
+    kinds = {"fixed": CoordinateKind.FIXED_EFFECT,
+             "random": CoordinateKind.RANDOM_EFFECT}
     coords = []
     for c in config["coordinates"]:
         settings = OptimizerSettings(max_iters=int(c["max_iters"]),
                                      tolerance=float(c["tolerance"]),
                                      reg_weight=float(c["l2"]))
-        if c["kind"] != "fixed":
-            raise ValueError(f"{c['name']}: only fixed effects are run")
+        if c["kind"] not in kinds:
+            raise ValueError(f"{c['name']}: coordinate kind {c['kind']!r} "
+                             f"is not one of {sorted(kinds)}")
         coords.append(CoordinateConfig(
-            c["name"], CoordinateKind.FIXED_EFFECT, c["shard"],
-            optimizer=settings))
+            c["name"], kinds[c["kind"]], c["shard"],
+            entity_key=c.get("entity_key"), optimizer=settings))
     return TrainingConfig(
         task_type=TaskType(config["task"].upper()), coordinates=coords,
         update_sequence=list(config["update_sequence"]),
-        n_iterations=1,
-        intercept=bool(config["intercept"]), 
+        n_iterations=int(config.get("n_iterations", 1)),
+        intercept=bool(config["intercept"]),
         sparse_layout=traffic["layout"], validate_per_iteration=False,
         device=device)
 
@@ -141,36 +163,82 @@ def fixed_batch(coord):
     return coord.batch
 
 
+def game_fit(est: GameEstimator, coords: dict,
+             initial: dict | None = None) -> dict:
+    """One GAME fit at fixed λ a coordinate, as
+    ``GameEstimator._fit_point`` runs it (no validation, checkpoints,
+    warm-start model or locked coordinates): ``run_coordinate_descent``
+    over ``coords`` (built once in set-up by ``build_coordinates``) from
+    ``initial`` (name → starting coefficients; zeros where absent) → the
+    final coefficients by coordinate (a random effect's: one tensor a
+    bucket)."""
+    cfg = est.config
+    return run_coordinate_descent(
+        coordinates=coords, update_sequence=cfg.update_sequence,
+        n_iterations=cfg.n_iterations,
+        initial_coefficients=initial).coefficients
+
+
+def open_session(device: str):
+    """The port's ``metrics`` telemetry session: its counters and span
+    statistics, and while a profiler records, its spans as ranges."""
+    return telemetry.start("metrics", device=device)
+
+
+def close_session(session) -> dict:
+    """Close ``session`` → its summary (``counters``, ``spans``)."""
+    session.close()
+    return session.summary()
+
+
+def span_device_s(events) -> dict:
+    """Device seconds by the port's spans in a profiler trace taken with
+    the host's operations while a session was open
+    (``telemetry.device.device_s_by_span``: ``busy_s``, ``spans``,
+    ``outside_s``, ``unlinked_s``)."""
+    return device_s_by_span(events)
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if isinstance(t, torch.Tensor))
 
 
-def evaluation_bytes(w: torch.Tensor, batch, gradient: bool) -> int:
-    """Least bytes one evaluation moves: every array of the layouts it
+def evaluation_bytes(w: torch.Tensor, batch, gradient: bool) -> int | None:
+    """Least bytes one evaluation moves: every array of the layout it
     reads, the labels, weights, offsets, mask and coefficients read
-    once; the values (and the gradient) written once."""
-    if not isinstance(batch, SparseBatch):
-        raise TypeError(f"no byte count for {type(batch).__name__}")
-    if batch.grr is not None or batch.colmajor is not None:
-        raise ValueError("no byte count for the GRR or transposed layouts")
-    read = _nbytes(batch.values, batch.col_ids, batch.labels, batch.weights,
-                   batch.offsets, batch.mask)
+    once; each lane's value (and the gradient) written once.  A plain-ELL
+    ``SparseBatch`` reads its values and column ids, a ``DenseBatch`` its
+    ``x``; None for a layout with no count here (GRR, the transposed
+    ELL)."""
+    if isinstance(batch, SparseBatch):
+        if batch.grr is not None or batch.colmajor is not None:
+            return None
+        layout = _nbytes(batch.values, batch.col_ids)
+    elif isinstance(batch, DenseBatch):
+        layout = _nbytes(batch.x)
+    else:
+        return None
+    read = layout + _nbytes(batch.labels, batch.weights, batch.offsets,
+                            batch.mask)
     lanes = w.numel() // w.shape[-1]
     written = lanes * w.element_size() + (_nbytes(w) if gradient else 0)
     return read + _nbytes(w) + written
 
 
 class Instruments:
-    """Counts objective evaluations (with their least bytes) and records
-    the launches of the kernels of ``kernel_specs`` while installed:
-    each launch's argument shapes, and for its ``distinct`` arguments
-    the tensor, counted by ``resolve`` once the window has closed.
-    Launches are recorded only while ``recording`` is set."""
+    """Counts objective evaluations (by the batch's type, with their
+    least bytes; ``uncounted`` those with no byte count) and records the
+    launches of the kernels of ``kernel_specs`` while installed: each
+    launch's argument shapes, and for its ``distinct`` arguments the
+    tensor, counted by ``resolve`` once the window has closed.  Launches
+    are recorded only while ``recording`` is set."""
 
     def __init__(self):
         self.evaluations = 0
         self.eval_bytes = 0
+        self.uncounted = 0
+        self.batches: dict = {}
         self.recording = False
         self.specs = kernel_specs()
         self.launches: dict = {name: [] for name in self.specs}
@@ -181,7 +249,13 @@ class Instruments:
 
         def wrapped(obj, w, batch):
             inst.evaluations += 1
-            inst.eval_bytes += evaluation_bytes(w, batch, gradient)
+            kind = type(batch).__name__
+            inst.batches[kind] = inst.batches.get(kind, 0) + 1
+            nbytes = evaluation_bytes(w, batch, gradient)
+            if nbytes is None:
+                inst.uncounted += 1
+            else:
+                inst.eval_bytes += nbytes
             return fn(obj, w, batch)
         return wrapped
 
@@ -196,8 +270,11 @@ class Instruments:
                                if isinstance(v, torch.Tensor)},
                     "distinct": {k: named[k] for k in spec["distinct"]}})
             return fn(*args)
-        # The launcher counts itself by its module-level name.
+        # A launcher counts itself by its module-level name: the wrapper
+        # where it is patched in its own module (``__exit__`` hands the
+        # count on), itself where a caller's name is patched.
         wrapped.launches = getattr(fn, "launches", 0)
+        wrapped.launches_at_entry = wrapped.launches
         return wrapped
 
     def resolve(self) -> dict:
@@ -233,8 +310,9 @@ class Instruments:
 
     def __exit__(self, *exc):
         for owner, attr, old in reversed(self._saved):
+            new = getattr(owner, attr)
             if hasattr(old, "launches"):
-                old.launches = getattr(owner, attr).launches
+                old.launches += new.launches - new.launches_at_entry
             setattr(owner, attr, old)
         self._saved.clear()
         return False

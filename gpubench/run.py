@@ -73,65 +73,91 @@ def _sync(device: str) -> None:
 
 
 def repeat_fits(entry, seconds: float, trace: bool, device: str, inst,
-                pick: int) -> dict:
+                pick: int, port) -> dict:
     """The default window: repeat the fit until ``seconds`` have passed
     at the end of one.
 
     Keeps what judges the first fit and fit ``pick`` (``entry.keep``;
-    the window may end before ``pick``).  With ``trace``: after the first fit, a span of at least
-    ``PROFILE_S`` traced on the device alone (kernel times, busy share;
-    launches recorded), then one traced with the host's operations too
-    (what the host did in the idle gaps); the window runs on to
-    ``seconds`` after both.  Returns the sources it measured."""
+    the window may end before ``pick``).  With ``trace``: after the first
+    fit, three spans of at least ``PROFILE_S`` each: one traced on the
+    device alone (kernel times, busy share; launches recorded), one
+    traced with the host's operations too (what the host did in the idle
+    gaps), and one traced so while the port's telemetry session is open
+    (device time by the port's spans; the port's counters); the window
+    runs on to ``seconds`` after them.  No session is open in any other
+    fit: its host work would read as idle gaps, and as idle device time
+    in the device-only span.  Returns the sources it measured."""
     from gpubench.trace import profiler, summarize
 
     fits, kept = [], {}
-    spans = ["device", "host"] if trace else []
-    prof = span = None
+    spans = ["device", "host", "session"] if trace else []
+    prof = span = session = None
     traced: dict = {}
-    out = {"trace": None, "window_s": 0.0, "idle_gaps": None}
+    out = {"trace": None, "window_s": 0.0, "idle_gaps": None,
+           "counters": None, "span_device_s": None, "span_busy_s": None}
     t0 = time.perf_counter()
-    while True:
-        if spans and prof is None and fits:
-            span = spans.pop(0)
-            prof = profiler(with_host=span == "host")
-            prof.__enter__()
+    try:
+        while True:
+            if spans and prof is None and fits:
+                span = spans.pop(0)
+                if span == "session":
+                    session = port.open_session(device)
+                prof = profiler(with_host=span != "device")
+                prof.__enter__()
+                _sync(device)
+                tp0 = time.perf_counter()
+                inst.recording = span == "device"
+            record = len(fits) in (0, pick)
+            rec = {"span": span if prof is not None else None,
+                   "evaluations": None, "eval_bytes": None}
+            if inst is not None:
+                e0, b0, u0 = inst.evaluations, inst.eval_bytes, inst.uncounted
+            rec["start"] = time.perf_counter()
+            leaves = entry.fit(record=record)
             _sync(device)
-            tp0 = time.perf_counter()
-            inst.recording = span == "device"
-        record = len(fits) in (0, pick)
-        rec = {"profiled": prof is not None, "evaluations": None,
-               "eval_bytes": None}
-        if inst is not None:
-            e0, b0 = inst.evaluations, inst.eval_bytes
-        rec["start"] = time.perf_counter()
-        leaves = entry.fit(record=record)
-        _sync(device)
-        rec["end"] = time.perf_counter()
-        if inst is not None:
-            rec["evaluations"] = inst.evaluations - e0
-            rec["eval_bytes"] = inst.eval_bytes - b0
-        if record:
-            kept[len(fits)] = entry.keep(leaves)
-        del leaves
-        fits.append(rec)
-        if prof is not None and rec["end"] - tp0 >= PROFILE_S:
-            inst.recording = False
-            _sync(device)
-            elapsed = time.perf_counter() - tp0
+            rec["end"] = time.perf_counter()
+            if inst is not None:
+                rec["evaluations"] = inst.evaluations - e0
+                # A fit with an evaluation of no byte count has none.
+                rec["eval_bytes"] = (inst.eval_bytes - b0
+                                     if inst.uncounted == u0 else None)
+            if record:
+                kept[len(fits)] = entry.keep(leaves)
+            del leaves
+            fits.append(rec)
+            if prof is not None and rec["end"] - tp0 >= PROFILE_S:
+                inst.recording = False
+                _sync(device)
+                elapsed = time.perf_counter() - tp0
+                prof.__exit__(None, None, None)
+                if session is not None:
+                    summary = port.close_session(session)
+                    session = None
+                    n = sum(1 for f in fits if f["span"] == "session")
+                    out["counters"] = {k: v / n for k, v
+                                       in summary["counters"].items()}
+                traced[span] = prof
+                if span == "device":
+                    out["window_s"] = elapsed
+                prof = None
+            if rec["end"] - t0 >= seconds and not spans and prof is None:
+                break
+    finally:
+        # A fit that raised leaves no profiler running and no session.
+        if prof is not None:
             prof.__exit__(None, None, None)
-            traced[span] = prof
-            if span == "device":
-                out["window_s"] = elapsed
-            prof = None
-        if rec["end"] - t0 >= seconds and not spans and prof is None:
-            break
+        if session is not None:
+            port.close_session(session)
     out["fit_s"] = (fits[-1]["end"] - t0) / len(fits)
     # The traces are read once the window has closed.
     if "device" in traced:
         out["trace"] = summarize(traced.pop("device").events())
     if "host" in traced:
         out["idle_gaps"] = summarize(traced.pop("host").events())["idle_gaps"]
+    if "session" in traced:
+        by_span = port.span_device_s(traced.pop("session").events())
+        out["span_device_s"] = by_span["spans"]
+        out["span_busy_s"] = by_span["busy_s"]
     out.update(fits=fits, kept=kept)
     return out
 
@@ -183,7 +209,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     try:
         if inst is not None:
             inst.__enter__()
-        win = window(entry, seconds, trace, device, inst, pick)
+        win = window(entry, seconds, trace, device, inst, pick, port)
     finally:
         if inst is not None:
             inst.__exit__(None, None, None)

@@ -14,27 +14,47 @@ CELLS = tuple(w["name"] for w in manifest.benchmark()["workloads"])
 
 
 def tiny(name: str) -> dict:
-    """``name``'s cell at 6,000 rows of 500 features, 10 a row: its
-    entry, traffic and limits as they are."""
+    """``name``'s cell at 6,000 rows of 500 features, 10 a row, and then
+    its configuration's own ``tiny`` overrides where its file has them
+    (entity counts, say): its entry, traffic and limits as they are."""
     cell = manifest.cell(name)
-    cell["config"].update(rows=6000, features=500, nnz_per_row=10)
+    config = cell["config"]
+    config.update(rows=6000, features=500, nnz_per_row=10)
+    config.update(config.get("tiny", {}))
     return cell
 
 
-def _negate_largest(w: torch.Tensor) -> torch.Tensor:
-    w = w.clone()
-    flat = w.view(-1)
+def _negate_largest(w):
+    """``w`` (a tensor, or a random effect's tensors a bucket) with its
+    largest coefficient negated, in a copy."""
+    if isinstance(w, torch.Tensor):
+        return _negate_largest([w])[0]
+    w = [b.clone() for b in w]
+    b = max((i for i in range(len(w)) if w[i].numel()),
+            key=lambda i: float(w[i].abs().max()))
+    flat = w[b].view(-1)
     j = int(flat.abs().argmax())
     flat[j] = -flat[j]
     return w
 
 
+def _start(w, initial):
+    """The starting coefficients of a coordinate whose answer is ``w``:
+    ``initial``, or zeros shaped as ``w``."""
+    if initial is not None:
+        return initial
+    if isinstance(w, torch.Tensor):
+        return torch.zeros_like(w)
+    return [torch.zeros_like(b) for b in w]
+
+
 def faulty_port(fault: str):
     """``gpubench.port`` with ``fault`` planted where each entry's fit
-    produces its answer: ``unchanged`` (a fit returns its starting
-    state), ``altered`` (the largest coefficient of each answer
-    negated).  ``half_rows`` is planted in the objective instead
-    (``half_rows_objective``)."""
+    produces its answer (``fixed_effect_solve``, ``game_fit``):
+    ``unchanged`` (a fit returns its starting state: every coordinate's
+    starting coefficients), ``altered`` (the largest coefficient of each
+    answer, each coordinate's, negated).  ``half_rows`` is planted in the
+    objective instead (``half_rows_objective``)."""
     fake = types.SimpleNamespace(**{k: getattr(port, k) for k in dir(port)
                                     if not k.startswith("__")})
 
@@ -42,7 +62,15 @@ def faulty_port(fault: str):
         w = port.fixed_effect_solve(coord, w0)
         return w0.clone() if fault == "unchanged" else _negate_largest(w)
 
+    def game(est, coords, initial=None):
+        got = port.game_fit(est, coords, initial)
+        if fault == "unchanged":
+            return {k: _start(w, (initial or {}).get(k))
+                    for k, w in got.items()}
+        return {k: _negate_largest(w) for k, w in got.items()}
+
     fake.fixed_effect_solve = solve
+    fake.game_fit = game
     return fake
 
 

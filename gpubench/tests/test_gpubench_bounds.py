@@ -23,3 +23,13 @@ def test_a_bound_is_bytes_bound_at_these_widths():
     t = bounds.gather_rowsum_bound_s(900_000, 31, 100_001,
                                      bounds.CARD_PEAK_BYTES_PER_S[H100])
     assert t == (900_000 * 31 * 8 + 100_001 * 4 + 900_000 * 4) / 3.35e12
+
+
+@pytest.mark.parametrize("nnz,dim,touched,ms", [
+    (10_000_000 * 12, 54_686_453, 10_000_000, 0.4944),   # glm-fit
+    (900_000 * 31, 100_001, 900_000, 0.0681),            # phase 7's
+])
+def test_sorted_colsum_bounds_match_the_recorded_ones(nnz, dim, touched, ms):
+    peak = bounds.CARD_PEAK_BYTES_PER_S[H100]
+    got = bounds.sorted_colsum_bound_s(nnz, dim, touched, peak)
+    assert round(got * 1e3, 4) == ms

@@ -73,6 +73,27 @@ def test_the_port_agrees_with_the_reference(cell):
                    if k in got[kind]), kind
 
 
+def test_coef_max_gap_reads_one_altered_coefficient_as_two():
+    """However many coefficients a leaf has, one of them negated reads 2
+    by ``coef_max_gap`` where the Euclidean ``coef_gap`` shrinks; a zero
+    leaf is scaled by the median leaf."""
+    import numpy as np
+
+    from gpubench import compare
+
+    rng = np.random.default_rng(SEED)
+    ref = {"a": rng.normal(size=100_000), "b": rng.normal(size=50),
+           "c": np.zeros(10)}
+    bad = compare.altered({"a": ref["a"]})
+    got = {**ref, **bad}
+    assert compare.coef_max_gap(got, ref) == pytest.approx(2.0)
+    assert compare.coef_gap(got, ref) < 0.05
+    assert compare.coef_max_gap(ref, ref) == 0.0
+    off = {**ref, "c": np.full(10, 0.1)}
+    median = np.median([np.abs(v).max() for v in ref.values()])
+    assert compare.coef_max_gap(off, ref) == pytest.approx(0.1 / median)
+
+
 @pytest.mark.parametrize("fault", ["unchanged", "altered", "half_rows"])
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_planted_fault_is_not_correct(cell, fault, monkeypatch):

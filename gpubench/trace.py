@@ -5,7 +5,9 @@ activities (kernels, copies, fills); ``summarize`` turns its events into
 the device's busy seconds (the union of device intervals), seconds by
 device operation name, event counts by name, and the idle gaps between
 device intervals labelled by the innermost host operation running at
-each gap's middle on the busiest host thread.
+each gap's middle on the busiest host thread.  A program's profiler
+ranges are no work: their host events label no gap, and the device
+rows that copy them (user annotations) are no device time.
 """
 
 from __future__ import annotations
@@ -56,16 +58,20 @@ def _innermost(host: list, points: list) -> list:
 
 
 def summarize(events, top: int = 10) -> dict:
-    """``events``: the profiler's ``events()``.  Returns ``busy_s``,
-    ``by_name`` {name: seconds}, ``count`` {name: events}, and the
-    ``device_ops`` and ``idle_gaps`` breakdowns ([name, seconds], the
-    largest ``top`` of each)."""
+    """``events``: the profiler's ``events()``, of which profiler ranges
+    and their device copies (both user annotations) are left out.
+    Returns ``busy_s``, ``by_name``
+    {name: seconds}, ``count`` {name: events}, and the ``device_ops``
+    and ``idle_gaps`` breakdowns ([name, seconds], the largest ``top``
+    of each)."""
     from torch.autograd import DeviceType
 
     device, host = [], collections.defaultdict(list)
     by_name: dict = collections.defaultdict(float)
     count: dict = collections.defaultdict(int)
     for e in events:
+        if getattr(e, "is_user_annotation", False):
+            continue
         start, end = e.time_range.start, e.time_range.end
         if e.device_type == DeviceType.CUDA:
             device.append((start, end))
